@@ -28,3 +28,8 @@ if settings is not None:
     )
     settings.register_profile("dev", max_examples=100)
     settings.load_profile(os.environ.get("HYPOTHESIS_PROFILE", "ci"))
+
+
+def pytest_configure(config):
+    # tests that need a CUDA card; they skip (inside the test) without one
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")
