@@ -5,17 +5,25 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version at the widths of qwen2.5-14b
-(vocabulary 152,064; d_model 5,120), launches COX kernels on CUDA tensors
-against the port's numpy oracle, and runs the three-way check of
-``examples/cox_kernels_in_models.py`` in the port: a COX warp-collective
-kernel, the CUDA kernel and the plain version agree.  Each phase prints
-one JSON line; the last line is ``{"ok": true, "device": {...}}``.
+(vocabulary 152,064; d_model 5,120; 40/8 heads of 128), then drives the
+main path with the launch counts set to 0: COX kernels launched on CUDA
+tensors against the port's numpy oracle, the three-way check of
+``examples/cox_kernels_in_models.py`` (a COX warp-collective kernel, the
+CUDA kernel and the plain version agree), and ``serve_requests`` on
+qwen2.5-14b at full width and depth in bf16 (random weights from a seed),
+whose decode steps launch the rmsnorm and flash_decode kernels.  Then it
+times the kernel wrappers' host cost, profiles a few decode steps of the
+same server (device busy and idle time, kernels by name), and holds the
+serving path on the card against the same path on the CPU (full width,
+2 layers, f32).  Each phase prints one JSON line; the last
+line is ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and fails without one, and imports neither ``jax``
 nor the JAX package.  The COX kernels are defined in this file because
 the frontend parses kernel source with ``inspect.getsource``.
 """
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -32,9 +40,15 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import cox, execute, oracle  # noqa: E402
 from repro_torch.core.typeinfer import infer  # noqa: E402
 from repro_torch.core.types import ArraySpec  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import norms  # noqa: E402
 from repro_torch.kernels import softmax as sm  # noqa: E402
 from repro_torch.kernels import warp_reduce as wr  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.params import init_params, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -42,9 +56,15 @@ VOCAB = 152064  # qwen2.5-14b vocabulary (src/repro/configs/qwen2_5_14b.py)
 D_MODEL = 5120  # qwen2.5-14b d_model
 MM_N = 320  # CUDA SDK matrixMul sample: default width of A
 VEC_N = 50000  # CUDA SDK vectorAdd sample: default element count
-DEVICE = "cuda"  # the COX and three-way phases also run on "cpu" for a rehearsal
+DEVICE = "cuda"  # the COX, three-way, serve and cross-check phases also run on "cpu"
 SOFTMAX_ROWS = 2  # three-way softmax: rows of the full vocabulary, one warp each
 STATS_ROWS = 64  # three-way row reduction: rows of d_model width
+ARCH = "qwen2.5-14b"
+N_HEADS, N_KV, D_HEAD = 40, 8, 128  # qwen2.5-14b attention
+# the serve phase: serve_requests at full width and depth
+SERVE = dict(batch=4, ctx=512, n_requests=4, max_tokens=16, seed=0)
+CROSS_LAYERS, CROSS_STEPS, CROSS_BATCH, CROSS_CTX = 2, 4, 4, 64  # card vs CPU
+CROSS_RTOL = 1e-3  # logits, relative to their largest magnitude
 
 
 def emit(record: dict) -> None:
@@ -437,6 +457,316 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return headline
 
 
+# rmsnorm: (shape, x dtype, w dtype); the headline, the serving shape
+# (the decode batch of the serve phase), f32, and a ragged unaligned width
+RMS_CASES = [
+    ((8192, D_MODEL), torch.bfloat16, torch.float32),
+    ((SERVE["batch"], D_MODEL), torch.bfloat16, torch.float32),
+    ((8192, D_MODEL), torch.float32, torch.float32),
+    ((3, 1001), torch.float32, torch.float32),
+]
+RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+# flash_decode: (B, S, kv_len per row, dtype); the headline is one layer
+# of decode_32k's context, then ragged lengths (1 and past S), the serve
+# phase's shape, and f32
+DECODE_CASES = [
+    (8, 32768, [32768] * 8, torch.bfloat16),
+    (4, 4096, [1, 1000, 4096, 5000], torch.bfloat16),
+    (SERVE["batch"], SERVE["ctx"], [300, 400, 500, 512], torch.bfloat16),
+    (2, 2048, [2048, 77], torch.float32),
+]
+DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-6)}
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def phase_serving_kernels(gen: torch.Generator) -> dict:
+    """rmsnorm and flash_decode against their plain versions, with the
+    library call beside each; the first case of each is its headline."""
+    headline = {}
+    for shape, dtype, wdtype in RMS_CASES:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
+        got = norms.rmsnorm_cuda(x, w)
+        want = ref.rmsnorm(x, w)
+        torch.cuda.synchronize()
+        rtol, atol = RMS_TOL[dtype]
+        err = max_err(got, want)
+        check(close(got, want, rtol, atol), f"rmsnorm {shape} {dtype}: err {err}")
+        w_lib = w.to(dtype)  # F.rms_norm takes the weight in x's dtype
+        rec = {
+            "phase": "kernel",
+            "name": "rmsnorm",
+            "shape": list(shape),
+            "dtype": _dtype_name(dtype),
+            "w_dtype": _dtype_name(wdtype),
+            "rtol": rtol,
+            "atol": atol,
+            "max_abs_err": err,
+            "ms": median_ms(lambda: norms.rmsnorm_cuda(x, w)),
+            "plain_ms": median_ms(lambda: ref.rmsnorm(x, w)),
+            "library_ms": median_ms(
+                lambda: torch.nn.functional.rms_norm(x, (shape[-1],), w_lib, eps=1e-6)
+            ),
+        }
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * x.numel())
+        emit(rec)
+        headline.setdefault("rmsnorm", rec)
+    for B, S, kv_len, dtype in DECODE_CASES:
+        q = torch.randn(B, N_HEADS, D_HEAD, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, S, N_KV, D_HEAD, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, S, N_KV, D_HEAD, generator=gen, device="cuda").to(dtype)
+        lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        got = fa.flash_decode_cuda(q, k, v, lens)
+        want = ref.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        rtol, atol = DECODE_TOL[dtype]
+        err = max_err(got, want)
+        check(close(got, want, rtol, atol), f"flash_decode B={B} S={S} {dtype}: err {err}")
+        # the library call: SDPA on a (B, H, 1, D) query, the caches as
+        # (B, Hkv, S, D) views, a boolean mask where a row is ragged
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = None
+        if min(kv_len) < S:
+            mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=True
+            )
+
+        rec = {
+            "phase": "kernel",
+            "name": "flash_decode",
+            "shape": [B, S, N_HEADS, N_KV, D_HEAD],
+            "kv_len": kv_len,
+            "dtype": _dtype_name(dtype),
+            "rtol": rtol,
+            "atol": atol,
+            "max_abs_err": err,
+            "ms": median_ms(lambda: fa.flash_decode_cuda(q, k, v, lens), batches=5),
+            "plain_ms": median_ms(lambda: ref.decode_attention(q, k, v, lens), batches=3),
+            "library_ms": median_ms(library, batches=5),
+        }
+        # the bytes this run's data needs: the valid rows of K and V
+        rows = sum(min(n, S) for n in kv_len)
+        kv_bytes = 2 * rows * N_KV * D_HEAD * k.element_size()
+        nbytes = kv_bytes + 2 * q.numel() * q.element_size() + lens.numel() * 4
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * rows * N_HEADS * D_HEAD)
+        emit(rec)
+        headline.setdefault("flash_decode", rec)
+        del q, k, v, q4, k4, v4, got, want
+        torch.cuda.empty_cache()
+    return headline
+
+
+def host_us_per_call(fn, calls: int = 300) -> float:
+    """Host time per call of back-to-back calls whose device work is
+    shorter than their host work, so the host clock reads the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def phase_serve(cpu_tokens: int) -> dict:
+    """The main path's serving part: serve_requests through the port's
+    BatchedServer at full width and depth in bf16."""
+    cfg = registry.get(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    # device None: the entry point's default, the card
+    out = serve.serve_requests(ARCH, device=None if DEVICE == "cuda" else DEVICE, **SERVE)
+    after = ops.launch_counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    check(out["completed"] == SERVE["n_requests"], f"served {out['completed']} requests")
+    check(out["tokens"] == cpu_tokens, f"served {out['tokens']} tokens, CPU {cpu_tokens}")
+    steps = out["steps"]
+    per_step = {n: (after[n] - before[n]) / steps for n in ("rmsnorm", "flash_decode")}
+    check(per_step["rmsnorm"] == 2 * cfg.n_layers + 1, f"rmsnorm launches {per_step}")
+    check(per_step["flash_decode"] == cfg.n_layers, f"flash_decode launches {per_step}")
+    weight_bytes = cfg.param_count() * 2
+    cache_bytes = 2 * cfg.n_layers * SERVE["batch"] * SERVE["ctx"] * cfg.n_kv * cfg.d_head * 2
+    rec = {
+        "phase": "serve",
+        "arch": ARCH,
+        **{k: SERVE[k] for k in ("batch", "ctx", "n_requests", "max_tokens")},
+        "n_layers": cfg.n_layers,
+        "dtype": "bfloat16",
+        "completed": out["completed"],
+        "tokens": out["tokens"],
+        "steps": steps,
+        "decode_steps": len(out["step_s"]),
+        "step_ms_median": statistics.median(out["step_s"]) * 1e3,
+        "step_ms_p90": sorted(out["step_s"])[int(0.9 * len(out["step_s"]))] * 1e3,
+        "tok_per_s": out["tok_per_s"],
+        "wall_s": out["wall_s"],
+        "init_s": out["init_s"],
+        "weight_bytes": weight_bytes,
+        "cache_bytes": cache_bytes,
+        "bound_ms_per_step": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        "launches_per_step": per_step,
+        "peak_alloc_gb": peak / 1e9,
+    }
+    emit(rec)
+    return rec
+
+
+def phase_wrapper_host(gen: torch.Generator, serve_rec: dict) -> None:
+    """The wrappers' host time per call at the serve phase's shapes,
+    beside a plain PyTorch call's, and their share of a decode step."""
+    B, S = SERVE["batch"], SERVE["ctx"]
+    x = torch.randn(B, D_MODEL, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.ones(D_MODEL, device="cuda")
+    q = torch.randn(B, N_HEADS, D_HEAD, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, S, N_KV, D_HEAD, generator=gen, device="cuda").to(torch.bfloat16)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    rms_us = host_us_per_call(lambda: norms.rmsnorm_cuda(x, w))
+    fd_us = host_us_per_call(lambda: fa.flash_decode_cuda(q, k, k, lens))
+    add_us = host_us_per_call(lambda: torch.add(x, x))
+    per = serve_rec["launches_per_step"]
+    host_ms = (per["rmsnorm"] * rms_us + per["flash_decode"] * fd_us) / 1e3
+    emit(
+        {
+            "phase": "wrapper_host",
+            "rmsnorm_host_us": rms_us,
+            "flash_decode_host_us": fd_us,
+            "torch_add_host_us": add_us,
+            "wrappers_host_ms_per_step": host_ms,
+            "wrappers_host_share_of_step": host_ms / serve_rec["step_ms_median"],
+        }
+    )
+
+
+PROFILE_STEPS = 5  # decode steps traced by phase_serve_profile
+
+
+def phase_serve_profile() -> None:
+    """Where a decode step's time goes: torch.profiler over a few steps of
+    a BatchedServer at the serve phase's width, depth, batch and context,
+    after its slots are prefilled.  Device busy time is the sum of the
+    kernels' own times; the rest of the traced wall time the card idles.
+    The profiler adds host time to every op, so the traced step is slower
+    than the serve phase's."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+
+    server = serve.BatchedServer(ARCH, batch=SERVE["batch"], ctx=SERVE["ctx"], seed=0)
+    rng = np.random.default_rng(SERVE["seed"])
+    for slot in range(SERVE["batch"]):
+        server.prefill_prompt(slot, list(rng.integers(1, server.cfg.vocab, size=8)))
+    server.decode(2)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.decode(PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [
+        e
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    emit(
+        {
+            "phase": "serve_profile",
+            "steps": PROFILE_STEPS,
+            "traced_step_ms": wall / PROFILE_STEPS * 1e3,
+            "device_busy_ms_per_step": busy_us / PROFILE_STEPS / 1e3,
+            "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "device_ops_per_step": sum(e.count for e in kernels) / PROFILE_STEPS,
+            "top_device_ms_per_step": {
+                e.key[:60]: [
+                    e.self_device_time_total / PROFILE_STEPS / 1e3,
+                    e.count // PROFILE_STEPS,
+                ]
+                for e in top
+            },
+        }
+    )
+    del server
+    torch.cuda.empty_cache()
+
+
+def _randomise_zero_inits(params, gen) -> None:
+    """Biases start at zero and norm weights at one: draw them so the
+    cross-check runs their paths."""
+    attn = params["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name].copy_(0.3 * torch.randn(attn[name].shape, generator=gen))
+    pairs = ((params["layers"], "ln1"), (params["layers"], "ln2"), (params, "final_norm"))
+    for tree, name in pairs:
+        tree[name].copy_(1 + 0.3 * torch.randn(tree[name].shape, generator=gen))
+
+
+def phase_cross_check() -> None:
+    """The serving path on the card (the CUDA kernels) against the same
+    path on the CPU (their plain versions), same weights: qwen2.5-14b at
+    full width, 2 layers, f32 (TF32 off, PyTorch's default for matmul)."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
+    cfg = dataclasses.replace(
+        registry.get(ARCH), n_layers=CROSS_LAYERS, param_dtype=torch.float32
+    )
+    gen = torch.Generator().manual_seed(1)
+    t0 = time.perf_counter()
+    cpu = init_params(lm.lm_specs(cfg), gen, "cpu")
+    _randomise_zero_inits(cpu, gen)
+    card = tree_map(lambda t: t.to(DEVICE), cpu)
+    init_s = time.perf_counter() - t0
+    B = CROSS_BATCH
+    specs = lm.cache_specs(cfg, B, CROSS_CTX)
+    cache_cpu = init_params(specs, None, "cpu")
+    cache_card = init_params(specs, None, DEVICE)
+    rng = np.random.default_rng(2)
+    worst, counts0 = 0.0, ops.launch_counts()
+    for step in range(CROSS_STEPS):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=B).astype(np.int32))
+        # one slot at, then past, the end of the cache: the write clamps
+        pos = torch.tensor([step, 10 + step, 40 + step, CROSS_CTX - 1 + step], dtype=torch.int32)
+        want, cache_cpu = lm.decode_step(cfg, cpu, cache_cpu, toks, pos)
+        got, cache_card = lm.decode_step(cfg, card, cache_card, toks.to(DEVICE), pos.to(DEVICE))
+        got = got.cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        check(rel <= CROSS_RTOL, f"cross-check step {step}: logits rel err {rel}")
+        check(torch.equal(got.argmax(-1), want.argmax(-1)), f"cross-check step {step}: tokens")
+    counts = ops.launch_counts()
+    launched = {n: counts[n] - counts0[n] for n in ("rmsnorm", "flash_decode")}
+    check(launched["flash_decode"] == CROSS_STEPS * CROSS_LAYERS, f"launches {launched}")
+    kv_rel = float(
+        (cache_card["k"].cpu() - cache_cpu["k"]).abs().max() / cache_cpu["k"].abs().max()
+    )
+    check(kv_rel <= CROSS_RTOL, f"cross-check K cache rel err {kv_rel}")
+    emit(
+        {
+            "phase": "cross_check",
+            "arch": ARCH,
+            "n_layers": CROSS_LAYERS,
+            "dtype": "float32",
+            "steps": CROSS_STEPS,
+            "batch": B,
+            "ctx": CROSS_CTX,
+            "rtol": CROSS_RTOL,
+            "logits_max_rel_err": worst,
+            "k_cache_max_rel_err": kv_rel,
+            "tokens_equal": True,
+            "launches": launched,
+            "init_s": init_s,
+        }
+    )
+
+
 def _oracle_blocks(kern, bids, *, grid, block, args) -> dict:
     """Run chosen blocks of a launch through the numpy oracle (blocks that
     read only their own inputs; used where the whole grid would be slow)."""
@@ -619,7 +949,20 @@ KERNEL_META = {
         "src/repro_torch/csrc/row_reduce.cu",
         "src/repro/kernels/warp_reduce.py:29",
     ),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/norms.py:19"),
+    "flash_decode": (
+        "src/repro_torch/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_attention.py:114",
+    ),
 }
+
+
+def cpu_token_count() -> int:
+    """The serve phase's token count from the same driver on the CPU at
+    the smoke width: with no EOS every request runs to ctx - 1, so the
+    count depends on the batch, context and requests, not the weights."""
+    out = serve.serve_requests(ARCH + "-smoke", device="cpu", **SERVE)
+    return out["tokens"]
 
 
 def main() -> int:
@@ -631,12 +974,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
     headline = phase_kernels(gen)
+    headline.update(phase_serving_kernels(gen))
+    cpu_tokens = cpu_token_count()
 
-    # the main path: COX launches and the three-way checks, counted alone
+    # the main path: COX launches, the three-way checks and the serve
+    # phase, counted alone
     ops.reset_launch_counts()
     phase_cox(rng)
     phase_three_way(gen)
+    serve_rec = phase_serve(cpu_tokens)
     counts = ops.launch_counts()
+
+    phase_wrapper_host(gen, serve_rec)
+    phase_serve_profile()
+    phase_cross_check()
     kernels = []
     for name, rec in headline.items():
         source, replaces = KERNEL_META[name]

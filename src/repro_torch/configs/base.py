@@ -1,0 +1,177 @@
+"""Model and shape configuration dataclasses (port of
+``src/repro/configs/base.py``).
+
+The same fields, defaults and arithmetic as the reference; the one change
+is ``param_dtype``, which is a torch dtype (``torch.bfloat16``, and
+``torch.float32`` for the ``reduced`` smoke twins).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0  # default d_model // n_heads
+    qkv_bias: bool = False
+    act: str = "swiglu"  # swiglu | gelu
+    norm: str = "rms"  # rms | ln
+    tie_embeddings: bool = True
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_expert: int = 0
+    capacity_factor: float = 1.25
+    # --- SSM (Mamba2/SSD) ---
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_inner: int = 0  # default 2*d_model
+    conv_k: int = 4
+    ssd_chunk: int = 128
+    # --- hybrid (Zamba2-style shared attention) ---
+    attn_every: int = 0
+    # --- enc-dec ---
+    enc_layers: int = 0
+    # --- vlm/audio stubs ---
+    n_frontend_tokens: int = 0
+    # --- execution ---
+    window: int = 0  # sliding-window attention (0 = full)
+    remat: str = "full"  # none | full
+    param_dtype: torch.dtype = torch.bfloat16
+    tp_pad: int = 0  # pad q-heads to this TP degree (0 on one card)
+    notes: str = ""
+
+    def head_padding(self):
+        """(Hp, gp, g_true): padded head count, padded group size, true
+        group size.  Padding happens inside each kv group so the
+        head->kv mapping is preserved exactly; padded heads are masked
+        before the output projection, so results equal the true arch."""
+        H, Hkv = self.n_heads, self.n_kv
+        if not H or not Hkv:
+            return H, 0, 0
+        g = H // Hkv
+        if not self.tp_pad or H % self.tp_pad == 0:
+            return H, g, g
+        gp = g
+        while (gp * Hkv) % self.tp_pad != 0:
+            gp += 1
+        return gp * Hkv, gp, g
+
+    def __post_init__(self):
+        if self.d_head == 0 and self.n_heads:
+            self.d_head = self.d_model // self.n_heads
+        if self.family in ("ssm", "hybrid") and self.ssm_inner == 0:
+            self.ssm_inner = 2 * self.d_model
+        if self.family in ("ssm", "hybrid") and self.ssm_heads == 0:
+            self.ssm_heads = self.ssm_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Total parameters N (for 6·N·D roofline accounting)."""
+        d, f, V = self.d_model, self.d_ff, self.vocab
+        H, Hkv, Dh = self.n_heads, self.n_kv, self.d_head
+        attn = (
+            d * (H + 2 * Hkv) * Dh
+            + H * Dh * d
+            + (H * Dh + 2 * Hkv * Dh if self.qkv_bias else 0)
+        )
+        if self.act == "swiglu":
+            mlp = 3 * d * f
+        else:
+            mlp = 2 * d * f
+        if self.family == "moe":
+            fe = self.d_expert or f
+            moe = self.n_experts * 3 * d * fe + d * self.n_experts
+            if self.n_shared:
+                moe += 3 * d * fe * self.n_shared
+            per_layer = attn + moe + 2 * d
+            body = self.n_layers * per_layer
+        elif self.family == "ssm":
+            di, N, Hs = self.ssm_inner, self.ssm_state, self.ssm_heads
+            mamba = (
+                d * (2 * di + 2 * N + Hs)
+                + di * d
+                + self.conv_k * (di + 2 * N)
+                + 3 * Hs
+                + di
+            )
+            body = self.n_layers * (mamba + d)
+        elif self.family == "hybrid":
+            di, N, Hs = self.ssm_inner, self.ssm_state, self.ssm_heads
+            mamba = (
+                d * (2 * di + 2 * N + Hs)
+                + di * d
+                + self.conv_k * (di + 2 * N)
+                + 3 * Hs
+                + di
+            )
+            shared = attn + mlp + 2 * d
+            body = self.n_layers * (mamba + d) + shared
+        elif self.family == "encdec":
+            enc = self.enc_layers * (attn + mlp + 2 * d)
+            dec = self.n_layers * (2 * attn + mlp + 3 * d)
+            body = enc + dec
+        else:  # dense / vlm
+            per_layer = attn + mlp + 2 * d
+            body = self.n_layers * per_layer
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return body + emb + d
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Smoke-test twin: same family/topology, tiny dims."""
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv=max(1, min(cfg.n_kv, 2)) if cfg.n_kv else 0,
+        d_head=16,
+        d_ff=128,
+        vocab=512,
+        n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        n_shared=min(cfg.n_shared, 1),
+        d_expert=32 if cfg.d_expert else 0,
+        capacity_factor=8.0,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_heads=0,
+        ssm_inner=0,
+        ssm_head_dim=16,
+        attn_every=2 if cfg.attn_every else 0,
+        enc_layers=2 if cfg.enc_layers else 0,
+        n_frontend_tokens=8 if cfg.n_frontend_tokens else 0,
+        window=min(cfg.window, 64) if cfg.window else 0,
+        remat="none",
+        param_dtype=torch.float32,
+    )

@@ -1,0 +1,10 @@
+"""granite-moe-1b-a400m — 32 experts top-8.
+[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m", family="moe",
+    n_layers=24, d_model=1024, n_heads=16, n_kv=8, d_ff=512,
+    vocab=49155, n_experts=32, top_k=8, n_shared=0, d_expert=512,
+    act="swiglu", norm="rms",
+    notes="GQA kv=8; per-expert d_ff=512")

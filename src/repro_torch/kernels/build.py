@@ -34,10 +34,18 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # C signatures: every pointer and the stream as c_void_p (a bare int would
 # be passed as 32 bits and cut the pointer)
-_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_VP, _LL, _INT, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "row_reduce": ("cox_row_reduce", [_VP, _VP, _LL, _LL, _INT, _INT, _VP]),
     "softmax": ("cox_softmax", [_VP, _VP, _LL, _LL, _INT, _VP]),
+    # x, w, y, rows, cols, eps, x dtype, w dtype, stream
+    "rmsnorm": ("cox_rmsnorm", [_VP, _VP, _VP, _LL, _LL, _F32, _INT, _INT, _VP]),
+    # q, k, v, kv_len, out, split scratch, nsplit, B, H, Hkv, S, D,
+    # k strides (b, s, h), v strides (b, s, h), scale, dtype, stream
+    "flash_decode": (
+        "cox_flash_decode",
+        [_VP] * 6 + [_INT] * 4 + [_LL, _INT] + [_LL] * 6 + [_F32, _INT, _VP],
+    ),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

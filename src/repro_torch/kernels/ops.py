@@ -3,14 +3,18 @@ PyTorch version for a CPU tensor.
 
 The route follows the tensor's device and nothing else: there is no
 override that sends a CUDA tensor to the plain path, and no interpret
-mode (a CUDA kernel has none).  The other TPU kernels of the reference's
-``ops.py`` (norms, attention, the SSD scan) are still to be ported.
+mode (a CUDA kernel has none).  Ported: ``softmax``, ``row_reduce``,
+``rmsnorm`` and ``decode_attention``; the reference's ``layernorm``,
+prefill ``attention`` and ``ssd_scan`` are still to be ported (ROADMAP
+B.4-B.6).
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
+from . import norms as _norms
 from . import softmax as _sm
 from . import warp_reduce as _wr
 
@@ -33,11 +37,27 @@ def row_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     return _wr.row_reduce(x, op)
 
 
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return _norms.rmsnorm(x, w, eps)
+
+
+def decode_attention(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, kv_len: torch.Tensor
+) -> torch.Tensor:
+    """Batched: q (B, H, D), caches (B, S, Hkv, D), kv_len (B,) int32.  The
+    reference's ``ops.decode_attention`` takes one sequence and is vmapped
+    over the batch (``layers.attention_decode``)."""
+    return _fa.flash_decode(q, k_cache, v_cache, kv_len)
+
+
+_MODULES = {"softmax": _sm, "row_reduce": _wr, "rmsnorm": _norms, "flash_decode": _fa}
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel."""
-    return {"softmax": _sm.launches, "row_reduce": _wr.launches}
+    return {name: mod.launches for name, mod in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    _sm.launches = 0
-    _wr.launches = 0
+    for mod in _MODULES.values():
+        mod.launches = 0

@@ -4,12 +4,17 @@ CUDA kernels are held against, and the path a CPU tensor takes.
 They follow the TPU kernels' semantics (``src/repro/kernels``): f32
 accumulation, and ``row_reduce(..., "sum")`` returns f32.  (The JAX
 package's own ``ref.row_reduce`` sums in the input dtype, so for bf16 its
-plain path and its Pallas kernel differ; the port follows the kernel.)
+plain path and its Pallas kernel differ; the port follows the kernel.
+Likewise ``decode_attention`` with ``kv_len = 0`` returns zeros, as the
+Pallas kernel does, where the JAX package's plain version returns the mean
+of V.)
 """
 
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30  # the TPU kernels' mask value (src/repro/kernels/common.py)
 
 
 def row_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -31,3 +36,43 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     m = x32.amax(dim=-1, keepdim=True)
     e = torch.exp(x32 - m)
     return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in f32,
+    returned in ``x.dtype``; ``w`` may have a dtype of its own."""
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """One query token per head against a KV cache, batched.
+
+    q: (B, H, D); caches: (B, S, Hkv, D); kv_len: (B,) int.  Query head h
+    reads kv head ``h // (H // Hkv)``.  Positions ``>= kv_len`` are masked
+    (``kv_len > S`` means all of them are valid) and a row with no valid
+    position returns zeros.  f32 inside, ``q.dtype`` out."""
+    B, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    g = H // Hkv
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    q32 = q.to(torch.float32).reshape(B, Hkv, g, D) * scale
+    k32 = k_cache.to(torch.float32)
+    v32 = v_cache.to(torch.float32)
+    logits = torch.einsum("bkgd,bskd->bkgs", q32, k32)
+    pos = torch.arange(S, device=q.device)
+    valid = (pos[None, :] < kv_len.to(q.device)[:, None])[:, None, None, :]
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(logits - m), 0.0)
+    lsum = p.sum(dim=-1, keepdim=True)
+    lsum = torch.where(lsum == 0.0, 1.0, lsum)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v32) / lsum
+    return out.reshape(B, H, D).to(q.dtype)

@@ -1,0 +1,63 @@
+"""Weights and caches carried across from the JAX package.
+
+The JAX package initialises its parameters with ``jax.random``, which
+torch cannot reproduce, so both packages compute from the same weights
+only when one is handed the other's.  :func:`from_jax_params` takes the
+tree that ``repro.models.params.init_params(lm_specs(cfg), key)`` returns,
+as nested dicts of numpy arrays (``np.asarray`` of each leaf), and returns
+the port's parameters; :func:`cache_from_numpy` does the same for a decode
+cache.  Both keep the stacked-layer layout as it is (``params["layers"]``
+leaves lead with ``n_layers``; caches are ``(n_layers, B, S, Hkv, Dh)``),
+since the port's layout is the reference's.  Every leaf is checked
+against the port's spec tree: same keys, shapes and dtypes.
+
+This module takes numpy arrays only, so it imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import lm
+from .params import ParamSpec, is_spec
+
+
+def _to_tensor(a: np.ndarray, spec: ParamSpec, where: str, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    if tuple(t.shape) != tuple(spec.shape):
+        raise ValueError(f"{where}: shape {tuple(t.shape)}, the port expects {spec.shape}")
+    if t.dtype != spec.dtype:
+        raise ValueError(f"{where}: dtype {t.dtype}, the port expects {spec.dtype}")
+    return t.to(device)
+
+
+def _carry(spec_tree, tree, device, where: str = "") -> Any:
+    if is_spec(spec_tree):
+        return _to_tensor(tree, spec_tree, where or "leaf", device)
+    if not isinstance(tree, dict) or set(tree) != set(spec_tree):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"{where or 'tree'}: keys {got}, the port expects {sorted(spec_tree)}")
+    return {
+        k: _carry(spec_tree[k], tree[k], device, f"{where}.{k}" if where else k)
+        for k in spec_tree
+    }
+
+
+def from_jax_params(cfg, tree, device) -> Any:
+    """The port's parameters for ``cfg`` from the JAX package's parameter
+    tree (numpy leaves), on ``device``."""
+    return _carry(lm.lm_specs(cfg), tree, torch.device(device))
+
+
+def cache_from_numpy(cfg, tree, device) -> Any:
+    """The port's decode cache from a JAX cache tree (numpy leaves of
+    shape ``(n_layers, B, S, Hkv, Dh)``), on ``device``."""
+    batch, seq_len = np.shape(tree["k"])[1:3]
+    return _carry(lm.cache_specs(cfg, batch, seq_len), tree, torch.device(device))

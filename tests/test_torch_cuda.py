@@ -155,7 +155,12 @@ def test_kernels_take_every_dtype(cuda, dtype):
     )
     for op in ("max", "absmax"):
         assert torch.equal(ops.row_reduce(x, op), ref.row_reduce(x, op))
-    assert ops.launch_counts() == {"softmax": 1, "row_reduce": 2}
+    assert ops.launch_counts() == {
+        "softmax": 1,
+        "row_reduce": 2,
+        "rmsnorm": 0,
+        "flash_decode": 0,
+    }
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -194,3 +199,122 @@ def test_ragged_vocabulary_widths(cuda):
     x = base[1:].view(3, 1001)
     torch.testing.assert_close(ops.softmax(x), ref.softmax(x), rtol=1e-5, atol=0.0)
     assert torch.equal(ops.row_reduce(x, "max"), ref.row_reduce(x, "max"))
+
+
+# ---------------------------------------------------------------------------
+# the serving kernels: rmsnorm and flash_decode against their plain versions
+# ---------------------------------------------------------------------------
+
+# rmsnorm: f32 1e-5 (the sum's order differs); bf16/f16 rtol 2e-2 and
+# atol 1e-2, the reference's (tests/test_kernels.py)
+RMS_TOL = {
+    torch.float32: (1e-5, 1e-5),
+    torch.bfloat16: (2e-2, 1e-2),
+    torch.float16: (2e-2, 1e-2),
+}
+# flash_decode: f32 1e-4 (the reference's); in 16 bits, both versions
+# round the same f32 value, so at most one step apart
+DECODE_TOL = {
+    torch.float32: (1e-4, 1e-4),
+    torch.bfloat16: (2.0**-7, 1e-6),
+    torch.float16: (2.0**-10, 1e-6),
+}
+
+
+@pytest.mark.parametrize(
+    "shape", [(8, 128), (16, 1024), (4, 5120), (3, 1001), (2, 3, 6000), (1, 20000)]
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("wdtype", [torch.float32, "same"])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, wdtype):
+    wdtype = dtype if wdtype == "same" else wdtype
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device=cuda)).to(wdtype)
+    before = ops.launch_counts()["rmsnorm"]
+    got = ops.rmsnorm(x, w)
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    rtol, atol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.rmsnorm(x, w).float(), rtol=rtol, atol=atol)
+
+
+def test_rmsnorm_rows_off_a_16_byte_boundary(cuda):
+    base = torch.randn(3 * 1001 + 1, device=cuda)
+    x = base[1:].view(3, 1001)  # rows start unaligned
+    w = torch.randn(1001, device=cuda)
+    torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm(x, w), rtol=1e-5, atol=1e-5)
+    xb = torch.randn(4 * 5120 + 1, device=cuda).to(torch.bfloat16)[1:].view(4, 5120)
+    wb = torch.randn(5120, device=cuda)
+    torch.testing.assert_close(
+        ops.rmsnorm(xb, wb).float(), ref.rmsnorm(xb, wb).float(), rtol=2e-2, atol=1e-2
+    )
+
+
+def _decode_inputs(cuda, B, S, H, Hkv, D, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, H, D, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=cuda).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize(
+    "B,S,H,Hkv,D,kv_len",
+    [
+        (4, 512, 40, 8, 128, [9, 100, 511, 512]),  # the serving shape, g = 5
+        (2, 1000, 8, 2, 64, [1, 1000]),  # S not a multiple of the tile
+        (3, 256, 4, 1, 64, [0, 300, 17]),  # kv_len 0 and past S
+        (1, 128, 40, 1, 128, [128]),  # g = 40
+        (2, 64, 4, 4, 16, [64, 33]),
+        (2, 96, 4, 2, 32, [5, 96]),
+        (1, 200, 8, 4, 256, [150]),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_decode_kernel_matches_plain(cuda, B, S, H, Hkv, D, kv_len, dtype):
+    q, k, v = _decode_inputs(cuda, B, S, H, Hkv, D, dtype)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["flash_decode"]
+    got = ops.decode_attention(q, k, v, lens)
+    assert ops.launch_counts()["flash_decode"] == before + 1
+    want = ref.decode_attention(q, k, v, lens)
+    assert got.dtype == dtype and got.shape == (B, H, D)
+    rtol, atol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if 0 in kv_len:
+        assert not got[kv_len.index(0)].any()
+
+
+def test_flash_decode_reads_a_layer_of_the_stacked_cache_in_place(cuda):
+    """A layer of (L, B, S, Hkv, D), and a batch-strided view: strides, no
+    copy, the same answer as the contiguous cache."""
+    L, B, S, H, Hkv, D = 3, 2, 300, 10, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    kc = torch.randn(L, 2 * B, S, Hkv, D, generator=gen, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(L, 2 * B, S, Hkv, D, generator=gen, device=cuda).to(torch.bfloat16)
+    q = torch.randn(B, H, D, generator=gen, device=cuda).to(torch.bfloat16)
+    lens = torch.tensor([7, 300], dtype=torch.int32, device=cuda)
+    k, v = kc[1, ::2], vc[1, ::2]
+    got = ops.decode_attention(q, k, v, lens)
+    assert torch.equal(got, ops.decode_attention(q, k.contiguous(), v.contiguous(), lens))
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention(q, k, v, lens).float(), rtol=2.0**-7, atol=1e-6
+    )
+
+
+def test_serving_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="last axis"):
+        ops.rmsnorm(x, torch.ones(63, device=cuda))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.rmsnorm(x, torch.ones(64))
+    q, k, v = _decode_inputs(cuda, 2, 64, 4, 2, 64, torch.float32)
+    lens = torch.tensor([3, 4], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ops.decode_attention(q, k, v, lens.long())
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q[..., :48].contiguous(), k[..., :48], v[..., :48], lens)
+    strided_d = torch.randn(2, 64, 2, 128, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, strided_d, v, lens)

@@ -88,6 +88,17 @@ def test_launch_defaults_to_cuda_and_raises_without_it(monkeypatch):
         _touch.launch(grid=1, block=32, args=(torch.zeros(32),))
 
 
+def test_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.BatchedServer("qwen2.5-14b-smoke", batch=1, ctx=8)
+    server = serve.BatchedServer("qwen2.5-14b-smoke", batch=1, ctx=8, device="cpu")
+    assert server.cache["k"].device.type == "cpu"
+    assert server.params["embed"]["tok"].device.type == "cpu"
+
+
 def _run_smoke(cwd):
     return subprocess.run(
         [sys.executable, "chip_smoke.py"],

@@ -86,7 +86,23 @@ def test_cpu_tensors_take_the_plain_version():
     assert ops.resolve(x) == "torch"
     torch.testing.assert_close(ops.softmax(x), ref.softmax(x), rtol=0, atol=0)
     torch.testing.assert_close(ops.row_reduce(x), ref.row_reduce(x), rtol=0, atol=0)
-    assert ops.launch_counts() == {"softmax": 0, "row_reduce": 0}
+    w = torch.from_numpy(normal(2, (33,)))
+    torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm(x, w), rtol=0, atol=0)
+    q = torch.from_numpy(normal(3, (2, 4, 16)))
+    kv = torch.from_numpy(normal(4, (2, 8, 2, 16)))
+    kv_len = torch.tensor([3, 8], dtype=torch.int32)
+    torch.testing.assert_close(
+        ops.decode_attention(q, kv, kv, kv_len),
+        ref.decode_attention(q, kv, kv, kv_len),
+        rtol=0,
+        atol=0,
+    )
+    assert ops.launch_counts() == {
+        "softmax": 0,
+        "row_reduce": 0,
+        "rmsnorm": 0,
+        "flash_decode": 0,
+    }
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -103,7 +119,7 @@ def test_kernel_entry_points_refuse_cpu_tensors():
 def test_library_names_track_the_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     paths = {name: build._library_path(name) for name in build.SIGNATURES}
-    assert set(paths) == {"softmax", "row_reduce"}
+    assert set(paths) == {"softmax", "row_reduce", "rmsnorm", "flash_decode"}
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
