@@ -744,10 +744,12 @@ def phase_cross_check() -> None:
     counts = ops.launch_counts()
     launched = {n: counts[n] - counts0[n] for n in ("rmsnorm", "flash_decode")}
     check(launched["flash_decode"] == CROSS_STEPS * CROSS_LAYERS, f"launches {launched}")
-    kv_rel = float(
-        (cache_card["k"].cpu() - cache_cpu["k"]).abs().max() / cache_cpu["k"].abs().max()
-    )
-    check(kv_rel <= CROSS_RTOL, f"cross-check K cache rel err {kv_rel}")
+    cache_rel = {}
+    for name in ("k", "v"):
+        want = cache_cpu[name]
+        rel = float((cache_card[name].cpu() - want).abs().max() / want.abs().max())
+        check(rel <= CROSS_RTOL, f"cross-check {name.upper()} cache rel err {rel}")
+        cache_rel[name] = rel
     emit(
         {
             "phase": "cross_check",
@@ -759,7 +761,8 @@ def phase_cross_check() -> None:
             "ctx": CROSS_CTX,
             "rtol": CROSS_RTOL,
             "logits_max_rel_err": worst,
-            "k_cache_max_rel_err": kv_rel,
+            "k_cache_max_rel_err": cache_rel["k"],
+            "v_cache_max_rel_err": cache_rel["v"],
             "tokens_equal": True,
             "launches": launched,
             "init_s": init_s,

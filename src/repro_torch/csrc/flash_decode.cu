@@ -1,16 +1,18 @@
 // Decode attention: one query token per head against a KV cache, batched.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_decode_kernel
-// (pallas_call in flash_decode).  Same semantics: q is scaled in f32, the
-// running max, sum and accumulator are f32, positions >= kv_len are masked
-// with -1e30 and tiles wholly past kv_len are skipped (kv_len > S means
-// every position is valid), a head with no valid position keeps
+// (pallas_call in flash_decode).  Same semantics: q is scaled by 1/sqrt(D)
+// in f32, the running max, sum and accumulator are f32, positions >= kv_len
+// are masked with -1e30 and tiles wholly past kv_len are skipped (kv_len > S
+// means every position is valid), a head with no valid position keeps
 // lsum == 0 -> 1 and returns zeros, and the output is in q's dtype.
 //
 // Layout: q (B, H, D) and out (B, H, D) contiguous; the caches are read in
 // place in their (B, S, Hkv, D) layout through their strides (D
 // contiguous, rows 16-byte aligned), where the TPU wrapper transposed them
-// to (Hkv, S, D) first.  kv_len is (B,) int32 on the device.
+// to (Hkv, S, D) first.  kv_len is (B,) int32 on the device.  Built for
+// D in {64, 128} and f32 or bf16, what the ported configs and the
+// reference sweeps use.
 //
 // Bound: memory.  Each K/V element is read once and serves the g = H/Hkv
 // query heads of its kv head with 2 operations each: g operations per
@@ -30,6 +32,8 @@
 //   1. scores: thread -> (row, heads), a dot product over D from shared memory;
 //   2. online softmax: one warp per head, max and sum with __shfl_xor_sync;
 //   3. acc = acc * alpha + p @ V: thread -> (head, d), V read down a column.
+#include <cmath>
+
 #include "common.cuh"
 
 namespace {
@@ -262,10 +266,11 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* kv_len, void* out,
            float* part, int nsplit, int B, int H, int Hkv, long long S,
-           const long long* ks, const long long* vs, float scale, cudaStream_t stream) {
+           const long long* ks, const long long* vs, cudaStream_t stream) {
   const size_t smem = Layout<T, D>::bytes(H / Hkv);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_decode_kernel<T, D>;
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   // above 48 KB a block's shared memory needs an opt-in, once per device
   static bool opted_in[64] = {};
   int dev = 0;
@@ -305,20 +310,12 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const int* kv_len, void* out,
              float* part, int nsplit, int B, int H, int Hkv, long long S, int D,
-             const long long* ks, const long long* vs, float scale, cudaStream_t stream) {
-#define COX_DECODE_CASE(DH)                                                            \
-  case DH:                                                                             \
-    return launch<T, DH>(q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs, scale, \
-                         stream);
+             const long long* ks, const long long* vs, cudaStream_t stream) {
   switch (D) {
-    COX_DECODE_CASE(16)
-    COX_DECODE_CASE(32)
-    COX_DECODE_CASE(64)
-    COX_DECODE_CASE(128)
-    COX_DECODE_CASE(256)
+    case 64: return launch<T, 64>(q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs, stream);
+    case 128: return launch<T, 128>(q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef COX_DECODE_CASE
 }
 
 }  // namespace
@@ -331,8 +328,7 @@ extern "C" int cox_flash_decode(const void* q, const void* k, const void* v,
                                 const void* kv_len, void* out, void* part, int nsplit,
                                 int B, int H, int Hkv, long long S, int D, long long ksb,
                                 long long kss, long long ksh, long long vsb,
-                                long long vss, long long vsh, float scale, int dtype,
-                                void* stream) {
+                                long long vss, long long vsh, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || H <= 0 || H % Hkv != 0 || S <= 0 ||
       nsplit <= 0 || nsplit > 65535 || (nsplit > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -345,14 +341,10 @@ extern "C" int cox_flash_decode(const void* q, const void* k, const void* v,
   int err;
   switch (dtype) {
     case COX_F32:
-      err = launch_d<float>(q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, D, ks, vs, scale, s);
+      err = launch_d<float>(q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, D, ks, vs, s);
       break;
     case COX_BF16:
-      err = launch_d<__nv_bfloat16>(q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, D, ks, vs,
-                                     scale, s);
-      break;
-    case COX_F16:
-      err = launch_d<__half>(q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, D, ks, vs, scale, s);
+      err = launch_d<__nv_bfloat16>(q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, D, ks, vs, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -41,10 +41,10 @@ SIGNATURES = {
     # x, w, y, rows, cols, eps, x dtype, w dtype, stream
     "rmsnorm": ("cox_rmsnorm", [_VP, _VP, _VP, _LL, _LL, _F32, _INT, _INT, _VP]),
     # q, k, v, kv_len, out, split scratch, nsplit, B, H, Hkv, S, D,
-    # k strides (b, s, h), v strides (b, s, h), scale, dtype, stream
+    # k strides (b, s, h), v strides (b, s, h), dtype, stream
     "flash_decode": (
         "cox_flash_decode",
-        [_VP] * 6 + [_INT] * 4 + [_LL, _INT] + [_LL] * 6 + [_F32, _INT, _VP],
+        [_VP] * 6 + [_INT] * 4 + [_LL, _INT] + [_LL] * 6 + [_INT, _VP],
     ),
 }
 

@@ -12,6 +12,8 @@ of V.)
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_INF = -1e30  # the TPU kernels' mask value (src/repro/kernels/common.py)
@@ -51,19 +53,18 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     kv_len: torch.Tensor,
-    scale: float | None = None,
 ) -> torch.Tensor:
     """One query token per head against a KV cache, batched.
 
     q: (B, H, D); caches: (B, S, Hkv, D); kv_len: (B,) int.  Query head h
     reads kv head ``h // (H // Hkv)``.  Positions ``>= kv_len`` are masked
     (``kv_len > S`` means all of them are valid) and a row with no valid
-    position returns zeros.  f32 inside, ``q.dtype`` out."""
+    position returns zeros.  The scale is ``1/sqrt(D)``; f32 inside,
+    ``q.dtype`` out."""
     B, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = H // Hkv
-    scale = scale if scale is not None else 1.0 / (D**0.5)
-    q32 = q.to(torch.float32).reshape(B, Hkv, g, D) * scale
+    q32 = q.to(torch.float32).reshape(B, Hkv, g, D) * (1.0 / math.sqrt(D))
     k32 = k_cache.to(torch.float32)
     v32 = v_cache.to(torch.float32)
     logits = torch.einsum("bkgd,bskd->bkgs", q32, k32)

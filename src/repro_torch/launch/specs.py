@@ -1,5 +1,9 @@
 """Cache layouts for the serving driver (port of the decode part of
-``src/repro/launch/specs.py``)."""
+``src/repro/launch/specs.py``).
+
+It mirrors the reference's layout: the serving driver asks for its cache
+by ``ShapeConfig`` here, and the batch and dry-run spec trees of that file
+join it when the training path is ported (ROADMAP A.7)."""
 
 from __future__ import annotations
 

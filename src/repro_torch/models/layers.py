@@ -78,31 +78,24 @@ def apply_norm(w, x, kind: str = "rms", b=None):
 
 def attention_specs(cfg, d_model: Optional[int] = None) -> Dict[str, ParamSpec]:
     d = d_model or cfg.d_model
-    Hp, gp, g = cfg.head_padding()
-    Hkv, Dh = cfg.n_kv, cfg.d_head
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    if cfg.head_padding()[0] != H:
+        raise CoxUnsupported(
+            f"tp_pad={cfg.tp_pad} (q-head padding) is not ported to repro_torch "
+            "yet: ROADMAP queue item A.10 (multi-device)"
+        )
     dt = cfg.param_dtype
     sp = {
-        "wq": ParamSpec((d, Hp, Dh), dt),
+        "wq": ParamSpec((d, H, Dh), dt),
         "wk": ParamSpec((d, Hkv, Dh), dt),
         "wv": ParamSpec((d, Hkv, Dh), dt),
-        "wo": ParamSpec((Hp, Dh, d), dt),
+        "wo": ParamSpec((H, Dh, d), dt),
     }
     if cfg.qkv_bias:
-        sp["bq"] = ParamSpec((Hp, Dh), dt, init="zeros")
+        sp["bq"] = ParamSpec((H, Dh), dt, init="zeros")
         sp["bk"] = ParamSpec((Hkv, Dh), dt, init="zeros")
         sp["bv"] = ParamSpec((Hkv, Dh), dt, init="zeros")
     return sp
-
-
-def _head_mask(cfg, device) -> Optional[torch.Tensor]:
-    """(Hp,) validity mask: padded q-head slots contribute zero to the
-    output projection, making padded execution exactly equal to the true
-    architecture.  None when there is no padding (always, on one card)."""
-    Hp, gp, g = cfg.head_padding()
-    if Hp == cfg.n_heads:
-        return None
-    slot = torch.arange(Hp, device=device) % gp
-    return slot < g
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -111,7 +104,7 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, H * K)).reshape(x.shape[0], H, K)
 
 
-def attention_decode(p, x, cache, pos, *, cfg, slot=None, kv_len=None):
+def attention_decode(p, x, cache, pos, *, slot=None, kv_len=None):
     """One-token decode.  x: (B, d); cache: {k: (B, S, Hkv, Dh), v: ...};
     pos: (B,) int32 absolute positions (for RoPE); slot: (B,) cache write
     slots (defaults to pos); kv_len: (B,) valid cache length (defaults to
@@ -133,11 +126,8 @@ def attention_decode(p, x, cache, pos, *, cfg, slot=None, kv_len=None):
     _scatter_token(cache["k"], kr, slot)
     _scatter_token(cache["v"], v, slot)
     out = ops.decode_attention(qr, cache["k"], cache["v"], kv_len.to(torch.int32))
-    hm = _head_mask(cfg, x.device)
-    if hm is not None:
-        out = out * hm[None, :, None].to(out.dtype)
-    Hp, Dh = out.shape[1], out.shape[2]
-    y = out.reshape(B, Hp * Dh) @ p["wo"].reshape(Hp * Dh, d)
+    H, Dh = out.shape[1], out.shape[2]
+    y = out.reshape(B, H * Dh) @ p["wo"].reshape(H * Dh, d)
     return y, cache
 
 

@@ -107,7 +107,7 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor):
         lp = _layer(params["layers"], i)
         hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
         kv = {"k": cache["k"][i], "v": cache["v"][i]}
-        y, _ = L.attention_decode(lp["attn"], hn, kv, pos, cfg=cfg)
+        y, _ = L.attention_decode(lp["attn"], hn, kv, pos)
         h = h + y
         hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"))
         h = h + L.mlp_apply(lp["mlp"], hn, cfg=cfg)

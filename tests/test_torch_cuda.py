@@ -212,13 +212,9 @@ RMS_TOL = {
     torch.bfloat16: (2e-2, 1e-2),
     torch.float16: (2e-2, 1e-2),
 }
-# flash_decode: f32 1e-4 (the reference's); in 16 bits, both versions
+# flash_decode: f32 1e-4 (the reference's); in bf16, both versions
 # round the same f32 value, so at most one step apart
-DECODE_TOL = {
-    torch.float32: (1e-4, 1e-4),
-    torch.bfloat16: (2.0**-7, 1e-6),
-    torch.float16: (2.0**-10, 1e-6),
-}
+DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-6)}
 
 
 @pytest.mark.parametrize(
@@ -266,12 +262,12 @@ def _decode_inputs(cuda, B, S, H, Hkv, D, dtype, seed=0):
         (2, 1000, 8, 2, 64, [1, 1000]),  # S not a multiple of the tile
         (3, 256, 4, 1, 64, [0, 300, 17]),  # kv_len 0 and past S
         (1, 128, 40, 1, 128, [128]),  # g = 40
-        (2, 64, 4, 4, 16, [64, 33]),
-        (2, 96, 4, 2, 32, [5, 96]),
-        (1, 200, 8, 4, 256, [150]),
+        (2, 64, 4, 4, 64, [64, 33]),  # g = 1
+        (2, 96, 4, 2, 128, [5, 96]),
+        (1, 200, 8, 4, 128, [150]),
     ],
 )
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(cuda, B, S, H, Hkv, D, kv_len, dtype):
     q, k, v = _decode_inputs(cuda, B, S, H, Hkv, D, dtype)
     lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
@@ -313,8 +309,12 @@ def test_serving_kernels_refuse_what_they_do_not_take(cuda):
     lens = torch.tensor([3, 4], dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         ops.decode_attention(q, k, v, lens.long())
-    with pytest.raises(ValueError, match="head dim"):
-        ops.decode_attention(q[..., :48].contiguous(), k[..., :48], v[..., :48], lens)
+    for d in (48, 256):  # built for D in (64, 128) only
+        qd, kd, vd = _decode_inputs(cuda, 2, 64, 4, 2, d, torch.float32)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.decode_attention(qd, kd, vd, lens)
+    with pytest.raises(TypeError):  # f32 and bf16 only
+        ops.decode_attention(q.half(), k.half(), v.half(), lens)
     strided_d = torch.randn(2, 64, 2, 128, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         ops.decode_attention(q, strided_d, v, lens)

@@ -143,7 +143,7 @@ def test_attention_decode_matches_jax(n_kv):
     )
     cache_p = {"k": torch.from_numpy(kv[0].copy()), "v": torch.from_numpy(kv[1].copy())}
     yp, cache_p = pL.attention_decode(
-        lp, torch.from_numpy(x), cache_p, torch.from_numpy(pos), cfg=cp
+        lp, torch.from_numpy(x), cache_p, torch.from_numpy(pos)
     )
     close(yp, yj)
     close_to_scale(cache_p["k"], cache_j["k"])
@@ -376,3 +376,12 @@ def test_unported_serving_knobs_raise(knob):
                               device="cpu", **{knob: True})
     with pytest.raises(CoxUnsupported, match="A.9"):
         pserve.main(["--arch", ARCH, "--device", "cpu", f"--{knob}"])
+
+
+def test_q_head_padding_raises():
+    """``tp_pad`` pads q heads for tensor parallelism, which the port does
+    not run; its specs refuse it rather than build unmasked padded heads."""
+    cp = dataclasses.replace(configs()[1], tp_pad=3)
+    assert cp.head_padding()[0] != cp.n_heads
+    with pytest.raises(CoxUnsupported, match="A.10"):
+        plm.lm_specs(cp)
