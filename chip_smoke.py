@@ -6,17 +6,24 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version at the widths of qwen2.5-14b
 (vocabulary 152,064; d_model 5,120; 40/8 heads of 128), then drives the
-main path with the launch counts set to 0: COX kernels launched on CUDA
-tensors against the port's numpy oracle, the three-way check of
-``examples/cox_kernels_in_models.py`` (a COX warp-collective kernel, the
-CUDA kernel and the plain version agree), and ``serve_requests`` on
-qwen2.5-14b at full width and depth in bf16 (random weights from a seed),
-whose decode steps launch the rmsnorm and flash_decode kernels.  Then it
-times the kernel wrappers' host cost, profiles a few decode steps of the
-same server (device busy and idle time, kernels by name), and holds the
-serving path on the card against the same path on the CPU (full width,
-2 layers, f32).  Each phase prints one JSON line; the last
-line is ``{"ok": true, "device": {...}}``.
+main paths, each with the launch counts set to 0 before it and read after
+it:
+
+- COX kernels launched on CUDA tensors against the port's numpy oracle,
+  the three-way check of ``examples/cox_kernels_in_models.py`` (a COX
+  warp-collective kernel, the CUDA kernel and the plain version agree),
+  and ``serve_requests`` on qwen2.5-14b at full width and depth in bf16
+  (random weights from a seed), whose decode steps launch the rmsnorm and
+  flash_decode kernels;
+- ``launch.train.train`` on qwen2.5-14b at full width cut to 4 layers, in
+  bf16, batch 2 of 4,096 tokens, 3 AdamW steps, whose steps launch the
+  flash_attention and rmsnorm kernels and their backward kernels.
+
+Then it times the kernel wrappers' host cost, profiles a few decode steps
+and one train step (device busy and idle time, kernels by name), and holds
+the serving path (full width, 2 layers, f32) and one train step (full
+width, 1 layer, f32) on the card against the same on the CPU.  Each phase
+prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and fails without one, and imports neither ``jax``
 nor the JAX package.  The COX kernels are defined in this file because
@@ -25,6 +32,7 @@ the frontend parses kernel source with ``inspect.getsource``.
 
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -46,9 +54,11 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import norms  # noqa: E402
 from repro_torch.kernels import softmax as sm  # noqa: E402
 from repro_torch.kernels import warp_reduce as wr  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.params import init_params, tree_map  # noqa: E402
+from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import steps  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -65,10 +75,22 @@ N_HEADS, N_KV, D_HEAD = 40, 8, 128  # qwen2.5-14b attention
 SERVE = dict(batch=4, ctx=512, n_requests=4, max_tokens=16, seed=0)
 CROSS_LAYERS, CROSS_STEPS, CROSS_BATCH, CROSS_CTX = 2, 4, 4, 64  # card vs CPU
 CROSS_RTOL = 1e-3  # logits, relative to their largest magnitude
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# the train phase: train() at full width, depth cut 48 -> 4 and batch
+# 256 -> 2 from the reference's train_4k cell (seq 4,096 kept)
+TRAIN = dict(n_layers=4, batch=2, seq=4096, steps=3, seed=0)
+# the train cross-check: full width, 1 layer, f32, batch 1, seq 256 (two
+# 128-row q tiles of the reference's kernel)
+CROSS_TRAIN = dict(n_layers=1, batch=1, seq=256)
+CROSS_LOSS_RTOL = 1e-4  # the loss and the grad norm, relative
+CROSS_GRAD_RTOL = 1e-3  # every gradient, relative to its largest magnitude
+
+
+T_START = time.perf_counter()
 
 
 def emit(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    print(json.dumps({**record, "at_s": round(time.perf_counter() - T_START, 1)}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -277,9 +299,9 @@ def median_ms(fn, batches: int = 7, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: int, ops: int) -> tuple:
+def bound(bytes_moved: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / F32_OPS_PER_S
+    t_ops = ops / ops_per_s
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -710,6 +732,18 @@ def _randomise_zero_inits(params, gen) -> None:
         tree[name].copy_(1 + 0.3 * torch.randn(tree[name].shape, generator=gen))
 
 
+def _cross_weights(cfg, seed: int) -> tuple:
+    """``(cpu, card)``: the same weights on each side for a card-vs-CPU
+    check, drawn from ``seed`` on DEVICE (at full width the CPU's generator
+    takes ~10x longer), the zero and one initialisations randomised.  Each
+    side has its own copy: the train step updates its weights in place."""
+    drawn = init_params(lm.lm_specs(cfg), torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), drawn)
+    del drawn
+    _randomise_zero_inits(cpu, torch.Generator().manual_seed(seed))
+    return cpu, tree_map(lambda t: t.to(DEVICE, copy=True), cpu)
+
+
 def phase_cross_check() -> None:
     """The serving path on the card (the CUDA kernels) against the same
     path on the CPU (their plain versions), same weights: qwen2.5-14b at
@@ -718,11 +752,8 @@ def phase_cross_check() -> None:
     cfg = dataclasses.replace(
         registry.get(ARCH), n_layers=CROSS_LAYERS, param_dtype=torch.float32
     )
-    gen = torch.Generator().manual_seed(1)
     t0 = time.perf_counter()
-    cpu = init_params(lm.lm_specs(cfg), gen, "cpu")
-    _randomise_zero_inits(cpu, gen)
-    card = tree_map(lambda t: t.to(DEVICE), cpu)
+    cpu, card = _cross_weights(cfg, 1)
     init_s = time.perf_counter() - t0
     B = CROSS_BATCH
     specs = lm.cache_specs(cfg, B, CROSS_CTX)
@@ -766,6 +797,429 @@ def phase_cross_check() -> None:
             "tokens_equal": True,
             "launches": launched,
             "init_s": init_s,
+        }
+    )
+
+
+# ---------------------------------------------------------------------------
+# training: its kernels, the train phase, its profile and the cross-check
+# ---------------------------------------------------------------------------
+
+# flash attention: (B, S, H, Hkv, D, causal, window, dtype).  The headline
+# is one layer of the train phase in bf16; then the same in f32, the
+# reference sweeps (tests/test_kernels.py) causal and not and its windowed
+# case, in f32 and bf16.
+TRAIN_SHAPE = (TRAIN["batch"], TRAIN["seq"], N_HEADS, N_KV, D_HEAD)
+TRAIN_ATTN_CASES = (
+    [(*TRAIN_SHAPE, True, 0, torch.bfloat16), (*TRAIN_SHAPE, True, 0, torch.float32)]
+    + [
+        (1, S, H, Hkv, D, causal, 0, dtype)
+        for S, H, Hkv, D in ((256, 4, 4, 64), (256, 8, 2, 64), (128, 4, 1, 128))
+        for causal in (True, False)
+        for dtype in (torch.float32, torch.bfloat16)
+    ]
+    + [(1, 256, 2, 2, 64, True, 64, dtype) for dtype in (torch.float32, torch.bfloat16)]
+)
+# f32: the reference's 1e-4.  bf16: against the plain version in f32 on
+# the same bf16 inputs; each output is an f32 value rounded once to bf16
+# (rtol 2^-7, atol 1e-5 of the largest magnitude for entries near zero);
+# the attention gradients also see the forward output rounded to bf16
+# inside delta = rowsum(dO * O), which moves dS by up to a bf16 step of
+# delta: 1e-2 of their largest magnitude.  (rtol, atol as a share of the
+# largest magnitude)
+TRAIN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-5)}
+ATTN_GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-2)}
+# rmsnorm backward: the train phase's (B x S, d_model) in bf16 with f32 w,
+# then f32, and a ragged width
+RMS_BWD_CASES = [
+    ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.bfloat16, torch.float32),
+    ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.float32, torch.float32),
+    ((3, 1001), torch.float32, torch.float32),
+]
+
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor, rtol: float, scale_atol: float) -> tuple:
+    """(max abs error, whether |got - want| <= atol + rtol |want| with atol
+    a share of want's largest magnitude)."""
+    want = want.float()
+    atol = scale_atol * float(want.abs().max())
+    return max_err(got, want), close(got, want, rtol, atol)
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask lets through, per sequence and head."""
+    if not causal:
+        return S * S
+    if not window:
+        return S * (S + 1) // 2
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def _ops_per_s(dtype) -> float:
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+
+
+def phase_train_kernels(gen: torch.Generator) -> dict:
+    """flash_attention (forward), flash_attention_bwd and rmsnorm_bwd
+    against their plain versions (autograd through them), with the
+    library call beside each; the first case of each is its headline.
+    The library calls: scaled_dot_product_attention with enable_gqa,
+    forward, and for the backward kernel its backward alone (the graph
+    kept) and forward+backward; F.rms_norm's backward alone.  The plain backward's time
+    includes its forward (autograd recomputes nothing else)."""
+    headline = {}
+    F = torch.nn.functional
+    for B, S, H, Hkv, D, causal, window, dtype in TRAIN_ATTN_CASES:
+        big = S >= 4096
+        q = (0.5 * torch.randn(B, S, H, D, generator=gen, device="cuda")).to(dtype)
+        k = (0.5 * torch.randn(B, S, Hkv, D, generator=gen, device="cuda")).to(dtype)
+        v = (0.5 * torch.randn(B, S, Hkv, D, generator=gen, device="cuda")).to(dtype)
+        do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+        mask = dict(causal=causal, window=window)
+        o, lse = fa.flash_attention_cuda(q, k, v, **mask)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
+        f32 = [t.float() for t in (q, k, v, do)]
+        want_o = ref.attention(*f32[:3], **mask)
+        want_g = ref.attention_bwd(*f32, **mask)
+        torch.cuda.synchronize()
+        what = f"B={B} S={S} H={H}/{Hkv} D={D} causal={causal} window={window} {dtype}"
+        err_o, ok = scaled_err(o, want_o, *TRAIN_TOL[dtype])
+        check(ok, f"flash_attention {what}: err {err_o}")
+        errs = {}
+        for name, got, want in zip(("dq", "dk", "dv"), grads, want_g):
+            errs[name], ok = scaled_err(got, want, *ATTN_GRAD_TOL[dtype])
+            check(ok, f"flash_attention_bwd {name} {what}: err {errs[name]}")
+        del want_o, want_g, f32, grads
+        lib_fwd = lib_bwd = lib_fwd_bwd = None
+        if not window:  # SDPA has no single call for a window
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib_fwd = median_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True
+                )
+            )
+            lib_bwd = median_ms(
+                lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True), batches=5
+            )
+            lib_fwd_bwd = median_ms(
+                lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True),
+                    leaves,
+                    dot,
+                ),
+                batches=5,
+            )
+            del out, leaves
+        reps = dict(batches=3, calls=3) if big else {}
+        pairs = visible_pairs(S, causal, window)
+        esize = q.element_size()
+        io = (2 * q.numel() + k.numel() + v.numel()) * esize  # q, k, v read; o written
+        base = {
+            "phase": "kernel",
+            "shape": [B, S, H, Hkv, D],
+            "causal": causal,
+            "window": window,
+            "dtype": _dtype_name(dtype),
+            "rtol": TRAIN_TOL[dtype][0],
+            "atol_of_max": TRAIN_TOL[dtype][1],
+        }
+        rec = {
+            **base,
+            "name": "flash_attention",
+            "max_abs_err": err_o,
+            "ms": median_ms(lambda: fa.flash_attention_cuda(q, k, v, **mask), **reps),
+            "plain_ms": median_ms(lambda: ref.attention(q, k, v, **mask), batches=3, calls=2),
+            "library_ms": lib_fwd,
+        }
+        ops_fwd = 4 * D * pairs * B * H
+        rec["bound_ms"], rec["bound_by"] = bound(io + lse.numel() * 4, ops_fwd, _ops_per_s(dtype))
+        emit(rec)
+        headline.setdefault("flash_attention", rec)
+        rec = {
+            **base,
+            "name": "flash_attention_bwd",
+            "rtol": ATTN_GRAD_TOL[dtype][0],
+            "atol_of_max": ATTN_GRAD_TOL[dtype][1],
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_grad": errs,
+            "ms": median_ms(
+                lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask), **reps
+            ),
+            "plain_ms": median_ms(
+                lambda: ref.attention_bwd(q, k, v, do, **mask), batches=3, calls=1
+            ),
+            "library_ms": lib_bwd,
+            "library": "scaled_dot_product_attention backward alone",
+            "library_fwd_bwd_ms": lib_fwd_bwd,
+        }
+        # q, k, v, o, dO and lse read; dq, dk, dv written; five products
+        nbytes = (3 * q.numel() + 2 * k.numel() + 2 * v.numel()) * esize + lse.numel() * 4
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 10 * D * pairs * B * H, _ops_per_s(dtype))
+        emit(rec)
+        headline.setdefault("flash_attention_bwd", rec)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+    for shape, dtype, wdtype in RMS_BWD_CASES:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        dx, dw = norms.rmsnorm_bwd_cuda(x, w, dy)
+        want_dx, want_dw = ref.rmsnorm_bwd(x.float(), w.float(), dy.float())
+        torch.cuda.synchronize()
+        err_dx, ok_dx = scaled_err(dx, want_dx, *TRAIN_TOL[dtype])
+        err_dw, ok_dw = scaled_err(dw, want_dw, *TRAIN_TOL[wdtype])
+        check(ok_dx and ok_dw, f"rmsnorm_bwd {shape} {dtype}: dx err {err_dx}, dw err {err_dw}")
+        xg = x.detach().requires_grad_(True)
+        wg = w.to(dtype).detach().requires_grad_(True)  # F.rms_norm: w in x's dtype
+        y = F.rms_norm(xg, (shape[-1],), wg, eps=1e-6)
+        rec = {
+            "phase": "kernel",
+            "name": "rmsnorm_bwd",
+            "shape": list(shape),
+            "dtype": _dtype_name(dtype),
+            "w_dtype": _dtype_name(wdtype),
+            "rtol": TRAIN_TOL[dtype][0],
+            "atol_of_max": TRAIN_TOL[dtype][1],
+            "max_abs_err": max(err_dx, err_dw),
+            "max_abs_err_dw": err_dw,
+            "ms": median_ms(lambda: norms.rmsnorm_bwd_cuda(x, w, dy)),
+            "plain_ms": median_ms(lambda: ref.rmsnorm_bwd(x, w, dy)),
+            "library_ms": median_ms(
+                lambda: torch.autograd.grad(y, (xg, wg), dy, retain_graph=True)
+            ),
+            "library": "F.rms_norm backward alone",
+        }
+        # x and dy read, dx written; w read, dw written
+        nbytes = 3 * x.numel() * x.element_size() + 2 * w.numel() * w.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 12 * x.numel())
+        emit(rec)
+        headline.setdefault("rmsnorm_bwd", rec)
+        del x, dy, dx, want_dx, xg, y
+        torch.cuda.empty_cache()
+    return headline
+
+
+def _train_cfg():
+    """qwen2.5-14b at full width, depth cut to TRAIN's layers; bf16 and
+    full remat, the config's own."""
+    return dataclasses.replace(registry.get(ARCH), n_layers=TRAIN["n_layers"])
+
+
+def train_model_flops(cfg) -> float:
+    """6 N per token for the weights, plus each layer's attention forward
+    (two products) and backward (five) over the causal pairs."""
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    pairs = visible_pairs(S, True, cfg.window)
+    attn = 14 * cfg.d_head * pairs * B * cfg.n_heads * cfg.n_layers
+    return 6 * cfg.param_count() * B * S + attn
+
+
+def phase_train() -> dict:
+    """The main path's training part: train() through the port's entry
+    point at full width, 4 layers, bf16, from seed 0."""
+    cfg = _train_cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.train(
+        cfg,
+        steps=TRAIN["steps"],
+        batch=TRAIN["batch"],
+        seq=TRAIN["seq"],
+        seed=TRAIN["seed"],
+        log_every=1,
+        device=None if DEVICE == "cuda" else DEVICE,  # None: the entry point's default, the card
+    )
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms = out["losses"], out["grad_norms"]
+    check(all(math.isfinite(x) for x in losses + gnorms), f"losses {losses}, norms {gnorms}")
+    gen = torch.Generator(device=DEVICE).manual_seed(TRAIN["seed"])
+    init = init_params(lm.lm_specs(cfg), gen, DEVICE)
+    same = sum(torch.equal(a, b) for a, b in zip(tree_leaves(init), tree_leaves(out["params"])))
+    check(same == 0, f"{same} parameter tensors did not change")
+    del init, out["params"]
+    torch.cuda.empty_cache()
+    step_s = statistics.median(out["step_s"][1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    flops = train_model_flops(cfg)
+    rec = {
+        "phase": "train",
+        "arch": ARCH,
+        "n_layers": cfg.n_layers,
+        "dtype": "bfloat16",
+        "remat": cfg.remat,
+        "cuts": "from train_4k: layers 48 -> 4, batch 256 -> 2; seq 4,096 and widths kept",
+        **{k: TRAIN[k] for k in ("batch", "seq", "steps", "seed")},
+        "params": cfg.param_count(),
+        "losses": losses,
+        "grad_norms": gnorms,
+        "step_s": out["step_s"],
+        "step_ms_median_2_3": step_s * 1e3,
+        "tok_per_s": tokens / step_s,
+        "model_tflop_per_step": flops / 1e12,
+        "bound_ms_per_step": flops / BF16_OPS_PER_S * 1e3,
+        "model_flop_share_of_989": flops / step_s / BF16_OPS_PER_S,
+        "init_s": out["init_s"],
+        "peak_alloc_gb": peak / 1e9,
+    }
+    emit(rec)
+    return rec
+
+
+def _kernel_kind(name: str) -> str:
+    if "flash_" in name or "delta_kernel" in name:
+        return "attention kernels"
+    if "rmsnorm" in name or "dw_reduce" in name:
+        return "rmsnorm kernels"
+    if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+        return "GEMMs"
+    return "other (elementwise, reductions, copies, cross_entropy)"
+
+
+def _device_summary(prof, wall: float, top: int = 12) -> dict:
+    from torch.autograd import DeviceType
+
+    kernels = [
+        e
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    kinds: dict = {}
+    for e in kernels:
+        ms, n = kinds.get(_kernel_kind(e.key), (0.0, 0))
+        kinds[_kernel_kind(e.key)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    return {
+        "traced_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1 - busy_us / 1e6 / wall,
+        "device_ops": sum(e.count for e in kernels),
+        "ms_and_launches_by_kind": kinds,
+        "top_device_ms": {
+            e.key[:70]: [e.self_device_time_total / 1e3, e.count]
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+        },
+    }
+
+
+def phase_train_profile() -> None:
+    """Where a train step's time goes: torch.profiler over one step of the
+    train phase's model, width, depth and batch, after a warm step; the
+    forward and backward (``steps.loss_and_grads``) and the AdamW update
+    are traced apart, so AdamW's elementwise work has its own line.
+    Device busy time is the sum of the kernels' own times; the rest of
+    the traced wall time the card idles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _train_cfg()
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN["steps"])
+    step_fn, specs = steps.make_train_step(cfg, opt_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN["seed"] + 1)
+    params = init_params(specs, gen, "cuda")
+    opt = adamw.init_state(params, opt_cfg)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params, opt, _ = step_fn(params, opt, batch)  # warm
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof_fb:
+        t0 = time.perf_counter()
+        _, grads = steps.loss_and_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        wall_fb = time.perf_counter() - t0
+    with profile(activities=acts) as prof_opt:
+        t0 = time.perf_counter()
+        adamw.update(grads, opt, params, opt_cfg)
+        torch.cuda.synchronize()
+        wall_opt = time.perf_counter() - t0
+    fb = _device_summary(prof_fb, wall_fb)
+    upd = _device_summary(prof_opt, wall_opt, top=4)
+    wall = wall_fb + wall_opt
+    busy = fb["device_busy_ms"] + upd["device_busy_ms"]
+    emit(
+        {
+            "phase": "train_profile",
+            "traced_step_ms": wall * 1e3,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / 1e3 / wall,
+            "forward_backward": fb,
+            "adamw": upd,
+        }
+    )
+    del params, opt, grads, batch
+    torch.cuda.empty_cache()
+
+
+def phase_train_cross_check() -> None:
+    """One train step on the card (the CUDA kernels) against the same step
+    on the CPU (their plain versions), same weights and batch: qwen2.5-14b
+    at full width, 1 layer, f32, batch 1 of 256 tokens, TF32 off.  The
+    step is the train step's two parts, ``steps.loss_and_grads`` then
+    ``adamw.update``, so the gradients can be held too."""
+    check(
+        not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+        "TF32 is on",
+    )
+    cfg = dataclasses.replace(
+        registry.get(ARCH), n_layers=CROSS_TRAIN["n_layers"], param_dtype=torch.float32
+    )
+    cpu, card = _cross_weights(cfg, 3)
+    B, S = CROSS_TRAIN["batch"], CROSS_TRAIN["seq"]
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, size=(B, S + 1)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    opt_cfg = adamw.AdamWConfig(total_steps=1)
+    counts0 = ops.launch_counts()
+    t0 = time.perf_counter()
+    loss_d, grads_d = steps.loss_and_grads(cfg, card, {k: t.to(DEVICE) for k, t in batch.items()})
+    counts = ops.launch_counts()
+    card, _, met_d = adamw.update(grads_d, adamw.init_state(card, opt_cfg), card, opt_cfg)
+    sync()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, grads_c = steps.loss_and_grads(cfg, cpu, batch)
+    cpu, _, met_c = adamw.update(grads_c, adamw.init_state(cpu, opt_cfg), cpu, opt_cfg)
+    cpu_s = time.perf_counter() - t0
+    launched = {n: counts[n] - counts0[n] for n in counts}
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"):
+        check(launched[name] > 0, f"train cross-check: {name} not launched ({launched})")
+    loss_rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    check(loss_rel <= CROSS_LOSS_RTOL, f"train cross-check: loss rel err {loss_rel}")
+    gn_d, gn_c = float(met_d["grad_norm"]), float(met_c["grad_norm"])
+    gn_rel = abs(gn_d - gn_c) / gn_c
+    check(gn_rel <= CROSS_LOSS_RTOL, f"train cross-check: grad norm rel err {gn_rel}")
+    worst_grad = worst_param = 0.0
+    for got, want in zip(tree_leaves(grads_d), tree_leaves(grads_c)):
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        worst_grad = max(worst_grad, rel)
+    check(worst_grad <= CROSS_GRAD_RTOL, f"train cross-check: gradient rel err {worst_grad}")
+    for got, want in zip(tree_leaves(card), tree_leaves(cpu)):
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        worst_param = max(worst_param, rel)
+    check(worst_param <= CROSS_GRAD_RTOL, f"train cross-check: parameter rel err {worst_param}")
+    emit(
+        {
+            "phase": "train_cross_check",
+            "arch": ARCH,
+            **CROSS_TRAIN,
+            "dtype": "float32",
+            "tf32": False,
+            "loss_rtol": CROSS_LOSS_RTOL,
+            "grad_rtol_of_max": CROSS_GRAD_RTOL,
+            "loss_card": float(loss_d),
+            "loss_cpu": float(loss_c),
+            "loss_rel_err": loss_rel,
+            "grad_norm_rel_err": gn_rel,
+            "grad_max_rel_err": worst_grad,
+            "param_max_rel_err": worst_param,
+            "launches": launched,
+            "card_s": card_s,
+            "cpu_s": cpu_s,
         }
     )
 
@@ -957,6 +1411,22 @@ KERNEL_META = {
         "src/repro_torch/csrc/flash_decode.cu",
         "src/repro/kernels/flash_attention.py:114",
     ),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:26",
+    ),
+    # the gradients have no TPU kernel: "replaces" names the forward's
+    "flash_attention_bwd": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:26",
+    ),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/norms.py:19"),
+}
+GRADIENTS = ("flash_attention_bwd", "rmsnorm_bwd")
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "cox_serve": ("softmax", "row_reduce", "rmsnorm", "flash_decode"),
+    "train": ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"),
 }
 
 
@@ -978,31 +1448,47 @@ def main() -> int:
     rng = np.random.default_rng(0)
     headline = phase_kernels(gen)
     headline.update(phase_serving_kernels(gen))
+    headline.update(phase_train_kernels(gen))
     cpu_tokens = cpu_token_count()
 
-    # the main path: COX launches, the three-way checks and the serve
-    # phase, counted alone
+    # the main paths, each counted alone: COX launches, the three-way
+    # checks and the serve phase; then the train phase
     ops.reset_launch_counts()
     phase_cox(rng)
     phase_three_way(gen)
     serve_rec = phase_serve(cpu_tokens)
-    counts = ops.launch_counts()
+    paths = {"cox_serve": ops.launch_counts()}
+    ops.reset_launch_counts()
+    phase_train()
+    paths["train"] = ops.launch_counts()
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()
+    phase_train_profile()
+    # the f32 cross-checks run in full f32: TF32 off for matmuls (PyTorch's
+    # default) and for cuDNN (on by default), stated in their lines
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_cross_check()
+    phase_train_cross_check()
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     kernels = []
     for name, rec in headline.items():
         source, replaces = KERNEL_META[name]
-        check(counts[name] > 0, f"{name} was not launched on the main path")
+        by_path = {p: counts[name] for p, counts in paths.items()}
         kernels.append(
             {
                 "name": name,
                 "route": "cuda",
                 "source": source,
                 "replaces": replaces,
-                "launches": counts[name],
+                "role": "gradient (no TPU kernel)" if name in GRADIENTS else "forward",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "shape": rec["shape"],
+                "dtype": rec.get("dtype"),
                 "max_abs_err": rec["max_abs_err"],
                 "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"],
@@ -1011,7 +1497,7 @@ def main() -> int:
                 "library_ms": rec["library_ms"],
             }
         )
-    emit({"kernels": kernels})
+    print(json.dumps({"kernels": kernels}), flush=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)
     device = {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}

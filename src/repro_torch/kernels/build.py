@@ -32,20 +32,40 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 # dtype codes shared with csrc/common.cuh (enum CoxDType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# C signatures: every pointer and the stream as c_void_p (a bare int would
-# be passed as 32 bits and cut the pointer)
+# C signatures, by library and entry point: every pointer and the stream
+# as c_void_p (a bare int would be passed as 32 bits and cut the pointer)
 _VP, _LL, _INT, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "row_reduce": ("cox_row_reduce", [_VP, _VP, _LL, _LL, _INT, _INT, _VP]),
-    "softmax": ("cox_softmax", [_VP, _VP, _LL, _LL, _INT, _VP]),
-    # x, w, y, rows, cols, eps, x dtype, w dtype, stream
-    "rmsnorm": ("cox_rmsnorm", [_VP, _VP, _VP, _LL, _LL, _F32, _INT, _INT, _VP]),
+    "row_reduce": {"cox_row_reduce": [_VP, _VP, _LL, _LL, _INT, _INT, _VP]},
+    "softmax": {"cox_softmax": [_VP, _VP, _LL, _LL, _INT, _VP]},
+    "rmsnorm": {
+        # x, w, y, rows, cols, eps, x dtype, w dtype, stream
+        "cox_rmsnorm": [_VP, _VP, _VP, _LL, _LL, _F32, _INT, _INT, _VP],
+        # x, w, dy, dx, dw, partial dw scratch, blocks, rows, cols, eps,
+        # x dtype, w dtype, stream
+        "cox_rmsnorm_bwd": [_VP] * 6 + [_INT, _LL, _LL, _F32, _INT, _INT, _VP],
+    },
     # q, k, v, kv_len, out, split scratch, nsplit, B, H, Hkv, S, D,
     # k strides (b, s, h), v strides (b, s, h), dtype, stream
-    "flash_decode": (
-        "cox_flash_decode",
-        [_VP] * 6 + [_INT] * 4 + [_LL, _INT] + [_LL] * 6 + [_INT, _VP],
-    ),
+    "flash_decode": {
+        "cox_flash_decode": [_VP] * 6 + [_INT] * 4 + [_LL, _INT] + [_LL] * 6 + [_INT, _VP],
+    },
+    "flash_attention": {
+        # q, k, v, o, lse, B, H, Hkv, S, D, q/k/v strides (b, s, h),
+        # causal, window, dtype, stream
+        "cox_flash_attention": [_VP] * 5
+        + [_INT] * 3
+        + [_LL, _INT]
+        + [_LL] * 9
+        + [_INT, _LL, _INT, _VP],
+        # q, k, v, o, dout, lse, delta scratch, dq, dk, dv, B, H, Hkv, S, D,
+        # q/k/v strides (b, s, h), causal, window, dtype, stream
+        "cox_flash_attention_bwd": [_VP] * 10
+        + [_INT] * 3
+        + [_LL, _INT]
+        + [_LL] * 9
+        + [_INT, _LL, _INT, _VP],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -123,10 +143,10 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(_library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

@@ -20,3 +20,15 @@ def check_cuda_input(x: torch.Tensor, what: str, dtypes) -> None:
 def stream_of(x: torch.Tensor) -> int:
     """The current stream of ``x``'s device, as a pointer-sized int."""
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (cached)."""
+    sms = _SM_COUNT.get(device.index)
+    if sms is None:
+        props = torch.cuda.get_device_properties(device)
+        sms = _SM_COUNT[device.index] = props.multi_processor_count
+    return sms

@@ -1,16 +1,25 @@
-"""Decode attention: the CUDA kernel ``csrc/flash_decode.cu`` and its
-wrapper.
+"""Attention kernels: ``csrc/flash_decode.cu`` (serving) and
+``csrc/flash_attention.cu`` (training and prefill), with their wrappers.
 
-Replaces the TPU kernel
-``src/repro/kernels/flash_attention.py::_decode_kernel`` (``flash_decode``).
-The TPU wrapper takes one sequence and is vmapped over the batch; this one
-takes the batch natively, and reads the KV cache in its ``(B, S, Hkv, D)``
-layout through its strides, with no transposed copy, and splits S into
-ranges that a second kernel combines (``num_splits``).  A CUDA tensor
-launches the kernel; a CPU tensor takes the plain version
-(``ref.decode_attention``).  ``launches`` counts the calls that launch
-the kernel (with its combine kernel when S is split), and only those.
-The prefill kernel (``_flash_kernel``) is not ported yet (ROADMAP B.6).
+``flash_decode`` replaces the TPU kernel
+``src/repro/kernels/flash_attention.py::_decode_kernel``.  The TPU wrapper
+takes one sequence and is vmapped over the batch; this one takes the batch
+natively, and reads the KV cache in its ``(B, S, Hkv, D)`` layout through
+its strides, with no transposed copy, and splits S into ranges that a
+second kernel combines (``num_splits``).
+
+``flash_attention`` replaces the TPU kernel ``_flash_kernel`` (the
+reference's ``flash_attention``), batched in the same way: q ``(B, S, H,
+D)`` and k, v ``(B, S, Hkv, D)`` read through their strides.  It is
+differentiable: :class:`FlashAttentionFn` launches the forward kernel,
+which also keeps each row's log-sum-exp, and the backward kernels
+(``cox_flash_attention_bwd``: the gradient, which has no TPU kernel).
+
+A CUDA tensor launches the kernels; a CPU tensor takes the plain versions
+(``ref.decode_attention``, ``ref.attention``, whose gradient is
+autograd's).  ``decode_launches``, ``fwd_launches`` and ``bwd_launches``
+count the calls that launch each kernel (with its helper kernels: the
+decode combine, the backward's row sums), and only those.
 """
 
 from __future__ import annotations
@@ -18,9 +27,9 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .common import check_cuda_input, stream_of
+from .common import check_cuda_input, sm_count, stream_of
 
-launches = 0
+decode_launches = fwd_launches = bwd_launches = 0
 
 # what the kernel is compiled for: qwen2.5-14b's D = 128 and the reference
 # sweeps' 64, in bf16 (serving) and f32 (the cross-checks)
@@ -30,19 +39,11 @@ TILE_ROWS = 32  # K/V rows per tile (csrc/flash_decode.cu BK)
 BLOCKS_PER_SM = 4  # the split over S aims at this many blocks per SM
 MAX_SPLITS = 64
 
-_SM_COUNT: dict = {}
-
-
 def num_splits(batch: int, n_kv: int, seq_len: int, device: torch.device) -> int:
     """How many ranges of S each (batch row, kv head) is split into: enough
     blocks for BLOCKS_PER_SM on every SM, at least one tile per range at
     full length, at most MAX_SPLITS."""
-    sms = _SM_COUNT.get(device.index)
-    if sms is None:
-        sms = _SM_COUNT[device.index] = torch.cuda.get_device_properties(
-            device
-        ).multi_processor_count
-    want = -(-BLOCKS_PER_SM * sms // (batch * n_kv))
+    want = -(-BLOCKS_PER_SM * sm_count(device) // (batch * n_kv))
     tiles = -(-seq_len // TILE_ROWS)
     return max(1, min(want, tiles, MAX_SPLITS))
 
@@ -82,7 +83,7 @@ def flash_decode_cuda(
     v_cache: torch.Tensor,
     kv_len: torch.Tensor,
 ) -> torch.Tensor:
-    global launches
+    global decode_launches
     check_cuda_input(q, "flash_decode q", DTYPES)
     if q.dim() != 3:
         raise ValueError(f"flash_decode q: expected (B, H, D), got {tuple(q.shape)}")
@@ -124,5 +125,141 @@ def flash_decode_cuda(
             stream_of(q),
         )
     build.check(err, "cox_flash_decode")
-    launches += 1
+    decode_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training and prefill)
+# ---------------------------------------------------------------------------
+
+BLOCK = 128  # the reference's bq = bk: S must divide by min(BLOCK, S)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, S, Hkv, D) -> (B, S, H, D).
+
+    Query head h attends to kv head ``h // (H // Hkv)`` with scale
+    ``1/sqrt(D)``; ``causal`` masks keys after the query and ``window``
+    (with ``causal`` only) keys ``window`` or more before it.  On a CUDA
+    tensor it launches the kernels in both directions; on a CPU tensor it
+    is ``ref.attention``, differentiated by autograd."""
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window)
+    return FlashAttentionFn.apply(q, k, v, causal, window)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The CUDA flash attention with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window
+        )
+        return dq, dk, dv, None, None
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention {name}: expected a CUDA tensor, got {t.device}")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"flash_attention {name}: dtype {t.dtype} not in {DTYPES}")
+        if t.dim() != 4 or t.stride(3) != 1:
+            raise ValueError(
+                f"flash_attention {name}: expected (B, S, heads, D) with D contiguous, "
+                f"got {tuple(t.shape)} strides {t.stride()}"
+            )
+        if t.numel() == 0:
+            raise ValueError(f"flash_attention {name}: empty input")
+    B, S, H, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(
+                f"flash_attention {name}: {t.dtype} on {t.device}, q is {q.dtype} on {q.device}"
+            )
+    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != D:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    if H % k.shape[2]:
+        raise ValueError(f"flash_attention: {H} query heads over {k.shape[2]} kv heads")
+    if S % min(BLOCK, S):
+        raise ValueError(f"flash_attention: S = {S} must divide by {BLOCK}: pad the sequence")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+    """The forward kernel: ``(o, lse)``, o (B, S, H, D) in q's dtype and
+    lse (B, H, S) f32, each row's log-sum-exp of its scaled, masked
+    logits."""
+    global fwd_launches
+    _check_qkv(q, k, v)
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    B, S, H, D = q.shape
+    o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    fn = build.library("flash_attention").cox_flash_attention
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            B, H, k.shape[2], S, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), int(window), build.DTYPE_CODES[q.dtype], stream_of(q),
+        )
+    build.check(err, "cox_flash_attention")
+    fwd_launches += 1
+    return o, lse
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
+    """The backward kernels: ``(dq, dk, dv)`` in q's dtype from the
+    forward's inputs, its output ``o`` and ``lse``, and the output's
+    gradient ``do``.  Launched on the current stream of q's device, which
+    the autograd engine sets for the backward."""
+    global bwd_launches
+    _check_qkv(q, k, v)
+    B, S, H, D = q.shape
+    do = do.contiguous()
+    for name, t, shape, dtype in (
+        ("o", o, q.shape, q.dtype),
+        ("do", do, q.shape, q.dtype),
+        ("lse", lse, (B, H, S), torch.float32),
+    ):
+        check_cuda_input(t, f"flash_attention_bwd {name}", (dtype,))
+        if t.shape != shape or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd {name}: {tuple(t.shape)} on {t.device}")
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    dq = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    fn = build.library("flash_attention").cox_flash_attention_bwd
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, k.shape[2], S, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), int(window), build.DTYPE_CODES[q.dtype], stream_of(q),
+        )
+    build.check(err, "cox_flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv

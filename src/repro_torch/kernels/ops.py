@@ -4,9 +4,11 @@ PyTorch version for a CPU tensor.
 The route follows the tensor's device and nothing else: there is no
 override that sends a CUDA tensor to the plain path, and no interpret
 mode (a CUDA kernel has none).  Ported: ``softmax``, ``row_reduce``,
-``rmsnorm`` and ``decode_attention``; the reference's ``layernorm``,
-prefill ``attention`` and ``ssd_scan`` are still to be ported (ROADMAP
-B.4-B.6).
+``rmsnorm``, ``attention`` and ``decode_attention``; ``rmsnorm`` and
+``attention`` are differentiable, with hand-written backward kernels on
+the card and autograd through the plain versions on the CPU.  The
+reference's ``layernorm`` and ``ssd_scan`` are still to be ported
+(ROADMAP B.4, B.5).
 """
 
 from __future__ import annotations
@@ -41,6 +43,15 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return _norms.rmsnorm(x, w, eps)
 
 
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """Batched: q (B, S, H, D), k/v (B, S, Hkv, D).  The reference's
+    ``ops.attention`` takes one sequence and is vmapped over the batch
+    (``layers.attention_apply``)."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
 def decode_attention(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, kv_len: torch.Tensor
 ) -> torch.Tensor:
@@ -50,14 +61,23 @@ def decode_attention(
     return _fa.flash_decode(q, k_cache, v_cache, kv_len)
 
 
-_MODULES = {"softmax": _sm, "row_reduce": _wr, "rmsnorm": _norms, "flash_decode": _fa}
+# each kernel's launch counter: (wrapper module, attribute)
+_COUNTERS = {
+    "softmax": (_sm, "launches"),
+    "row_reduce": (_wr, "launches"),
+    "rmsnorm": (_norms, "launches"),
+    "rmsnorm_bwd": (_norms, "bwd_launches"),
+    "flash_decode": (_fa, "decode_launches"),
+    "flash_attention": (_fa, "fwd_launches"),
+    "flash_attention_bwd": (_fa, "bwd_launches"),
+}
 
 
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

@@ -1,2 +1,2 @@
-"""Entry points: the serving driver (``serve``) and its cache layout
-(``specs``)."""
+"""Entry points: the trainer (``train``), the server (``serve``) and its
+cache layout (``specs``)."""

@@ -1,10 +1,12 @@
 """Model building blocks: spec builders and apply functions (port of
-``src/repro/models/layers.py``, the parts the dense decode path runs).
+``src/repro/models/layers.py``, the parts the dense family's decode and
+training paths run).
 
 Parameters are nested dicts of tensors; every apply function takes them
-and plain tensors.  The norms and the decode attention call the kernel
+and plain tensors.  The norms and both attentions call the kernel
 dispatch layer (``repro_torch.kernels.ops``), which launches the CUDA
-kernels for CUDA tensors and runs their plain versions for CPU tensors.
+kernels for CUDA tensors and runs their plain versions for CPU tensors;
+the norms and the training attention are differentiable on both.
 Matrix products are ``torch.matmul``, as the reference leaves them to XLA.
 There is no sharding (ROADMAP A.10): the reference's ``constrain`` is the
 identity on one device and is not ported.
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from ..core.types import CoxUnsupported
 from ..kernels import ops
+from ..kernels.ref import NEG_INF
 from .params import ParamSpec
 
 
@@ -72,7 +75,7 @@ def apply_norm(w, x, kind: str = "rms", b=None):
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA, rope) -- decode path
+# attention (GQA, rope, optional window) -- training and decode paths
 # ---------------------------------------------------------------------------
 
 
@@ -99,9 +102,29 @@ def attention_specs(cfg, d_model: Optional[int] = None) -> Dict[str, ParamSpec]:
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bd,dhk->bhk"): x (B, d) by w (d, H, K)."""
+    """einsum("...d,dhk->...hk"): x (..., d) by w (d, H, K)."""
     d, H, K = w.shape
-    return (x @ w.reshape(d, H * K)).reshape(x.shape[0], H, K)
+    return (x @ w.reshape(d, H * K)).reshape(*x.shape[:-1], H, K)
+
+
+def attention_apply(p, x, positions, *, cfg, causal=True, window: int = 0):
+    """x: (B, S, d) -> (B, S, d); positions: (B, S) int32 (for RoPE).
+
+    The reference's activation sharding constraints are the identity on
+    one card, and its padded-head mask is None there, so neither is
+    ported."""
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = rope(q, positions)
+    k = rope(k, positions)
+    att = ops.attention(q, k, v, causal=causal, window=window)  # (B, S, H, Dh)
+    B, S, H, Dh = att.shape
+    return att.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, -1)
 
 
 def attention_decode(p, x, cache, pos, *, slot=None, kv_len=None):
@@ -190,3 +213,17 @@ def unembed_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
         w = p["tok"].t()
     return (x @ w).to(torch.float32)
 
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """logits: (B, S, Vpad) f32; labels: (B, S) int; the mean negative
+    log-likelihood over the labels in ``[0, vocab)``, with the padded
+    vocabulary columns masked to -1e30."""
+    vpad = logits.shape[-1]
+    mask = torch.arange(vpad, device=logits.device) < vocab
+    logits = torch.where(mask, logits, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = (labels >= 0) & (labels < vocab)
+    idx = torch.where(valid, labels, 0).to(torch.int64)
+    ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+    nll = torch.where(valid, lse - ll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)

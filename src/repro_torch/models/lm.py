@@ -1,24 +1,28 @@
 """Decoder-only LM assembly (port of ``src/repro/models/lm.py``): the
-dense family's parameter and cache layouts and its one-token decode step.
+dense family's parameter and cache layouts, its training forward and its
+one-token decode step.
 
 Layers keep the reference's stacked layout: every leaf under
 ``params["layers"]`` has a leading ``n_layers`` axis, and the KV cache is
 ``(n_layers, B, S, Hkv, Dh)``.  Where the reference scans the stack, the
-port loops over it and indexes layer ``i`` of each leaf (a view, no
-copy).  The other families and the training forward are not ported yet
-and raise ``CoxUnsupported`` naming their ROADMAP item.
+port loops over it and takes layer ``i`` of each leaf (a view, no copy).
+The other families are not ported yet and raise ``CoxUnsupported`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.types import CoxUnsupported
 from . import layers as L
 from .params import ParamSpec, tree_map
+
 
 def check_family(cfg) -> None:
     """Raise unless the port runs ``cfg``'s family and norm."""
@@ -71,6 +75,58 @@ def lm_specs(cfg) -> Dict[str, Any]:
     specs.update(_norm_pair(cfg, "final_norm"))
     specs["layers"] = _stack(_dense_layer_specs(cfg), cfg.n_layers)
     return specs
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _dense_layer_apply(cfg, lp, x, positions):
+    h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"))
+    h = L.attention_apply(lp["attn"], h, positions, cfg=cfg, causal=True, window=cfg.window)
+    x = x + h
+    h = L.apply_norm(lp["ln2"], x, cfg.norm, lp.get("ln2_b"))
+    return x + L.mlp_apply(lp["mlp"], h, cfg=cfg)
+
+
+def _unstack(tree, n: int):
+    """The ``n`` layers of a stacked parameter tree, as views.  ``unbind``
+    once per leaf: its backward stacks the layers' gradients in one step,
+    where indexing each layer would scatter each into a zeroed copy of the
+    whole stack."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def hidden_states(cfg, params, x, positions):
+    """Run the layer stack on embedded inputs x: (B, S, d), then the final
+    norm.  With ``cfg.remat == "full"`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
+    and the backward recomputes the layer, as the reference wraps the
+    scanned layer in ``jax.checkpoint``."""
+    check_family(cfg)
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        fn = functools.partial(_dense_layer_apply, cfg, lp)
+        if cfg.remat == "full":
+            x = checkpoint(fn, x, positions, use_reentrant=False)
+        else:
+            x = fn(x, positions)
+    return L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"))
+
+
+def forward(cfg, params, batch):
+    """Training forward.  batch: ``tokens`` (B, S) and ``labels`` (B, S),
+    int tensors.  Returns ``(loss, logits (B, S, Vpad) f32)``."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    x = L.embed_apply(params["embed"], tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    h = hidden_states(cfg, params, x, positions)
+    logits = L.unembed_apply(params["embed"], h, cfg)
+    loss = L.cross_entropy(logits, batch["labels"], cfg.vocab)
+    return loss, logits
 
 
 # ---------------------------------------------------------------------------

@@ -29,12 +29,21 @@ def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to the leaves of nested dicts; returns the same
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to the leaves of nested dicts (and the matching leaves
+    of ``rest``, trees of the same structure); returns the same
     structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, keys in sorted order (as
+    ``jax.tree_util.tree_leaves`` orders a dict's)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
 
 
 def init_params(spec_tree, generator: torch.Generator, device) -> Any:

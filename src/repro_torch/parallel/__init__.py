@@ -1,1 +1,1 @@
-"""Step builders (``steps``): the serving step on one card."""
+"""Step builders (``steps``): the training and serving steps on one card."""

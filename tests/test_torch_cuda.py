@@ -22,6 +22,8 @@ import pytest
 import torch
 
 from repro_torch.core import cox, execute
+from repro_torch.kernels import flash_attention as pfa
+from repro_torch.kernels import norms as pnorms
 from repro_torch.kernels import ops, ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -159,7 +161,10 @@ def test_kernels_take_every_dtype(cuda, dtype):
         "softmax": 1,
         "row_reduce": 2,
         "rmsnorm": 0,
+        "rmsnorm_bwd": 0,
         "flash_decode": 0,
+        "flash_attention": 0,
+        "flash_attention_bwd": 0,
     }
 
 
@@ -318,3 +323,205 @@ def test_serving_kernels_refuse_what_they_do_not_take(cuda):
     strided_d = torch.randn(2, 64, 2, 128, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         ops.decode_attention(q, strided_d, v, lens)
+
+
+# ---------------------------------------------------------------------------
+# the training kernels: flash attention forward and backward and the
+# rmsnorm backward, against autograd through their plain versions
+# ---------------------------------------------------------------------------
+
+# f32: 1e-4, the reference's flash-attention tolerance (sums in another
+# order).  bf16: the kernels' outputs against the plain version in f32 on
+# the same bf16 inputs.  Each output is an f32 value rounded once to bf16,
+# so within one bf16 step (rtol 2^-7); atol 1e-5 of the largest magnitude
+# covers entries near zero.  The attention gradients also see the forward
+# output rounded to bf16 inside delta = rowsum(dO * O), as FlashAttention-2
+# does: that moves dS by up to a bf16 step of delta, so they are held to
+# 1e-2 of their largest magnitude.
+ATTN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-5)}
+ATTN_GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-2)}
+
+
+def _close_to_scale(got, want, rtol, scale_atol, what=""):
+    """atol is a share of want's largest magnitude, with a floor of 1e-6
+    for gradients that vanish (window 1: a row sees only itself, so dS =
+    p * (dP - delta) is 0 up to f32 rounding of two equal sums)."""
+    want = want.float()
+    atol = max(scale_atol * float(want.abs().max()), 1e-6)
+    torch.testing.assert_close(
+        got.float(), want, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}"
+    )
+
+
+def _attn_inputs(cuda, B, S, H, Hkv, D, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = (0.5 * torch.randn(B, S, H, D, generator=gen, device=cuda)).to(dtype)
+    k = (0.5 * torch.randn(B, S, Hkv, D, generator=gen, device=cuda)).to(dtype)
+    v = (0.5 * torch.randn(B, S, Hkv, D, generator=gen, device=cuda)).to(dtype)
+    do = torch.randn(B, S, H, D, generator=gen, device=cuda).to(dtype)
+    return q, k, v, do
+
+
+ATTN_CASES = [
+    # the reference sweeps (tests/test_kernels.py), causal and not
+    (1, 256, 4, 4, 64, True, 0),
+    (1, 256, 8, 2, 64, True, 0),
+    (1, 128, 4, 1, 128, True, 0),
+    (1, 256, 4, 4, 64, False, 0),
+    (1, 256, 8, 2, 64, False, 0),
+    (1, 128, 4, 1, 128, False, 0),
+    (1, 256, 2, 2, 64, True, 64),  # the reference's windowed case
+    (2, 512, 40, 8, 128, True, 0),  # a qwen2.5-14b tile: 40/8 heads of 128
+    (2, 384, 4, 2, 64, True, 100),  # a window off the tile grid
+    (1, 256, 4, 2, 128, True, 1),  # window 1: the diagonal alone
+    (2, 96, 4, 2, 64, True, 0),  # S below 128, not a multiple of the tile
+    (1, 40, 2, 1, 128, False, 0),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain(cuda, B, S, H, Hkv, D, causal, window, dtype):
+    q, k, v, do = _attn_inputs(cuda, B, S, H, Hkv, D, dtype)
+    counts = ops.launch_counts()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = ops.attention(*leaves, causal=causal, window=window)
+    grads = torch.autograd.grad(out, leaves, do)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == counts["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == counts["flash_attention_bwd"] + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    f32 = [t.float() for t in (q, k, v, do)]
+    want = ref.attention(*f32[:3], causal=causal, window=window)
+    rtol, atol = ATTN_TOL[dtype]
+    _close_to_scale(out, want, rtol, atol, "o")
+    want_grads = ref.attention_bwd(*f32, causal=causal, window=window)
+    rtol, atol = ATTN_GRAD_TOL[dtype]
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want_grads):
+        assert got.dtype == dtype and got.shape == w.shape
+        _close_to_scale(got, w, rtol, atol, name)
+
+
+def test_flash_attention_reads_strided_views_and_is_deterministic(cuda):
+    """q, k and v as views of one packed (B, S, H + 2 Hkv, D) projection:
+    read through their strides, the same answer as contiguous copies, and
+    the backward twice gives the same bits."""
+    B, S, H, Hkv, D = 2, 256, 8, 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(B, S, H + 2 * Hkv, D, generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H : H + Hkv], qkv[:, :, H + Hkv :]
+    do = torch.randn(B, S, H, D, generator=gen, device=cuda).to(torch.bfloat16)
+    o, lse = pfa.flash_attention_cuda(q, k, v)
+    o2, lse2 = pfa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    g1 = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    g2 = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+    want = ref.attention(q.float(), k.float(), v.float())
+    _close_to_scale(o, want, *ATTN_TOL[torch.bfloat16])
+    # lse is each row's log-sum-exp of its scaled, masked logits
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().repeat_interleave(4, dim=2))
+    mask = torch.ones(S, S, dtype=torch.bool, device=cuda).tril()
+    logits = torch.where(mask, logits / D**0.5, -1e30)
+    torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), rtol=1e-5, atol=1e-4)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q, k, v, _ = _attn_inputs(cuda, 1, 256, 4, 2, 64, torch.float32)
+    for d in (32, 96, 256):  # built for D in (64, 128) only
+        qd, kd, vd, _ = _attn_inputs(cuda, 1, 128, 4, 2, d, torch.float32)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.attention(qd, kd, vd)
+    with pytest.raises(TypeError):  # f32 and bf16 only
+        ops.attention(q.half(), k.half(), v.half())
+    q2, k2, v2, _ = _attn_inputs(cuda, 1, 200, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="divide"):
+        ops.attention(q2, k2, v2)
+    with pytest.raises(ValueError, match="heads"):
+        ops.attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pfa.flash_attention_cuda(q.cpu(), k.cpu(), v.cpu())
+    strided_d = torch.randn(1, 256, 2, 128, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.attention(q, strided_d, v)
+
+
+@pytest.mark.parametrize(
+    "shape", [(8, 128), (16, 1024), (4, 5120), (3, 1001), (2, 3, 6000), (1, 20000), (600, 64)]
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, "same"])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, shape, dtype, wdtype):
+    wdtype = dtype if wdtype == "same" else wdtype
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device=cuda)).to(wdtype)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    before = ops.launch_counts()
+    xg, wg = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    dx, dw = torch.autograd.grad(ops.rmsnorm(xg, wg), (xg, wg), dy)
+    after = ops.launch_counts()
+    assert after["rmsnorm"] == before["rmsnorm"] + 1
+    assert after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1
+    assert dx.dtype == dtype and dw.dtype == wdtype and dx.shape == x.shape
+    want_dx, want_dw = ref.rmsnorm_bwd(x.float(), w.float(), dy.float())
+    _close_to_scale(dx, want_dx, *ATTN_TOL[dtype], "dx")
+    _close_to_scale(dw, want_dw, *ATTN_TOL[wdtype], "dw")
+    again = pnorms.rmsnorm_bwd_cuda(x, w, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)  # deterministic
+
+
+def test_rmsnorm_backward_refuses_what_it_does_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="width"):
+        wide = torch.randn(2, 60000, device=cuda)
+        pnorms.rmsnorm_bwd_cuda(wide, torch.ones(60000, device=cuda), wide)
+    with pytest.raises(ValueError, match="rmsnorm_bwd"):
+        pnorms.rmsnorm_bwd_cuda(x, torch.ones(64, device=cuda), x[:2])
+    with pytest.raises(TypeError):
+        pnorms.rmsnorm_bwd_cuda(x, torch.ones(64, device=cuda), x.half())
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """loss_and_grads of a 2-layer dense model with 64-wide heads (the
+    kernels' smallest D), f32, remat on: the card (the kernels) against
+    the CPU (the plain versions), the loss within 1e-5 and every gradient
+    within 1e-3 of its largest magnitude.  Not tighter: a 1e-7 relative
+    nudge to this model's weights moves its gradients by up to 2.8e-4 of
+    their largest magnitude (measured on the CPU), since the reference's
+    init rule (fan_in = the head count for wq and wk) makes the attention
+    nearly one-hot, and the card's f32 sums round apart from the CPU's.
+    The kernels' own tolerances are held above."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.parallel import steps
+
+    cfg = dataclasses.replace(
+        registry.get("qwen2.5-14b-smoke"), d_model=128, n_heads=4, n_kv=2, d_head=64,
+        remat="full",
+    )
+    gen = torch.Generator().manual_seed(0)
+    cpu = init_params(lm.lm_specs(cfg), gen, "cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 129), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    counts = ops.launch_counts()
+    loss_c, grads_c = steps.loss_and_grads(cfg, card, {k: t.to(cuda) for k, t in batch.items()})
+    after = ops.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"):
+        assert after[name] > counts[name], name
+    loss, grads = steps.loss_and_grads(cfg, cpu, batch)
+    assert abs(float(loss_c) - float(loss)) <= 1e-5 * abs(float(loss))
+
+    def check(got, want, path=""):
+        if isinstance(want, dict):
+            for key in want:
+                check(got[key], want[key], f"{path}.{key}")
+        else:
+            _close_to_scale(got.cpu(), want, 1e-3, 1e-3, path)
+
+    check(grads_c, grads)

@@ -21,6 +21,7 @@ import torch
 from repro.kernels import flash_attention as jfa
 from repro.kernels import norms as jnorms
 from repro.kernels import ref as jref
+from repro_torch.kernels import common as pcommon
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import norms as pnorms
 from repro_torch.kernels import ops, ref
@@ -185,7 +186,7 @@ def test_flash_decode_takes_a_strided_cache():
 def test_split_count_fills_the_card(monkeypatch):
     """About four blocks per SM, at least one 32-row tile per split at
     full length, at most 64 splits."""
-    monkeypatch.setitem(pfa._SM_COUNT, 0, 132)
+    monkeypatch.setitem(pcommon._SM_COUNT, 0, 132)  # the SM-count cache
     dev = torch.device("cuda", 0)
     assert pfa.num_splits(8, 8, 32768, dev) == 9  # 64 blocks -> 576
     assert pfa.num_splits(4, 8, 512, dev) == 16  # one tile each

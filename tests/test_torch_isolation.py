@@ -1,6 +1,6 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor the JAX
-package, its launches run on the card unless the caller asks for the
-CPU, and ``chip_smoke.py`` refuses to report a result without a card or
+package, its launches, server and trainer run on the card unless the
+caller asks for the CPU, and ``chip_smoke.py`` refuses to report a result without a card or
 without the rest of the repository."""
 
 import os
@@ -97,6 +97,16 @@ def test_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
     server = serve.BatchedServer("qwen2.5-14b-smoke", batch=1, ctx=8, device="cpu")
     assert server.cache["k"].device.type == "cpu"
     assert server.params["embed"]["tok"].device.type == "cpu"
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train("qwen2.5-14b-smoke", steps=1, batch=1, seq=16)
+    out = train.train("qwen2.5-14b-smoke", steps=1, batch=1, seq=16, device="cpu")
+    assert out["params"]["embed"]["tok"].device.type == "cpu"
 
 
 def _run_smoke(cwd):

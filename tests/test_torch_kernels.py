@@ -101,7 +101,10 @@ def test_cpu_tensors_take_the_plain_version():
         "softmax": 0,
         "row_reduce": 0,
         "rmsnorm": 0,
+        "rmsnorm_bwd": 0,
         "flash_decode": 0,
+        "flash_attention": 0,
+        "flash_attention_bwd": 0,
     }
 
 
@@ -119,7 +122,7 @@ def test_kernel_entry_points_refuse_cpu_tensors():
 def test_library_names_track_the_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     paths = {name: build._library_path(name) for name in build.SIGNATURES}
-    assert set(paths) == {"softmax", "row_reduce", "rmsnorm", "flash_decode"}
+    assert set(paths) == {"softmax", "row_reduce", "rmsnorm", "flash_decode", "flash_attention"}
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()
