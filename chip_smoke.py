@@ -17,13 +17,19 @@ it:
   flash_decode kernels;
 - ``launch.train.train`` on qwen2.5-14b at full width cut to 4 layers, in
   bf16, batch 2 of 4,096 tokens, 3 AdamW steps, whose steps launch the
-  flash_attention and rmsnorm kernels and their backward kernels.
+  flash_attention and rmsnorm kernels and their backward kernels;
+- ``serve_requests`` on mamba2-130m (the SSM family) at full width and
+  depth in bf16, whose decode steps launch the rmsnorm kernel;
+- ``train`` on mamba2-130m at full width and depth, bf16, batch 8 of
+  4,096 tokens, 3 steps, whose steps launch the ssd_scan and rmsnorm
+  kernels and their backward kernels.
 
 Then it times the kernel wrappers' host cost, profiles a few decode steps
-and one train step (device busy and idle time, kernels by name), and holds
-the serving path (full width, 2 layers, f32) and one train step (full
-width, 1 layer, f32) on the card against the same on the CPU.  Each phase
-prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
+and one train step of each model (device busy and idle time, kernels by
+name), and holds each serving path (full width, 2 layers, f32) and one
+train step of each (full width, 1 layer, f32) on the card against the
+same on the CPU.  Each phase prints one JSON line; the last line is
+``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and fails without one, and imports neither ``jax``
 nor the JAX package.  The COX kernels are defined in this file because
@@ -53,6 +59,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import norms  # noqa: E402
 from repro_torch.kernels import softmax as sm  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import warp_reduce as wr  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -78,15 +85,40 @@ CROSS_RTOL = 1e-3  # logits, relative to their largest magnitude
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # the train phase: train() at full width, depth cut 48 -> 4 and batch
 # 256 -> 2 from the reference's train_4k cell (seq 4,096 kept)
-TRAIN = dict(n_layers=4, batch=2, seq=4096, steps=3, seed=0)
+TRAIN = dict(
+    n_layers=4,
+    batch=2,
+    seq=4096,
+    steps=3,
+    seed=0,
+    cuts="from train_4k: layers 48 -> 4, batch 256 -> 2; seq 4,096 and widths kept",
+)
 # the train cross-check: full width, 1 layer, f32, batch 1, seq 256 (two
 # 128-row q tiles of the reference's kernel)
 CROSS_TRAIN = dict(n_layers=1, batch=1, seq=256)
 CROSS_LOSS_RTOL = 1e-4  # the loss and the grad norm, relative
 CROSS_GRAD_RTOL = 1e-3  # every gradient, relative to its largest magnitude
+# the SSM family: 24 layers, d 768, 24 SSD heads of P = 64, N = 128; its
+# serve phase takes SERVE's requests at full width and depth, and its
+# train phase runs train() at full width and depth, cut from the
+# reference's train_4k cell in batch only (256 -> 8)
+SSM_ARCH = "mamba2-130m"
+SSM_TRAIN = dict(
+    batch=8,
+    seq=4096,
+    steps=3,
+    seed=0,
+    cuts="from train_4k: batch 256 -> 8; seq 4,096, widths and depth kept",
+)
 
 
 T_START = time.perf_counter()
+
+
+def phase_name(cfg, base: str) -> str:
+    """A phase's name in the output: ``base``, with ``ssm_`` before it for
+    the SSM family."""
+    return ("ssm_" if cfg.family == "ssm" else "") + base
 
 
 def emit(record: dict) -> None:
@@ -479,13 +511,18 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return headline
 
 
+SSM_TOKENS = SSM_TRAIN["batch"] * SSM_TRAIN["seq"]
+SSM_D_MODEL, SSM_D_INNER = 768, 1536  # mamba2-130m
 # rmsnorm: (shape, x dtype, w dtype); the headline, the serving shape
-# (the decode batch of the serve phase), f32, and a ragged unaligned width
+# (the decode batch of the serve phase), f32, a ragged unaligned width,
+# and mamba2-130m's inner norm in training and its norm in serving
 RMS_CASES = [
     ((8192, D_MODEL), torch.bfloat16, torch.float32),
     ((SERVE["batch"], D_MODEL), torch.bfloat16, torch.float32),
     ((8192, D_MODEL), torch.float32, torch.float32),
     ((3, 1001), torch.float32, torch.float32),
+    ((SSM_TOKENS, SSM_D_INNER), torch.bfloat16, torch.float32),
+    ((SERVE["batch"], SSM_D_MODEL), torch.bfloat16, torch.float32),
 ]
 RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
 # flash_decode: (B, S, kv_len per row, dtype); the headline is one layer
@@ -598,14 +635,23 @@ def host_us_per_call(fn, calls: int = 300) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def phase_serve(cpu_tokens: int) -> dict:
-    """The main path's serving part: serve_requests through the port's
+def serve_cache_bytes(cfg) -> int:
+    """The cache bytes a decode step moves: every K/V row read (dense), or
+    the recurrent state read and written (SSM)."""
+    leaves = tree_leaves(lm.cache_specs(cfg, SERVE["batch"], SERVE["ctx"]))
+    nbytes = sum(math.prod(s.shape) * s.dtype.itemsize for s in leaves)
+    return nbytes if cfg.family == "dense" else 2 * nbytes
+
+
+def phase_serve(cpu_tokens: int, arch: str = ARCH) -> dict:
+    """A main path's serving part: serve_requests through the port's
     BatchedServer at full width and depth in bf16."""
-    cfg = registry.get(ARCH)
+    cfg = registry.get(arch)
+    name = phase_name(cfg, "serve")
     torch.cuda.reset_peak_memory_stats()
     before = ops.launch_counts()
     # device None: the entry point's default, the card
-    out = serve.serve_requests(ARCH, device=None if DEVICE == "cuda" else DEVICE, **SERVE)
+    out = serve.serve_requests(arch, device=None if DEVICE == "cuda" else DEVICE, **SERVE)
     after = ops.launch_counts()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -614,13 +660,15 @@ def phase_serve(cpu_tokens: int) -> dict:
     check(out["tokens"] == cpu_tokens, f"served {out['tokens']} tokens, CPU {cpu_tokens}")
     steps = out["steps"]
     per_step = {n: (after[n] - before[n]) / steps for n in ("rmsnorm", "flash_decode")}
+    # an SSM layer's two norms (ln1, the inner norm) as a dense layer's
     check(per_step["rmsnorm"] == 2 * cfg.n_layers + 1, f"rmsnorm launches {per_step}")
-    check(per_step["flash_decode"] == cfg.n_layers, f"flash_decode launches {per_step}")
+    attn_layers = cfg.n_layers if cfg.family == "dense" else 0
+    check(per_step["flash_decode"] == attn_layers, f"flash_decode launches {per_step}")
     weight_bytes = cfg.param_count() * 2
-    cache_bytes = 2 * cfg.n_layers * SERVE["batch"] * SERVE["ctx"] * cfg.n_kv * cfg.d_head * 2
+    cache_bytes = serve_cache_bytes(cfg)
     rec = {
-        "phase": "serve",
-        "arch": ARCH,
+        "phase": name,
+        "arch": arch,
         **{k: SERVE[k] for k in ("batch", "ctx", "n_requests", "max_tokens")},
         "n_layers": cfg.n_layers,
         "dtype": "bfloat16",
@@ -672,7 +720,7 @@ def phase_wrapper_host(gen: torch.Generator, serve_rec: dict) -> None:
 PROFILE_STEPS = 5  # decode steps traced by phase_serve_profile
 
 
-def phase_serve_profile() -> None:
+def phase_serve_profile(arch: str = ARCH) -> None:
     """Where a decode step's time goes: torch.profiler over a few steps of
     a BatchedServer at the serve phase's width, depth, batch and context,
     after its slots are prefilled.  Device busy time is the sum of the
@@ -682,7 +730,8 @@ def phase_serve_profile() -> None:
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
 
-    server = serve.BatchedServer(ARCH, batch=SERVE["batch"], ctx=SERVE["ctx"], seed=0)
+    server = serve.BatchedServer(arch, batch=SERVE["batch"], ctx=SERVE["ctx"], seed=0)
+    name = phase_name(server.cfg, "serve_profile")
     rng = np.random.default_rng(SERVE["seed"])
     for slot in range(SERVE["batch"]):
         server.prefill_prompt(slot, list(rng.integers(1, server.cfg.vocab, size=8)))
@@ -702,7 +751,8 @@ def phase_serve_profile() -> None:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     emit(
         {
-            "phase": "serve_profile",
+            "phase": name,
+            "arch": arch,
             "steps": PROFILE_STEPS,
             "traced_step_ms": wall / PROFILE_STEPS * 1e3,
             "device_busy_ms_per_step": busy_us / PROFILE_STEPS / 1e3,
@@ -722,14 +772,19 @@ def phase_serve_profile() -> None:
 
 
 def _randomise_zero_inits(params, gen) -> None:
-    """Biases start at zero and norm weights at one: draw them so the
-    cross-check runs their paths."""
-    attn = params["layers"]["attn"]
-    for name in ("bq", "bk", "bv"):
-        attn[name].copy_(0.3 * torch.randn(attn[name].shape, generator=gen))
-    pairs = ((params["layers"], "ln1"), (params["layers"], "ln2"), (params, "final_norm"))
-    for tree, name in pairs:
-        tree[name].copy_(1 + 0.3 * torch.randn(tree[name].shape, generator=gen))
+    """Biases, A_log and dt_bias start at zero, norm weights and D at one:
+    draw them so the cross-check runs their paths (A = -exp(A_log) stays
+    negative)."""
+    layers = params["layers"]
+    draws = [(params, "final_norm", 1.0), (layers, "ln1", 1.0)]
+    if "attn" in layers:
+        draws += [(layers["attn"], name, 0.0) for name in ("bq", "bk", "bv")]
+        draws.append((layers, "ln2", 1.0))
+    else:
+        m = layers["mamba"]
+        draws += [(m, "A_log", 0.0), (m, "dt_bias", 0.0), (m, "D", 1.0), (m, "norm", 1.0)]
+    for tree, name, mean in draws:
+        tree[name].copy_(mean + 0.3 * torch.randn(tree[name].shape, generator=gen))
 
 
 def _cross_weights(cfg, seed: int) -> tuple:
@@ -744,14 +799,16 @@ def _cross_weights(cfg, seed: int) -> tuple:
     return cpu, tree_map(lambda t: t.to(DEVICE, copy=True), cpu)
 
 
-def phase_cross_check() -> None:
-    """The serving path on the card (the CUDA kernels) against the same
-    path on the CPU (their plain versions), same weights: qwen2.5-14b at
-    full width, 2 layers, f32 (TF32 off, PyTorch's default for matmul)."""
+def phase_cross_check(arch: str = ARCH) -> None:
+    """A serving path on the card (the CUDA kernels) against the same path
+    on the CPU (their plain versions), same weights: the model at full
+    width, 2 layers, f32 (TF32 off, PyTorch's default for matmul); the
+    logits and every cache leaf (K/V, or the SSM state h and conv)."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
     cfg = dataclasses.replace(
-        registry.get(ARCH), n_layers=CROSS_LAYERS, param_dtype=torch.float32
+        registry.get(arch), n_layers=CROSS_LAYERS, param_dtype=torch.float32
     )
+    name = phase_name(cfg, "cross_check")
     t0 = time.perf_counter()
     cpu, card = _cross_weights(cfg, 1)
     init_s = time.perf_counter() - t0
@@ -774,17 +831,21 @@ def phase_cross_check() -> None:
         check(torch.equal(got.argmax(-1), want.argmax(-1)), f"cross-check step {step}: tokens")
     counts = ops.launch_counts()
     launched = {n: counts[n] - counts0[n] for n in ("rmsnorm", "flash_decode")}
-    check(launched["flash_decode"] == CROSS_STEPS * CROSS_LAYERS, f"launches {launched}")
+    if cfg.family == "dense":
+        check(launched["flash_decode"] == CROSS_STEPS * CROSS_LAYERS, f"launches {launched}")
+    else:
+        want_norms = CROSS_STEPS * (2 * CROSS_LAYERS + 1)
+        check(launched["rmsnorm"] == want_norms, f"launches {launched}")
     cache_rel = {}
-    for name in ("k", "v"):
-        want = cache_cpu[name]
-        rel = float((cache_card[name].cpu() - want).abs().max() / want.abs().max())
-        check(rel <= CROSS_RTOL, f"cross-check {name.upper()} cache rel err {rel}")
-        cache_rel[name] = rel
+    for leaf in cache_cpu:
+        want = cache_cpu[leaf]
+        rel = float((cache_card[leaf].cpu() - want).abs().max() / want.abs().max())
+        check(rel <= CROSS_RTOL, f"{name} {leaf} cache rel err {rel}")
+        cache_rel[f"{leaf}_cache_max_rel_err"] = rel
     emit(
         {
-            "phase": "cross_check",
-            "arch": ARCH,
+            "phase": name,
+            "arch": arch,
             "n_layers": CROSS_LAYERS,
             "dtype": "float32",
             "steps": CROSS_STEPS,
@@ -792,8 +853,7 @@ def phase_cross_check() -> None:
             "ctx": CROSS_CTX,
             "rtol": CROSS_RTOL,
             "logits_max_rel_err": worst,
-            "k_cache_max_rel_err": cache_rel["k"],
-            "v_cache_max_rel_err": cache_rel["v"],
+            **cache_rel,
             "tokens_equal": True,
             "launches": launched,
             "init_s": init_s,
@@ -830,11 +890,13 @@ TRAIN_ATTN_CASES = (
 TRAIN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-5)}
 ATTN_GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-2)}
 # rmsnorm backward: the train phase's (B x S, d_model) in bf16 with f32 w,
-# then f32, and a ragged width
+# then f32, a ragged width, and mamba2-130m's two norms in training
 RMS_BWD_CASES = [
     ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.bfloat16, torch.float32),
     ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.float32, torch.float32),
     ((3, 1001), torch.float32, torch.float32),
+    ((SSM_TOKENS, SSM_D_INNER), torch.bfloat16, torch.float32),
+    ((SSM_TOKENS, SSM_D_MODEL), torch.bfloat16, torch.float32),
 ]
 
 
@@ -1004,33 +1066,141 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
     return headline
 
 
+# the SSD scan: (B, S, H, P, N), f32.  The headline is one layer of the SSM
+# train phase; then a reference sweep (tests/test_kernels.py).
+SSD_CASES = [
+    (SSM_TRAIN["batch"], SSM_TRAIN["seq"], 24, 64, 128),
+    (1, 256, 2, 64, 32),
+]
+# f32 against the plain chunked form, whose chunk is not the kernels'
+# tile: sums in another order, 1e-4 of the largest magnitude (rtol, atol
+# as a share of it), as the attention kernels
+SSD_TOL = (1e-4, 1e-4)
+SSD_CHUNK = 128  # the reference's chunk (configs/base.py ssd_chunk)
+
+
+def ssd_ops(B: int, S: int, H: int, P: int, N: int) -> tuple:
+    """(forward, backward) operations the SSD scan needs at least: the dual
+    form at the tile length T that needs fewest, T a power of two dividing
+    S up to the reference's chunk (T = 1 is the plain recurrence).  Per
+    head and token: the forward's (C B^T .* L) X, C h and the state update
+    (2TP + 4NP) and h's decay once a tile (NP/T); the backward's two T x T
+    products with P (dX's intra part, dY X^T) and two with N (dB's and
+    dC's intra parts) (4TP + 4TN), four T x N x P products (dX's, dB's and
+    dC's inter parts, dH: 8NP), and dH's decay and <dH, h_in> once a tile
+    (3NP/T).  C B^T once per batch row and tile, shared by the heads (2TN/H
+    a head and token).  The backward reads the saved tile states: no
+    forward is recomputed."""
+    tiles = [T for T in (1 << k for k in range(8)) if T <= min(SSD_CHUNK, S) and S % T == 0]
+    fwd = min(2 * T * P + 4 * N * P + N * P / T + 2 * T * N / H for T in tiles)
+    bwd = min(4 * T * P + 4 * T * N + 8 * N * P + 3 * N * P / T + 2 * T * N / H for T in tiles)
+    return B * S * H * fwd, B * S * H * bwd
+
+
+def phase_ssd_kernels(gen: torch.Generator) -> dict:
+    """ssd_scan (forward) and ssd_scan_bwd against the plain chunked form
+    and autograd through it; the first case of each is its headline.  No
+    single PyTorch call computes the scan: library_ms is null.  The plain
+    backward's time includes its forward."""
+    headline = {}
+    for B, S, H, P, N in SSD_CASES:
+        x = 0.5 * torch.randn(B, S, H, P, generator=gen, device="cuda")
+        # the model's a = -exp(A_log) softplus(dt): A_log 0, dt ~ softplus(N(0, 1) - 1)
+        a = -torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device="cuda") - 1)
+        b = 0.3 * torch.randn(B, S, N, generator=gen, device="cuda")
+        c = 0.3 * torch.randn(B, S, N, generator=gen, device="cuda")
+        dy = torch.randn(B, S, H, P, generator=gen, device="cuda")
+        y, states = ssd.ssd_scan_cuda(x, a, b, c, keep_states=True)
+        grads = ssd.ssd_scan_bwd_cuda(x, a, b, c, states, dy)
+        want_y = ref.ssd_scan_chunked(x, a, b, c, chunk=SSD_CHUNK)
+        want_g = ref.ssd_scan_bwd(x, a, b, c, dy, chunk=SSD_CHUNK)
+        torch.cuda.synchronize()
+        what = f"B={B} S={S} H={H} P={P} N={N}"
+        err_y, ok = scaled_err(y, want_y, *SSD_TOL)
+        check(ok, f"ssd_scan {what}: err {err_y}")
+        errs = {}
+        for name, got, want in zip(("dx", "da", "db", "dc"), grads, want_g):
+            errs[name], ok = scaled_err(got, want, *SSD_TOL)
+            check(ok, f"ssd_scan_bwd {name} {what}: err {errs[name]}")
+        del want_y, want_g, grads
+        fwd_ops, bwd_ops = ssd_ops(B, S, H, P, N)
+        xb, ab, bb = x.numel() * 4, a.numel() * 4, b.numel() * 4  # f32
+        base = {
+            "phase": "kernel",
+            "shape": [B, S, H, P, N],
+            "dtype": "float32",
+            "rtol": SSD_TOL[0],
+            "atol_of_max": SSD_TOL[1],
+            "tile": ssd.tile_rows(N, P),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD scan",
+        }
+        rec = {
+            **base,
+            "name": "ssd_scan",
+            "max_abs_err": err_y,
+            "ms": median_ms(lambda: ssd.ssd_scan_cuda(x, a, b, c, keep_states=True), batches=5),
+            "plain_ms": median_ms(
+                lambda: ref.ssd_scan_chunked(x, a, b, c, chunk=SSD_CHUNK), batches=3, calls=2
+            ),
+        }
+        # x, a, b, c read; y written
+        rec["bound_ms"], rec["bound_by"] = bound(2 * xb + ab + 2 * bb, fwd_ops)
+        emit(rec)
+        headline.setdefault("ssd_scan", rec)
+        rec = {
+            **base,
+            "name": "ssd_scan_bwd",
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_grad": errs,
+            "ms": median_ms(lambda: ssd.ssd_scan_bwd_cuda(x, a, b, c, states, dy), batches=5),
+            "plain_ms": median_ms(
+                lambda: ref.ssd_scan_bwd(x, a, b, c, dy, chunk=SSD_CHUNK), batches=3, calls=1
+            ),
+        }
+        # x, a, b, c, dy read; dx, da, db, dc written.  The saved tile states
+        # are left out: a backward could recompute them instead
+        rec["bound_ms"], rec["bound_by"] = bound(3 * xb + 2 * ab + 4 * bb, bwd_ops)
+        emit(rec)
+        headline.setdefault("ssd_scan_bwd", rec)
+        del x, a, b, c, dy, y, states
+        torch.cuda.empty_cache()
+    return headline
+
+
 def _train_cfg():
     """qwen2.5-14b at full width, depth cut to TRAIN's layers; bf16 and
     full remat, the config's own."""
     return dataclasses.replace(registry.get(ARCH), n_layers=TRAIN["n_layers"])
 
 
-def train_model_flops(cfg) -> float:
+def train_model_flops(cfg, run: dict = TRAIN) -> float:
     """6 N per token for the weights, plus each layer's attention forward
-    (two products) and backward (five) over the causal pairs."""
-    B, S = TRAIN["batch"], TRAIN["seq"]
+    (two products) and backward (five) over the causal pairs, or each
+    layer's SSD scan forward and backward (ssd_ops)."""
+    B, S = run["batch"], run["seq"]
+    weights = 6 * cfg.param_count() * B * S
+    if cfg.family == "ssm":
+        fwd, bwd = ssd_ops(B, S, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        return weights + cfg.n_layers * (fwd + bwd)
     pairs = visible_pairs(S, True, cfg.window)
-    attn = 14 * cfg.d_head * pairs * B * cfg.n_heads * cfg.n_layers
-    return 6 * cfg.param_count() * B * S + attn
+    return weights + 14 * cfg.d_head * pairs * B * cfg.n_heads * cfg.n_layers
 
 
-def phase_train() -> dict:
-    """The main path's training part: train() through the port's entry
-    point at full width, 4 layers, bf16, from seed 0."""
-    cfg = _train_cfg()
+def phase_train(cfg=None, run: dict = TRAIN) -> dict:
+    """A main path's training part: train() through the port's entry
+    point, bf16, from the run's seed; qwen2.5-14b at full width and 4
+    layers unless ``cfg`` says otherwise."""
+    cfg = cfg or _train_cfg()
+    name = phase_name(cfg, "train")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out = train.train(
         cfg,
-        steps=TRAIN["steps"],
-        batch=TRAIN["batch"],
-        seq=TRAIN["seq"],
-        seed=TRAIN["seed"],
+        steps=run["steps"],
+        batch=run["batch"],
+        seq=run["seq"],
+        seed=run["seed"],
         log_every=1,
         device=None if DEVICE == "cuda" else DEVICE,  # None: the entry point's default, the card
     )
@@ -1038,23 +1208,23 @@ def phase_train() -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses, gnorms = out["losses"], out["grad_norms"]
     check(all(math.isfinite(x) for x in losses + gnorms), f"losses {losses}, norms {gnorms}")
-    gen = torch.Generator(device=DEVICE).manual_seed(TRAIN["seed"])
+    gen = torch.Generator(device=DEVICE).manual_seed(run["seed"])
     init = init_params(lm.lm_specs(cfg), gen, DEVICE)
     same = sum(torch.equal(a, b) for a, b in zip(tree_leaves(init), tree_leaves(out["params"])))
     check(same == 0, f"{same} parameter tensors did not change")
     del init, out["params"]
     torch.cuda.empty_cache()
     step_s = statistics.median(out["step_s"][1:])
-    tokens = TRAIN["batch"] * TRAIN["seq"]
-    flops = train_model_flops(cfg)
+    tokens = run["batch"] * run["seq"]
+    flops = train_model_flops(cfg, run)
     rec = {
-        "phase": "train",
-        "arch": ARCH,
+        "phase": name,
+        "arch": cfg.name,
         "n_layers": cfg.n_layers,
         "dtype": "bfloat16",
         "remat": cfg.remat,
-        "cuts": "from train_4k: layers 48 -> 4, batch 256 -> 2; seq 4,096 and widths kept",
-        **{k: TRAIN[k] for k in ("batch", "seq", "steps", "seed")},
+        "cuts": run["cuts"],
+        **{k: run[k] for k in ("batch", "seq", "steps", "seed")},
         "params": cfg.param_count(),
         "losses": losses,
         "grad_norms": gnorms,
@@ -1074,6 +1244,8 @@ def phase_train() -> dict:
 def _kernel_kind(name: str) -> str:
     if "flash_" in name or "delta_kernel" in name:
         return "attention kernels"
+    if "ssd_" in name or "head_sum_kernel" in name:
+        return "ssd kernels"
     if "rmsnorm" in name or "dw_reduce" in name:
         return "rmsnorm kernels"
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
@@ -1107,7 +1279,7 @@ def _device_summary(prof, wall: float, top: int = 12) -> dict:
     }
 
 
-def phase_train_profile() -> None:
+def phase_train_profile(cfg=None, run: dict = TRAIN) -> None:
     """Where a train step's time goes: torch.profiler over one step of the
     train phase's model, width, depth and batch, after a warm step; the
     forward and backward (``steps.loss_and_grads``) and the AdamW update
@@ -1116,13 +1288,14 @@ def phase_train_profile() -> None:
     the traced wall time the card idles."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = _train_cfg()
-    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN["steps"])
+    cfg = cfg or _train_cfg()
+    name = phase_name(cfg, "train_profile")
+    opt_cfg = adamw.AdamWConfig(total_steps=run["steps"])
     step_fn, specs = steps.make_train_step(cfg, opt_cfg)
-    gen = torch.Generator(device="cuda").manual_seed(TRAIN["seed"] + 1)
+    gen = torch.Generator(device="cuda").manual_seed(run["seed"] + 1)
     params = init_params(specs, gen, "cuda")
     opt = adamw.init_state(params, opt_cfg)
-    B, S = TRAIN["batch"], TRAIN["seq"]
+    B, S = run["batch"], run["seq"]
     toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     params, opt, _ = step_fn(params, opt, batch)  # warm
@@ -1144,7 +1317,8 @@ def phase_train_profile() -> None:
     busy = fb["device_busy_ms"] + upd["device_busy_ms"]
     emit(
         {
-            "phase": "train_profile",
+            "phase": name,
+            "arch": cfg.name,
             "traced_step_ms": wall * 1e3,
             "device_busy_ms": busy,
             "device_idle_share": 1 - busy / 1e3 / wall,
@@ -1156,9 +1330,9 @@ def phase_train_profile() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train_cross_check() -> None:
+def phase_train_cross_check(arch: str = ARCH) -> None:
     """One train step on the card (the CUDA kernels) against the same step
-    on the CPU (their plain versions), same weights and batch: qwen2.5-14b
+    on the CPU (their plain versions), same weights and batch: the model
     at full width, 1 layer, f32, batch 1 of 256 tokens, TF32 off.  The
     step is the train step's two parts, ``steps.loss_and_grads`` then
     ``adamw.update``, so the gradients can be held too."""
@@ -1167,8 +1341,9 @@ def phase_train_cross_check() -> None:
         "TF32 is on",
     )
     cfg = dataclasses.replace(
-        registry.get(ARCH), n_layers=CROSS_TRAIN["n_layers"], param_dtype=torch.float32
+        registry.get(arch), n_layers=CROSS_TRAIN["n_layers"], param_dtype=torch.float32
     )
+    name = phase_name(cfg, "train_cross_check")
     cpu, card = _cross_weights(cfg, 3)
     B, S = CROSS_TRAIN["batch"], CROSS_TRAIN["seq"]
     toks = np.random.default_rng(4).integers(0, cfg.vocab, size=(B, S + 1)).astype(np.int32)
@@ -1186,26 +1361,26 @@ def phase_train_cross_check() -> None:
     cpu, _, met_c = adamw.update(grads_c, adamw.init_state(cpu, opt_cfg), cpu, opt_cfg)
     cpu_s = time.perf_counter() - t0
     launched = {n: counts[n] - counts0[n] for n in counts}
-    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"):
-        check(launched[name] > 0, f"train cross-check: {name} not launched ({launched})")
+    for kernel in PATH_KERNELS[phase_name(cfg, "train")]:
+        check(launched[kernel] > 0, f"{name}: {kernel} not launched ({launched})")
     loss_rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
-    check(loss_rel <= CROSS_LOSS_RTOL, f"train cross-check: loss rel err {loss_rel}")
+    check(loss_rel <= CROSS_LOSS_RTOL, f"{name}: loss rel err {loss_rel}")
     gn_d, gn_c = float(met_d["grad_norm"]), float(met_c["grad_norm"])
     gn_rel = abs(gn_d - gn_c) / gn_c
-    check(gn_rel <= CROSS_LOSS_RTOL, f"train cross-check: grad norm rel err {gn_rel}")
+    check(gn_rel <= CROSS_LOSS_RTOL, f"{name}: grad norm rel err {gn_rel}")
     worst_grad = worst_param = 0.0
     for got, want in zip(tree_leaves(grads_d), tree_leaves(grads_c)):
         rel = float((got.cpu() - want).abs().max() / want.abs().max())
         worst_grad = max(worst_grad, rel)
-    check(worst_grad <= CROSS_GRAD_RTOL, f"train cross-check: gradient rel err {worst_grad}")
+    check(worst_grad <= CROSS_GRAD_RTOL, f"{name}: gradient rel err {worst_grad}")
     for got, want in zip(tree_leaves(card), tree_leaves(cpu)):
         rel = float((got.cpu() - want).abs().max() / want.abs().max())
         worst_param = max(worst_param, rel)
-    check(worst_param <= CROSS_GRAD_RTOL, f"train cross-check: parameter rel err {worst_param}")
+    check(worst_param <= CROSS_GRAD_RTOL, f"{name}: parameter rel err {worst_param}")
     emit(
         {
-            "phase": "train_cross_check",
-            "arch": ARCH,
+            "phase": name,
+            "arch": arch,
             **CROSS_TRAIN,
             "dtype": "float32",
             "tf32": False,
@@ -1421,20 +1596,24 @@ KERNEL_META = {
         "src/repro/kernels/flash_attention.py:26",
     ),
     "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/norms.py:19"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:28"),
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:28"),
 }
-GRADIENTS = ("flash_attention_bwd", "rmsnorm_bwd")
+GRADIENTS = ("flash_attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd")
 # the kernels each main path must launch
 PATH_KERNELS = {
     "cox_serve": ("softmax", "row_reduce", "rmsnorm", "flash_decode"),
     "train": ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"),
+    "ssm_serve": ("rmsnorm",),
+    "ssm_train": ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd"),
 }
 
 
-def cpu_token_count() -> int:
-    """The serve phase's token count from the same driver on the CPU at
-    the smoke width: with no EOS every request runs to ctx - 1, so the
-    count depends on the batch, context and requests, not the weights."""
-    out = serve.serve_requests(ARCH + "-smoke", device="cpu", **SERVE)
+def cpu_token_count(arch: str = ARCH) -> int:
+    """A serve phase's token count from the same driver on the CPU at the
+    smoke width: with no EOS every request runs to ctx - 1, so the count
+    depends on the batch, context and requests, not the weights."""
+    out = serve.serve_requests(arch + "-smoke", device="cpu", **SERVE)
     return out["tokens"]
 
 
@@ -1449,10 +1628,13 @@ def main() -> int:
     headline = phase_kernels(gen)
     headline.update(phase_serving_kernels(gen))
     headline.update(phase_train_kernels(gen))
+    headline.update(phase_ssd_kernels(gen))
     cpu_tokens = cpu_token_count()
+    ssm_cpu_tokens = cpu_token_count(SSM_ARCH)
 
     # the main paths, each counted alone: COX launches, the three-way
-    # checks and the serve phase; then the train phase
+    # checks and the serve phase; the train phase; the SSM serve phase;
+    # the SSM train phase
     ops.reset_launch_counts()
     phase_cox(rng)
     phase_three_way(gen)
@@ -1461,16 +1643,27 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_train()
     paths["train"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    phase_serve(ssm_cpu_tokens, SSM_ARCH)
+    paths["ssm_serve"] = ops.launch_counts()
+    ssm_cfg = registry.get(SSM_ARCH)
+    ops.reset_launch_counts()
+    phase_train(ssm_cfg, SSM_TRAIN)
+    paths["ssm_train"] = ops.launch_counts()
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()
     phase_train_profile()
+    phase_serve_profile(SSM_ARCH)
+    phase_train_profile(ssm_cfg, SSM_TRAIN)
     # the f32 cross-checks run in full f32: TF32 off for matmuls (PyTorch's
     # default) and for cuDNN (on by default), stated in their lines
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_cross_check()
     phase_train_cross_check()
+    phase_cross_check(SSM_ARCH)
+    phase_train_cross_check(SSM_ARCH)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")

@@ -66,6 +66,16 @@ SIGNATURES = {
         + [_LL] * 9
         + [_INT, _LL, _INT, _VP],
     },
+    "ssd_scan": {
+        # N, P -> the tile length (0: not built)
+        "cox_ssd_scan_tile": [_INT, _INT],
+        # x, a, b, c, y, states, B, S, H, P, N, x strides (b, s, h),
+        # a strides (b, s, h), b and c strides (b, s), stream
+        "cox_ssd_scan": [_VP] * 6 + [_INT] * 5 + [_LL] * 10 + [_VP],
+        # x, a, b, c, dy, states, dx, da, db, dc, db/dc head-part scratch,
+        # B, S, H, P, N, strides as the forward's, stream
+        "cox_ssd_scan_bwd": [_VP] * 12 + [_INT] * 5 + [_LL] * 10 + [_VP],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -4,11 +4,11 @@ PyTorch version for a CPU tensor.
 The route follows the tensor's device and nothing else: there is no
 override that sends a CUDA tensor to the plain path, and no interpret
 mode (a CUDA kernel has none).  Ported: ``softmax``, ``row_reduce``,
-``rmsnorm``, ``attention`` and ``decode_attention``; ``rmsnorm`` and
-``attention`` are differentiable, with hand-written backward kernels on
-the card and autograd through the plain versions on the CPU.  The
-reference's ``layernorm`` and ``ssd_scan`` are still to be ported
-(ROADMAP B.4, B.5).
+``rmsnorm``, ``attention``, ``decode_attention`` and ``ssd_scan``;
+``rmsnorm``, ``attention`` and ``ssd_scan`` are differentiable, with
+hand-written backward kernels on the card and autograd through the plain
+versions on the CPU.  The reference's ``layernorm`` is still to be ported
+(ROADMAP B.4).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from . import flash_attention as _fa
 from . import norms as _norms
 from . import softmax as _sm
+from . import ssd_scan as _ssd
 from . import warp_reduce as _wr
 
 
@@ -61,6 +62,19 @@ def decode_attention(
     return _fa.flash_decode(q, k_cache, v_cache, kv_len)
 
 
+def ssd_scan(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    chunk: int = _ssd.DEFAULT_CHUNK,
+) -> torch.Tensor:
+    """Batched: x (B, S, H, P), a (B, S, H), b and c (B, S, N).  The
+    reference's ``ops.ssd_scan`` takes one sequence and is vmapped over the
+    batch (``layers.mamba2_apply``)."""
+    return _ssd.ssd_scan(x, a, b, c, chunk=chunk)
+
+
 # each kernel's launch counter: (wrapper module, attribute)
 _COUNTERS = {
     "softmax": (_sm, "launches"),
@@ -70,6 +84,8 @@ _COUNTERS = {
     "flash_decode": (_fa, "decode_launches"),
     "flash_attention": (_fa, "fwd_launches"),
     "flash_attention_bwd": (_fa, "bwd_launches"),
+    "ssd_scan": (_ssd, "launches"),
+    "ssd_scan_bwd": (_ssd, "bwd_launches"),
 }
 
 

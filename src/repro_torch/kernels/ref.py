@@ -7,8 +7,9 @@ package's own ``ref.row_reduce`` sums in the input dtype, so for bf16 its
 plain path and its Pallas kernel differ; the port follows the kernel.
 Likewise ``decode_attention`` with ``kv_len = 0`` returns zeros, as the
 Pallas kernel does, where the JAX package's plain version returns the mean
-of V.)  The gradients ``rmsnorm_bwd`` and ``attention_bwd`` are autograd
-through the plain versions: the yardsticks of the backward kernels.
+of V.)  The gradients ``rmsnorm_bwd``, ``attention_bwd`` and
+``ssd_scan_bwd`` are autograd through the plain versions: the yardsticks
+of the backward kernels.
 """
 
 from __future__ import annotations
@@ -150,3 +151,80 @@ def decode_attention(
     lsum = torch.where(lsum == 0.0, 1.0, lsum)
     out = torch.einsum("bkgs,bskd->bkgd", p, v32) / lsum
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def _batched(x, a, b, c):
+    """The SSD inputs with a batch axis: (S, ...) becomes (1, S, ...)."""
+    if x.dim() == 3:
+        return True, (x[None], a[None], b[None], c[None])
+    return False, (x, a, b, c)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Mamba2 SSD, the sequential oracle: ``h_t = exp(a_t) h_{t-1} + b_t
+    x_t^T`` and ``y_t = c_t^T h_t`` per head, from ``h = 0``, in f32.
+
+    x: (B, S, H, P) or (S, H, P); a: (B, S, H) log-decay (<= 0); b, c:
+    (B, S, N), shared across heads.  Returns y like x, in x's dtype."""
+    squeeze, (x, a, b, c) = _batched(x, a, b, c)
+    B, S, H, P = x.shape
+    x32, a32, b32, c32 = (t.to(torch.float32) for t in (x, a, b, c))
+    h = torch.zeros(B, H, b.shape[-1], P, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h = torch.exp(a32[:, t])[..., None, None] * h + torch.einsum(
+            "bn,bhp->bhnp", b32[:, t], x32[:, t]
+        )
+        ys.append(torch.einsum("bn,bhnp->bhp", c32[:, t], h))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return y[0] if squeeze else y
+
+
+def ssd_scan_chunked(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, chunk: int = 128
+) -> torch.Tensor:
+    """Mamba2 SSD in its dual (chunked matmul) form, the math of the TPU
+    kernel in plain PyTorch: within a chunk ``y = ((C B^T) * L) X + exp(A)
+    * (C h)`` with ``L[i, j] = exp(A_i - A_j)`` for ``i >= j`` (the exponent
+    masked before ``exp``, so autograd meets no ``0 * inf``), across chunks
+    ``h <- exp(A_T) h + (B * exp(A_T - A))^T X``; A is the within-chunk
+    cumulative sum of a.  Shapes as :func:`ssd_scan`; ``chunk = min(chunk,
+    S)`` must divide S.  The CPU route of ``ops.ssd_scan`` and the
+    yardstick of its kernels."""
+    squeeze, (x, a, b, c) = _batched(x, a, b, c)
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"ssd_scan: S = {S} must divide by chunk = {chunk}: pad the sequence")
+    nc = S // chunk
+    xc = x.to(torch.float32).reshape(B, nc, chunk, H, P)
+    ac = a.to(torch.float32).reshape(B, nc, chunk, H)
+    bc = b.to(torch.float32).reshape(B, nc, chunk, N)
+    cc = c.to(torch.float32).reshape(B, nc, chunk, N)
+    A = torch.cumsum(ac, dim=2)  # (B, nc, C, H)
+    A_tot = A[:, :, -1]  # (B, nc, H)
+    At = A.transpose(2, 3)  # (B, nc, H, C)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    diff = At[..., :, None] - At[..., None, :]
+    L = torch.exp(torch.where(causal, diff, -math.inf))  # (B, nc, H, C, C)
+    cb = torch.einsum("bgin,bgjn->bgij", cc, bc)
+    y_intra = torch.einsum("bghij,bgjhp->bgihp", L * cb[:, :, None], xc)
+    w = bc[:, :, :, None, :] * torch.exp(A_tot[:, :, None] - A)[..., None]  # (B, nc, C, H, N)
+    h_add = torch.einsum("bgjhn,bgjhp->bghnp", w, xc)  # (B, nc, H, N, P)
+    h = torch.zeros(B, H, N, P, dtype=torch.float32, device=x.device)
+    h_in = []
+    for g in range(nc):
+        h_in.append(h)
+        h = torch.exp(A_tot[:, g])[..., None, None] * h + h_add[:, g]
+    h_in = torch.stack(h_in, dim=1)  # the state entering each chunk
+    y_inter = torch.einsum("bgin,bghnp->bgihp", cc, h_in) * torch.exp(A)[..., None]
+    y = (y_intra + y_inter).reshape(B, S, H, P).to(x.dtype)
+    return y[0] if squeeze else y
+
+
+def ssd_scan_bwd(x, a, b, c, dy, chunk: int = 128):
+    """``(dx, da, db, dc)`` of :func:`ssd_scan_chunked` for the output
+    gradient ``dy``: autograd through the plain version, the yardstick of
+    the backward kernel."""
+    return _grads(lambda *t: ssd_scan_chunked(*t, chunk=chunk), (x, a, b, c), dy)

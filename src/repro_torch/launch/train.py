@@ -6,8 +6,9 @@ watchdog and failure injection (port of ``src/repro/launch/train.py``).
 
 Training runs on the CUDA card unless it is given ``device="cpu"``
 (``--device cpu``), and raises where there is no card.  On a card every
-step launches the hand-written ``flash_attention`` and ``rmsnorm`` kernels
-and their backward kernels.  Checkpointing and restart (``ckpt_dir=``,
+step of a dense model launches the hand-written ``flash_attention`` and
+``rmsnorm`` kernels and their backward kernels; every step of an SSM model
+(mamba2) the ``ssd_scan`` and ``rmsnorm`` kernels and theirs.  Checkpointing and restart (``ckpt_dir=``,
 ``retry_loop``) need ``checkpoint/ckpt.py``, which is not ported yet
 (ROADMAP A.8): ``ckpt_dir=`` raises ``CoxUnsupported``.
 """
@@ -112,7 +113,7 @@ def train(
     }
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -121,7 +122,7 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     out = train(
         args.arch,
         steps=args.steps,

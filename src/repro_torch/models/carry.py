@@ -7,7 +7,7 @@ tree that ``repro.models.params.init_params(lm_specs(cfg), key)`` returns,
 as nested dicts of numpy arrays (``np.asarray`` of each leaf), and returns
 the port's parameters; :func:`cache_from_numpy` does the same for a decode
 cache.  Both keep the stacked-layer layout as it is (``params["layers"]``
-leaves lead with ``n_layers``; caches are ``(n_layers, B, S, Hkv, Dh)``),
+leaves lead with ``n_layers``; every cache leaf is ``(n_layers, B, ...)``),
 since the port's layout is the reference's.  Every leaf is checked
 against the port's spec tree: same keys, shapes and dtypes.
 
@@ -57,7 +57,10 @@ def from_jax_params(cfg, tree, device) -> Any:
 
 
 def cache_from_numpy(cfg, tree, device) -> Any:
-    """The port's decode cache from a JAX cache tree (numpy leaves of
-    shape ``(n_layers, B, S, Hkv, Dh)``), on ``device``."""
-    batch, seq_len = np.shape(tree["k"])[1:3]
+    """The port's decode cache from a JAX cache tree (numpy leaves: K/V of
+    shape ``(n_layers, B, S, Hkv, Dh)``, or the SSM state ``h`` and
+    ``conv``), on ``device``.  The batch is axis 1 of every leaf; the
+    length, axis 2 of K (an SSM cache has none)."""
+    batch = np.shape(next(iter(tree.values())))[1]
+    seq_len = np.shape(tree["k"])[2] if "k" in tree else 0
     return _carry(lm.cache_specs(cfg, batch, seq_len), tree, torch.device(device))

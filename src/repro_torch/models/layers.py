@@ -1,15 +1,16 @@
 """Model building blocks: spec builders and apply functions (port of
-``src/repro/models/layers.py``, the parts the dense family's decode and
-training paths run).
+``src/repro/models/layers.py``, the parts the dense and SSM families'
+decode and training paths run).
 
 Parameters are nested dicts of tensors; every apply function takes them
-and plain tensors.  The norms and both attentions call the kernel
-dispatch layer (``repro_torch.kernels.ops``), which launches the CUDA
-kernels for CUDA tensors and runs their plain versions for CPU tensors;
-the norms and the training attention are differentiable on both.
-Matrix products are ``torch.matmul``, as the reference leaves them to XLA.
-There is no sharding (ROADMAP A.10): the reference's ``constrain`` is the
-identity on one device and is not ported.
+and plain tensors.  The norms, both attentions and the SSD scan call the
+kernel dispatch layer (``repro_torch.kernels.ops``), which launches the
+CUDA kernels for CUDA tensors and runs their plain versions for CPU
+tensors; the norms, the training attention and the SSD scan are
+differentiable on both.  Matrix products, the Mamba2 projections and its
+depthwise convolution are plain torch, as the reference leaves them to
+XLA.  There is no sharding (ROADMAP A.10): the reference's ``constrain``
+is the identity on one device and is not ported.
 """
 
 from __future__ import annotations
@@ -188,6 +189,106 @@ def mlp_apply(p, x, *, cfg):
         return h @ p["w_down"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
+
+
+def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    di = cfg.ssm_inner
+    H, N = cfg.ssm_heads, cfg.ssm_state
+    dt = cfg.param_dtype
+    return {
+        # in_proj -> [z (gate), x, B, C, dt]
+        "w_in": ParamSpec((d, 2 * di + 2 * N + H), dt),
+        "conv": ParamSpec((cfg.conv_k, di + 2 * N), dt),
+        "A_log": ParamSpec((H,), torch.float32, init="zeros"),
+        "D": ParamSpec((H,), torch.float32, init="ones"),
+        "dt_bias": ParamSpec((H,), torch.float32, init="zeros"),
+        "norm": ParamSpec((di,), torch.float32, init="ones"),
+        "w_out": ParamSpec((di, d), dt),
+    }
+
+
+def _mamba_split(cfg, proj):
+    di, N = cfg.ssm_inner, cfg.ssm_state
+    z = proj[..., :di]
+    xBC = proj[..., di : di + di + 2 * N]
+    dt = proj[..., di + di + 2 * N :]
+    return z, xBC, dt
+
+
+def _causal_conv(xBC, conv, state=None):
+    """Depthwise causal conv along S.  xBC: (B, S, C); conv: (K, C).  With
+    ``state`` (B, K-1, C) it runs in streaming mode and returns the new
+    state.  The K shifted products are summed in the input dtype, in the
+    reference's order (``F.conv1d`` would accumulate otherwise)."""
+    K = conv.shape[0]
+    if state is None:
+        xp = torch.cat([torch.zeros_like(xBC[:, : K - 1]), xBC], dim=1)
+    else:
+        xp = torch.cat([state.to(xBC.dtype), xBC], dim=1)
+    S = xBC.shape[1]
+    out = sum(xp[:, i : i + S] * conv[i] for i in range(K))
+    new_state = xp[:, -(K - 1) :] if K > 1 else None
+    return F.silu(out), new_state
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` returns x
+    itself above its threshold)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def _ssm_inputs(p, xBC, dtp, cfg):
+    """The scan's inputs from the conv output and the dt projection, in
+    f32, as the reference builds them: ``(xh, a, Bm, Cm)``, xh the
+    dt-scaled heads and a the log-decay."""
+    di, N = cfg.ssm_inner, cfg.ssm_state
+    xs = xBC[..., :di]
+    Bm = xBC[..., di : di + N].to(torch.float32)
+    Cm = xBC[..., di + N :].to(torch.float32)
+    dt = _softplus(dtp.to(torch.float32) + p["dt_bias"])
+    a = -torch.exp(p["A_log"]) * dt  # <= 0
+    xh = xs.unflatten(-1, (cfg.ssm_heads, cfg.ssm_head_dim)).to(torch.float32) * dt[..., None]
+    return xh, a, Bm, Cm
+
+
+def mamba2_apply(p, x, *, cfg):
+    """x: (B, S, d) -> (B, S, d)."""
+    B, S, _ = x.shape
+    proj = x @ p["w_in"]
+    z, xBC, dtp = _mamba_split(cfg, proj)
+    xBC, _ = _causal_conv(xBC, p["conv"])
+    xh, a, Bm, Cm = _ssm_inputs(p, xBC, dtp, cfg)
+    y = ops.ssd_scan(xh, a, Bm, Cm, chunk=min(cfg.ssd_chunk, S))
+    y = y + xh * p["D"][None, None, :, None]
+    y = y.reshape(B, S, cfg.ssm_inner).to(x.dtype)
+    y = y * F.silu(z)
+    y = ops.rmsnorm(y, p["norm"])
+    return y @ p["w_out"]
+
+
+def mamba2_decode(p, x, state, *, cfg):
+    """One-token recurrent step.  x: (B, d); state: ``{"h": (B, H, N, P)
+    f32, "conv": (B, K-1, C)}``.  Returns ``(y, new state)``; the state
+    tensors given are not written (the caller copies the new state into
+    its cache)."""
+    B, _ = x.shape
+    proj = x @ p["w_in"]
+    z, xBC, dtp = _mamba_split(cfg, proj[:, None])
+    xBC, conv_state = _causal_conv(xBC, p["conv"], state["conv"])
+    z, xBC, dtp = z[:, 0], xBC[:, 0], dtp[:, 0]
+    xh, a, Bm, Cm = _ssm_inputs(p, xBC, dtp, cfg)
+    decay = torch.exp(a)  # (B, H)
+    h = state["h"] * decay[..., None, None] + torch.einsum("bn,bhp->bhnp", Bm, xh)
+    y = torch.einsum("bn,bhnp->bhp", Cm, h) + xh * p["D"][None, :, None]
+    y = y.reshape(B, cfg.ssm_inner).to(x.dtype) * F.silu(z)
+    y = ops.rmsnorm(y, p["norm"])
+    return y @ p["w_out"], {"h": h, "conv": conv_state}
 
 
 # ---------------------------------------------------------------------------

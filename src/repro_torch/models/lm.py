@@ -1,13 +1,14 @@
 """Decoder-only LM assembly (port of ``src/repro/models/lm.py``): the
-dense family's parameter and cache layouts, its training forward and its
-one-token decode step.
+dense and SSM families' parameter and cache layouts, their training
+forward and their one-token decode step.
 
 Layers keep the reference's stacked layout: every leaf under
-``params["layers"]`` has a leading ``n_layers`` axis, and the KV cache is
-``(n_layers, B, S, Hkv, Dh)``.  Where the reference scans the stack, the
-port loops over it and takes layer ``i`` of each leaf (a view, no copy).
-The other families are not ported yet and raise ``CoxUnsupported`` naming
-their ROADMAP item.
+``params["layers"]`` has a leading ``n_layers`` axis, the KV cache is
+``(n_layers, B, S, Hkv, Dh)`` and the SSM cache ``h (n_layers, B, H, N,
+P)`` and ``conv (n_layers, B, K-1, C)``.  Where the reference scans the
+stack, the port loops over it and takes layer ``i`` of each leaf (a view,
+no copy).  The other families are not ported yet and raise
+``CoxUnsupported`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ from .params import ParamSpec, tree_map
 
 def check_family(cfg) -> None:
     """Raise unless the port runs ``cfg``'s family and norm."""
-    if cfg.family != "dense":
-        item = "A.7 (the model stack: MoE, SSM, hybrid and VLM families)"
+    if cfg.family not in ("dense", "ssm"):
+        item = "A.7 (the model stack: MoE, hybrid and VLM families)"
         if cfg.family == "encdec":
             item = "A.7 (models/encdec.py)"
         raise CoxUnsupported(
@@ -69,11 +70,19 @@ def _dense_layer_specs(cfg) -> Dict[str, Any]:
     return sp
 
 
+def _ssm_layer_specs(cfg) -> Dict[str, Any]:
+    sp: Dict[str, Any] = {}
+    sp.update(_norm_pair(cfg, "ln1"))
+    sp["mamba"] = L.mamba2_specs(cfg)
+    return sp
+
+
 def lm_specs(cfg) -> Dict[str, Any]:
     check_family(cfg)
     specs: Dict[str, Any] = {"embed": L.embed_specs(cfg)}
     specs.update(_norm_pair(cfg, "final_norm"))
-    specs["layers"] = _stack(_dense_layer_specs(cfg), cfg.n_layers)
+    layer = _dense_layer_specs if cfg.family == "dense" else _ssm_layer_specs
+    specs["layers"] = _stack(layer(cfg), cfg.n_layers)
     return specs
 
 
@@ -88,6 +97,13 @@ def _dense_layer_apply(cfg, lp, x, positions):
     x = x + h
     h = L.apply_norm(lp["ln2"], x, cfg.norm, lp.get("ln2_b"))
     return x + L.mlp_apply(lp["mlp"], h, cfg=cfg)
+
+
+def _ssm_layer_apply(cfg, lp, x, positions):
+    """A Mamba2 layer; ``positions`` is unused (no rotary embedding), kept
+    so both families' layers take the same arguments."""
+    h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"))
+    return x + L.mamba2_apply(lp["mamba"], h, cfg=cfg)
 
 
 def _unstack(tree, n: int):
@@ -106,8 +122,9 @@ def hidden_states(cfg, params, x, positions):
     and the backward recomputes the layer, as the reference wraps the
     scanned layer in ``jax.checkpoint``."""
     check_family(cfg)
+    layer = _dense_layer_apply if cfg.family == "dense" else _ssm_layer_apply
     for lp in _unstack(params["layers"], cfg.n_layers):
-        fn = functools.partial(_dense_layer_apply, cfg, lp)
+        fn = functools.partial(layer, cfg, lp)
         if cfg.remat == "full":
             x = checkpoint(fn, x, positions, use_reentrant=False)
         else:
@@ -135,15 +152,23 @@ def forward(cfg, params, batch):
 
 
 def cache_specs(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
-    """KV cache layout for one-token decode: per-layer K and V of shape
-    (n_layers, B, S, Hkv, Dh) in the parameter dtype, zero-initialised."""
+    """Cache layout for one-token decode, zero-initialised.  Dense: per-layer
+    K and V of shape (n_layers, B, S, Hkv, Dh) in the parameter dtype.
+    SSM: the recurrent state ``h`` (n_layers, B, H, N, P) in f32 and the
+    conv tail ``conv`` (n_layers, B, K-1, d_inner + 2N) in the parameter
+    dtype; ``seq_len`` does not enter it."""
     check_family(cfg)
-    kv = ParamSpec(
-        (cfg.n_layers, batch, seq_len, cfg.n_kv, cfg.d_head),
-        cfg.param_dtype,
-        init="zeros",
-    )
-    return {"k": kv, "v": kv}
+    Lc, dt = cfg.n_layers, cfg.param_dtype
+    if cfg.family == "dense":
+        kv = ParamSpec((Lc, batch, seq_len, cfg.n_kv, cfg.d_head), dt, init="zeros")
+        return {"k": kv, "v": kv}
+    H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    return {
+        "h": ParamSpec((Lc, batch, H, N, P), torch.float32, init="zeros"),
+        "conv": ParamSpec(
+            (Lc, batch, cfg.conv_k - 1, cfg.ssm_inner + 2 * N), dt, init="zeros"
+        ),
+    }
 
 
 def _layer(tree, i: int):
@@ -155,13 +180,22 @@ def _layer(tree, i: int):
 def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor):
     """One token for every sequence.  tokens: (B,) int; pos: (B,) int32
     current lengths.  Returns ``(logits (B, Vpad) f32, cache)``; the cache
-    is updated in place (each layer writes the token's K/V at ``pos``)."""
+    is updated in place: each dense layer writes the token's K/V at
+    ``pos``, each SSM layer overwrites its ``h`` and ``conv`` state (which
+    ``pos`` does not enter)."""
     check_family(cfg)
     x = L.embed_apply(params["embed"], tokens)  # (B, d)
     h = x
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
+        if cfg.family == "ssm":
+            state = {"h": cache["h"][i], "conv": cache["conv"][i]}
+            y, new = L.mamba2_decode(lp["mamba"], hn, state, cfg=cfg)
+            state["h"].copy_(new["h"])
+            state["conv"].copy_(new["conv"])
+            h = h + y
+            continue
         kv = {"k": cache["k"][i], "v": cache["v"][i]}
         y, _ = L.attention_decode(lp["attn"], hn, kv, pos)
         h = h + y

@@ -25,6 +25,7 @@ from repro_torch.core import cox, execute
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import norms as pnorms
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as pssd
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_IMPORT = "from repro.core import cox"
@@ -165,6 +166,8 @@ def test_kernels_take_every_dtype(cuda, dtype):
         "flash_decode": 0,
         "flash_attention": 0,
         "flash_attention_bwd": 0,
+        "ssd_scan": 0,
+        "ssd_scan_bwd": 0,
     }
 
 
@@ -223,7 +226,8 @@ DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-6)}
 
 
 @pytest.mark.parametrize(
-    "shape", [(8, 128), (16, 1024), (4, 5120), (3, 1001), (2, 3, 6000), (1, 20000)]
+    "shape",
+    [(8, 128), (16, 1024), (4, 5120), (3, 1001), (2, 3, 6000), (1, 20000), (4, 768), (4, 1536)],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("wdtype", [torch.float32, "same"])
@@ -448,7 +452,18 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize(
-    "shape", [(8, 128), (16, 1024), (4, 5120), (3, 1001), (2, 3, 6000), (1, 20000), (600, 64)]
+    "shape",
+    [
+        (8, 128),
+        (16, 1024),
+        (4, 5120),
+        (3, 1001),
+        (2, 3, 6000),
+        (1, 20000),
+        (600, 64),
+        (2, 300, 768),  # mamba2-130m's d_model and d_inner
+        (2, 300, 1536),
+    ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wdtype", [torch.float32, "same"])
@@ -483,16 +498,48 @@ def test_rmsnorm_backward_refuses_what_it_does_not_take(cuda):
         pnorms.rmsnorm_bwd_cuda(x, torch.ones(64, device=cuda), x.half())
 
 
-def test_training_step_on_the_card_matches_the_cpu(cuda):
-    """loss_and_grads of a 2-layer dense model with 64-wide heads (the
-    kernels' smallest D), f32, remat on: the card (the kernels) against
-    the CPU (the plain versions), the loss within 1e-5 and every gradient
-    within 1e-3 of its largest magnitude.  Not tighter: a 1e-7 relative
-    nudge to this model's weights moves its gradients by up to 2.8e-4 of
-    their largest magnitude (measured on the CPU), since the reference's
-    init rule (fan_in = the head count for wq and wk) makes the attention
-    nearly one-hot, and the card's f32 sums round apart from the CPU's.
-    The kernels' own tolerances are held above."""
+# the model train steps held card against CPU: (config, overrides, tokens a
+# row, leaves of layers["mamba"] drawn N(0, 0.5^2) as they start at zero,
+# kernels that must launch, gradient tolerance as a share of its largest
+# magnitude)
+TRAIN_STEP_CASES = [
+    pytest.param(
+        "qwen2.5-14b-smoke",
+        dict(d_model=128, n_heads=4, n_kv=2, d_head=64),
+        128,
+        (),
+        ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"),
+        1e-3,
+        id="dense",
+    ),
+    pytest.param(
+        "mamba2-130m-smoke",
+        {},
+        256,
+        ("A_log", "dt_bias"),
+        ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd"),
+        1e-4,
+        id="ssm",
+    ),
+]
+
+
+@pytest.mark.parametrize("arch,overrides,seq,drawn,kernels,grad_tol", TRAIN_STEP_CASES)
+def test_training_step_on_the_card_matches_the_cpu(
+    cuda, arch, overrides, seq, drawn, kernels, grad_tol
+):
+    """loss_and_grads of a 2-layer model, f32, remat on: the card (the
+    kernels) against the CPU (the plain versions), the loss within 1e-5
+    and every gradient within ``grad_tol`` of its largest magnitude.
+
+    dense (64-wide heads, the kernels' smallest D): 1e-3, not tighter: a
+    1e-7 relative nudge to this model's weights moves its gradients by up
+    to 2.8e-4 of their largest magnitude (measured on the CPU), since the
+    reference's init rule (fan_in = the head count for wq and wk) makes
+    the attention nearly one-hot, and the card's f32 sums round apart from
+    the CPU's.  ssm (d 64, N 16, P 16): no attention, so the SSD kernels'
+    own 1e-4 (their tiles sum in another order than the plain form's
+    chunk).  The kernels' own tolerances are held above."""
     import dataclasses
 
     from repro_torch.configs import registry
@@ -500,19 +547,19 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
     from repro_torch.models.params import init_params, tree_map
     from repro_torch.parallel import steps
 
-    cfg = dataclasses.replace(
-        registry.get("qwen2.5-14b-smoke"), d_model=128, n_heads=4, n_kv=2, d_head=64,
-        remat="full",
-    )
+    cfg = dataclasses.replace(registry.get(arch), remat="full", **overrides)
     gen = torch.Generator().manual_seed(0)
     cpu = init_params(lm.lm_specs(cfg), gen, "cpu")
+    for leaf in drawn:
+        t = cpu["layers"]["mamba"][leaf]
+        t.copy_(0.5 * torch.randn(t.shape, generator=gen))
     card = tree_map(lambda t: t.to(cuda), cpu)
-    toks = torch.randint(0, cfg.vocab, (2, 129), generator=gen)
+    toks = torch.randint(0, cfg.vocab, (2, seq + 1), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     counts = ops.launch_counts()
     loss_c, grads_c = steps.loss_and_grads(cfg, card, {k: t.to(cuda) for k, t in batch.items()})
     after = ops.launch_counts()
-    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"):
+    for name in kernels:
         assert after[name] > counts[name], name
     loss, grads = steps.loss_and_grads(cfg, cpu, batch)
     assert abs(float(loss_c) - float(loss)) <= 1e-5 * abs(float(loss))
@@ -522,6 +569,97 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
             for key in want:
                 check(got[key], want[key], f"{path}.{key}")
         else:
-            _close_to_scale(got.cpu(), want, 1e-3, 1e-3, path)
+            _close_to_scale(got.cpu(), want, grad_tol, grad_tol, path)
 
     check(grads_c, grads)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan, forward and backward, against the plain chunked form
+# ---------------------------------------------------------------------------
+
+# f32 only; the kernels' tile (64 or 32 rows) is not the plain form's chunk,
+# so sums run in another order: 1e-4 of the largest magnitude, as the
+# attention kernels (the reference holds its kernel to 1e-3 against the
+# sequential oracle)
+SSD_TOL = (1e-4, 1e-4)
+
+
+def _ssd_inputs(cuda, B, S, H, P, N, seed=0):
+    """Model-like inputs: a = -softplus(.) as mamba2_apply makes it."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = 0.5 * torch.randn(B, S, H, P, generator=gen, device=cuda)
+    a = -torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device=cuda) - 1)
+    b = 0.3 * torch.randn(B, S, N, generator=gen, device=cuda)
+    c = 0.3 * torch.randn(B, S, N, generator=gen, device=cuda)
+    dy = torch.randn(B, S, H, P, generator=gen, device=cuda)
+    return x, a, b, c, dy
+
+
+SSD_CASES = [(2, 256, 3, P, N) for P in pssd.HEAD_DIMS for N in pssd.STATE_SIZES] + [
+    # the reference sweeps (tests/test_kernels.py), a tail tile, a sequence
+    # shorter than a tile, and a mamba2-130m layer at batch 1
+    (1, 256, 2, 64, 32),
+    (1, 128, 4, 32, 16),
+    (1, 512, 1, 128, 64),
+    (2, 200, 3, 64, 128),
+    (3, 8, 2, 16, 16),
+    (1, 1024, 24, 64, 128),
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,N", SSD_CASES)
+def test_ssd_scan_kernels_match_plain(cuda, B, S, H, P, N):
+    x, a, b, c, dy = _ssd_inputs(cuda, B, S, H, P, N)
+    chunk = S if S % 128 else 128  # the plain form's chunk must divide S
+    counts = ops.launch_counts()
+    leaves = [t.detach().requires_grad_(True) for t in (x, a, b, c)]
+    y = ops.ssd_scan(*leaves, chunk=chunk)
+    grads = torch.autograd.grad(y, leaves, dy)
+    after = ops.launch_counts()
+    assert after["ssd_scan"] == counts["ssd_scan"] + 1
+    assert after["ssd_scan_bwd"] == counts["ssd_scan_bwd"] + 1
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    _close_to_scale(y, ref.ssd_scan_chunked(x, a, b, c, chunk=chunk), *SSD_TOL, "y")
+    want = ref.ssd_scan_bwd(x, a, b, c, dy, chunk=chunk)
+    for name, got, w in zip(("dx", "da", "db", "dc"), grads, want):
+        assert got.shape == w.shape
+        _close_to_scale(got, w, *SSD_TOL, name)
+
+
+def test_ssd_scan_reads_strided_views_and_is_deterministic(cuda):
+    """b and c as slices of one (B, S, H*P + 2N) tensor, x a view of it:
+    read through their strides, the same bits as contiguous copies, and
+    each kernel twice gives the same bits."""
+    B, S, H, P, N = 2, 320, 4, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    packed = torch.randn(B, S, H * P + 2 * N, generator=gen, device=cuda)
+    x = packed[..., : H * P].unflatten(-1, (H, P))
+    b, c = packed[..., H * P : H * P + N], packed[..., H * P + N :]
+    a = -torch.rand(B, S, 2 * H, generator=gen, device=cuda)[..., ::2]
+    dy = torch.randn(B, S, H, P, generator=gen, device=cuda)
+    y, states = pssd.ssd_scan_cuda(x, a, b, c, keep_states=True)
+    y2, states2 = pssd.ssd_scan_cuda(*(t.contiguous() for t in (x, a, b, c)), keep_states=True)
+    assert torch.equal(y, y2) and torch.equal(states, states2)
+    assert torch.equal(pssd.ssd_scan_cuda(x, a, b, c)[0], y)
+    g1 = pssd.ssd_scan_bwd_cuda(x, a, b, c, states, dy)
+    g2 = pssd.ssd_scan_bwd_cuda(x, a, b, c, states, dy)
+    for g, h in zip(g1, g2):
+        assert torch.equal(g, h)
+    _close_to_scale(y, ref.ssd_scan_chunked(x, a, b, c, chunk=64), *SSD_TOL, "y")
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(cuda):
+    x, a, b, c, _ = _ssd_inputs(cuda, 1, 128, 2, 64, 32)
+    with pytest.raises(ValueError, match="not built"):
+        pssd.ssd_scan_cuda(x[..., :48], a, b, c)
+    with pytest.raises(ValueError, match="not built"):
+        pssd.ssd_scan_cuda(x, a, b[..., :24], c[..., :24])
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_scan(x.bfloat16(), a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        pssd.ssd_scan_cuda(x, a, b.transpose(1, 2).contiguous().transpose(1, 2), c)
+    with pytest.raises(ValueError, match="divide"):
+        ops.ssd_scan(x[:, :100], a[:, :100], b[:, :100], c[:, :100], chunk=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        pssd.ssd_scan_cuda(x.cpu(), a, b, c)

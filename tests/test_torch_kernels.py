@@ -97,6 +97,15 @@ def test_cpu_tensors_take_the_plain_version():
         rtol=0,
         atol=0,
     )
+    sx = torch.from_numpy(normal(5, (2, 16, 3, 16)))
+    sa = -torch.from_numpy(normal(6, (2, 16, 3))).abs()
+    sb, sc = (torch.from_numpy(normal(seed, (2, 16, 16))) for seed in (7, 8))
+    torch.testing.assert_close(
+        ops.ssd_scan(sx, sa, sb, sc, chunk=8),
+        ref.ssd_scan_chunked(sx, sa, sb, sc, chunk=8),
+        rtol=0,
+        atol=0,
+    )
     assert ops.launch_counts() == {
         "softmax": 0,
         "row_reduce": 0,
@@ -105,6 +114,8 @@ def test_cpu_tensors_take_the_plain_version():
         "flash_decode": 0,
         "flash_attention": 0,
         "flash_attention_bwd": 0,
+        "ssd_scan": 0,
+        "ssd_scan_bwd": 0,
     }
 
 
@@ -122,7 +133,9 @@ def test_kernel_entry_points_refuse_cpu_tensors():
 def test_library_names_track_the_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     paths = {name: build._library_path(name) for name in build.SIGNATURES}
-    assert set(paths) == {"softmax", "row_reduce", "rmsnorm", "flash_decode", "flash_attention"}
+    assert set(paths) == {
+        "softmax", "row_reduce", "rmsnorm", "flash_decode", "flash_attention", "ssd_scan"
+    }
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}-")
         assert (build.CSRC / f"{name}.cu").exists()

@@ -362,7 +362,7 @@ def test_carry_takes_bf16_leaves():
     assert np.array_equal(p["embed"]["tok"].float().numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["granite-20b-smoke", "mamba2-130m-smoke",
+@pytest.mark.parametrize("arch", ["granite-20b-smoke", "zamba2-1.2b-smoke",
                                   "deepseek-moe-16b-smoke", "seamless-m4t-large-v2-smoke"])
 def test_unported_families_and_norms_raise(arch):
     with pytest.raises(CoxUnsupported, match="ROADMAP"):

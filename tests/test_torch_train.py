@@ -541,4 +541,4 @@ def test_train_refuses_what_is_not_ported():
     with pytest.raises(CoxUnsupported, match="A.8"):
         ptrain.train(ARCH, steps=1, ckpt_dir="/nonexistent", device="cpu")
     with pytest.raises(CoxUnsupported, match="A.7"):
-        ptrain.train("mamba2-130m-smoke", steps=1, batch=1, seq=32, device="cpu")
+        ptrain.train("zamba2-1.2b-smoke", steps=1, batch=1, seq=32, device="cpu")
