@@ -22,13 +22,20 @@ it:
   depth in bf16, whose decode steps launch the rmsnorm kernel;
 - ``train`` on mamba2-130m at full width and depth, bf16, batch 8 of
   4,096 tokens, 3 steps, whose steps launch the ssd_scan and rmsnorm
-  kernels and their backward kernels.
+  kernels and their backward kernels;
+- ``serve_requests`` on granite-20b (layer norms, MQA with 48 query heads
+  over 1 kv head, the gelu MLP) at full width and depth in bf16, whose
+  decode steps launch the layernorm and flash_decode kernels;
+- ``train`` on granite-20b at full width cut to 4 layers, bf16, batch 2 of
+  4,096 tokens, 3 steps, whose steps launch the flash_attention and
+  layernorm kernels and their backward kernels.
 
 Then it times the kernel wrappers' host cost, profiles a few decode steps
 and one train step of each model (device busy and idle time, kernels by
 name), and holds each serving path (full width, 2 layers, f32) and one
 train step of each (full width, 1 layer, f32) on the card against the
-same on the CPU.  Each phase prints one JSON line; the last line is
+same on the CPU.  Each model's phases free its weights before the next
+model's start.  Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and fails without one, and imports neither ``jax``
@@ -98,6 +105,15 @@ TRAIN = dict(
 CROSS_TRAIN = dict(n_layers=1, batch=1, seq=256)
 CROSS_LOSS_RTOL = 1e-4  # the loss and the grad norm, relative
 CROSS_GRAD_RTOL = 1e-3  # every gradient, relative to its largest magnitude
+# A gradient beyond CROSS_GRAD_RTOL of the CPU's is held to its own rounding
+# instead: no farther from the same step in f64 than this many times the
+# CPU's f32 step.  On an H100 (700 W) granite-20b's 1-layer step, whose
+# attention is one-hot in 96 % of its rows, lies 1.04e-3 from the CPU's
+# with the plain versions in place of every kernel (cuBLAS against the
+# CPU's GEMMs, nothing of the port's), up to 1.9x the CPU's distance from
+# f64 on any leaf above 1e-5 of its scale; with the kernels, 2.0x
+# (scripts/grad_rounding.py measures both).
+CROSS_ROUNDING_K = 2.5
 # the SSM family: 24 layers, d 768, 24 SSD heads of P = 64, N = 128; its
 # serve phase takes SERVE's requests at full width and depth, and its
 # train phase runs train() at full width and depth, cut from the
@@ -110,15 +126,38 @@ SSM_TRAIN = dict(
     seed=0,
     cuts="from train_4k: batch 256 -> 8; seq 4,096, widths and depth kept",
 )
+# granite-20b: 52 layers, d 6,144, 48 query heads over 1 kv head of 128,
+# gelu MLP of 24,576, vocabulary 49,152, layer norms with biases; its serve
+# phase takes SERVE's requests at full width and depth, and its train
+# phase runs train() at full width cut as the qwen train phase is
+GRANITE_ARCH = "granite-20b"
+GRANITE_D_MODEL = 6144
+GRANITE_HEADS, GRANITE_KV = 48, 1
+GRANITE_TRAIN = dict(
+    n_layers=4,
+    batch=2,
+    seq=4096,
+    steps=3,
+    seed=0,
+    cuts="from train_4k: layers 52 -> 4, batch 256 -> 2; seq 4,096 and widths kept",
+)
+# a phase's name: the model's prefix and the phase, e.g. granite_serve
+PHASE_PREFIX = {ARCH: "", SSM_ARCH: "ssm_", GRANITE_ARCH: "granite_"}
 
 
 T_START = time.perf_counter()
 
 
 def phase_name(cfg, base: str) -> str:
-    """A phase's name in the output: ``base``, with ``ssm_`` before it for
-    the SSM family."""
-    return ("ssm_" if cfg.family == "ssm" else "") + base
+    """A phase's name in the output: ``base``, after its model's prefix
+    (none for qwen2.5-14b, ``ssm_`` for mamba2-130m, ``granite_`` for
+    granite-20b; a smoke twin takes its model's)."""
+    return PHASE_PREFIX[cfg.name.removesuffix("-smoke")] + base
+
+
+def norm_kernel(cfg) -> str:
+    """The kernel of a model's norms: layernorm for ``norm="ln"``."""
+    return "layernorm" if cfg.norm == "ln" else "rmsnorm"
 
 
 def emit(record: dict) -> None:
@@ -525,14 +564,18 @@ RMS_CASES = [
     ((SERVE["batch"], SSM_D_MODEL), torch.bfloat16, torch.float32),
 ]
 RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
-# flash_decode: (B, S, kv_len per row, dtype); the headline is one layer
-# of decode_32k's context, then ragged lengths (1 and past S), the serve
-# phase's shape, and f32
+# flash_decode: (B, S, kv_len per row, dtype, query heads, kv heads); the
+# headline is one layer of decode_32k's context, then ragged lengths (1
+# and past S), the serve phase's shape, and f32, at qwen2.5-14b's 40/8
+# heads; then granite-20b's MQA (48 heads over 1, g = 48) at the serve
+# phase's shape and in f32
 DECODE_CASES = [
-    (8, 32768, [32768] * 8, torch.bfloat16),
-    (4, 4096, [1, 1000, 4096, 5000], torch.bfloat16),
-    (SERVE["batch"], SERVE["ctx"], [300, 400, 500, 512], torch.bfloat16),
-    (2, 2048, [2048, 77], torch.float32),
+    (8, 32768, [32768] * 8, torch.bfloat16, N_HEADS, N_KV),
+    (4, 4096, [1, 1000, 4096, 5000], torch.bfloat16, N_HEADS, N_KV),
+    (SERVE["batch"], SERVE["ctx"], [300, 400, 500, 512], torch.bfloat16, N_HEADS, N_KV),
+    (2, 2048, [2048, 77], torch.float32, N_HEADS, N_KV),
+    (SERVE["batch"], SERVE["ctx"], [300, 400, 500, 512], torch.bfloat16, 48, 1),
+    (2, 2048, [2048, 77], torch.float32, 48, 1),
 ]
 DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-6)}
 
@@ -574,17 +617,18 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * x.numel())
         emit(rec)
         headline.setdefault("rmsnorm", rec)
-    for B, S, kv_len, dtype in DECODE_CASES:
-        q = torch.randn(B, N_HEADS, D_HEAD, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(B, S, N_KV, D_HEAD, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(B, S, N_KV, D_HEAD, generator=gen, device="cuda").to(dtype)
+    for B, S, kv_len, dtype, H, Hkv in DECODE_CASES:
+        q = torch.randn(B, H, D_HEAD, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, S, Hkv, D_HEAD, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, S, Hkv, D_HEAD, generator=gen, device="cuda").to(dtype)
         lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         got = fa.flash_decode_cuda(q, k, v, lens)
         want = ref.decode_attention(q, k, v, lens)
         torch.cuda.synchronize()
         rtol, atol = DECODE_TOL[dtype]
         err = max_err(got, want)
-        check(close(got, want, rtol, atol), f"flash_decode B={B} S={S} {dtype}: err {err}")
+        what = f"flash_decode B={B} S={S} H={H}/{Hkv} {dtype}"
+        check(close(got, want, rtol, atol), f"{what}: err {err}")
         # the library call: SDPA on a (B, H, 1, D) query, the caches as
         # (B, Hkv, S, D) views, a boolean mask where a row is ragged
         q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
@@ -600,7 +644,7 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
         rec = {
             "phase": "kernel",
             "name": "flash_decode",
-            "shape": [B, S, N_HEADS, N_KV, D_HEAD],
+            "shape": [B, S, H, Hkv, D_HEAD],
             "kv_len": kv_len,
             "dtype": _dtype_name(dtype),
             "rtol": rtol,
@@ -612,9 +656,9 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
         }
         # the bytes this run's data needs: the valid rows of K and V
         rows = sum(min(n, S) for n in kv_len)
-        kv_bytes = 2 * rows * N_KV * D_HEAD * k.element_size()
+        kv_bytes = 2 * rows * Hkv * D_HEAD * k.element_size()
         nbytes = kv_bytes + 2 * q.numel() * q.element_size() + lens.numel() * 4
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * rows * N_HEADS * D_HEAD)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * rows * H * D_HEAD)
         emit(rec)
         headline.setdefault("flash_decode", rec)
         del q, k, v, q4, k4, v4, got, want
@@ -659,9 +703,10 @@ def phase_serve(cpu_tokens: int, arch: str = ARCH) -> dict:
     check(out["completed"] == SERVE["n_requests"], f"served {out['completed']} requests")
     check(out["tokens"] == cpu_tokens, f"served {out['tokens']} tokens, CPU {cpu_tokens}")
     steps = out["steps"]
-    per_step = {n: (after[n] - before[n]) / steps for n in ("rmsnorm", "flash_decode")}
+    norm = norm_kernel(cfg)
+    per_step = {n: (after[n] - before[n]) / steps for n in (norm, "flash_decode")}
     # an SSM layer's two norms (ln1, the inner norm) as a dense layer's
-    check(per_step["rmsnorm"] == 2 * cfg.n_layers + 1, f"rmsnorm launches {per_step}")
+    check(per_step[norm] == 2 * cfg.n_layers + 1, f"{norm} launches {per_step}")
     attn_layers = cfg.n_layers if cfg.family == "dense" else 0
     check(per_step["flash_decode"] == attn_layers, f"flash_decode launches {per_step}")
     weight_bytes = cfg.param_count() * 2
@@ -774,12 +819,16 @@ def phase_serve_profile(arch: str = ARCH) -> None:
 def _randomise_zero_inits(params, gen) -> None:
     """Biases, A_log and dt_bias start at zero, norm weights and D at one:
     draw them so the cross-check runs their paths (A = -exp(A_log) stays
-    negative)."""
+    negative).  The QKV biases and the norm biases are drawn where the
+    model has them."""
     layers = params["layers"]
     draws = [(params, "final_norm", 1.0), (layers, "ln1", 1.0)]
+    draws += [(t, n, 0.0) for t, n in ((params, "final_norm_b"), (layers, "ln1_b")) if n in t]
     if "attn" in layers:
-        draws += [(layers["attn"], name, 0.0) for name in ("bq", "bk", "bv")]
+        attn = layers["attn"]
+        draws += [(attn, name, 0.0) for name in ("bq", "bk", "bv") if name in attn]
         draws.append((layers, "ln2", 1.0))
+        draws += [(layers, "ln2_b", 0.0)] if "ln2_b" in layers else []
     else:
         m = layers["mamba"]
         draws += [(m, "A_log", 0.0), (m, "dt_bias", 0.0), (m, "D", 1.0), (m, "norm", 1.0)]
@@ -830,12 +879,11 @@ def phase_cross_check(arch: str = ARCH) -> None:
         check(rel <= CROSS_RTOL, f"cross-check step {step}: logits rel err {rel}")
         check(torch.equal(got.argmax(-1), want.argmax(-1)), f"cross-check step {step}: tokens")
     counts = ops.launch_counts()
-    launched = {n: counts[n] - counts0[n] for n in ("rmsnorm", "flash_decode")}
-    if cfg.family == "dense":
-        check(launched["flash_decode"] == CROSS_STEPS * CROSS_LAYERS, f"launches {launched}")
-    else:
-        want_norms = CROSS_STEPS * (2 * CROSS_LAYERS + 1)
-        check(launched["rmsnorm"] == want_norms, f"launches {launched}")
+    norm = norm_kernel(cfg)
+    launched = {n: counts[n] - counts0[n] for n in (norm, "flash_decode")}
+    want_decode = CROSS_STEPS * CROSS_LAYERS if cfg.family == "dense" else 0
+    check(launched["flash_decode"] == want_decode, f"launches {launched}")
+    check(launched[norm] == CROSS_STEPS * (2 * CROSS_LAYERS + 1), f"launches {launched}")
     cache_rel = {}
     for leaf in cache_cpu:
         want = cache_cpu[leaf]
@@ -866,12 +914,17 @@ def phase_cross_check(arch: str = ARCH) -> None:
 # ---------------------------------------------------------------------------
 
 # flash attention: (B, S, H, Hkv, D, causal, window, dtype).  The headline
-# is one layer of the train phase in bf16; then the same in f32, the
-# reference sweeps (tests/test_kernels.py) causal and not and its windowed
-# case, in f32 and bf16.
+# is one layer of the train phase in bf16; then the same in f32, one layer
+# of the granite train phase (MQA: 48 query heads over 1 kv head) in bf16
+# and f32, the reference sweeps (tests/test_kernels.py) causal and not and
+# its windowed case, in f32 and bf16.
 TRAIN_SHAPE = (TRAIN["batch"], TRAIN["seq"], N_HEADS, N_KV, D_HEAD)
+GRANITE_TRAIN_SHAPE = (
+    GRANITE_TRAIN["batch"], GRANITE_TRAIN["seq"], GRANITE_HEADS, GRANITE_KV, D_HEAD
+)
 TRAIN_ATTN_CASES = (
     [(*TRAIN_SHAPE, True, 0, torch.bfloat16), (*TRAIN_SHAPE, True, 0, torch.float32)]
+    + [(*GRANITE_TRAIN_SHAPE, True, 0, dtype) for dtype in (torch.bfloat16, torch.float32)]
     + [
         (1, S, H, Hkv, D, causal, 0, dtype)
         for S, H, Hkv, D in ((256, 4, 4, 64), (256, 8, 2, 64), (128, 4, 1, 128))
@@ -1066,6 +1119,106 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
     return headline
 
 
+# layernorm: (shape, x dtype, w and b dtype).  The headline is the granite
+# train phase's (B x S, d_model) in bf16 with f32 w and b; then the
+# serving shape (the serve phase's decode batch), f32, a bf16 case at four
+# times the rows, and a ragged unaligned width.  The backward: the train
+# shape in bf16 and f32, the larger bf16 case, the ragged width.
+LN_TOKENS = GRANITE_TRAIN["batch"] * GRANITE_TRAIN["seq"]
+LN_CASES = [
+    ((LN_TOKENS, GRANITE_D_MODEL), torch.bfloat16, torch.float32),
+    ((SERVE["batch"], GRANITE_D_MODEL), torch.bfloat16, torch.float32),
+    ((LN_TOKENS, GRANITE_D_MODEL), torch.float32, torch.float32),
+    ((4 * LN_TOKENS, GRANITE_D_MODEL), torch.bfloat16, torch.float32),
+    ((3, 1001), torch.float32, torch.float32),
+]
+LN_BWD_CASES = [c for c in LN_CASES if c[0][0] != SERVE["batch"]]
+
+
+def phase_ln_kernels(gen: torch.Generator) -> dict:
+    """layernorm and layernorm_bwd against their plain versions (autograd
+    through it for the backward), with F.layer_norm's forward and its
+    backward alone beside them; the first case of each is its headline.
+    Tolerances: rmsnorm's (RMS_TOL) forward, rmsnorm_bwd's (TRAIN_TOL)
+    backward: the sums run in other orders."""
+    headline = {}
+    F = torch.nn.functional
+    for shape, dtype, wdtype in LN_CASES:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
+        b = (0.3 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
+        got = norms.layernorm_cuda(x, w, b)
+        want = ref.layernorm(x, w, b)
+        torch.cuda.synchronize()
+        rtol, atol = RMS_TOL[dtype]
+        err = max_err(got, want)
+        check(close(got, want, rtol, atol), f"layernorm {shape} {dtype}: err {err}")
+        w_lib, b_lib = w.to(dtype), b.to(dtype)  # F.layer_norm: w and b in x's dtype
+        rec = {
+            "phase": "kernel",
+            "name": "layernorm",
+            "shape": list(shape),
+            "dtype": _dtype_name(dtype),
+            "w_dtype": _dtype_name(wdtype),
+            "rtol": rtol,
+            "atol": atol,
+            "max_abs_err": err,
+            "ms": median_ms(lambda: norms.layernorm_cuda(x, w, b)),
+            "plain_ms": median_ms(lambda: ref.layernorm(x, w, b)),
+            "library_ms": median_ms(
+                lambda: F.layer_norm(x, (shape[-1],), w_lib, b_lib, eps=1e-6)
+            ),
+        }
+        # x read, y written; w and b read
+        nbytes = 2 * x.numel() * x.element_size() + 2 * w.numel() * w.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 8 * x.numel())
+        emit(rec)
+        headline.setdefault("layernorm", rec)
+        del x, got, want
+        torch.cuda.empty_cache()
+    for shape, dtype, wdtype in LN_BWD_CASES:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
+        b = (0.3 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        grads = norms.layernorm_bwd_cuda(x, w, dy)
+        want = ref.layernorm_bwd(x.float(), w.float(), b.float(), dy.float())
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for name, got, wt, tdtype in zip(("dx", "dw", "db"), grads, want, (dtype, wdtype, wdtype)):
+            errs[name], ok_one = scaled_err(got, wt, *TRAIN_TOL[tdtype])
+            ok = ok and ok_one
+        check(ok, f"layernorm_bwd {shape} {dtype}: errs {errs}")
+        del grads, want
+        leaves = [t.detach().requires_grad_(True) for t in (x, w.to(dtype), b.to(dtype))]
+        y = F.layer_norm(leaves[0], (shape[-1],), leaves[1], leaves[2], eps=1e-6)
+        rec = {
+            "phase": "kernel",
+            "name": "layernorm_bwd",
+            "shape": list(shape),
+            "dtype": _dtype_name(dtype),
+            "w_dtype": _dtype_name(wdtype),
+            "rtol": TRAIN_TOL[dtype][0],
+            "atol_of_max": TRAIN_TOL[dtype][1],
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_grad": errs,
+            "ms": median_ms(lambda: norms.layernorm_bwd_cuda(x, w, dy)),
+            "plain_ms": median_ms(lambda: ref.layernorm_bwd(x, w, b, dy)),
+            "library_ms": median_ms(
+                lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+            ),
+            "library": "F.layer_norm backward alone",
+        }
+        # x and dy read, dx written; w read, dw and db written
+        nbytes = 3 * x.numel() * x.element_size() + 3 * w.numel() * w.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 16 * x.numel())
+        emit(rec)
+        headline.setdefault("layernorm_bwd", rec)
+        del x, dy, leaves, y
+        torch.cuda.empty_cache()
+    return headline
+
+
 # the SSD scan: (B, S, H, P, N), f32.  The headline is one layer of the SSM
 # train phase; then a reference sweep (tests/test_kernels.py).
 SSD_CASES = [
@@ -1168,10 +1321,10 @@ def phase_ssd_kernels(gen: torch.Generator) -> dict:
     return headline
 
 
-def _train_cfg():
-    """qwen2.5-14b at full width, depth cut to TRAIN's layers; bf16 and
+def _train_cfg(arch: str = ARCH, run: dict = TRAIN):
+    """A dense model at full width, depth cut to the run's layers; bf16 and
     full remat, the config's own."""
-    return dataclasses.replace(registry.get(ARCH), n_layers=TRAIN["n_layers"])
+    return dataclasses.replace(registry.get(arch), n_layers=run["n_layers"])
 
 
 def train_model_flops(cfg, run: dict = TRAIN) -> float:
@@ -1246,8 +1399,8 @@ def _kernel_kind(name: str) -> str:
         return "attention kernels"
     if "ssd_" in name or "head_sum_kernel" in name:
         return "ssd kernels"
-    if "rmsnorm" in name or "dw_reduce" in name:
-        return "rmsnorm kernels"
+    if any(s in name for s in ("norm_kernel", "norm_bwd_kernel", "partial_reduce_kernel")):
+        return "norm kernels"
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
         return "GEMMs"
     return "other (elementwise, reductions, copies, cross_entropy)"
@@ -1330,12 +1483,27 @@ def phase_train_profile(cfg=None, run: dict = TRAIN) -> None:
     torch.cuda.empty_cache()
 
 
+def _leaf_errors(got_tree, want_tree, prefix: str = "") -> dict:
+    """Each leaf's largest gap, over the largest magnitude of want's leaf,
+    by its dotted path."""
+    if not isinstance(want_tree, dict):
+        gap = (got_tree.cpu() - want_tree).abs().max() / want_tree.abs().max()
+        return {prefix: float(gap)}
+    out = {}
+    for k in sorted(want_tree):
+        out.update(_leaf_errors(got_tree[k], want_tree[k], f"{prefix}.{k}" if prefix else k))
+    return out
+
+
 def phase_train_cross_check(arch: str = ARCH) -> None:
     """One train step on the card (the CUDA kernels) against the same step
     on the CPU (their plain versions), same weights and batch: the model
     at full width, 1 layer, f32, batch 1 of 256 tokens, TF32 off.  The
     step is the train step's two parts, ``steps.loss_and_grads`` then
-    ``adamw.update``, so the gradients can be held too."""
+    ``adamw.update``, so the gradients can be held too: each gradient and
+    each updated parameter within CROSS_GRAD_RTOL of its largest
+    magnitude, or a gradient beyond that within CROSS_ROUNDING_K times
+    the CPU's own distance from the same step in f64."""
     check(
         not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
         "TF32 is on",
@@ -1358,8 +1526,19 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     loss_c, grads_c = steps.loss_and_grads(cfg, cpu, batch)
-    cpu, _, met_c = adamw.update(grads_c, adamw.init_state(cpu, opt_cfg), cpu, opt_cfg)
     cpu_s = time.perf_counter() - t0
+    grad_err = _leaf_errors(grads_d, grads_c)
+    rounding = {}  # leaf -> (the card's, the CPU's distance from f64)
+    over = [leaf for leaf, err in grad_err.items() if err > CROSS_GRAD_RTOL]
+    if over:
+        cfg64 = dataclasses.replace(cfg, param_dtype=torch.float64)
+        _, grads_64 = steps.loss_and_grads(cfg64, tree_map(lambda t: t.double(), cpu), batch)
+        card64, cpu64 = _leaf_errors(grads_d, grads_64), _leaf_errors(grads_c, grads_64)
+        rounding = {leaf: (card64[leaf], cpu64[leaf]) for leaf in over}
+        del grads_64
+    t0 = time.perf_counter()
+    cpu, _, met_c = adamw.update(grads_c, adamw.init_state(cpu, opt_cfg), cpu, opt_cfg)
+    cpu_s += time.perf_counter() - t0
     launched = {n: counts[n] - counts0[n] for n in counts}
     for kernel in PATH_KERNELS[phase_name(cfg, "train")]:
         check(launched[kernel] > 0, f"{name}: {kernel} not launched ({launched})")
@@ -1368,15 +1547,15 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
     gn_d, gn_c = float(met_d["grad_norm"]), float(met_c["grad_norm"])
     gn_rel = abs(gn_d - gn_c) / gn_c
     check(gn_rel <= CROSS_LOSS_RTOL, f"{name}: grad norm rel err {gn_rel}")
-    worst_grad = worst_param = 0.0
-    for got, want in zip(tree_leaves(grads_d), tree_leaves(grads_c)):
-        rel = float((got.cpu() - want).abs().max() / want.abs().max())
-        worst_grad = max(worst_grad, rel)
-    check(worst_grad <= CROSS_GRAD_RTOL, f"{name}: gradient rel err {worst_grad}")
-    for got, want in zip(tree_leaves(card), tree_leaves(cpu)):
-        rel = float((got.cpu() - want).abs().max() / want.abs().max())
-        worst_param = max(worst_param, rel)
-    check(worst_param <= CROSS_GRAD_RTOL, f"{name}: parameter rel err {worst_param}")
+    for leaf, (card_gap, cpu_gap) in rounding.items():
+        check(
+            card_gap <= CROSS_ROUNDING_K * cpu_gap,
+            f"{name}: {leaf} gradient rel err {grad_err[leaf]}; from f64 card {card_gap}, "
+            f"cpu {cpu_gap}",
+        )
+    param_err = _leaf_errors(card, cpu)
+    worst_grad, worst_param = max(grad_err.values()), max(param_err.values())
+    check(worst_param <= CROSS_GRAD_RTOL, f"{name}: parameter rel errs {param_err}")
     emit(
         {
             "phase": name,
@@ -1391,6 +1570,11 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
             "loss_rel_err": loss_rel,
             "grad_norm_rel_err": gn_rel,
             "grad_max_rel_err": worst_grad,
+            "grad_worst_leaf": max(grad_err, key=grad_err.get),
+            "grad_held_to_rounding": {
+                leaf: {"card_from_f64": c, "cpu_from_f64": p, "k": CROSS_ROUNDING_K}
+                for leaf, (c, p) in rounding.items()
+            },
             "param_max_rel_err": worst_param,
             "launches": launched,
             "card_s": card_s,
@@ -1596,16 +1780,20 @@ KERNEL_META = {
         "src/repro/kernels/flash_attention.py:26",
     ),
     "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/norms.py:19"),
+    "layernorm": ("src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/norms.py:44"),
+    "layernorm_bwd": ("src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/norms.py:44"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:28"),
     "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:28"),
 }
-GRADIENTS = ("flash_attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd")
+GRADIENTS = ("flash_attention_bwd", "rmsnorm_bwd", "layernorm_bwd", "ssd_scan_bwd")
 # the kernels each main path must launch
 PATH_KERNELS = {
     "cox_serve": ("softmax", "row_reduce", "rmsnorm", "flash_decode"),
     "train": ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"),
     "ssm_serve": ("rmsnorm",),
     "ssm_train": ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd"),
+    "granite_serve": ("layernorm", "flash_decode"),
+    "granite_train": ("layernorm", "layernorm_bwd", "flash_attention", "flash_attention_bwd"),
 }
 
 
@@ -1629,12 +1817,14 @@ def main() -> int:
     headline.update(phase_serving_kernels(gen))
     headline.update(phase_train_kernels(gen))
     headline.update(phase_ssd_kernels(gen))
+    headline.update(phase_ln_kernels(gen))
     cpu_tokens = cpu_token_count()
     ssm_cpu_tokens = cpu_token_count(SSM_ARCH)
+    granite_cpu_tokens = cpu_token_count(GRANITE_ARCH)
 
     # the main paths, each counted alone: COX launches, the three-way
     # checks and the serve phase; the train phase; the SSM serve phase;
-    # the SSM train phase
+    # the SSM train phase; the granite serve phase; the granite train phase
     ops.reset_launch_counts()
     phase_cox(rng)
     phase_three_way(gen)
@@ -1650,12 +1840,21 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_train(ssm_cfg, SSM_TRAIN)
     paths["ssm_train"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    phase_serve(granite_cpu_tokens, GRANITE_ARCH)
+    paths["granite_serve"] = ops.launch_counts()
+    granite_cfg = _train_cfg(GRANITE_ARCH, GRANITE_TRAIN)
+    ops.reset_launch_counts()
+    phase_train(granite_cfg, GRANITE_TRAIN)
+    paths["granite_train"] = ops.launch_counts()
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()
     phase_train_profile()
     phase_serve_profile(SSM_ARCH)
     phase_train_profile(ssm_cfg, SSM_TRAIN)
+    phase_serve_profile(GRANITE_ARCH)
+    phase_train_profile(granite_cfg, GRANITE_TRAIN)
     # the f32 cross-checks run in full f32: TF32 off for matmuls (PyTorch's
     # default) and for cuDNN (on by default), stated in their lines
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1664,6 +1863,8 @@ def main() -> int:
     phase_train_cross_check()
     phase_cross_check(SSM_ARCH)
     phase_train_cross_check(SSM_ARCH)
+    phase_cross_check(GRANITE_ARCH)
+    phase_train_cross_check(GRANITE_ARCH)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")

@@ -1,0 +1,38 @@
+// Layer norm over the last axis, y = (x - mean) * rsqrt(var + eps) * w + b,
+// and its gradient: norm.cuh's kernels with LN = true (the variance in
+// two passes, the bias, and db beside dw).
+//
+// Replaces the TPU kernel src/repro/kernels/norms.py::_layernorm_kernel
+// (pallas_call in layernorm); the gradient has no TPU kernel.  The design,
+// the semantics and the bound are norm.cuh's.
+#include "norm.cuh"
+
+// Each entry point returns cudaGetLastError() after its launches (0 on
+// success), or cudaErrorInvalidValue for an argument the kernels do not
+// take.  w and b have the dtype wdtype.
+
+extern "C" int cox_layernorm(const void* x, const void* w, const void* b, void* y,
+                             long long rows, long long cols, float eps, int dtype,
+                             int wdtype, void* stream) {
+  if (!fwd_ok(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_types(dtype, wdtype, [&](auto t, auto wt) {
+    return fwd<true, decltype(t), decltype(wt)>(x, w, b, y, rows, cols, eps, s);
+  });
+}
+
+// The gradient of cox_layernorm: dx (rows, cols) in x's dtype, dw and db
+// (cols) in w's, from x, w and dy (b does not enter it).  part is f32
+// scratch of nblk * 2 * cols values.
+extern "C" int cox_layernorm_bwd(const void* x, const void* w, const void* dy, void* dx,
+                                 void* dw, void* db, void* part, int nblk, long long rows,
+                                 long long cols, float eps, int dtype, int wdtype,
+                                 void* stream) {
+  if (!bwd_ok(2, nblk, rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
+  float* p = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_types(dtype, wdtype, [&](auto t, auto wt) {
+    return bwd<true, decltype(t), decltype(wt)>(x, w, dy, dx, dw, db, p, nblk, rows, cols,
+                                                eps, s);
+  });
+}

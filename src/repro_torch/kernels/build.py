@@ -45,6 +45,13 @@ SIGNATURES = {
         # x dtype, w dtype, stream
         "cox_rmsnorm_bwd": [_VP] * 6 + [_INT, _LL, _LL, _F32, _INT, _INT, _VP],
     },
+    "layernorm": {
+        # x, w, b, y, rows, cols, eps, x dtype, w and b dtype, stream
+        "cox_layernorm": [_VP] * 4 + [_LL, _LL, _F32, _INT, _INT, _VP],
+        # x, w, dy, dx, dw, db, partial dw/db scratch, blocks, rows, cols,
+        # eps, x dtype, w dtype, stream
+        "cox_layernorm_bwd": [_VP] * 7 + [_INT, _LL, _LL, _F32, _INT, _INT, _VP],
+    },
     # q, k, v, kv_len, out, split scratch, nsplit, B, H, Hkv, S, D,
     # k strides (b, s, h), v strides (b, s, h), dtype, stream
     "flash_decode": {

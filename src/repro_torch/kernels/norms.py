@@ -1,13 +1,16 @@
-"""RMS norm: the CUDA kernels of ``csrc/rmsnorm.cu`` and their wrappers.
+"""RMS norm and layer norm: the CUDA kernels of ``csrc/rmsnorm.cu`` and
+``csrc/layernorm.cu`` (one templated kernel, ``csrc/norm.cuh``) and their
+wrappers.
 
-The forward replaces the TPU kernel
-``src/repro/kernels/norms.py::_rmsnorm_kernel``; the backward
-(``cox_rmsnorm_bwd``) is its gradient, which has no TPU kernel.  A CUDA
-tensor launches the kernels, through :class:`RMSNormFn` where autograd
-records the call; a CPU tensor takes the plain version (``ref.rmsnorm``),
-whose gradient is autograd's.  ``launches`` and ``bwd_launches`` count
-the launches of each kernel, and only those.  The reference's
-``layernorm`` kernel is not ported yet (ROADMAP B.4).
+The forwards replace the TPU kernels
+``src/repro/kernels/norms.py::_rmsnorm_kernel`` and ``_layernorm_kernel``;
+the backwards (``cox_rmsnorm_bwd``, ``cox_layernorm_bwd``) are their
+gradients, which have no TPU kernel.  A CUDA tensor launches the kernels,
+through :class:`RMSNormFn` or :class:`LayerNormFn` where autograd records
+the call; a CPU tensor takes the plain version (``ref.rmsnorm``,
+``ref.layernorm``), whose gradient is autograd's.  ``launches`` and
+``bwd_launches`` count the rmsnorm kernels' launches, ``ln_launches``
+and ``ln_bwd_launches`` the layernorm kernels', and only those.
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ import torch
 from . import build, ref
 from .common import check_cuda_input, sm_count, stream_of
 
-launches = bwd_launches = 0
+launches = bwd_launches = ln_launches = ln_bwd_launches = 0
 
-BWD_BLOCKS_PER_SM = 4  # the backward's row ranges: about this many blocks per SM
-MAX_BWD_COLS = 56 * 1024  # its partial dw row lives in a block's shared memory
+BWD_BLOCKS_PER_SM = 4  # the backwards' row ranges: about this many blocks per SM
+# the backwards' partial rows (dw, and the layer norm's db) live in a
+# block's shared memory: their widths together at most this
+MAX_BWD_COLS = 56 * 1024
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -52,33 +57,44 @@ class RMSNormFn(torch.autograd.Function):
         return dx, dw, None
 
 
+# ---------------------------------------------------------------------------
+# layer norm
+# ---------------------------------------------------------------------------
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-6):
+    """``(x - mean) * rsqrt(var + eps) * w + b`` over the last axis of ``x``
+    (any leading shape), in f32, returned in ``x.dtype``.  ``w`` and ``b``
+    have the width of that axis and share a dtype, which may differ from
+    x's (f32 beside a bf16 ``x`` on the serving and training paths)."""
+    if x.device.type == "cpu":
+        return ref.layernorm(x, w, b, eps)
+    needs_grad = x.requires_grad or w.requires_grad or b.requires_grad
+    if torch.is_grad_enabled() and needs_grad:
+        return LayerNormFn.apply(x, w, b, eps)
+    return layernorm_cuda(x, w, b, eps)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """The CUDA layernorm with its hand-written backward: dx in x's dtype,
+    dw and db in w's (f32 beside a bf16 x on the training path)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return layernorm_cuda(x, w, b, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw, db = layernorm_bwd_cuda(x, w, dy, ctx.eps)
+        return dx, dw, db, None
+
+
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     global launches
-    check_cuda_input(x, "rmsnorm x", build.DTYPE_CODES)
-    check_cuda_input(w, "rmsnorm w", build.DTYPE_CODES)
-    if x.dim() < 1 or w.dim() != 1 or w.shape[0] != x.shape[-1]:
-        raise ValueError(
-            f"rmsnorm: w {tuple(w.shape)} must match the last axis of x {tuple(x.shape)}"
-        )
-    if w.device != x.device:
-        raise ValueError(f"rmsnorm: w on {w.device}, x on {x.device}")
-    cols = x.shape[-1]
-    rows = x.numel() // cols
-    y = torch.empty_like(x)
-    fn = build.library("rmsnorm").cox_rmsnorm
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(),
-            w.data_ptr(),
-            y.data_ptr(),
-            rows,
-            cols,
-            float(eps),
-            build.DTYPE_CODES[x.dtype],
-            build.DTYPE_CODES[w.dtype],
-            stream_of(x),
-        )
-    build.check(err, "cox_rmsnorm")
+    y = _norm_cuda("rmsnorm", x, w, None, eps)
     launches += 1
     return y
 
@@ -89,32 +105,99 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: fl
     Launched on the current stream of x's device, which the autograd
     engine sets for the backward."""
     global bwd_launches
-    check_cuda_input(x, "rmsnorm_bwd x", build.DTYPE_CODES)
-    check_cuda_input(w, "rmsnorm_bwd w", build.DTYPE_CODES)
-    dy = dy.contiguous()
-    check_cuda_input(dy, "rmsnorm_bwd dy", (x.dtype,))
-    if w.dim() != 1 or w.shape[0] != x.shape[-1] or dy.shape != x.shape:
+    grads = _norm_bwd_cuda("rmsnorm_bwd", x, w, dy, eps, centred=False)
+    bwd_launches += 1
+    return grads
+
+
+def layernorm_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-6):
+    global ln_launches
+    y = _norm_cuda("layernorm", x, w, b, eps)
+    ln_launches += 1
+    return y
+
+
+def layernorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6):
+    """The backward kernels: ``(dx, dw, db)`` of ``layernorm(x, w, b, eps)``
+    for the output gradient ``dy`` (b does not enter them); dx in x's
+    dtype and shape, dw and db in w's.  Launched on the current stream of
+    x's device, which the autograd engine sets for the backward."""
+    global ln_bwd_launches
+    grads = _norm_bwd_cuda("layernorm_bwd", x, w, dy, eps, centred=True)
+    ln_bwd_launches += 1
+    return grads
+
+
+def _check_params(x: torch.Tensor, w: torch.Tensor, b, what: str) -> None:
+    check_cuda_input(x, f"{what} x", build.DTYPE_CODES)
+    check_cuda_input(w, f"{what} w", build.DTYPE_CODES)
+    if x.dim() < 1 or w.dim() != 1 or w.shape[0] != x.shape[-1] or w.device != x.device:
         raise ValueError(
-            f"rmsnorm_bwd: x {tuple(x.shape)}, w {tuple(w.shape)}, dy {tuple(dy.shape)}"
+            f"{what}: w {tuple(w.shape)} on {w.device} must match the last axis of "
+            f"x {tuple(x.shape)} on {x.device}"
         )
-    if w.device != x.device or dy.device != x.device:
-        raise ValueError(f"rmsnorm_bwd: x on {x.device}, w on {w.device}, dy on {dy.device}")
+    if b is not None:
+        check_cuda_input(b, f"{what} b", (w.dtype,))
+        if b.shape != w.shape or b.device != w.device:
+            raise ValueError(f"{what}: b {tuple(b.shape)} on {b.device}, w {tuple(w.shape)}")
+
+
+def _norm_cuda(what: str, x, w, b, eps: float) -> torch.Tensor:
+    """cox_rmsnorm (b None) or cox_layernorm."""
+    _check_params(x, w, b, what)
+    cols = x.shape[-1]
+    y = torch.empty_like(x)
+    if b is None:
+        fn, bias = build.library("rmsnorm").cox_rmsnorm, ()
+    else:
+        fn, bias = build.library("layernorm").cox_layernorm, (b.data_ptr(),)
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(),
+            w.data_ptr(),
+            *bias,
+            y.data_ptr(),
+            x.numel() // cols,
+            cols,
+            float(eps),
+            build.DTYPE_CODES[x.dtype],
+            build.DTYPE_CODES[w.dtype],
+            stream_of(x),
+        )
+    build.check(err, f"cox_{what}")
+    return y
+
+
+def _norm_bwd_cuda(what: str, x, w, dy, eps: float, *, centred: bool) -> tuple:
+    """cox_rmsnorm_bwd, or with ``centred`` cox_layernorm_bwd: ``(dx, dw)``
+    or ``(dx, dw, db)``."""
+    _check_params(x, w, None, what)
+    dy = dy.contiguous()
+    check_cuda_input(dy, f"{what} dy", (x.dtype,))
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(
+            f"{what}: x {tuple(x.shape)} on {x.device}, dy {tuple(dy.shape)} on {dy.device}"
+        )
+    nr = 2 if centred else 1  # partial rows: dw, and db
     cols = x.shape[-1]
     rows = x.numel() // cols
-    if cols > MAX_BWD_COLS:
-        raise ValueError(f"rmsnorm_bwd: width {cols} > {MAX_BWD_COLS}")
+    if nr * cols > MAX_BWD_COLS:
+        raise ValueError(f"{what}: width {cols} > {MAX_BWD_COLS // nr}")
     nblk = min(rows, BWD_BLOCKS_PER_SM * sm_count(x.device))
     dx = torch.empty_like(x)
-    dw = torch.empty_like(w)
-    part = torch.empty(nblk, cols, dtype=torch.float32, device=x.device)
-    fn = build.library("rmsnorm").cox_rmsnorm_bwd
+    dwb = [torch.empty_like(w) for _ in range(nr)]
+    part = torch.empty(nblk, nr * cols, dtype=torch.float32, device=x.device)
+    if centred:
+        fn = build.library("layernorm").cox_layernorm_bwd
+    else:
+        fn = build.library("rmsnorm").cox_rmsnorm_bwd
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(),
             w.data_ptr(),
             dy.data_ptr(),
             dx.data_ptr(),
-            dw.data_ptr(),
+            *(t.data_ptr() for t in dwb),
             part.data_ptr(),
             nblk,
             rows,
@@ -124,6 +207,5 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: fl
             build.DTYPE_CODES[w.dtype],
             stream_of(x),
         )
-    build.check(err, "cox_rmsnorm_bwd")
-    bwd_launches += 1
-    return dx, dw
+    build.check(err, f"cox_{what}")
+    return (dx, *dwb)

@@ -4,11 +4,11 @@ PyTorch version for a CPU tensor.
 The route follows the tensor's device and nothing else: there is no
 override that sends a CUDA tensor to the plain path, and no interpret
 mode (a CUDA kernel has none).  Ported: ``softmax``, ``row_reduce``,
-``rmsnorm``, ``attention``, ``decode_attention`` and ``ssd_scan``;
-``rmsnorm``, ``attention`` and ``ssd_scan`` are differentiable, with
-hand-written backward kernels on the card and autograd through the plain
-versions on the CPU.  The reference's ``layernorm`` is still to be ported
-(ROADMAP B.4).
+``rmsnorm``, ``layernorm``, ``attention``, ``decode_attention`` and
+``ssd_scan``: every kernel of the reference.  ``rmsnorm``, ``layernorm``,
+``attention`` and ``ssd_scan`` are differentiable, with hand-written
+backward kernels on the card and autograd through the plain versions on
+the CPU.
 """
 
 from __future__ import annotations
@@ -42,6 +42,10 @@ def row_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return _norms.rmsnorm(x, w, eps)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6):
+    return _norms.layernorm(x, w, bias, eps)
 
 
 def attention(
@@ -81,6 +85,8 @@ _COUNTERS = {
     "row_reduce": (_wr, "launches"),
     "rmsnorm": (_norms, "launches"),
     "rmsnorm_bwd": (_norms, "bwd_launches"),
+    "layernorm": (_norms, "ln_launches"),
+    "layernorm_bwd": (_norms, "ln_bwd_launches"),
     "flash_decode": (_fa, "decode_launches"),
     "flash_attention": (_fa, "fwd_launches"),
     "flash_attention_bwd": (_fa, "bwd_launches"),

@@ -7,9 +7,9 @@ package's own ``ref.row_reduce`` sums in the input dtype, so for bf16 its
 plain path and its Pallas kernel differ; the port follows the kernel.
 Likewise ``decode_attention`` with ``kv_len = 0`` returns zeros, as the
 Pallas kernel does, where the JAX package's plain version returns the mean
-of V.)  The gradients ``rmsnorm_bwd``, ``attention_bwd`` and
-``ssd_scan_bwd`` are autograd through the plain versions: the yardsticks
-of the backward kernels.
+of V.)  The gradients ``rmsnorm_bwd``, ``layernorm_bwd``,
+``attention_bwd`` and ``ssd_scan_bwd`` are autograd through the plain
+versions: the yardsticks of the backward kernels.
 """
 
 from __future__ import annotations
@@ -42,12 +42,33 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
 
 
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32, the reference's compute type; f64 for an f64 input, so that a
+    model run in f64 is f64 throughout (the exact anchor that f32 runs are
+    measured from)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in f32,
     returned in ``x.dtype``; ``w`` may have a dtype of its own."""
-    x32 = x.to(torch.float32)
+    x32 = x.to(compute_dtype(x))
     var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps) * w.to(x32.dtype)).to(x.dtype)
+
+
+def layernorm(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * w + b`` over the last axis, in f32,
+    returned in ``x.dtype``.  Two passes, as the reference: the mean, then
+    the mean of the centred squares.  ``w`` and ``b`` may have a dtype of
+    their own."""
+    x32 = x.to(compute_dtype(x))
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps) * w.to(x32.dtype) + b.to(x32.dtype)
+    return y.to(x.dtype)
 
 
 ATTN_Q_CHUNK = 1024  # queries per chunk: bounds the logits' working set
@@ -65,22 +86,23 @@ def attention(
     """q: (S, H, D) or (B, S, H, D); k/v: (S, Hkv, D) or (B, S, Hkv, D).
 
     GQA by head-group broadcast: query head h reads kv head ``h // (H //
-    Hkv)``.  Logits ``(q * 1/sqrt(D)) . k`` in f32; with ``causal``, keys
-    after the query (and, with ``window``, keys ``window`` or more before
-    it) are set to -1e30; the window applies only with ``causal``.  The
-    queries are processed in chunks of ``q_chunk`` (S must then divide by
-    it), so the logits' working set is (H, q_chunk, S), as the reference's
-    ``lax.map`` over chunks; unlike the reference, autograd keeps every
-    chunk's probabilities for the backward (no per-chunk remat).  Returned
-    in ``q.dtype``."""
+    Hkv)``.  Logits ``(q * 1/sqrt(D)) . k`` in f32 (f64 for f64 inputs:
+    :func:`compute_dtype`); with ``causal``, keys after the query (and,
+    with ``window``, keys ``window`` or more before it) are set to -1e30;
+    the window applies only with ``causal``.  The queries are processed in
+    chunks of ``q_chunk`` (S must then divide by it), so the logits'
+    working set is (H, q_chunk, S), as the reference's ``lax.map`` over
+    chunks; unlike the reference, autograd keeps every chunk's
+    probabilities for the backward (no per-chunk remat).  Returned in
+    ``q.dtype``."""
     S, H, D = q.shape[-3:]
     g = H // k.shape[-2]
     scale = 1.0 / (D**0.5)
-    k32 = k.to(torch.float32).repeat_interleave(g, dim=-2)
-    v32 = v.to(torch.float32).repeat_interleave(g, dim=-2)
+    k32 = k.to(compute_dtype(q)).repeat_interleave(g, dim=-2)
+    v32 = v.to(k32.dtype).repeat_interleave(g, dim=-2)
 
     def chunk(qc: torch.Tensor, q0: int) -> torch.Tensor:
-        q32 = qc.to(torch.float32) * scale
+        q32 = qc.to(k32.dtype) * scale
         logits = torch.einsum("...qhd,...khd->...hqk", q32, k32)
         if causal:
             qi = q0 + torch.arange(qc.shape[-3], device=q.device)[:, None]
@@ -113,6 +135,13 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float =
     autograd through the plain version, the yardstick of the backward
     kernel."""
     return _grads(lambda a, b: rmsnorm(a, b, eps), (x, w), dy)
+
+
+def layernorm_bwd(x, w, b, dy, eps: float = 1e-6):
+    """``(dx, dw, db)`` of :func:`layernorm` for the output gradient ``dy``:
+    autograd through the plain version, the yardstick of the backward
+    kernel."""
+    return _grads(lambda a, c, d: layernorm(a, c, d, eps), (x, w, b), dy)
 
 
 def attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0):

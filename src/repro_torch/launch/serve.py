@@ -4,10 +4,11 @@
 Requests enter a fixed-size batch of decode slots; a finished sequence
 frees its slot for the next queued request (continuous batching).  Every
 step, prefill included, is the same decode step on the whole batch, so on
-a CUDA device each step of a dense model launches the hand-written
-``rmsnorm`` and ``flash_decode`` kernels (2 x n_layers + 1 and n_layers
-times), and each step of an SSM model (mamba2) the ``rmsnorm`` kernel 2 x
-n_layers + 1 times (its recurrent step has no kernel of its own).  As in
+a CUDA device each step of a dense model launches the hand-written norm
+kernel (``rmsnorm``, or ``layernorm`` for granite's ``norm="ln"``) and
+``flash_decode`` (2 x n_layers + 1 and n_layers times), and each step of
+an SSM model (mamba2) the norm kernel 2 x n_layers + 1 times (its
+recurrent step has no kernel of its own).  As in
 the reference, a reused slot's SSM state is not reset: the next request
 starts from the previous one's state (ROADMAP C).
 

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..core.types import CoxUnsupported
 from ..kernels import ops
-from ..kernels.ref import NEG_INF
+from ..kernels.ref import NEG_INF, compute_dtype
 from .params import ParamSpec
 
 
@@ -40,16 +40,17 @@ def round_up(a: int, b: int) -> int:
 def rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0):
     """x: (..., S, H, D) or (..., H, D) with positions broadcastable.
 
-    Angles in f32, result cast back to ``x.dtype``; base 10000 whatever the
-    model, as in the reference."""
+    Angles in f32 (f64 for an f64 ``x``), result cast back to ``x.dtype``;
+    base 10000 whatever the model, as in the reference."""
     D = x.shape[-1]
     half = D // 2
     # log(base) rounded to f32 as a Python number: a tensor made on the host
     # and copied to the card would block the host on every call
     neg_log_base = -float(np.float32(math.log(base)))
-    idx = torch.arange(half, dtype=torch.float32, device=x.device)
+    ct = compute_dtype(x)
+    idx = torch.arange(half, dtype=ct, device=x.device)
     freqs = torch.exp(neg_log_base * idx / half)
-    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    ang = positions[..., None].to(ct) * freqs  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -67,12 +68,11 @@ def norm_spec(cfg) -> ParamSpec:
 
 
 def apply_norm(w, x, kind: str = "rms", b=None):
+    """``kind="rms"``: rmsnorm; anything else: layernorm with bias ``b``
+    (zeros when None), as the reference.  Both with eps 1e-6."""
     if kind == "rms":
         return ops.rmsnorm(x, w)
-    raise CoxUnsupported(
-        f"norm={kind!r} is not ported to repro_torch yet: ROADMAP queue item "
-        "B.4 (the layernorm kernel)"
-    )
+    return ops.layernorm(x, w, b if b is not None else torch.zeros_like(w))
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +312,7 @@ def unembed_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     w = p.get("unembed")
     if w is None:
         w = p["tok"].t()
-    return (x @ w).to(torch.float32)
+    return (x @ w).to(compute_dtype(x))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -163,6 +163,8 @@ def test_kernels_take_every_dtype(cuda, dtype):
         "row_reduce": 2,
         "rmsnorm": 0,
         "rmsnorm_bwd": 0,
+        "layernorm": 0,
+        "layernorm_bwd": 0,
         "flash_decode": 0,
         "flash_attention": 0,
         "flash_attention_bwd": 0,
@@ -271,6 +273,8 @@ def _decode_inputs(cuda, B, S, H, Hkv, D, dtype, seed=0):
         (2, 1000, 8, 2, 64, [1, 1000]),  # S not a multiple of the tile
         (3, 256, 4, 1, 64, [0, 300, 17]),  # kv_len 0 and past S
         (1, 128, 40, 1, 128, [128]),  # g = 40
+        # granite-20b's MQA at the serving shape: 48 query heads over 1, g = 48
+        pytest.param(4, 512, 48, 1, 128, [9, 100, 511, 512], id="mqa-serve"),
         (2, 64, 4, 4, 64, [64, 33]),  # g = 1
         (2, 96, 4, 2, 128, [5, 96]),
         (1, 200, 8, 4, 128, [150]),
@@ -376,6 +380,9 @@ ATTN_CASES = [
     (1, 128, 4, 1, 128, False, 0),
     (1, 256, 2, 2, 64, True, 64),  # the reference's windowed case
     (2, 512, 40, 8, 128, True, 0),  # a qwen2.5-14b tile: 40/8 heads of 128
+    # granite-20b's MQA: 48 query heads over 1 kv head of 128
+    pytest.param(2, 512, 48, 1, 128, True, 0, id="mqa-causal"),
+    pytest.param(1, 256, 48, 1, 128, False, 0, id="mqa-full"),
     (2, 384, 4, 2, 64, True, 100),  # a window off the tile grid
     (1, 256, 4, 2, 128, True, 1),  # window 1: the diagonal alone
     (2, 96, 4, 2, 64, True, 0),  # S below 128, not a multiple of the tile
@@ -498,8 +505,105 @@ def test_rmsnorm_backward_refuses_what_it_does_not_take(cuda):
         pnorms.rmsnorm_bwd_cuda(x, torch.ones(64, device=cuda), x.half())
 
 
+# ---------------------------------------------------------------------------
+# layer norm, forward and backward, against the plain version
+# ---------------------------------------------------------------------------
+
+LN_SHAPES = [
+    (8, 128),
+    (16, 1024),
+    (4, 6144),  # granite-20b's width, serving
+    (3, 1001),
+    (2, 3, 6000),
+    (1, 20000),
+    (600, 64),
+    (2, 300, 256),  # rows not a multiple of any tile or block count
+]
+
+
+@pytest.mark.parametrize("shape", LN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("wdtype", [torch.float32, "same"])
+def test_layernorm_kernel_matches_plain(cuda, shape, dtype, wdtype):
+    """rmsnorm's tolerances (RMS_TOL): the sums run in another order."""
+    wdtype = dtype if wdtype == "same" else wdtype
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device=cuda)).to(wdtype)
+    b = (0.3 * torch.randn(shape[-1], generator=gen, device=cuda)).to(wdtype)
+    before = ops.launch_counts()["layernorm"]
+    got = ops.layernorm(x, w, b)
+    assert ops.launch_counts()["layernorm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    rtol, atol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.layernorm(x, w, b).float(), rtol=rtol, atol=atol)
+
+
+def test_layernorm_rows_off_a_16_byte_boundary_and_with_a_large_mean(cuda):
+    """Unaligned rows take scalar loads.  Rows at a mean of 300 (spread 1):
+    the two-pass variance keeps its digits; the mean's own f32 rounding
+    (an ulp of 300 is 3e-5) differs between the kernel's and the plain
+    version's summation orders, so 1e-4 there."""
+    base = torch.randn(3 * 1001 + 1, device=cuda)
+    x = base[1:].view(3, 1001)
+    w, b = torch.randn(1001, device=cuda), torch.randn(1001, device=cuda)
+    torch.testing.assert_close(ops.layernorm(x, w, b), ref.layernorm(x, w, b), rtol=1e-5, atol=1e-5)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = 300.0 + torch.randn(8, 6144, generator=gen, device=cuda)
+    w = 1 + 0.3 * torch.randn(6144, generator=gen, device=cuda)
+    b = 0.3 * torch.randn(6144, generator=gen, device=cuda)
+    got = ops.layernorm(x, w, b)
+    torch.testing.assert_close(got, ref.layernorm(x, w, b), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, ref.layernorm(x - 300.0, w, b), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", LN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, "same"])
+def test_layernorm_backward_kernel_matches_plain(cuda, shape, dtype, wdtype):
+    """Autograd through LayerNormFn against autograd through the plain
+    version in f32, at the rmsnorm backward's tolerances; the backward
+    twice gives the same bits (no atomics)."""
+    wdtype = dtype if wdtype == "same" else wdtype
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (1.0 + torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device=cuda)).to(wdtype)
+    b = (0.3 * torch.randn(shape[-1], generator=gen, device=cuda)).to(wdtype)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    before = ops.launch_counts()
+    leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+    dx, dw, db = torch.autograd.grad(ops.layernorm(*leaves), leaves, dy)
+    after = ops.launch_counts()
+    assert after["layernorm"] == before["layernorm"] + 1
+    assert after["layernorm_bwd"] == before["layernorm_bwd"] + 1
+    assert dx.dtype == dtype and dw.dtype == db.dtype == wdtype and dx.shape == x.shape
+    want = ref.layernorm_bwd(x.float(), w.float(), b.float(), dy.float())
+    _close_to_scale(dx, want[0], *ATTN_TOL[dtype], "dx")
+    _close_to_scale(dw, want[1], *ATTN_TOL[wdtype], "dw")
+    _close_to_scale(db, want[2], *ATTN_TOL[wdtype], "db")
+    again = pnorms.layernorm_bwd_cuda(x, w, dy)
+    for a, g in zip(again, (dx, dw, db)):
+        assert torch.equal(a, g)
+
+
+def test_layernorm_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="width"):
+        wide = torch.randn(2, 30000, device=cuda)
+        pnorms.layernorm_bwd_cuda(wide, torch.ones(30000, device=cuda), wide)
+    with pytest.raises(ValueError, match="layernorm_bwd"):
+        pnorms.layernorm_bwd_cuda(x, w, x[:2])
+    with pytest.raises(TypeError):  # b shares w's dtype
+        pnorms.layernorm_cuda(x, w, w.half())
+    with pytest.raises(ValueError, match="last axis"):
+        pnorms.layernorm_cuda(x, w[:32], w[:32])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pnorms.layernorm_cuda(x.cpu(), w, w)
+
+
 # the model train steps held card against CPU: (config, overrides, tokens a
-# row, leaves of layers["mamba"] drawn N(0, 0.5^2) as they start at zero,
+# row, leaves (dotted paths) drawn N(0, 0.5^2) as they start at zero,
 # kernels that must launch, gradient tolerance as a share of its largest
 # magnitude)
 TRAIN_STEP_CASES = [
@@ -516,10 +620,21 @@ TRAIN_STEP_CASES = [
         "mamba2-130m-smoke",
         {},
         256,
-        ("A_log", "dt_bias"),
+        ("layers.mamba.A_log", "layers.mamba.dt_bias"),
         ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd"),
         1e-4,
         id="ssm",
+    ),
+    # granite: layer norms with biases, MQA, the gelu MLP; heads of 64
+    # (the attention kernels' smallest D) where the smoke config has 16
+    pytest.param(
+        "granite-20b-smoke",
+        dict(d_model=128, n_heads=4, n_kv=1, d_head=64),
+        128,
+        ("layers.ln1_b", "layers.ln2_b", "final_norm_b"),
+        ("flash_attention", "flash_attention_bwd", "layernorm", "layernorm_bwd"),
+        1e-3,
+        id="granite",
     ),
 ]
 
@@ -532,11 +647,12 @@ def test_training_step_on_the_card_matches_the_cpu(
     kernels) against the CPU (the plain versions), the loss within 1e-5
     and every gradient within ``grad_tol`` of its largest magnitude.
 
-    dense (64-wide heads, the kernels' smallest D): 1e-3, not tighter: a
-    1e-7 relative nudge to this model's weights moves its gradients by up
-    to 2.8e-4 of their largest magnitude (measured on the CPU), since the
-    reference's init rule (fan_in = the head count for wq and wk) makes
-    the attention nearly one-hot, and the card's f32 sums round apart from
+    dense and granite (64-wide heads, the kernels' smallest D): 1e-3, not
+    tighter: a
+    1e-7 relative nudge to the dense model's weights moves its gradients
+    by up to 2.8e-4 of their largest magnitude (measured on the CPU), since
+    the reference's init rule (fan_in = the head count for wq and wk),
+    granite's too, makes the attention nearly one-hot, and the card's f32 sums round apart from
     the CPU's.  ssm (d 64, N 16, P 16): no attention, so the SSD kernels'
     own 1e-4 (their tiles sum in another order than the plain form's
     chunk).  The kernels' own tolerances are held above."""
@@ -550,8 +666,10 @@ def test_training_step_on_the_card_matches_the_cpu(
     cfg = dataclasses.replace(registry.get(arch), remat="full", **overrides)
     gen = torch.Generator().manual_seed(0)
     cpu = init_params(lm.lm_specs(cfg), gen, "cpu")
-    for leaf in drawn:
-        t = cpu["layers"]["mamba"][leaf]
+    for path in drawn:
+        t = cpu
+        for key in path.split("."):
+            t = t[key]
         t.copy_(0.5 * torch.randn(t.shape, generator=gen))
     card = tree_map(lambda t: t.to(cuda), cpu)
     toks = torch.randint(0, cfg.vocab, (2, seq + 1), generator=gen)

@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels import softmax as jsm
 from repro.kernels import warp_reduce as jwr
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import norms as pnorms
 from repro_torch.kernels import softmax as psm
 from repro_torch.kernels import warp_reduce as pwr
 
@@ -88,6 +89,7 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(ops.row_reduce(x), ref.row_reduce(x), rtol=0, atol=0)
     w = torch.from_numpy(normal(2, (33,)))
     torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm(x, w), rtol=0, atol=0)
+    torch.testing.assert_close(ops.layernorm(x, w, w), ref.layernorm(x, w, w), rtol=0, atol=0)
     q = torch.from_numpy(normal(3, (2, 4, 16)))
     kv = torch.from_numpy(normal(4, (2, 8, 2, 16)))
     kv_len = torch.tensor([3, 8], dtype=torch.int32)
@@ -111,6 +113,8 @@ def test_cpu_tensors_take_the_plain_version():
         "row_reduce": 0,
         "rmsnorm": 0,
         "rmsnorm_bwd": 0,
+        "layernorm": 0,
+        "layernorm_bwd": 0,
         "flash_decode": 0,
         "flash_attention": 0,
         "flash_attention_bwd": 0,
@@ -126,6 +130,10 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         psm.softmax_cuda(x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         pwr.row_reduce_cuda(x, "max")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pnorms.layernorm_cuda(x, x[0], x[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pnorms.layernorm_bwd_cuda(x, x[0], x)
     with pytest.raises(ValueError, match="unknown op"):
         pwr.row_reduce(x, "mean")
 
@@ -134,7 +142,8 @@ def test_library_names_track_the_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     paths = {name: build._library_path(name) for name in build.SIGNATURES}
     assert set(paths) == {
-        "softmax", "row_reduce", "rmsnorm", "flash_decode", "flash_attention", "ssd_scan"
+        "softmax", "row_reduce", "rmsnorm", "layernorm", "flash_decode", "flash_attention",
+        "ssd_scan",
     }
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}-")

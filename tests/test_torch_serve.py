@@ -1,11 +1,13 @@
 """The port's dense model stack and serving driver against the JAX package.
 
 Configs: ``qwen2.5-14b-smoke`` (f32, vocab 512, GQA 4/2 heads with QKV
-bias) and a variant with ``n_kv = 1``, where one kv head serves every
-query head.  Weights come from the JAX package's ``init_params``; the QKV
-biases and the norm weights, which it initialises to zeros and ones, are
-overwritten with random values so their paths are tested; then the same
-numpy tree is carried into the port (``models.carry``).
+bias), a variant with ``n_kv = 1``, where one kv head serves every query
+head, and for the server ``granite-20b-smoke`` (layer norms with biases,
+MQA, the gelu MLP).  Weights come from the JAX
+package's ``init_params``; the QKV biases, the norm weights and the norm
+biases, which it initialises to zeros and ones, are overwritten with
+random values so their paths are tested; then the same numpy tree is
+carried into the port (``models.carry``).
 
 - ``rope``, ``attention_decode``, ``mlp_apply`` and ``decode_step`` match
   the JAX functions on their plain path (``backend="xla"``) to rtol = atol
@@ -46,12 +48,13 @@ from repro_torch.models import lm as plm
 from repro_torch.models import params as pparams
 
 ARCH = "qwen2.5-14b-smoke"
+GRANITE = "granite-20b-smoke"  # norm="ln" (norm biases), MQA, the gelu MLP
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def configs(n_kv=None):
-    """The JAX and port configs of ARCH, optionally with ``n_kv`` changed."""
-    cj, cp = jreg.get(ARCH), preg.get(ARCH)
+def configs(n_kv=None, arch=ARCH):
+    """The JAX and port configs of arch, optionally with ``n_kv`` changed."""
+    cj, cp = jreg.get(arch), preg.get(arch)
     if n_kv is not None:
         cj = dataclasses.replace(cj, n_kv=n_kv)
         cp = dataclasses.replace(cp, n_kv=n_kv)
@@ -59,18 +62,21 @@ def configs(n_kv=None):
 
 
 def jax_weights(cfg_j, seed=0):
-    """The JAX package's weights as numpy, biases and norms randomised."""
+    """The JAX package's weights as numpy, with the leaves it initialises
+    to zeros and ones randomised: the attention biases and the norm
+    weights, and the norm biases where the model has them."""
     tree = jparams.init_params(jlm.lm_specs(cfg_j), jax.random.PRNGKey(seed))
     tree = jax.tree_util.tree_map(np.asarray, tree)
     rng = np.random.default_rng(seed + 100)
     attn = tree["layers"]["attn"]
     for name in ("bq", "bk", "bv"):
-        attn[name] = (0.3 * rng.normal(size=attn[name].shape)).astype(np.float32)
-    for name in ("ln1", "ln2"):
-        shape = tree["layers"][name].shape
-        tree["layers"][name] = (1 + 0.3 * rng.normal(size=shape)).astype(np.float32)
-    shape = tree["final_norm"].shape
-    tree["final_norm"] = (1 + 0.3 * rng.normal(size=shape)).astype(np.float32)
+        if name in attn:
+            attn[name] = (0.3 * rng.normal(size=attn[name].shape)).astype(np.float32)
+    for parent, name in ((tree["layers"], "ln1"), (tree["layers"], "ln2"), (tree, "final_norm")):
+        shape = parent[name].shape
+        parent[name] = (1 + 0.3 * rng.normal(size=shape)).astype(np.float32)
+        if name + "_b" in parent:
+            parent[name + "_b"] = (0.3 * rng.normal(size=shape)).astype(np.float32)
     return tree
 
 
@@ -225,12 +231,12 @@ def test_decode_step_matches_the_pallas_kernels():
 # ---------------------------------------------------------------------------
 
 
-def _servers(batch, ctx, seed=10):
-    cj, cp = configs()
+def _servers(batch, ctx, seed=10, arch=ARCH):
+    cj, cp = configs(arch=arch)
     tree = jax_weights(cj, seed=seed)
-    js = jserve.BatchedServer(ARCH, batch=batch, ctx=ctx, params=as_jax(tree), mesh=auto_mesh())
+    js = jserve.BatchedServer(arch, batch=batch, ctx=ctx, params=as_jax(tree), mesh=auto_mesh())
     ps = pserve.BatchedServer(
-        ARCH, batch=batch, ctx=ctx, params=carry.from_jax_params(cp, tree, "cpu"), device="cpu"
+        arch, batch=batch, ctx=ctx, params=carry.from_jax_params(cp, tree, "cpu"), device="cpu"
     )
     return js, ps
 
@@ -242,8 +248,13 @@ def _same_state(js, ps):
     assert ps.outputs == js.outputs
 
 
-def test_batched_server_matches_the_jax_server():
-    js, ps = _servers(batch=2, ctx=32)
+@pytest.mark.parametrize("arch", [ARCH, GRANITE])
+def test_batched_server_matches_the_jax_server(arch):
+    """Prefills, decodes, and a slot retired and refilled mid-flight: the
+    same tokens, positions and K/V caches (1e-5 of their scale)."""
+    js, ps = _servers(batch=2, ctx=32, arch=arch)
+    cj, _ = configs(arch=arch)
+    assert ps.cache["k"].shape == (cj.n_layers, 2, 32, cj.n_kv, cj.d_head)
     rng = np.random.default_rng(11)
     prompts = [list(rng.integers(1, 512, size=n)) for n in (3, 4, 5)]
     for server in (js, ps):
@@ -260,6 +271,8 @@ def test_batched_server_matches_the_jax_server():
         server.decode(6)
     _same_state(js, ps)
     assert ps.steps == 3 + 4 + 5 + 5 + 6
+    close_to_scale(ps.cache["k"], js.cache["k"])
+    close_to_scale(ps.cache["v"], js.cache["v"])
 
 
 def test_batched_server_clamps_a_slot_pushed_past_its_context():
@@ -279,11 +292,12 @@ def test_batched_server_clamps_a_slot_pushed_past_its_context():
     assert not ps.active.any()
 
 
-def test_serve_requests_matches_the_jax_counts(monkeypatch):
+@pytest.mark.parametrize("arch", [ARCH, GRANITE])
+def test_serve_requests_matches_the_jax_counts(monkeypatch, arch):
     monkeypatch.setattr(jserve, "make_host_mesh", lambda **kw: auto_mesh())
     kw = dict(batch=2, ctx=24, n_requests=3, max_tokens=4, seed=0)
-    want = jserve.serve_requests(ARCH, **kw)
-    got = pserve.serve_requests(ARCH, device="cpu", **kw)
+    want = jserve.serve_requests(arch, **kw)
+    got = pserve.serve_requests(arch, device="cpu", **kw)
     assert (got["completed"], got["tokens"]) == (want["completed"], want["tokens"])
     assert got["completed"] == 3 and got["steps"] >= len(got["step_s"]) > 0
 
@@ -362,7 +376,7 @@ def test_carry_takes_bf16_leaves():
     assert np.array_equal(p["embed"]["tok"].float().numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["granite-20b-smoke", "zamba2-1.2b-smoke",
+@pytest.mark.parametrize("arch", ["llava-next-34b-smoke", "zamba2-1.2b-smoke",
                                   "deepseek-moe-16b-smoke", "seamless-m4t-large-v2-smoke"])
 def test_unported_families_and_norms_raise(arch):
     with pytest.raises(CoxUnsupported, match="ROADMAP"):

@@ -23,7 +23,9 @@ skip term shows; then the same numpy tree is carried into the port
   requests than slots: a reused slot keeps the previous request's state,
   as the reference's does (ROADMAP C);
 - three ``make_train_step`` steps match ``jit_train_step`` at the
-  tolerances of ``tests/test_torch_train.py``.
+  tolerances of ``tests/test_torch_train.py``;
+- the train and serve CLIs run on the CPU, and the entry points default
+  to CUDA and raise without it, for mamba2 and for granite-20b-smoke.
 
 The JAX steps are built on a mesh with Auto axes: the reference's default
 mesh fails under the installed JAX (ROADMAP queue C).
@@ -63,6 +65,7 @@ from repro_torch.optim import adamw as padamw
 from repro_torch.parallel import steps as psteps
 
 ARCH = "mamba2-130m-smoke"
+GRANITE = "granite-20b-smoke"  # a dense model, for the CLI and device tests
 
 
 def configs(**changes):
@@ -537,24 +540,27 @@ def test_train_runs_the_ssm_family_on_the_cpu(capsys):
     assert capsys.readouterr().out.count(f"[train {ARCH}] step") == 2
 
 
-def test_train_cli_takes_the_ssm_family(capsys):
-    ptrain.main(["--arch", ARCH, "--steps", "1", "--batch", "1", "--seq", "64", "--device", "cpu"])
+@pytest.mark.parametrize("arch", [ARCH, GRANITE])
+def test_clis_run_on_the_cpu(capsys, arch):
+    ptrain.main(["--arch", arch, "--steps", "1", "--batch", "1", "--seq", "64", "--device", "cpu"])
     assert "done: final_step=0" in capsys.readouterr().out
-    pserve.main(["--arch", ARCH, "--batch", "1", "--ctx", "12", "--requests", "1",
+    pserve.main(["--arch", arch, "--batch", "1", "--ctx", "12", "--requests", "1",
                  "--tokens", "2", "--device", "cpu"])
     assert "served 1 requests" in capsys.readouterr().out
 
 
-def test_ssm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+@pytest.mark.parametrize("arch,cache", [(ARCH, {"h", "conv"}), (GRANITE, {"k", "v"})])
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, arch, cache):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        pserve.BatchedServer(ARCH, batch=1, ctx=8)
+        pserve.BatchedServer(arch, batch=1, ctx=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        pserve.serve_requests(ARCH, batch=1, ctx=8, n_requests=1, max_tokens=1)
+        pserve.serve_requests(arch, batch=1, ctx=8, n_requests=1, max_tokens=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ptrain.train(ARCH, steps=1, batch=1, seq=16)
-    server = pserve.BatchedServer(ARCH, batch=1, ctx=8, device="cpu")
-    assert server.cache["h"].device.type == "cpu" and set(server.cache) == {"h", "conv"}
+        ptrain.train(arch, steps=1, batch=1, seq=16)
+    server = pserve.BatchedServer(arch, batch=1, ctx=8, device="cpu")
+    assert set(server.cache) == cache
+    assert all(t.device.type == "cpu" for t in server.cache.values())
 
 
 @pytest.mark.parametrize(
@@ -564,7 +570,7 @@ def test_ssm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         ("granite-moe-1b-a400m-smoke", "A.7"),
         ("llava-next-34b-smoke", "A.7"),
         ("seamless-m4t-large-v2-smoke", "A.7"),
-        ("granite-20b-smoke", "B.4"),
+        ("deepseek-moe-16b-smoke", "A.7"),
     ],
 )
 def test_unported_families_and_norms_still_raise(arch, item):
