@@ -438,27 +438,54 @@ def phase_device() -> dict:
     return rec
 
 
+def tensor_core_ops(lib: pathlib.Path) -> dict:
+    """Counts of the tensor-core instructions in a built library's SASS
+    (``cuobjdump -sass``): HGMMA is Hopper's wgmma, HMMA mma.sync."""
+    cuobjdump = pathlib.Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True
+    ).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "HMMA")}
+
+
+def ptxas_by_kernel(report: str) -> dict:
+    """{kernel: "N registers, S bytes spilled"} from nvcc's ``-Xptxas -v``
+    report, the names demangled by ``c++filt`` (from the host toolchain
+    nvcc needs) without their namespaces and parameters."""
+    usage, fn, spill = {}, None, "?"
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "bytes spill stores" in ln:
+            spill = ln.split("bytes stack frame,")[-1].split("bytes spill stores")[0].strip()
+        elif "Used" in ln and "registers" in ln and fn:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            usage[fn] = f"{regs} registers, {spill} bytes spilled"
+    names = subprocess.run(
+        ["c++filt"], input="\n".join(usage), capture_output=True, text=True, check=True
+    ).stdout.splitlines()
+    short = [
+        n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+        for n in names
+    ]
+    return dict(zip(short, usage.values()))
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     log = build.build_all()
     for name in build.SIGNATURES:
         build.library(name)
-    ptxas = {
-        name: sorted(
-            {
-                ln.split(":", 1)[-1].strip()
-                for ln in str(rec["ptxas"]).splitlines()
-                if "registers" in ln or "spill" in ln
-            }
-        )
-        for name, rec in log.items()
-    }
+    # the bf16 attention kernels must run on the tensor cores
+    tc_ops = tensor_core_ops(build._library_path("flash_attention"))
+    check(tc_ops["HGMMA"] + tc_ops["HMMA"] > 0, f"flash_attention: no tensor-core op in {tc_ops}")
     emit(
         {
             "phase": "build",
             "seconds": time.perf_counter() - t0,
             "cached": {n: r["cached"] for n, r in log.items()},
-            "ptxas": ptxas,
+            "ptxas": {name: ptxas_by_kernel(str(rec["ptxas"])) for name, rec in log.items()},
+            "flash_attention_sass": tc_ops,
         }
     )
 
@@ -914,17 +941,18 @@ def phase_cross_check(arch: str = ARCH) -> None:
 # ---------------------------------------------------------------------------
 
 # flash attention: (B, S, H, Hkv, D, causal, window, dtype).  The headline
-# is one layer of the train phase in bf16; then the same in f32, one layer
-# of the granite train phase (MQA: 48 query heads over 1 kv head) in bf16
-# and f32, the reference sweeps (tests/test_kernels.py) causal and not and
-# its windowed case, in f32 and bf16.
+# is one layer of the train phase in bf16; then one layer of the granite
+# train phase (MQA: 48 query heads over 1 kv head) in bf16, timed next to
+# it so the two compare on the card in one state; then both in f32, the
+# reference sweeps (tests/test_kernels.py) causal and not and its
+# windowed case, in f32 and bf16.
 TRAIN_SHAPE = (TRAIN["batch"], TRAIN["seq"], N_HEADS, N_KV, D_HEAD)
 GRANITE_TRAIN_SHAPE = (
     GRANITE_TRAIN["batch"], GRANITE_TRAIN["seq"], GRANITE_HEADS, GRANITE_KV, D_HEAD
 )
 TRAIN_ATTN_CASES = (
-    [(*TRAIN_SHAPE, True, 0, torch.bfloat16), (*TRAIN_SHAPE, True, 0, torch.float32)]
-    + [(*GRANITE_TRAIN_SHAPE, True, 0, dtype) for dtype in (torch.bfloat16, torch.float32)]
+    [(*shape, True, 0, dtype) for dtype in (torch.bfloat16, torch.float32)
+     for shape in (TRAIN_SHAPE, GRANITE_TRAIN_SHAPE)]
     + [
         (1, S, H, Hkv, D, causal, 0, dtype)
         for S, H, Hkv, D in ((256, 4, 4, 64), (256, 8, 2, 64), (128, 4, 1, 128))
@@ -994,6 +1022,11 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
         mask = dict(causal=causal, window=window)
         o, lse = fa.flash_attention_cuda(q, k, v, **mask)
         grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
+        if big:  # the backward is deterministic: the same bits twice
+            again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
+            bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+            check(bitwise, f"flash_attention_bwd B={B} S={S} H={H}/{Hkv} {dtype}: not repeatable")
+            del again
         f32 = [t.float() for t in (q, k, v, do)]
         want_o = ref.attention(*f32[:3], **mask)
         want_g = ref.attention_bwd(*f32, **mask)
@@ -1029,7 +1062,7 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
                 batches=5,
             )
             del out, leaves
-        reps = dict(batches=3, calls=3) if big else {}
+        reps = dict(batches=5, calls=3) if big else {}
         pairs = visible_pairs(S, causal, window)
         esize = q.element_size()
         io = (2 * q.numel() + k.numel() + v.numel()) * esize  # q, k, v read; o written
@@ -1070,6 +1103,9 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
             "library_ms": lib_bwd,
             "library": "scaled_dot_product_attention backward alone",
             "library_fwd_bwd_ms": lib_fwd_bwd,
+            "dkdv_splits": fa.dkdv_splits(B, S, Hkv, H // Hkv, q.device)
+            if dtype == torch.bfloat16
+            else 1,
         }
         # q, k, v, o, dO and lse read; dq, dk, dv written; five products
         nbytes = (3 * q.numel() + 2 * k.numel() + 2 * v.numel()) * esize + lse.numel() * 4
@@ -1395,6 +1431,7 @@ def phase_train(cfg=None, run: dict = TRAIN) -> dict:
 
 
 def _kernel_kind(name: str) -> str:
+    # flash_attention.cu: flash_*_kernel (f32), flash_tc::* (bf16), delta_kernel
     if "flash_" in name or "delta_kernel" in name:
         return "attention kernels"
     if "ssd_" in name or "head_sum_kernel" in name:

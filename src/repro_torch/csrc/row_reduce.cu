@@ -4,14 +4,20 @@
 // (pallas_call in row_reduce).  Same semantics: f32 accumulation, `sum`
 // returns f32, `max`/`absmax` return the input dtype; max propagates NaN.
 //
-// Bound: memory.  Each element is read once and does one add or compare,
-// far below the card's ~295 operations per byte, so the time is the bytes
-// over the 3.35 TB/s of HBM.  The design keeps every byte moving once:
-// one block per row, threads striding over the columns with 16-byte
-// vector loads (a scalar tail, and a scalar path for a row whose start is
-// not 16-byte aligned), f32 accumulators in registers, a warp reduction
-// with __shfl_xor_sync and one shared-memory step across warps.  Speed
-// beyond that (several rows per block for short rows) is later work.
+// Bound: memory.  Each element is read once and does one add or compare
+// (a compensated add: six), far below the card's ~295 operations per
+// byte, so the time is the bytes over the 3.35 TB/s of HBM.  The design
+// keeps every byte moving once: one block per row, threads striding over
+// the columns with 16-byte vector loads (a scalar tail, and a scalar path
+// for a row whose start is not 16-byte aligned), f32 accumulators in
+// registers, a warp reduction with __shfl_xor_sync and one shared-memory
+// step across warps.  The sum is compensated: each thread keeps the exact
+// rounding error of every add (TwoSum) beside its sum, and the tree merges
+// (sum, error) pairs the same way.  A plain f32 sum in this order (each of
+// 256 threads adding ~600 values of a 152,064-wide row in sequence) lay up
+// to 4.9e-4 from the f64 sum, against 2.0e-4 for torch.sum; compensated,
+// it is within an ulp or two of the result.  Speed beyond that (several
+// rows per block for short rows) is later work.
 #include "common.cuh"
 
 namespace {
@@ -20,20 +26,50 @@ constexpr int THREADS = 256;
 enum Op { OP_SUM = 0, OP_MAX = 1, OP_ABSMAX = 2 };
 
 template <int OP> __device__ __forceinline__ float combine(float acc, float v) {
-  if (OP == OP_SUM) return acc + v;
   if (OP == OP_MAX) return nan_max(acc, v);
   return nan_max(acc, fabsf(v));
 }
 
-template <int OP> __device__ __forceinline__ float merge(float a, float b) {
-  return OP == OP_SUM ? a + b : nan_max(a, b);
+// s += v, with the add's exact rounding error added to c (Knuth's TwoSum:
+// no branch; no product, so nothing for the compiler to contract)
+__device__ __forceinline__ void two_sum_add(float& s, float& c, float v) {
+  const float t = s + v;
+  const float bp = t - s;
+  c += (s - (t - bp)) + (v - bp);
+  s = t;
 }
+
+// A row's running value: (sum, error) for OP_SUM, the max otherwise.
+template <int OP> struct Acc {
+  float a = OP == OP_SUM ? 0.0f : -INFINITY;
+  float c = 0.0f;
+  __device__ __forceinline__ void add(float v) {
+    if (OP == OP_SUM) {
+      two_sum_add(a, c, v);
+    } else {
+      a = combine<OP>(a, v);
+    }
+  }
+  __device__ __forceinline__ void merge(float a2, float c2) {
+    if (OP == OP_SUM) {
+      two_sum_add(a, c, a2);
+      c += c2;
+    } else {
+      a = nan_max(a, a2);
+    }
+  }
+  __device__ __forceinline__ void merge_lanes(int off) {
+    const float a2 = __shfl_xor_sync(FULL_MASK, a, off);
+    const float c2 = __shfl_xor_sync(FULL_MASK, c, off);
+    merge(a2, c2);
+  }
+};
 
 template <typename T, int OP>
 __global__ void __launch_bounds__(THREADS)
     row_reduce_kernel(const T* __restrict__ x, void* __restrict__ out, long long cols) {
   const T* row = x + static_cast<long long>(blockIdx.x) * cols;
-  float acc = OP == OP_SUM ? 0.0f : -INFINITY;
+  Acc<OP> acc;
   long long start = 0;
   if (aligned16(row)) {
     constexpr int N = Vec<T>::N;
@@ -43,33 +79,33 @@ __global__ void __launch_bounds__(THREADS)
       Vec<T> v;
       v.raw = vrow[i];
 #pragma unroll
-      for (int k = 0; k < N; ++k) acc = combine<OP>(acc, to_f32(v.get(k)));
+      for (int k = 0; k < N; ++k) acc.add(to_f32(v.get(k)));
     }
     start = nvec * N;
   }
   for (long long j = start + threadIdx.x; j < cols; j += THREADS) {
-    acc = combine<OP>(acc, to_f32(row[j]));
+    acc.add(to_f32(row[j]));
   }
   // warp collective (red_add / red_max), then across the block's warps
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc = merge<OP>(acc, __shfl_xor_sync(FULL_MASK, acc, off));
-  }
-  __shared__ float partial[THREADS / 32];
+  for (int off = 16; off > 0; off >>= 1) acc.merge_lanes(off);
+  __shared__ float partial[2][THREADS / 32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) partial[warp] = acc;
+  if (lane == 0) {
+    partial[0][warp] = acc.a;
+    partial[1][warp] = acc.c;
+  }
   __syncthreads();
   if (warp == 0) {
-    acc = lane < THREADS / 32 ? partial[lane] : (OP == OP_SUM ? 0.0f : -INFINITY);
+    Acc<OP> all;
+    if (lane < THREADS / 32) all.merge(partial[0][lane], partial[1][lane]);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc = merge<OP>(acc, __shfl_xor_sync(FULL_MASK, acc, off));
-    }
+    for (int off = 16; off > 0; off >>= 1) all.merge_lanes(off);
     if (lane == 0) {
       if (OP == OP_SUM) {
-        static_cast<float*>(out)[blockIdx.x] = acc;
+        static_cast<float*>(out)[blockIdx.x] = all.a + all.c;
       } else {
-        static_cast<T*>(out)[blockIdx.x] = from_f32<T>(acc);
+        static_cast<T*>(out)[blockIdx.x] = from_f32<T>(all.a);
       }
     }
   }

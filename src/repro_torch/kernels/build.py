@@ -65,10 +65,11 @@ SIGNATURES = {
         + [_LL, _INT]
         + [_LL] * 9
         + [_INT, _LL, _INT, _VP],
-        # q, k, v, o, dout, lse, delta scratch, dq, dk, dv, B, H, Hkv, S, D,
-        # q/k/v strides (b, s, h), causal, window, dtype, stream
-        "cox_flash_attention_bwd": [_VP] * 10
-        + [_INT] * 3
+        # q, k, v, o, dout, lse, delta scratch, dq, dk, dv, split scratch,
+        # nsplit, B, H, Hkv, S, D, q/k/v strides (b, s, h), causal, window,
+        # dtype, stream
+        "cox_flash_attention_bwd": [_VP] * 11
+        + [_INT] * 4
         + [_LL, _INT]
         + [_LL] * 9
         + [_INT, _LL, _INT, _VP],

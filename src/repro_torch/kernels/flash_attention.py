@@ -13,13 +13,16 @@ reference's ``flash_attention``), batched in the same way: q ``(B, S, H,
 D)`` and k, v ``(B, S, Hkv, D)`` read through their strides.  It is
 differentiable: :class:`FlashAttentionFn` launches the forward kernel,
 which also keeps each row's log-sum-exp, and the backward kernels
-(``cox_flash_attention_bwd``: the gradient, which has no TPU kernel).
+(``cox_flash_attention_bwd``: the gradient, which has no TPU kernel).  In
+bf16 they run on the tensor cores and read 16-byte rows, so every base and
+stride of q, k and v must be 16-byte aligned; the backward's dK/dV grid
+splits each kv head's query-head group over ``dkdv_splits`` blocks.
 
 A CUDA tensor launches the kernels; a CPU tensor takes the plain versions
 (``ref.decode_attention``, ``ref.attention``, whose gradient is
 autograd's).  ``decode_launches``, ``fwd_launches`` and ``bwd_launches``
 count the calls that launch each kernel (with its helper kernels: the
-decode combine, the backward's row sums), and only those.
+decode combine, the backward's row sums and split sum), and only those.
 """
 
 from __future__ import annotations
@@ -134,6 +137,24 @@ def flash_decode_cuda(
 # ---------------------------------------------------------------------------
 
 BLOCK = 128  # the reference's bq = bk: S must divide by min(BLOCK, S)
+ATTN_TILE_ROWS = 64  # q and k rows per tile (csrc/flash_attention.cu)
+DKDV_BLOCKS_PER_SM = 2  # bf16 dK/dV blocks resident on an SM (shared memory)
+DKDV_WAVES = 2  # the dK/dV grid aims at this many full waves
+
+
+def dkdv_splits(batch: int, seq_len: int, n_kv: int, group: int, device: torch.device) -> int:
+    """How many blocks share each (k tile, kv head, batch row) of the bf16
+    backward's dK/dV grid, each taking an equal share of the ``group``
+    query heads: the fewest that divide ``group`` and give DKDV_WAVES full
+    waves of DKDV_BLOCKS_PER_SM blocks on every SM (all of them if none
+    does).  1 when the grid already fills the card: dK, dV are then
+    written directly, with no partial sums."""
+    blocks = -(-seq_len // ATTN_TILE_ROWS) * n_kv * batch
+    want = DKDV_WAVES * DKDV_BLOCKS_PER_SM * sm_count(device)
+    for d in range(1, group + 1):
+        if group % d == 0 and blocks * d >= want:
+            return d
+    return group
 
 
 def flash_attention(
@@ -188,6 +209,15 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             )
         if t.numel() == 0:
             raise ValueError(f"flash_attention {name}: empty input")
+        # the bf16 kernels copy 16-byte chunks of every row (cp.async)
+        vec = 16 // t.element_size()
+        if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3])
+        ):
+            raise ValueError(
+                f"flash_attention {name}: bf16 rows must start on 16-byte boundaries "
+                f"(base and strides {t.stride()}); pass a contiguous copy"
+            )
     B, S, H, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
@@ -239,6 +269,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True, window
     _check_qkv(q, k, v)
     B, S, H, D = q.shape
     do = do.contiguous()
+    if do.data_ptr() % 16:  # the bf16 kernels copy 16-byte chunks of its rows
+        do = do.clone()
     for name, t, shape, dtype in (
         ("o", o, q.shape, q.dtype),
         ("do", do, q.shape, q.dtype),
@@ -247,16 +279,21 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True, window
         check_cuda_input(t, f"flash_attention_bwd {name}", (dtype,))
         if t.shape != shape or t.device != q.device:
             raise ValueError(f"flash_attention_bwd {name}: {tuple(t.shape)} on {t.device}")
+    Hkv = k.shape[2]
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     dq = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    nsplit = dkdv_splits(B, S, Hkv, H // Hkv, q.device) if q.dtype == torch.bfloat16 else 1
+    # per split: f32 partial dK and dV, summed in order by a fourth kernel
+    part = torch.empty(2 * nsplit * k.numel() if nsplit > 1 else 0, device=q.device)
     fn = build.library("flash_attention").cox_flash_attention_bwd
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, k.shape[2], S, D,
+            part.data_ptr() if nsplit > 1 else None, nsplit,
+            B, H, Hkv, S, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), int(window), build.DTYPE_CODES[q.dtype], stream_of(q),
         )

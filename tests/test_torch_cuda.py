@@ -211,6 +211,17 @@ def test_ragged_vocabulary_widths(cuda):
     assert torch.equal(ops.row_reduce(x, "max"), ref.row_reduce(x, "max"))
 
 
+def test_row_sum_is_accurate_at_vocabulary_width(cuda):
+    """400 seeded rows of 152,067 N(0, 1) values (the vocabulary and a
+    ragged tail): each row's kernel sum within the row sum's tolerance
+    (rtol 1e-5, atol 1e-4) of its f64 sum."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(400, 152064 + 3, generator=gen, device=cuda)
+    got = ops.row_reduce(x, "sum")
+    want = x.double().sum(dim=-1)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # the serving kernels: rmsnorm and flash_decode against their plain versions
 # ---------------------------------------------------------------------------
@@ -387,6 +398,8 @@ ATTN_CASES = [
     (1, 256, 4, 2, 128, True, 1),  # window 1: the diagonal alone
     (2, 96, 4, 2, 64, True, 0),  # S below 128, not a multiple of the tile
     (1, 40, 2, 1, 128, False, 0),
+    # bf16: dK/dV split over 8 blocks of one query head each (dkdv_splits)
+    pytest.param(1, 256, 8, 1, 64, True, 0, id="dkdv-split"),
 ]
 
 
@@ -429,6 +442,11 @@ def test_flash_attention_reads_strided_views_and_is_deterministic(cuda):
     g2 = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
     for a, b in zip(g1, g2):
         assert torch.equal(a, b)
+    # an output gradient whose rows start off a 16-byte boundary
+    do_odd = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda)[1:].view_as(do)
+    do_odd.copy_(do)
+    for a, b in zip(pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do_odd), g1):
+        assert torch.equal(a, b)
     want = ref.attention(q.float(), k.float(), v.float())
     _close_to_scale(o, want, *ATTN_TOL[torch.bfloat16])
     # lse is each row's log-sum-exp of its scaled, masked logits
@@ -436,6 +454,22 @@ def test_flash_attention_reads_strided_views_and_is_deterministic(cuda):
     mask = torch.ones(S, S, dtype=torch.bool, device=cuda).tril()
     logits = torch.where(mask, logits / D**0.5, -1e30)
     torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 4, 12])
+def test_flash_attention_backward_splits_the_group(cuda, monkeypatch, nsplit):
+    """The bf16 dK/dV grid split over nsplit blocks per kv head, each with
+    12 / nsplit query heads, its partial sums added in order: the plain
+    version's gradients at ATTN_GRAD_TOL, and the same bits twice."""
+    monkeypatch.setattr(pfa, "dkdv_splits", lambda *args: nsplit)
+    q, k, v, do = _attn_inputs(cuda, 2, 256, 12, 1, 128, torch.bfloat16, seed=5)
+    o, lse = pfa.flash_attention_cuda(q, k, v)
+    grads = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    again = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = ref.attention_bwd(*(t.float() for t in (q, k, v, do)))
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        _close_to_scale(got, w, *ATTN_GRAD_TOL[torch.bfloat16], name)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
@@ -456,6 +490,16 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
     strided_d = torch.randn(1, 256, 2, 128, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         ops.attention(q, strided_d, v)
+    # bf16 rows are copied in 16-byte chunks: a view whose rows start off a
+    # 16-byte boundary is refused, not read wrongly
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    padded = torch.randn(1, 256, 2, 65, device=cuda).bfloat16()
+    for bad in (padded[..., :64], padded[..., 1:]):
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.attention(qb, bad, vb)
+    odd = torch.randn(1 * 256 * 4 * 64 + 1, device=cuda).bfloat16()[1:].view(1, 256, 4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.attention(odd, kb, vb)
 
 
 @pytest.mark.parametrize(
