@@ -370,6 +370,19 @@ def median_ms(fn, batches: int = 7, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one call where a call's host work outlasts its
+    device work (the serving shapes, whose median_ms reads the host): the
+    calls captured in one CUDA graph, the graph replayed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay, calls=1) / calls
+
+
 def bound(bytes_moved: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / ops_per_s
@@ -640,6 +653,8 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
                 lambda: torch.nn.functional.rms_norm(x, (shape[-1],), w_lib, eps=1e-6)
             ),
         }
+        if shape[0] == SERVE["batch"]:
+            rec["graph_ms"] = graph_ms(lambda: norms.rmsnorm_cuda(x, w))
         nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * x.numel())
         emit(rec)
@@ -656,6 +671,8 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
         err = max_err(got, want)
         what = f"flash_decode B={B} S={S} H={H}/{Hkv} {dtype}"
         check(close(got, want, rtol, atol), f"{what}: err {err}")
+        # the splits and the warps are combined in a fixed order
+        check(torch.equal(got, fa.flash_decode_cuda(q, k, v, lens)), f"{what}: not bitwise twice")
         # the library call: SDPA on a (B, H, 1, D) query, the caches as
         # (B, Hkv, S, D) views, a boolean mask where a row is ragged
         q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
@@ -681,6 +698,9 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
             "plain_ms": median_ms(lambda: ref.decode_attention(q, k, v, lens), batches=3),
             "library_ms": median_ms(library, batches=5),
         }
+        if (B, S) == (SERVE["batch"], SERVE["ctx"]):
+            rec["graph_ms"] = graph_ms(lambda: fa.flash_decode_cuda(q, k, v, lens))
+            rec["library_graph_ms"] = graph_ms(library)
         # the bytes this run's data needs: the valid rows of K and V
         rows = sum(min(n, S) for n in kv_len)
         kv_bytes = 2 * rows * Hkv * D_HEAD * k.element_size()
@@ -769,10 +789,14 @@ def phase_wrapper_host(gen: torch.Generator, serve_rec: dict) -> None:
     B, S = SERVE["batch"], SERVE["ctx"]
     x = torch.randn(B, D_MODEL, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.ones(D_MODEL, device="cuda")
+    xg = torch.randn(B, GRANITE_D_MODEL, generator=gen, device="cuda").to(torch.bfloat16)
+    wg = torch.ones(GRANITE_D_MODEL, device="cuda")
+    bg = torch.zeros(GRANITE_D_MODEL, device="cuda")
     q = torch.randn(B, N_HEADS, D_HEAD, generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn(B, S, N_KV, D_HEAD, generator=gen, device="cuda").to(torch.bfloat16)
     lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
     rms_us = host_us_per_call(lambda: norms.rmsnorm_cuda(x, w))
+    ln_us = host_us_per_call(lambda: norms.layernorm_cuda(xg, wg, bg))
     fd_us = host_us_per_call(lambda: fa.flash_decode_cuda(q, k, k, lens))
     add_us = host_us_per_call(lambda: torch.add(x, x))
     per = serve_rec["launches_per_step"]
@@ -781,6 +805,7 @@ def phase_wrapper_host(gen: torch.Generator, serve_rec: dict) -> None:
         {
             "phase": "wrapper_host",
             "rmsnorm_host_us": rms_us,
+            "layernorm_host_us": ln_us,
             "flash_decode_host_us": fd_us,
             "torch_add_host_us": add_us,
             "wrappers_host_ms_per_step": host_ms,
@@ -1205,6 +1230,8 @@ def phase_ln_kernels(gen: torch.Generator) -> dict:
                 lambda: F.layer_norm(x, (shape[-1],), w_lib, b_lib, eps=1e-6)
             ),
         }
+        if shape[0] == SERVE["batch"]:
+            rec["graph_ms"] = graph_ms(lambda: norms.layernorm_cuda(x, w, b))
         # x read, y written; w and b read
         nbytes = 2 * x.numel() * x.element_size() + 2 * w.numel() * w.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 8 * x.numel())

@@ -16,227 +16,287 @@
 //
 // Bound: memory.  Each K/V element is read once and serves the g = H/Hkv
 // query heads of its kv head with 2 operations each: g operations per
-// byte in bf16 (5 for qwen2.5-14b), far below the card's ~295.  Design:
-// one block per (kv head, batch row, split of S) serves that kv head's g
-// query heads, so each K/V row leaves device memory once.  B x Hkv alone
-// is 32 blocks at the serving shape and 64 at the long-context headline,
-// too few for 132 SMs, and a block alone is bound by the latency of its
-// dependent steps; so the valid positions are split into nsplit ranges
-// (the wrapper picks nsplit for about four blocks per SM) and a second
-// kernel combines the ranges' partial (max, sum, acc) exactly as the
-// online softmax combines tiles.  A block walks its range in tiles of BK
-// rows; cp.async copies the next K and V tiles into shared memory while
-// the block works on the current ones (two stages).  Rows are padded by
-// 16 bytes so the 16-byte reads of the score step are free of bank
-// conflicts.  Per tile:
-//   1. scores: thread -> (row, heads), a dot product over D from shared memory;
-//   2. online softmax: one warp per head, max and sum with __shfl_xor_sync;
-//   3. acc = acc * alpha + p @ V: thread -> (head, d), V read down a column.
+// byte in bf16 (5 for qwen2.5-14b), far below the card's ~295.  So the
+// design keeps device memory busy and spends few instructions per byte:
+//
+// - One block per (kv head, group of G query heads, batch row, split of
+//   S): G is the largest divisor of g up to 8 (the wrapper's
+//   head_group), so q and the accumulators of G heads fit in registers;
+//   a larger g (MQA: 48) takes g / G blocks that read the same K/V rows at
+//   the same time, the later ones from L2.  The valid positions are split
+//   into nsplit ranges and a second kernel combines the ranges' partial
+//   (max, sum, acc) exactly as the online softmax combines tiles, in split
+//   order.  The wrapper's num_splits fills about one wave of two blocks
+//   an SM (8 warps an SM read as fast as 12).  At B 8 x 8 kv heads that
+//   leaves 8 of 132 SMs one block; two grids that share the tiles evenly
+//   among the SMs (a block's range crossing units, or a warp per kv head
+//   over the same positions) were slower on the H100, for a cause not
+//   measured.
+// - A lane owns one 16-byte column chunk of a row (C = D * sizeof(T) / 16
+//   lanes a row, 32 / C rows a warp load) and applies all G heads to it
+//   from registers: q * scale for its chunk in f32, and its chunk of the G
+//   accumulators.  A row's partial dot products are summed over its C
+//   lanes with __shfl_xor_sync.  So every K and V element is read from
+//   shared memory once, in a 16-byte load, by the lane that copied it.
+// - Each warp walks its own tiles (STEPS warp loads of K, then of V) with
+//   its own running max, sum and accumulator, and its own cp.async ring of
+//   STAGES tiles: a lane copies exactly the chunks it later reads, so the
+//   loop has no barrier at all (cp.async.wait_group makes a thread's own
+//   copies visible to it).  Rows past kv_len are not read (zero-filled).
+//   Per tile: the scores of STEPS loads, one max over the tile, one
+//   rescale of the accumulators, then p @ V.  The scores are kept in log2
+//   units, so each exponential is one ex2.
+// - At the end of the range the warps' states are combined once, in warp
+//   order, through shared memory: the only barrier of the kernel.
 #include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int BK = 32;  // rows per tile; kernels/flash_attention.py TILE_ROWS
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int STEPS = 4;      // warp loads of K (and of V) a tile
+constexpr int STAGES = 3;     // tiles a warp's cp.async ring holds
+constexpr int MAX_GROUP = 8;  // query heads a block (kernels/flash_attention.py MAX_GROUP)
+constexpr int LOAD_BYTES = 32 * 16;                 // one warp load: 16 bytes a lane
+constexpr int TILE_BYTES = 2 * STEPS * LOAD_BYTES;  // K then V: 4 KB
+constexpr int SMEM = WARPS * STAGES * TILE_BYTES;   // 48 KB: no opt-in
 constexpr float NEG_INF = -1e30f;  // the TPU kernels' mask value
-constexpr size_t MAX_SMEM = 232448;  // a block's dynamic shared memory on sm_90
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared memory of one block, in bytes: K stages 0 and 1, V stages 0 and
-// 1, then f32 q (g, D), scores/probabilities (g, BK), acc (g, D), and the
-// running max, sum and rescale factor (g each).
-template <typename T, int D> struct Layout {
-  static constexpr int ROW = D * static_cast<int>(sizeof(T)) + 16;
-  static constexpr int CHUNKS = D * static_cast<int>(sizeof(T)) / 16;
-  static constexpr int TILE = BK * ROW;
-  static size_t bytes(int g) {
-    return 4 * static_cast<size_t>(TILE) +
-           sizeof(float) * (static_cast<size_t>(g) * (2 * D + BK) + 3 * g);
-  }
+// 2^x: the scores are kept in log2 units (q is scaled by 1/sqrt(D), then
+// by log2 e), so each exponential is one MUFU.EX2
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T, int D> struct Geo {
+  static constexpr int N = Vec<T>::N;  // elements of a 16-byte chunk
+  static constexpr int C = D / N;      // lanes a row
+  static constexpr int RW = 32 / C;    // rows a warp load
+  static constexpr int RT = RW * STEPS;  // rows a tile
 };
 
-// One block per (kv head, batch row, split).  With nsplit == 1 it writes
-// the output; otherwise its range's unnormalised state, to part_ml
-// (B, Hkv, nsplit, 2, g: max then sum) and part_acc (B, Hkv, nsplit, g, D).
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+// One block per (kv head x group, batch row, split).  With nsplit == 1 it
+// writes the output; otherwise its range's unnormalised state, to part_ml
+// (B, Hkv, nsplit, 2, g: max, in log2 units, then sum) and part_acc (B,
+// Hkv, nsplit, g, D).  An SM holds 2 blocks (kernels/flash_attention.py
+// BLOCKS_PER_SM): 8 warps keep HBM as busy as 12 did.
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(THREADS, 2)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ kv_len,
                         T* __restrict__ out, float* __restrict__ part_ml,
                         float* __restrict__ part_acc, int H, int Hkv, long long S,
                         long long ksb, long long kss, long long ksh, long long vsb,
                         long long vss, long long vsh, float scale) {
-  using L = Layout<T, D>;
-  constexpr int N = Vec<T>::N;
-  constexpr int HG = THREADS / BK;  // head groups of the score step
+  using Ge = Geo<T, D>;
+  constexpr int N = Ge::N, C = Ge::C, RW = Ge::RW, RT = Ge::RT;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hkv = blockIdx.x, b = blockIdx.y, split = blockIdx.z, tid = threadIdx.x;
-  const int nsplit = gridDim.z;
-  const int g = H / Hkv;
-  unsigned char* ktile = smem;
-  unsigned char* vtile = smem + 2 * L::TILE;
-  float* q_s = reinterpret_cast<float*>(smem + 4 * L::TILE);
-  float* p_s = q_s + g * D;
-  float* acc_s = p_s + g * BK;
-  float* m_s = acc_s + g * D;
-  float* l_s = m_s + g;
-  float* a_s = l_s + g;
+  const int g = H / Hkv, ngroups = g / G;
+  const int hkv = blockIdx.x / ngroups, grp = blockIdx.x % ngroups;
+  const int b = blockIdx.y, split = blockIdx.z, nsplit = gridDim.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane / C, chunk = lane % C;  // row of a warp load, column chunk
 
   const long long len = kv_len[b];
   const long long n = len < 0 ? 0 : (len < S ? len : S);  // valid positions
-  const int ntiles = static_cast<int>((n + BK - 1) / BK);
-  const int per_split = (ntiles + nsplit - 1) / nsplit;
-  const int t_begin = split * per_split;
-  const int t_end = min(t_begin + per_split, ntiles);
-  const T* kb = k + b * ksb + hkv * ksh;
-  const T* vb = v + b * vsb + hkv * vsh;
+  const long long ntiles = (n + RT - 1) / RT;
+  const long long per_split = (ntiles + nsplit - 1) / nsplit;
+  const long long t_begin = split * per_split;
+  const long long t_end = min(t_begin + per_split, ntiles);
+  // this warp's tiles: t_begin + warp, + WARPS, ... below t_end
+  const long long first = t_begin + warp;
+  const int count = first < t_end ? static_cast<int>((t_end - first + WARPS - 1) / WARPS) : 0;
 
-  auto load_tile = [&](int t, int stage) {
-    for (int i = tid; i < BK * L::CHUNKS; i += THREADS) {
-      const int r = i / L::CHUNKS, c = i % L::CHUNKS;
-      const long long pos = static_cast<long long>(t) * BK + r;
-      unsigned char* ks = ktile + stage * L::TILE + r * L::ROW + c * 16;
-      unsigned char* vs = vtile + stage * L::TILE + r * L::ROW + c * 16;
-      if (pos < n) {
-        cp_async16(ks, reinterpret_cast<const unsigned char*>(kb + pos * kss) + c * 16);
-        cp_async16(vs, reinterpret_cast<const unsigned char*>(vb + pos * vss) + c * 16);
-      } else {  // past kv_len (or S): zeros, so the row adds nothing to p @ V
-        *reinterpret_cast<uint4*>(ks) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(vs) = make_uint4(0, 0, 0, 0);
+  const T* kb = k + b * ksb + hkv * ksh + chunk * N;
+  const T* vb = v + b * vsb + hkv * vsh + chunk * N;
+  unsigned char* ring = smem + warp * STAGES * TILE_BYTES + lane * 16;
+
+  // tile j of this warp into stage j % STAGES: STEPS loads of K, then of V;
+  // rows past kv_len (or S) are zero-filled without a read.  An empty
+  // group past the last tile keeps the wait count below uniform.
+  auto issue = [&](int j) {
+    if (j < count) {
+      const long long row0 = (first + static_cast<long long>(j) * WARPS) * RT + sub;
+      unsigned char* st = ring + (j % STAGES) * TILE_BYTES;
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i) {
+        const long long row = row0 + i * RW;
+        const bool ok = row < n;
+        cp_async16(st + i * LOAD_BYTES, ok ? kb + row * kss : kb, ok ? 16 : 0);
+        cp_async16(st + (STEPS + i) * LOAD_BYTES, ok ? vb + row * vss : vb, ok ? 16 : 0);
       }
     }
     cp_async_commit();
   };
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) issue(j);
 
-  if (t_begin < t_end) load_tile(t_begin, 0);
-  const long long qoff = (static_cast<long long>(b) * H + static_cast<long long>(hkv) * g) * D;
-  for (int i = tid; i < g * D; i += THREADS) {
-    q_s[i] = to_f32(q[qoff + i]) * scale;
-    acc_s[i] = 0.0f;
+  // q * scale for this lane's chunk, G heads, in f32, then in log2 units
+  const long long h0 = static_cast<long long>(hkv) * g + static_cast<long long>(grp) * G;
+  const T* qb = q + (static_cast<long long>(b) * H + h0) * D + chunk * N;
+  float qf[G][N];
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) qf[h][e] = to_f32(qb[h * D + e]) * scale * LOG2E;
   }
-  for (int h = tid; h < g; h += THREADS) {
-    m_s[h] = NEG_INF;
-    l_s[h] = 0.0f;
+  float m[G], l[G], acc[G][N];
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    m[h] = NEG_INF;
+    l[h] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[h][e] = 0.0f;
+  }
+
+  for (int j = 0; j < count; ++j) {
+    issue(j + STAGES - 1);
+    cp_async_wait<STAGES - 1>();  // tile j has landed
+    const unsigned char* st = ring + (j % STAGES) * TILE_BYTES;
+    const long long row0 = (first + static_cast<long long>(j) * WARPS) * RT + sub;
+
+    // scores: each lane's chunk against the G heads, summed over the row's lanes
+    float s[STEPS][G];
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i) {
+      Vec<T> kv;
+      kv.raw = *reinterpret_cast<const uint4*>(st + i * LOAD_BYTES);
+      float kf[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) kf[e] = to_f32(kv.get(e));
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        float d = 0.0f;
+#pragma unroll
+        for (int e = 0; e < N; ++e) d = fmaf(qf[h][e], kf[e], d);
+#pragma unroll
+        for (int off = C / 2; off > 0; off >>= 1) d += __shfl_xor_sync(FULL_MASK, d, off);
+        s[i][h] = d;
+      }
+    }
+    if ((first + static_cast<long long>(j) * WARPS + 1) * RT > n) {  // the last tile: mask
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i) {
+#pragma unroll
+        for (int h = 0; h < G; ++h) s[i][h] = row0 + i * RW < n ? s[i][h] : NEG_INF;
+      }
+    }
+
+    // online softmax over the tile: one max (over the warp's rows), one
+    // rescale; each lane sums the p of its own rows
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      float mt = s[0][h];
+#pragma unroll
+      for (int i = 1; i < STEPS; ++i) mt = fmaxf(mt, s[i][h]);
+#pragma unroll
+      for (int off = C; off < 32; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(FULL_MASK, mt, off));
+      const float m_new = fmaxf(m[h], mt);
+      const float alpha = exp2_(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha;
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[h][e] *= alpha;
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i) {
+        s[i][h] = exp2_(s[i][h] - m_new);
+        l[h] += s[i][h];
+      }
+    }
+
+    // acc += p @ V
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i) {
+      Vec<T> vv;
+      vv.raw = *reinterpret_cast<const uint4*>(st + (STEPS + i) * LOAD_BYTES);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float ve = to_f32(vv.get(e));
+#pragma unroll
+        for (int h = 0; h < G; ++h) acc[h][e] = fmaf(s[i][h], ve, acc[h][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain; the ring is free
+
+  // the warp's rows share m: sum l and acc over its row groups, then park
+  // the warp's state in its own ring: m, l (G each), acc (G, D)
+#pragma unroll
+  for (int off = C; off < 32; off <<= 1) {
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      l[h] += __shfl_xor_sync(FULL_MASK, l[h], off);
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[h][e] += __shfl_xor_sync(FULL_MASK, acc[h][e], off);
+    }
+  }
+  __syncwarp();  // every lane of the warp is done reading the ring
+  auto state = [&](int w) {
+    return reinterpret_cast<float*>(smem + w * STAGES * TILE_BYTES);
+  };
+  if (sub == 0) {
+    float* ws = state(warp);
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      if (chunk == 0) {
+        ws[h] = m[h];
+        ws[G + h] = l[h];
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e) ws[2 * G + h * D + chunk * N + e] = acc[h][e];
+    }
   }
   __syncthreads();
 
-  const int warp = tid / 32, lane = tid % 32;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int stage = (t - t_begin) & 1;
-    if (t + 1 < t_end) {
-      load_tile(t + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // 1. scores of row r for heads hg, hg + HG, ...; masked past kv_len
-    {
-      const int r = tid % BK;
-      const long long pos = static_cast<long long>(t) * BK + r;
-      const uint4* krow =
-          reinterpret_cast<const uint4*>(ktile + stage * L::TILE + r * L::ROW);
-      for (int h = tid / BK; h < g; h += HG) {
-        const float4* qh = reinterpret_cast<const float4*>(q_s + h * D);
-        float s = 0.0f;
-#pragma unroll
-        for (int c = 0; c < L::CHUNKS; ++c) {
-          Vec<T> kv;
-          kv.raw = krow[c];
-#pragma unroll
-          for (int e = 0; e < N; e += 4) {
-            const float4 qv = qh[(c * N + e) / 4];
-            s += qv.x * to_f32(kv.get(e)) + qv.y * to_f32(kv.get(e + 1)) +
-                 qv.z * to_f32(kv.get(e + 2)) + qv.w * to_f32(kv.get(e + 3));
-          }
-        }
-        p_s[h * BK + r] = pos < n ? s : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // 2. online softmax, one warp per head (warp red_max / red_add)
-    for (int h = warp; h < g; h += WARPS) {
-      float* ph = p_s + h * BK;
-      float tmax = NEG_INF;
-#pragma unroll
-      for (int r = lane; r < BK; r += 32) tmax = fmaxf(tmax, ph[r]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        tmax = fmaxf(tmax, __shfl_xor_sync(FULL_MASK, tmax, off));
-      }
-      const float m_prev = m_s[h];
-      const float m_new = fmaxf(m_prev, tmax);
-      float sum = 0.0f;
-#pragma unroll
-      for (int r = lane; r < BK; r += 32) {
-        const float p = expf(ph[r] - m_new);
-        ph[r] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL_MASK, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[h] = alpha;
-        l_s[h] = l_s[h] * alpha + sum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 3. acc = acc * alpha + p @ V, thread -> (head, d); two partial
-    //    sums halve the dependent chain
-    {
-      const unsigned char* vt = vtile + stage * L::TILE;
-      for (int i = tid; i < g * D; i += THREADS) {
-        const int h = i / D, d = i % D;
-        const float* ph = p_s + h * BK;
-        float a0 = acc_s[i] * a_s[h], a1 = 0.0f;
-#pragma unroll
-        for (int r = 0; r < BK; r += 2) {
-          a0 += ph[r] * to_f32(reinterpret_cast<const T*>(vt + r * L::ROW)[d]);
-          a1 += ph[r + 1] * to_f32(reinterpret_cast<const T*>(vt + (r + 1) * L::ROW)[d]);
-        }
-        acc_s[i] = a0 + a1;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (nsplit == 1) {
-    for (int i = tid; i < g * D; i += THREADS) {
-      const float lsum = l_s[i / D];
-      out[qoff + i] = from_f32<T>(acc_s[i] / (lsum == 0.0f ? 1.0f : lsum));
-    }
-    return;
-  }
+  // the block's state, the warps combined in order, as the splits are
   const long long slot = (static_cast<long long>(b) * Hkv + hkv) * nsplit + split;
-  for (int i = tid; i < g * D; i += THREADS) part_acc[slot * g * D + i] = acc_s[i];
-  for (int h = tid; h < g; h += THREADS) {
-    part_ml[slot * 2 * g + h] = m_s[h];
-    part_ml[slot * 2 * g + g + h] = l_s[h];
+  for (int i = threadIdx.x; i < G * D; i += THREADS) {
+    const int h = i / D, d = i % D;
+    float mb = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mb = fmaxf(mb, state(w)[h]);
+    float lsum = 0.0f, a = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float* ws = state(w);
+      const float c = exp2_(ws[h] - mb);
+      lsum += ws[G + h] * c;
+      a += ws[2 * G + h * D + d] * c;
+    }
+    const int hg = grp * G + h;  // head within the kv head's g
+    if (nsplit == 1) {
+      out[(static_cast<long long>(b) * H + h0 + h) * D + d] =
+          from_f32<T>(a / (lsum == 0.0f ? 1.0f : lsum));
+    } else {
+      part_acc[(slot * g + hg) * D + d] = a;
+      if (d == 0) {
+        part_ml[slot * 2 * g + hg] = mb;
+        part_ml[slot * 2 * g + g + hg] = lsum;
+      }
+    }
   }
 }
 
 // Combines the splits, one thread per output element of (B, H, D): the
 // largest max M over the splits, each split's sum and acc rescaled by
-// exp(m - M), then acc / sum with the lsum == 0 -> 1 guard.  An empty
+// 2^(m - M) (log2 units), then acc / sum with the lsum == 0 -> 1 guard.  An empty
 // split holds (-1e30, 0, 0) and adds nothing; a row with no valid
 // position gives zeros.
 template <typename T>
@@ -256,48 +316,30 @@ __global__ void __launch_bounds__(THREADS)
   for (int s = 0; s < nsplit; ++s) m = fmaxf(m, ml[s * 2 * g + h]);
   float lsum = 0.0f, acc = 0.0f;
   for (int s = 0; s < nsplit; ++s) {
-    const float w = expf(ml[s * 2 * g + h] - m);
+    const float w = exp2_(ml[s * 2 * g + h] - m);
     lsum += ml[s * 2 * g + g + h] * w;
     acc += acc_in[static_cast<long long>(s) * g * D] * w;
   }
   out[o] = from_f32<T>(acc / (lsum == 0.0f ? 1.0f : lsum));
 }
 
-template <typename T, int D>
+template <typename T, int D, int G>
 int launch(const void* q, const void* k, const void* v, const int* kv_len, void* out,
            float* part, int nsplit, int B, int H, int Hkv, long long S,
            const long long* ks, const long long* vs, cudaStream_t stream) {
-  const size_t smem = Layout<T, D>::bytes(H / Hkv);
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_decode_kernel<T, D>;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  // above 48 KB a block's shared memory needs an opt-in, once per device
-  static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(MAX_SMEM));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // the whole carveout as shared memory: room for several blocks per SM
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in[dev] = true;
-  }
-  dim3 grid(static_cast<unsigned>(Hkv), static_cast<unsigned>(B),
+  const int g = H / Hkv;
+  dim3 grid(static_cast<unsigned>(Hkv * (g / G)), static_cast<unsigned>(B),
             static_cast<unsigned>(nsplit));
   // part: the splits' (max, sum) then their acc, both f32
   float* part_ml = part;
-  float* part_acc = part + static_cast<long long>(B) * Hkv * nsplit * 2 * (H / Hkv);
-  kern<<<grid, THREADS, smem, stream>>>(
+  float* part_acc = part + static_cast<long long>(B) * Hkv * nsplit * 2 * g;
+  flash_decode_kernel<T, D, G><<<grid, THREADS, SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
       static_cast<T*>(out), part_ml, part_acc, H, Hkv, S, ks[0], ks[1], ks[2], vs[0],
       vs[1], vs[2], scale);
   if (nsplit > 1) {
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long total = static_cast<long long>(B) * H * D;
     const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
@@ -307,13 +349,37 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
   return 0;
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, const int* kv_len, void* out,
-             float* part, int nsplit, int B, int H, int Hkv, long long S, int D,
+template <typename T, int D>
+int launch_g(int group, const void* q, const void* k, const void* v, const int* kv_len,
+             void* out, float* part, int nsplit, int B, int H, int Hkv, long long S,
              const long long* ks, const long long* vs, cudaStream_t stream) {
+#define COX_DECODE_GROUP(G) \
+  case G: return launch<T, D, G>(q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs, stream);
+  switch (group) {
+    COX_DECODE_GROUP(1)
+    COX_DECODE_GROUP(2)
+    COX_DECODE_GROUP(3)
+    COX_DECODE_GROUP(4)
+    COX_DECODE_GROUP(5)
+    COX_DECODE_GROUP(6)
+    COX_DECODE_GROUP(7)
+    COX_DECODE_GROUP(8)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef COX_DECODE_GROUP
+}
+
+template <typename T>
+int launch_d(int D, int group, const void* q, const void* k, const void* v,
+             const int* kv_len, void* out, float* part, int nsplit, int B, int H, int Hkv,
+             long long S, const long long* ks, const long long* vs, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs, stream);
-    case 128: return launch<T, 128>(q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs, stream);
+    case 64:
+      return launch_g<T, 64>(group, q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs,
+                             stream);
+    case 128:
+      return launch_g<T, 128>(group, q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs,
+                              stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -321,16 +387,18 @@ int launch_d(const void* q, const void* k, const void* v, const int* kv_len, voi
 }  // namespace
 
 // Returns cudaGetLastError() after the launches (0 on success), or
-// cudaErrorInvalidValue for an argument the kernel does not take.  part
-// is f32 scratch of B * Hkv * nsplit * (H / Hkv) * (D + 2) values when
-// nsplit > 1 (unused when nsplit == 1).
+// cudaErrorInvalidValue for an argument the kernel does not take.  group
+// is the query heads a block serves (it divides H / Hkv, at most 8).
+// part is f32 scratch of B * Hkv * nsplit * (H / Hkv) * (D + 2) values
+// when nsplit > 1 (unused when nsplit == 1).
 extern "C" int cox_flash_decode(const void* q, const void* k, const void* v,
                                 const void* kv_len, void* out, void* part, int nsplit,
-                                int B, int H, int Hkv, long long S, int D, long long ksb,
-                                long long kss, long long ksh, long long vsb,
+                                int group, int B, int H, int Hkv, long long S, int D,
+                                long long ksb, long long kss, long long ksh, long long vsb,
                                 long long vss, long long vsh, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || H <= 0 || H % Hkv != 0 || S <= 0 ||
-      nsplit <= 0 || nsplit > 65535 || (nsplit > 1 && part == nullptr)) {
+      nsplit <= 0 || nsplit > 65535 || (nsplit > 1 && part == nullptr) || group <= 0 ||
+      group > MAX_GROUP || (H / Hkv) % group != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* scratch = static_cast<float*>(part);
@@ -341,10 +409,11 @@ extern "C" int cox_flash_decode(const void* q, const void* k, const void* v,
   int err;
   switch (dtype) {
     case COX_F32:
-      err = launch_d<float>(q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, D, ks, vs, s);
+      err = launch_d<float>(D, group, q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, ks, vs, s);
       break;
     case COX_BF16:
-      err = launch_d<__nv_bfloat16>(q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, D, ks, vs, s);
+      err = launch_d<__nv_bfloat16>(D, group, q, k, v, len, out, scratch, nsplit, B, H, Hkv, S,
+                                    ks, vs, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -8,15 +8,18 @@
 
 // Each entry point returns cudaGetLastError() after its launches (0 on
 // success), or cudaErrorInvalidValue for an argument the kernels do not
-// take.  w has the dtype wdtype.
+// take.  w has the dtype wdtype.  The forward runs teams of `warps` warps
+// a row, `teams` of them a block, on `blocks` blocks (kernels/norms.py
+// norm_plan).
 
 extern "C" int cox_rmsnorm(const void* x, const void* w, void* y, long long rows,
-                           long long cols, float eps, int dtype, int wdtype,
-                           void* stream) {
-  if (!fwd_ok(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
+                           long long cols, float eps, int dtype, int wdtype, int warps,
+                           int teams, int blocks, void* stream) {
+  if (!fwd_ok(rows, cols, warps, teams, blocks)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_types(dtype, wdtype, [&](auto t, auto wt) {
-    return fwd<false, decltype(t), decltype(wt)>(x, w, nullptr, y, rows, cols, eps, s);
+    return fwd<false, decltype(t), decltype(wt)>(x, w, nullptr, y, rows, cols, eps, warps,
+                                                 teams, blocks, s);
   });
 }
 

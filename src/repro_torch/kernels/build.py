@@ -39,23 +39,25 @@ SIGNATURES = {
     "row_reduce": {"cox_row_reduce": [_VP, _VP, _LL, _LL, _INT, _INT, _VP]},
     "softmax": {"cox_softmax": [_VP, _VP, _LL, _LL, _INT, _VP]},
     "rmsnorm": {
-        # x, w, y, rows, cols, eps, x dtype, w dtype, stream
-        "cox_rmsnorm": [_VP, _VP, _VP, _LL, _LL, _F32, _INT, _INT, _VP],
+        # x, w, y, rows, cols, eps, x dtype, w dtype, warps a row, teams a
+        # block, blocks, stream
+        "cox_rmsnorm": [_VP, _VP, _VP, _LL, _LL, _F32] + [_INT] * 5 + [_VP],
         # x, w, dy, dx, dw, partial dw scratch, blocks, rows, cols, eps,
         # x dtype, w dtype, stream
         "cox_rmsnorm_bwd": [_VP] * 6 + [_INT, _LL, _LL, _F32, _INT, _INT, _VP],
     },
     "layernorm": {
-        # x, w, b, y, rows, cols, eps, x dtype, w and b dtype, stream
-        "cox_layernorm": [_VP] * 4 + [_LL, _LL, _F32, _INT, _INT, _VP],
+        # x, w, b, y, rows, cols, eps, x dtype, w and b dtype, warps a row,
+        # teams a block, blocks, stream
+        "cox_layernorm": [_VP] * 4 + [_LL, _LL, _F32] + [_INT] * 5 + [_VP],
         # x, w, dy, dx, dw, db, partial dw/db scratch, blocks, rows, cols,
         # eps, x dtype, w dtype, stream
         "cox_layernorm_bwd": [_VP] * 7 + [_INT, _LL, _LL, _F32, _INT, _INT, _VP],
     },
-    # q, k, v, kv_len, out, split scratch, nsplit, B, H, Hkv, S, D,
-    # k strides (b, s, h), v strides (b, s, h), dtype, stream
+    # q, k, v, kv_len, out, split scratch, nsplit, head group, B, H, Hkv,
+    # S, D, k strides (b, s, h), v strides (b, s, h), dtype, stream
     "flash_decode": {
-        "cox_flash_decode": [_VP] * 6 + [_INT] * 4 + [_LL, _INT] + [_LL] * 6 + [_INT, _VP],
+        "cox_flash_decode": [_VP] * 6 + [_INT] * 5 + [_LL, _INT] + [_LL] * 6 + [_INT, _VP],
     },
     "flash_attention": {
         # q, k, v, o, lse, B, H, Hkv, S, D, q/k/v strides (b, s, h),

@@ -5,8 +5,9 @@
 ``src/repro/kernels/flash_attention.py::_decode_kernel``.  The TPU wrapper
 takes one sequence and is vmapped over the batch; this one takes the batch
 natively, and reads the KV cache in its ``(B, S, Hkv, D)`` layout through
-its strides, with no transposed copy, and splits S into ranges that a
-second kernel combines (``num_splits``).
+its strides, with no transposed copy; a block serves ``head_group`` query
+heads of a kv head, and S is split into ranges that a second kernel
+combines (``num_splits``).
 
 ``flash_attention`` replaces the TPU kernel ``_flash_kernel`` (the
 reference's ``flash_attention``), batched in the same way: q ``(B, S, H,
@@ -27,6 +28,8 @@ decode combine, the backward's row sums and split sum), and only those.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build, ref
@@ -38,17 +41,42 @@ decode_launches = fwd_launches = bwd_launches = 0
 # sweeps' 64, in bf16 (serving) and f32 (the cross-checks)
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-TILE_ROWS = 32  # K/V rows per tile (csrc/flash_decode.cu BK)
-BLOCKS_PER_SM = 4  # the split over S aims at this many blocks per SM
+MAX_GROUP = 8  # query heads a block at most (csrc/flash_decode.cu MAX_GROUP)
+BLOCKS_PER_SM = 2  # decode blocks an SM holds (the kernel's launch bounds)
+SPLIT_ROWS = 64  # a split holds at least this many rows of a full cache
+WAVE_FILL = 0.9  # the grid's last wave is at least this full
 MAX_SPLITS = 64
 
-def num_splits(batch: int, n_kv: int, seq_len: int, device: torch.device) -> int:
-    """How many ranges of S each (batch row, kv head) is split into: enough
-    blocks for BLOCKS_PER_SM on every SM, at least one tile per range at
-    full length, at most MAX_SPLITS."""
-    want = -(-BLOCKS_PER_SM * sm_count(device) // (batch * n_kv))
-    tiles = -(-seq_len // TILE_ROWS)
-    return max(1, min(want, tiles, MAX_SPLITS))
+
+@functools.lru_cache(maxsize=64)
+def head_group(group: int) -> int:
+    """Query heads one block serves: the largest divisor of the kv head's
+    ``group`` (H / Hkv) up to MAX_GROUP, whose q and accumulators fit a
+    lane's registers."""
+    return max(d for d in range(1, min(group, MAX_GROUP) + 1) if group % d == 0)
+
+
+def num_splits(batch: int, n_kv: int, group: int, seq_len: int, device: torch.device) -> int:
+    """How many ranges of S each (batch row, kv head, head group) is split
+    into.  Under one wave of resident blocks, as many as leave SPLIT_ROWS
+    rows a range; above it, the fewest whose grid fills its last wave to
+    WAVE_FILL, so no SM waits on a few blocks at the end.  At most
+    MAX_SPLITS."""
+    return _num_splits(batch, n_kv, group, seq_len, sm_count(device))
+
+
+@functools.lru_cache(maxsize=256)  # a decode step asks the same, once a layer
+def _num_splits(batch: int, n_kv: int, group: int, seq_len: int, sms: int) -> int:
+    units = batch * n_kv * (group // head_group(group))
+    slots = BLOCKS_PER_SM * sms
+    most = max(1, min(MAX_SPLITS, -(-seq_len // SPLIT_ROWS)))
+    if units * most <= slots:
+        return most
+    for n in range(1, most + 1):
+        blocks = units * n
+        if blocks >= WAVE_FILL * -(-blocks // slots) * slots:
+            return n
+    return most
 
 
 def flash_decode(
@@ -104,7 +132,8 @@ def flash_decode_cuda(
     if kv_len.shape != (B,) or kv_len.device != q.device:
         raise ValueError(f"flash_decode kv_len: expected ({B},) on {q.device}")
     out = torch.empty_like(q)
-    nsplit = num_splits(B, Hkv, S, q.device)
+    heads = head_group(H // Hkv)
+    nsplit = num_splits(B, Hkv, H // Hkv, S, q.device)
     # per split: (max, sum) and acc for every query head, f32
     part = torch.empty(B * H * nsplit * (D + 2) if nsplit > 1 else 0, device=q.device)
     fn = build.library("flash_decode").cox_flash_decode
@@ -117,6 +146,7 @@ def flash_decode_cuda(
             out.data_ptr(),
             part.data_ptr() if nsplit > 1 else None,
             nsplit,
+            heads,
             B,
             H,
             Hkv,

@@ -15,6 +15,8 @@ and ``ln_bwd_launches`` the layernorm kernels', and only those.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build, ref
@@ -22,6 +24,13 @@ from .common import check_cuda_input, sm_count, stream_of
 
 launches = bwd_launches = ln_launches = ln_bwd_launches = 0
 
+# the forward (csrc/norm.cuh norm_kernel): x values a thread keeps in
+# registers, warps a row at most, threads a block at most, rows a team
+# walks at most
+NORM_HELD = 24
+NORM_MAX_WARPS = 8
+NORM_BLOCK = 256
+NORM_ROWS = 4
 BWD_BLOCKS_PER_SM = 4  # the backwards' row ranges: about this many blocks per SM
 # the backwards' partial rows (dw, and the layer norm's db) live in a
 # block's shared memory: their widths together at most this
@@ -142,10 +151,29 @@ def _check_params(x: torch.Tensor, w: torch.Tensor, b, what: str) -> None:
             raise ValueError(f"{what}: b {tuple(b.shape)} on {b.device}, w {tuple(w.shape)}")
 
 
+def norm_plan(rows: int, cols: int, device: torch.device) -> tuple:
+    """The forward's launch: ``(warps a row, teams a block, blocks)``.  A
+    warp holds 32 x NORM_HELD columns in registers, so a row takes that
+    many warps (at most NORM_MAX_WARPS; a wider row re-reads the rest); a
+    block holds as many such teams as fit NORM_BLOCK threads; each team
+    walks NORM_ROWS rows (fewer where that leaves SMs idle), the next
+    one's loads in flight, and the card's scheduler balances the blocks."""
+    return _norm_plan(rows, cols, sm_count(device))
+
+
+@functools.lru_cache(maxsize=256)  # a decode step asks the same, twice a layer
+def _norm_plan(rows: int, cols: int, sms: int) -> tuple:
+    warps = min(NORM_MAX_WARPS, -(-cols // (32 * NORM_HELD)))
+    teams = max(1, NORM_BLOCK // (32 * warps))
+    per_team = min(NORM_ROWS, -(-rows // (teams * sms)))
+    return warps, teams, -(-rows // (teams * per_team))
+
+
 def _norm_cuda(what: str, x, w, b, eps: float) -> torch.Tensor:
     """cox_rmsnorm (b None) or cox_layernorm."""
     _check_params(x, w, b, what)
     cols = x.shape[-1]
+    rows = x.numel() // cols
     y = torch.empty_like(x)
     if b is None:
         fn, bias = build.library("rmsnorm").cox_rmsnorm, ()
@@ -157,11 +185,12 @@ def _norm_cuda(what: str, x, w, b, eps: float) -> torch.Tensor:
             w.data_ptr(),
             *bias,
             y.data_ptr(),
-            x.numel() // cols,
+            rows,
             cols,
             float(eps),
             build.DTYPE_CODES[x.dtype],
             build.DTYPE_CODES[w.dtype],
+            *norm_plan(rows, cols, x.device),
             stream_of(x),
         )
     build.check(err, f"cox_{what}")

@@ -240,7 +240,30 @@ DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-6)}
 
 @pytest.mark.parametrize(
     "shape",
-    [(8, 128), (16, 1024), (4, 5120), (3, 1001), (2, 3, 6000), (1, 20000), (4, 768), (4, 1536)],
+    [
+        (8, 128),
+        (16, 1024),
+        (4, 5120),
+        (3, 1001),
+        (2, 3, 6000),
+        (1, 20000),
+        (4, 768),
+        (4, 1536),
+        # the forward's edges: a warp's register budget (768 columns) and
+        # one vector past it; eight warps' (6,144) and one vector past it
+        # in f32 (6,148) and in bf16 (6,152); rows that are not a multiple
+        # of the teams a block, and enough rows for each team to walk
+        # several (prefetching the next)
+        (2, 776),
+        (2, 772),
+        (3, 6144),
+        (3, 6148),
+        (3, 6152),
+        (37, 5120),
+        (5000, 768),
+        (4000, 1536),
+        (900, 6144),
+    ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("wdtype", [torch.float32, "same"])
@@ -269,6 +292,23 @@ def test_rmsnorm_rows_off_a_16_byte_boundary(cuda):
     )
 
 
+def test_norms_take_weights_off_a_16_byte_boundary(cuda):
+    """w and b that start off a 16-byte boundary are staged with scalar
+    loads; the rows themselves stay on the vector path."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for cols in (1536, 6144):
+        x = torch.randn(64, cols, generator=gen, device=cuda).to(torch.bfloat16)
+        w = (1 + 0.3 * torch.randn(cols + 1, generator=gen, device=cuda))[1:]
+        b = (0.3 * torch.randn(cols + 1, generator=gen, device=cuda))[1:]
+        assert w.data_ptr() % 16 and b.data_ptr() % 16
+        torch.testing.assert_close(
+            ops.rmsnorm(x, w).float(), ref.rmsnorm(x, w).float(), rtol=2e-2, atol=1e-2
+        )
+        torch.testing.assert_close(
+            ops.layernorm(x, w, b).float(), ref.layernorm(x, w, b).float(), rtol=2e-2, atol=1e-2
+        )
+
+
 def _decode_inputs(cuda, B, S, H, Hkv, D, dtype, seed=0):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn(B, H, D, generator=gen, device=cuda).to(dtype)
@@ -289,6 +329,20 @@ def _decode_inputs(cuda, B, S, H, Hkv, D, dtype, seed=0):
         (2, 64, 4, 4, 64, [64, 33]),  # g = 1
         (2, 96, 4, 2, 128, [5, 96]),
         (1, 200, 8, 4, 128, [150]),
+        # the new design's edges: S shorter than one tile (8 rows in bf16
+        # at D = 128, 16 at D = 64; 4 and 8 in f32)
+        (2, 5, 10, 2, 128, [5, 3]),
+        (2, 3, 8, 2, 64, [3, 2]),
+        # kv_len ending mid-tile, mid-stage (a warp with fewer tiles than
+        # its ring) and mid-split, over many splits
+        (3, 4096, 40, 8, 128, [13, 1000, 4093]),
+        (2, 4096, 40, 8, 64, [4089, 70]),
+        # g = 40 and 48 at D = 64 (groups of 8 heads), g = 9 (three of 3),
+        # g = 7 (one of 7), beside g = 1 and 5 above
+        (2, 777, 48, 1, 64, [777, 400]),
+        (2, 300, 40, 1, 64, [300, 299]),
+        (1, 300, 9, 1, 128, [300]),
+        (2, 2048, 56, 8, 128, [2047, 1500]),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -304,6 +358,37 @@ def test_flash_decode_kernel_matches_plain(cuda, B, S, H, Hkv, D, kv_len, dtype)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
     if 0 in kv_len:
         assert not got[kv_len.index(0)].any()
+
+
+def test_flash_decode_long_ragged_batch_is_deterministic(cuda):
+    """The long-context headline (B 8, S 32,768, 40/8, bf16) with ragged
+    lengths, against the plain version; two calls give the same bits."""
+    B, S, H, Hkv, D = 8, 32768, 40, 8, 128
+    q, k, v = _decode_inputs(cuda, B, S, H, Hkv, D, torch.bfloat16)
+    lens = torch.tensor([32768, 1, 17, 4095, 16384, 32767, 20000, 8], dtype=torch.int32,
+                        device=cuda)
+    got = ops.decode_attention(q, k, v, lens)
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention(q, k, v, lens).float(), rtol=2.0**-7, atol=1e-6
+    )
+    assert torch.equal(got, pfa.flash_decode_cuda(q, k, v, lens))
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 7, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_takes_any_split_count(cuda, monkeypatch, nsplit, dtype):
+    """Forced split counts, from none to more splits than some rows have
+    tiles, give the plain version's answer, each twice the same bits."""
+    B, S, H, Hkv, D = 3, 1000, 40, 8, 128
+    q, k, v = _decode_inputs(cuda, B, S, H, Hkv, D, dtype, seed=4)
+    lens = torch.tensor([1000, 77, 513], dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(pfa, "num_splits", lambda *args: nsplit)
+    got = pfa.flash_decode_cuda(q, k, v, lens)
+    rtol, atol = DECODE_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention(q, k, v, lens).float(), rtol=rtol, atol=atol
+    )
+    assert torch.equal(got, pfa.flash_decode_cuda(q, k, v, lens))
 
 
 def test_flash_decode_reads_a_layer_of_the_stacked_cache_in_place(cuda):
@@ -562,6 +647,16 @@ LN_SHAPES = [
     (1, 20000),
     (600, 64),
     (2, 300, 256),  # rows not a multiple of any tile or block count
+    # the forward's edges (as rmsnorm's): a warp's budget and one vector
+    # past it, eight warps' and one vector past it in f32 and in bf16,
+    # mamba2-130m's widths, teams that walk several rows
+    (2, 776),
+    (3, 6144),
+    (3, 6148),
+    (3, 6152),
+    (1000, 768),
+    (9, 1536),
+    (900, 6144),
 ]
 
 

@@ -184,13 +184,86 @@ def test_flash_decode_takes_a_strided_cache():
 
 
 def test_split_count_fills_the_card(monkeypatch):
-    """About four blocks per SM, at least one 32-row tile per split at
-    full length, at most 64 splits."""
+    """Under one wave of resident blocks (2 an SM), ranges of at least 64
+    rows; above it, the fewest splits whose last wave is 90 % full; at
+    most 64 splits."""
     monkeypatch.setitem(pcommon._SM_COUNT, 0, 132)  # the SM-count cache
     dev = torch.device("cuda", 0)
-    assert pfa.num_splits(8, 8, 32768, dev) == 9  # 64 blocks -> 576
-    assert pfa.num_splits(4, 8, 512, dev) == 16  # one tile each
-    assert pfa.num_splits(1, 1, 100000, dev) == 64
-    assert pfa.num_splits(64, 8, 4096, dev) == 2
-    assert pfa.num_splits(128, 8, 4096, dev) == 1
-    assert pfa.num_splits(2, 2, 20, dev) == 1
+    assert pfa.num_splits(8, 8, 5, 32768, dev) == 4  # 64 units -> 256 of 264 slots
+    assert pfa.num_splits(4, 8, 5, 512, dev) == 8  # the serve shape: 64 rows each
+    assert pfa.num_splits(4, 1, 48, 512, dev) == 8  # MQA serve: 6 groups of 8 heads
+    assert pfa.num_splits(1, 1, 1, 100000, dev) == 64
+    assert pfa.num_splits(64, 8, 5, 4096, dev) == 1  # 512 blocks: 2 waves, 97 %
+    assert pfa.num_splits(128, 8, 5, 4096, dev) == 1
+    assert pfa.num_splits(2, 2, 1, 20, dev) == 1
+
+
+@pytest.mark.parametrize("batch,n_kv,group,seq_len", [
+    (8, 8, 5, 32768), (4, 8, 5, 512), (4, 1, 48, 512), (2, 1, 48, 2048), (1, 8, 5, 4096),
+    (32, 8, 5, 8192), (16, 4, 7, 1000), (3, 2, 1, 70000), (200, 8, 5, 512),
+])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_split_grid_fills_its_waves(monkeypatch, batch, n_kv, group, seq_len, sms):
+    """Every choice either stays under one wave with ranges of at least
+    SPLIT_ROWS rows, or fills the grid's last wave to WAVE_FILL (or has
+    no split count left that would)."""
+    monkeypatch.setitem(pcommon._SM_COUNT, 0, sms)
+    dev = torch.device("cuda", 0)
+    heads = pfa.head_group(group)
+    n = pfa.num_splits(batch, n_kv, group, seq_len, dev)
+    most = max(1, min(pfa.MAX_SPLITS, -(-seq_len // pfa.SPLIT_ROWS)))
+    assert 1 <= n <= most
+    units = batch * n_kv * (group // heads)
+    blocks = units * n
+    slots = pfa.BLOCKS_PER_SM * sms
+    if units * most <= slots:
+        assert n == most
+    else:
+        waves = -(-blocks // slots)
+        assert blocks >= pfa.WAVE_FILL * waves * slots or n == most
+
+
+def test_head_groups_divide_the_group():
+    """A block serves the largest divisor of g up to 8 heads: qwen2.5-14b's
+    5, granite-20b's 48 in six blocks of 8, a prime group one head each."""
+    assert [pfa.head_group(g) for g in (1, 5, 7, 8, 9, 40, 48, 11)] == [1, 5, 7, 8, 3, 8, 8, 1]
+    for g in range(1, 65):
+        heads = pfa.head_group(g)
+        assert g % heads == 0 and heads <= pfa.MAX_GROUP
+        assert not any(g % d == 0 for d in range(heads + 1, pfa.MAX_GROUP + 1))
+
+
+def test_norm_plan_at_the_paths_shapes(monkeypatch):
+    """The norm forward's launch: a warp per 768 columns (at most 8), as
+    many rows a block as 256 threads hold, four rows a team.  Headlines
+    (granite-20b, qwen2.5-14b, mamba2-130m) and the serving shapes (the
+    decode batch of 4: a block a row)."""
+    monkeypatch.setitem(pcommon._SM_COUNT, 0, 132)
+    dev = torch.device("cuda", 0)
+    assert pnorms.norm_plan(8192, 6144, dev) == (8, 1, 2048)
+    assert pnorms.norm_plan(8192, 5120, dev) == (7, 1, 2048)
+    assert pnorms.norm_plan(32768, 1536, dev) == (2, 4, 2048)
+    assert pnorms.norm_plan(4, 6144, dev) == (8, 1, 4)
+    assert pnorms.norm_plan(4, 5120, dev) == (7, 1, 4)
+    assert pnorms.norm_plan(4, 768, dev) == (1, 8, 1)
+    assert pnorms.norm_plan(4, 1536, dev) == (2, 4, 1)
+    assert pnorms.norm_plan(600, 64, dev) == (1, 8, 75)
+
+
+@pytest.mark.parametrize("cols", [1, 64, 768, 769, 1536, 5120, 6144, 6152, 20000])
+@pytest.mark.parametrize("rows", [1, 7, 1000, 4096, 100000])
+def test_norm_plan_covers_every_row(monkeypatch, rows, cols):
+    """Every row has a team and no team walks more than NORM_ROWS rows, a
+    team walks one row where the rows do not fill the SMs, a block stays
+    within 256 threads, and a row of up to 6,144 columns fits its team's
+    registers."""
+    sms = 132
+    monkeypatch.setitem(pcommon._SM_COUNT, 0, sms)
+    warps, teams, blocks = pnorms.norm_plan(rows, cols, torch.device("cuda", 0))
+    assert 1 <= warps <= pnorms.NORM_MAX_WARPS and teams * warps * 32 <= pnorms.NORM_BLOCK
+    walk = -(-rows // (blocks * teams))  # rows the busiest team walks
+    assert 1 <= walk <= pnorms.NORM_ROWS and (blocks - 1) * teams < rows
+    if rows <= teams * sms:
+        assert walk == 1
+    if cols <= pnorms.NORM_MAX_WARPS * 32 * pnorms.NORM_HELD:
+        assert warps * 32 * pnorms.NORM_HELD >= cols
