@@ -76,6 +76,7 @@ from repro_torch.parallel import steps  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 VOCAB = 152064  # qwen2.5-14b vocabulary (src/repro/configs/qwen2_5_14b.py)
 D_MODEL = 5120  # qwen2.5-14b d_model
 MM_N = 320  # CUDA SDK matrixMul sample: default width of A
@@ -1295,29 +1296,66 @@ SSD_TOL = (1e-4, 1e-4)
 SSD_CHUNK = 128  # the reference's chunk (configs/base.py ssd_chunk)
 
 
+def _ssd_tiles(S: int) -> list:
+    """The tile lengths the least-work counts range over: powers of two
+    dividing S up to the reference's chunk (T = 1 is the plain recurrence)."""
+    return [T for T in (1 << k for k in range(8)) if T <= min(SSD_CHUNK, S) and S % T == 0]
+
+
+def _ssd_parts(H: int, P: int, N: int, T: int) -> tuple:
+    """Per head and token at tile length T: (forward products, forward
+    rest, backward products, backward rest).  The forward's products are
+    (C B^T .* L) X, C h and the state update (2TP + 4NP) and C B^T once per
+    batch row and tile, shared by the heads (2TN/H); its rest h's decay once
+    a tile (NP/T).  The backward's products are two T x T products with P
+    (dX's intra part, dY X^T) and two with N (dB's and dC's intra parts)
+    (4TP + 4TN), four T x N x P products (dX's, dB's and dC's inter parts,
+    dH: 8NP) and C B^T (2TN/H); its rest dH's decay and <dH, h_in> once a
+    tile (3NP/T)."""
+    shared = 2 * T * N / H
+    return (
+        2 * T * P + 4 * N * P + shared,
+        N * P / T,
+        4 * T * P + 4 * T * N + 8 * N * P + shared,
+        3 * N * P / T,
+    )
+
+
 def ssd_ops(B: int, S: int, H: int, P: int, N: int) -> tuple:
     """(forward, backward) operations the SSD scan needs at least: the dual
-    form at the tile length T that needs fewest, T a power of two dividing
-    S up to the reference's chunk (T = 1 is the plain recurrence).  Per
-    head and token: the forward's (C B^T .* L) X, C h and the state update
-    (2TP + 4NP) and h's decay once a tile (NP/T); the backward's two T x T
-    products with P (dX's intra part, dY X^T) and two with N (dB's and
-    dC's intra parts) (4TP + 4TN), four T x N x P products (dX's, dB's and
-    dC's inter parts, dH: 8NP), and dH's decay and <dH, h_in> once a tile
-    (3NP/T).  C B^T once per batch row and tile, shared by the heads (2TN/H
-    a head and token).  The backward reads the saved tile states: no
-    forward is recomputed."""
-    tiles = [T for T in (1 << k for k in range(8)) if T <= min(SSD_CHUNK, S) and S % T == 0]
-    fwd = min(2 * T * P + 4 * N * P + N * P / T + 2 * T * N / H for T in tiles)
-    bwd = min(4 * T * P + 4 * T * N + 8 * N * P + 3 * N * P / T + 2 * T * N / H for T in tiles)
+    form at the tile length T that needs fewest (``_ssd_parts``).  The
+    backward reads the saved tile states: no forward is recomputed."""
+    parts = [_ssd_parts(H, P, N, T) for T in _ssd_tiles(S)]
+    fwd = min(p[0] + p[1] for p in parts)
+    bwd = min(p[2] + p[3] for p in parts)
     return B * S * H * fwd, B * S * H * bwd
+
+
+def ssd_tc_bound(B: int, S: int, H: int, P: int, N: int, fwd_bytes: int, bwd_bytes: int) -> tuple:
+    """The least times of the same f32-accurate work with the products on
+    the tensor cores as 3xTF32 (three TF32 products each, at 495 TFLOP/s)
+    and the rest at 67 TFLOP/s, each against its bytes at 3.35 TB/s, the
+    longer; the tile length the one that gives the least time.
+    ((forward ms, by), (backward ms, by))."""
+    parts = [_ssd_parts(H, P, N, T) for T in _ssd_tiles(S)]
+    fwd = min(3 * p[0] / TF32_OPS_PER_S + p[1] / F32_OPS_PER_S for p in parts)
+    bwd = min(3 * p[2] / TF32_OPS_PER_S + p[3] / F32_OPS_PER_S for p in parts)
+    out = []
+    for t_ops, nbytes in ((fwd * B * S * H, fwd_bytes), (bwd * B * S * H, bwd_bytes)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out.append((t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations"))
+    return tuple(out)
 
 
 def phase_ssd_kernels(gen: torch.Generator) -> dict:
     """ssd_scan (forward) and ssd_scan_bwd against the plain chunked form
-    and autograd through it; the first case of each is its headline.  No
-    single PyTorch call computes the scan: library_ms is null.  The plain
-    backward's time includes its forward."""
+    and autograd through it; the first case of each is its headline.  Each
+    wrapper call launches one kernel (after a zero fill of its sync words).
+    No single PyTorch call computes the scan: library_ms is null.  The
+    plain backward's time includes its forward.  Two bounds: ``bound_ms``
+    with every operation at the f32 CUDA-core rate (as in PR 14-17), and
+    ``bound_3xtf32_ms`` with the products on the tensor cores as three TF32
+    products each (``ssd_tc_bound``)."""
     headline = {}
     for B, S, H, P, N in SSD_CASES:
         x = 0.5 * torch.randn(B, S, H, P, generator=gen, device="cuda")
@@ -1360,8 +1398,13 @@ def phase_ssd_kernels(gen: torch.Generator) -> dict:
                 lambda: ref.ssd_scan_chunked(x, a, b, c, chunk=SSD_CHUNK), batches=3, calls=2
             ),
         }
-        # x, a, b, c read; y written
-        rec["bound_ms"], rec["bound_by"] = bound(2 * xb + ab + 2 * bb, fwd_ops)
+        # x, a, b, c read; y written.  The backward: x, a, b, c, dy read;
+        # dx, da, db, dc written.  The saved tile states are left out: a
+        # backward could recompute them instead
+        fwd_bytes, bwd_bytes = 2 * xb + ab + 2 * bb, 3 * xb + 2 * ab + 4 * bb
+        tc_fwd, tc_bwd = ssd_tc_bound(B, S, H, P, N, fwd_bytes, bwd_bytes)
+        rec["bound_ms"], rec["bound_by"] = bound(fwd_bytes, fwd_ops)
+        rec["bound_3xtf32_ms"], rec["bound_3xtf32_by"] = tc_fwd
         emit(rec)
         headline.setdefault("ssd_scan", rec)
         rec = {
@@ -1374,9 +1417,8 @@ def phase_ssd_kernels(gen: torch.Generator) -> dict:
                 lambda: ref.ssd_scan_bwd(x, a, b, c, dy, chunk=SSD_CHUNK), batches=3, calls=1
             ),
         }
-        # x, a, b, c, dy read; dx, da, db, dc written.  The saved tile states
-        # are left out: a backward could recompute them instead
-        rec["bound_ms"], rec["bound_by"] = bound(3 * xb + 2 * ab + 4 * bb, bwd_ops)
+        rec["bound_ms"], rec["bound_by"] = bound(bwd_bytes, bwd_ops)
+        rec["bound_3xtf32_ms"], rec["bound_3xtf32_by"] = tc_bwd
         emit(rec)
         headline.setdefault("ssd_scan_bwd", rec)
         del x, a, b, c, dy, y, states
@@ -1461,7 +1503,7 @@ def _kernel_kind(name: str) -> str:
     # flash_attention.cu: flash_*_kernel (f32), flash_tc::* (bf16), delta_kernel
     if "flash_" in name or "delta_kernel" in name:
         return "attention kernels"
-    if "ssd_" in name or "head_sum_kernel" in name:
+    if "ssd_" in name:
         return "ssd kernels"
     if any(s in name for s in ("norm_kernel", "norm_bwd_kernel", "partial_reduce_kernel")):
         return "norm kernels"
@@ -1955,6 +1997,9 @@ def main() -> int:
                 "library_ms": rec["library_ms"],
             }
         )
+        if "bound_3xtf32_ms" in rec:
+            kernels[-1]["bound_3xtf32_ms"] = rec["bound_3xtf32_ms"]
+            kernels[-1]["bound_3xtf32_by"] = rec["bound_3xtf32_by"]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)

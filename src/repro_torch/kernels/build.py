@@ -79,11 +79,11 @@ SIGNATURES = {
     "ssd_scan": {
         # N, P -> the tile length (0: not built)
         "cox_ssd_scan_tile": [_INT, _INT],
-        # x, a, b, c, y, states, B, S, H, P, N, x strides (b, s, h),
-        # a strides (b, s, h), b and c strides (b, s), stream
-        "cox_ssd_scan": [_VP] * 6 + [_INT] * 5 + [_LL] * 10 + [_VP],
-        # x, a, b, c, dy, states, dx, da, db, dc, db/dc head-part scratch,
-        # B, S, H, P, N, strides as the forward's, stream
+        # x, a, b, c, y, states, sync words, B, S, H, P, N, x strides
+        # (b, s, h), a strides (b, s, h), b and c strides (b, s), stream
+        "cox_ssd_scan": [_VP] * 7 + [_INT] * 5 + [_LL] * 10 + [_VP],
+        # x, a, b, c, dy, states, dx, da, db, dc, the dH exchange buffer,
+        # sync words, B, S, H, P, N, strides as the forward's, stream
         "cox_ssd_scan_bwd": [_VP] * 12 + [_INT] * 5 + [_LL] * 10 + [_VP],
     },
 }

@@ -12,8 +12,12 @@ A CUDA tensor launches the kernels, through :class:`SSDScanFn` where
 autograd records the call (the forward then also keeps the state entering
 each of its tiles for the backward); a CPU tensor takes the plain chunked
 form (``ref.ssd_scan_chunked``), whose gradient is autograd's.
-``launches`` and ``bwd_launches`` count the launches of each kernel (the
-backward's with its head-sum kernel), and only those.
+
+Each wrapper call launches one kernel, after a zero fill of its sync words
+(a ticket counter and one flag per (batch, head, tile)): the blocks of a
+tile pass the state, or the backward's dL/dstate, to the next tile through
+global memory behind those flags.  ``launches`` and ``bwd_launches`` count
+the wrapper calls that launch a kernel, and only those.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ def ssd_scan(
 
 class SSDScanFn(torch.autograd.Function):
     """The CUDA SSD scan with its hand-written backward; the forward keeps
-    the state entering each tile (``(B, H, tiles, N, P)`` f32)."""
+    the state entering each tile (``(B, H, tiles, N, P)`` f32, tiles of
+    :func:`tile_rows` rows)."""
 
     @staticmethod
     def forward(ctx, x, a, b, c):
@@ -68,9 +73,16 @@ class SSDScanFn(torch.autograd.Function):
 
 
 def tile_rows(n_state: int, head_dim: int) -> int:
-    """The kernels' tile length for (N, P): the states buffer holds one
-    state a tile."""
+    """The kernels' tile length T for (N, P): 64 rows, 32 at N = P = 128.
+    The states buffer ``(B, H, ceil(S / T), N, P)`` holds the state
+    entering each tile (zero for the first)."""
     return build.library("ssd_scan").cox_ssd_scan_tile(n_state, head_dim)
+
+
+def _sync_words(B: int, H: int, tiles: int, device) -> torch.Tensor:
+    """The chain's sync words, zero: the blocks' ticket counter, then one
+    flag per (batch, head, tile)."""
+    return torch.zeros(1 + B * H * tiles, dtype=torch.int32, device=device)
 
 
 def _check(x, a, b, c) -> tuple:
@@ -112,31 +124,32 @@ def _strides(x, a, b, c) -> tuple:
 
 def ssd_scan_cuda(x, a, b, c, keep_states: bool = False):
     """The forward kernel: ``(y, states)``, y (B, S, H, P) f32 and, with
-    ``keep_states``, the state entering each tile (else None)."""
+    ``keep_states``, the state entering each tile (else None; the kernel
+    needs the buffer either way, as the chain's exchange)."""
     global launches
     B, S, H, P, N = _check(x, a, b, c)
+    tiles = -(-S // tile_rows(N, P))
     y = torch.empty(B, S, H, P, dtype=x.dtype, device=x.device)
-    states = None
-    if keep_states:
-        tiles = -(-S // tile_rows(N, P))
-        states = torch.empty(B, H, tiles, N, P, dtype=torch.float32, device=x.device)
+    states = torch.empty(B, H, tiles, N, P, dtype=torch.float32, device=x.device)
     fn = build.library("ssd_scan").cox_ssd_scan
     with torch.cuda.device(x.device):
+        sync = _sync_words(B, H, tiles, x.device)
         err = fn(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-            states.data_ptr() if states is not None else None,
+            states.data_ptr(), sync.data_ptr(),
             B, S, H, P, N, *_strides(x, a, b, c), stream_of(x),
         )
     build.check(err, "cox_ssd_scan")
     launches += 1
-    return y, states
+    return y, states if keep_states else None
 
 
 def ssd_scan_bwd_cuda(x, a, b, c, states, dy):
-    """The backward kernels: ``(dx, da, db, dc)``, each f32 in its input's
+    """The backward kernel: ``(dx, da, db, dc)``, each f32 in its input's
     shape, from the forward's inputs, the states it kept and the output
-    gradient ``dy``.  Launched on the current stream of x's device, which
-    the autograd engine sets for the backward."""
+    gradient ``dy``; db and dc summed over the heads inside the kernel, in
+    order.  Launched on the current stream of x's device, which the
+    autograd engine sets for the backward."""
     global bwd_launches
     B, S, H, P, N = _check(x, a, b, c)
     dy = dy.contiguous()
@@ -153,14 +166,14 @@ def ssd_scan_bwd_cuda(x, a, b, c, states, dy):
     da = torch.empty(B, S, H, **f32)
     db = torch.empty(B, S, N, **f32)
     dc = torch.empty(B, S, N, **f32)
-    db_part = torch.empty(B, H, S, N, **f32)  # each head's part, summed in order
-    dc_part = torch.empty(B, H, S, N, **f32)
+    dh_x = torch.empty(B, H, tiles, N, P, **f32)  # dL/d(the state leaving each tile)
     fn = build.library("ssd_scan").cox_ssd_scan_bwd
     with torch.cuda.device(x.device):
+        sync = _sync_words(B, H, tiles, x.device)
         err = fn(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
             states.data_ptr(), dx.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-            db_part.data_ptr(), dc_part.data_ptr(),
+            dh_x.data_ptr(), sync.data_ptr(),
             B, S, H, P, N, *_strides(x, a, b, c), stream_of(x),
         )
     build.check(err, "cox_ssd_scan_bwd")

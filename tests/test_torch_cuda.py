@@ -887,23 +887,81 @@ def test_ssd_scan_kernels_match_plain(cuda, B, S, H, P, N):
 def test_ssd_scan_reads_strided_views_and_is_deterministic(cuda):
     """b and c as slices of one (B, S, H*P + 2N) tensor, x a view of it:
     read through their strides, the same bits as contiguous copies, and
-    each kernel twice gives the same bits."""
-    B, S, H, P, N = 2, 320, 4, 64, 128
+    each kernel twice gives the same bits, forward and backward, over a
+    sequence of many tiles (S = 1,280 with a tail: 21 tiles of 64)."""
+    B, S, H, P, N = 2, 1300, 4, 64, 128
     gen = torch.Generator(device=cuda).manual_seed(5)
     packed = torch.randn(B, S, H * P + 2 * N, generator=gen, device=cuda)
     x = packed[..., : H * P].unflatten(-1, (H, P))
     b, c = packed[..., H * P : H * P + N], packed[..., H * P + N :]
     a = -torch.rand(B, S, 2 * H, generator=gen, device=cuda)[..., ::2]
     dy = torch.randn(B, S, H, P, generator=gen, device=cuda)
+    dense = [t.contiguous() for t in (x, a, b, c)]
     y, states = pssd.ssd_scan_cuda(x, a, b, c, keep_states=True)
-    y2, states2 = pssd.ssd_scan_cuda(*(t.contiguous() for t in (x, a, b, c)), keep_states=True)
+    y2, states2 = pssd.ssd_scan_cuda(*dense, keep_states=True)
     assert torch.equal(y, y2) and torch.equal(states, states2)
     assert torch.equal(pssd.ssd_scan_cuda(x, a, b, c)[0], y)
     g1 = pssd.ssd_scan_bwd_cuda(x, a, b, c, states, dy)
     g2 = pssd.ssd_scan_bwd_cuda(x, a, b, c, states, dy)
-    for g, h in zip(g1, g2):
-        assert torch.equal(g, h)
-    _close_to_scale(y, ref.ssd_scan_chunked(x, a, b, c, chunk=64), *SSD_TOL, "y")
+    g3 = pssd.ssd_scan_bwd_cuda(*dense, states2, dy)
+    for g, h, k in zip(g1, g2, g3):
+        assert torch.equal(g, h) and torch.equal(g, k)
+    _close_to_scale(y, ref.ssd_scan_chunked(x, a, b, c, chunk=S), *SSD_TOL, "y")
+    want = ref.ssd_scan_bwd(*dense, dy, chunk=S)
+    for name, got, w in zip(("dx", "da", "db", "dc"), g1, want):
+        _close_to_scale(got, w, *SSD_TOL, name)
+
+
+def _ssd_check_both(x, a, b, c, dy, chunk):
+    """Forward and backward through the kernels, each against the plain
+    chunked form and autograd through it at SSD_TOL."""
+    y, states = pssd.ssd_scan_cuda(x, a, b, c, keep_states=True)
+    grads = pssd.ssd_scan_bwd_cuda(x, a, b, c, states, dy)
+    _close_to_scale(y, ref.ssd_scan_chunked(x, a, b, c, chunk=chunk), *SSD_TOL, "y")
+    want = ref.ssd_scan_bwd(x, a, b, c, dy, chunk=chunk)
+    for name, got, w in zip(("dx", "da", "db", "dc"), grads, want):
+        _close_to_scale(got, w, *SSD_TOL, name)
+    return y, grads
+
+
+def test_ssd_scan_long_sequence_carries_the_state_across_tiles(cuda):
+    """A mamba2-130m layer over S = 4,096 at batch 1: the state crosses 64
+    tiles of the chain, forward and backward."""
+    _ssd_check_both(*_ssd_inputs(cuda, 1, 4096, 24, 64, 128, seed=3), chunk=128)
+
+
+@pytest.mark.parametrize(
+    "decay",
+    [
+        pytest.param(1e-4, id="near-zero"),  # long memory: errors would add up over tiles
+        pytest.param(60.0, id="very-negative"),  # exp(A) underflows within a tile
+    ],
+)
+def test_ssd_scan_extreme_decays(cuda, decay):
+    B, S, H, P, N = 2, 2048, 4, 64, 128
+    x, _, b, c, dy = _ssd_inputs(cuda, B, S, H, P, N, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = -decay * torch.rand(B, S, H, generator=gen, device=cuda)
+    y, grads = _ssd_check_both(x, a, b, c, dy, chunk=128)
+    for t in (y, *grads):
+        assert bool(torch.isfinite(t).all())
+
+
+def test_ssd_scan_batch_rows_are_their_own_chains(cuda):
+    """Sequences that differ (scale, decay and one all zero): each batch
+    row, through the batched kernels, gives the same bits as that row alone,
+    so no tile reads another row's state or dL/dstate."""
+    B, S, H, P, N = 3, 1024, 4, 64, 128
+    x, a, b, c, dy = _ssd_inputs(cuda, B, S, H, P, N, seed=7)
+    x = x * torch.tensor([1.0, 0.0, 30.0], device=cuda)[:, None, None, None]
+    a = a * torch.tensor([1.0, 0.01, 3.0], device=cuda)[:, None, None]
+    y, grads = _ssd_check_both(x, a, b, c, dy, chunk=128)
+    for row in range(B):
+        one = [t[row : row + 1] for t in (x, a, b, c, dy)]
+        y1, states1 = pssd.ssd_scan_cuda(*one[:4], keep_states=True)
+        assert torch.equal(y1, y[row : row + 1]), row
+        for g1, g in zip(pssd.ssd_scan_bwd_cuda(*one[:4], states1, one[4]), grads):
+            assert torch.equal(g1, g[row : row + 1]), row
 
 
 def test_ssd_scan_refuses_what_it_does_not_take(cuda):
