@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""flash_decode and the norm forwards at the main paths' shapes, on one CUDA card.
+"""flash_decode, the norm forwards and the norm backwards at the main paths'
+shapes, on one CUDA card.
 
     python3 scripts/memory_kernels.py [--src DIR] [--tag NAME]
                                       [--splits 1,2,...] [--team-rows 1,4,...]
+    python3 scripts/memory_kernels.py --bwd [--src DIR] [--tag NAME]
+                                      [--bwd-blocks 1,2,...]
 
 Times the kernels through their wrappers (``flash_decode_cuda``,
 ``rmsnorm_cuda``, ``layernorm_cuda``) with the PyTorch call that computes
@@ -18,8 +21,20 @@ parent commit, so that two trees are compared in one call, in turns);
 ``--splits`` also times flash_decode's headline at each forced split
 count (the wrapper's num_splits picks 4 there), ``--team-rows`` the bf16 norm headlines with each team walking
 that many rows (the wrapper's NORM_ROWS is 4; about 21 is one wave of
-three 256-thread blocks an SM).  One JSON object per line, then the
-card's name and power limit as ``nvidia-smi`` prints them.
+three 256-thread blocks an SM).
+
+``--bwd`` times the norm backwards instead (``rmsnorm_bwd_cuda``,
+``layernorm_bwd_cuda``) at the main paths' bf16 shapes and the f32
+headlines, against ``F.rms_norm``'s and ``F.layer_norm``'s backward alone
+(``torch.autograd.grad`` through a kept graph), with each launch's device
+time from ``torch.profiler`` by kernel name (``by_kernel``: pass 1, pass 2,
+and the library's kernels), the bound (x and dy read, dx written, w read,
+dw and db written, at 3.35 TB/s) and the errors against ``ref``'s
+backward in f32; ``--bwd-blocks`` also times each case with the
+wrapper's ``BWD_BLOCKS_PER_SM`` set to each value.
+
+One JSON object per line, then the card's name and power limit as
+``nvidia-smi`` prints them.
 """
 
 import argparse
@@ -57,6 +72,20 @@ NORMS = [
     ("layernorm", 8192, 6144, torch.float32),
 ]
 SERVE_ROWS = 4
+# the norm backwards (--bwd): (kernel, rows, cols, x dtype), w in f32: the
+# main paths' bf16 shapes (qwen2.5-14b's train step; mamba2-130m's inner
+# norm, then its ln1 and final norm; granite-20b's train step and
+# chip_smoke's case at four times its rows), then the f32 headlines
+NORM_BWD = [
+    ("rmsnorm", 8192, 5120, torch.bfloat16),
+    ("rmsnorm", 32768, 1536, torch.bfloat16),
+    ("rmsnorm", 32768, 768, torch.bfloat16),
+    ("layernorm", 8192, 6144, torch.bfloat16),
+    ("layernorm", 32768, 6144, torch.bfloat16),
+    ("rmsnorm", 8192, 5120, torch.float32),
+    ("layernorm", 8192, 6144, torch.float32),
+]
+HBM_BYTES_PER_S = 3.35e12
 
 
 def median_ms(fn, batches: int = 7, calls: int = 10) -> float:
@@ -95,6 +124,32 @@ def host_us(fn, calls: int = 300) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without return type, namespaces, template arguments
+    and parameters."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def device_ms(fn, calls: int = 10) -> dict:
+    """{kernel: [device ms a call, launches a call]} from torch.profiler."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            ms, n = out.get(kernel_name(e.key), (0.0, 0.0))
+            out[kernel_name(e.key)] = [ms + e.self_device_time_total / 1e3 / calls,
+                                       n + e.count / calls]
+    return out
 
 
 def emit(tag: str, rec: dict) -> None:
@@ -185,24 +240,86 @@ def norm_cases(norms, gen, tag: str, team_rows: list) -> None:
         torch.cuda.empty_cache()
 
 
+def norm_bwd_cases(norms, ref, gen, tag: str, blocks: list) -> None:
+    F = torch.nn.functional
+    for name, rows, cols, dtype in NORM_BWD:
+        ln = name == "layernorm"
+        x = torch.randn(rows, cols, generator=gen, device="cuda").to(dtype)
+        w = 1 + 0.3 * torch.randn(cols, generator=gen, device="cuda")
+        b = 0.3 * torch.randn(cols, generator=gen, device="cuda")
+        dy = torch.randn(rows, cols, generator=gen, device="cuda").to(dtype)
+        leaves = [t.detach().requires_grad_(True) for t in (x, w.to(dtype), b.to(dtype))]
+        if ln:
+            y = F.layer_norm(leaves[0], (cols,), leaves[1], leaves[2], eps=1e-6)
+            want = ref.layernorm_bwd(x.float(), w, b, dy.float())
+
+            def kernel():
+                return norms.layernorm_bwd_cuda(x, w, dy)
+        else:
+            leaves = leaves[:2]
+            y = F.rms_norm(leaves[0], (cols,), leaves[1], eps=1e-6)
+            want = ref.rmsnorm_bwd(x.float(), w, dy.float())
+
+            def kernel():
+                return norms.rmsnorm_bwd_cuda(x, w, dy)
+
+        def library():
+            return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+        got = kernel()
+        errs = {
+            g: float((a.float() - e).abs().max())
+            for g, a, e in zip(("dx", "dw", "db"), got, want)
+        }
+        # x and dy read, dx written; w read, dw (and db) written
+        nbytes = 3 * x.numel() * x.element_size() + (3 if ln else 2) * w.numel() * 4
+        case = {"kernel": name + "_bwd", "shape": [rows, cols], "dtype": str(dtype).split(".")[1]}
+        rec = {
+            **case,
+            "ms": median_ms(kernel),
+            "library_ms": median_ms(library),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": errs,
+            "by_kernel": device_ms(kernel),
+            "library_by_kernel": device_ms(library),
+        }
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        emit(tag, rec)
+        default = norms.BWD_BLOCKS_PER_SM
+        try:
+            for k in blocks:
+                norms.BWD_BLOCKS_PER_SM = k
+                emit(tag, {**case, "bwd_blocks_per_sm": k, "ms": median_ms(kernel),
+                           "by_kernel": device_ms(kernel)})
+        finally:
+            norms.BWD_BLOCKS_PER_SM = default
+        del x, dy, leaves, y, want, got
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory to import")
     ap.add_argument("--tag", default="this")
     ap.add_argument("--splits", default="", help="forced split counts, comma-separated")
     ap.add_argument("--team-rows", default="", help="norm rows a team, comma-separated")
+    ap.add_argument("--bwd", action="store_true", help="the norm backwards instead")
+    ap.add_argument("--bwd-blocks", default="", help="BWD_BLOCKS_PER_SM values, comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, args.src)
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import norms
+    from repro_torch.kernels import norms, ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     ints = lambda s: [int(t) for t in s.split(",") if t]  # noqa: E731
-    decode_cases(fa, gen, args.tag, ints(args.splits))
-    norm_cases(norms, gen, args.tag, ints(args.team_rows))
+    if args.bwd:
+        norm_bwd_cases(norms, ref, gen, args.tag, ints(args.bwd_blocks))
+    else:
+        decode_cases(fa, gen, args.tag, ints(args.splits))
+        norm_cases(norms, gen, args.tag, ints(args.team_rows))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

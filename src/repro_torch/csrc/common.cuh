@@ -48,7 +48,7 @@ template <typename T> struct Vec {
   __device__ __forceinline__ void set(int i, T v) { reinterpret_cast<T*>(&raw)[i] = v; }
 };
 
-template <typename T> __device__ __forceinline__ bool aligned16(const T* p) {
+template <typename T> __host__ __device__ __forceinline__ bool aligned16(const T* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 

@@ -25,17 +25,21 @@ extern "C" int cox_layernorm(const void* x, const void* w, const void* b, void* 
 }
 
 // The gradient of cox_layernorm: dx (rows, cols) in x's dtype, dw and db
-// (cols) in w's, from x, w and dy (b does not enter it).  part is f32
-// scratch of nblk * 2 * cols values.
+// (cols) in w's, from x, w and dy (b does not enter it).  The plan's
+// arguments are cox_rmsnorm_bwd's; part is f32 scratch of nblk * 2 * cols
+// values.
 extern "C" int cox_layernorm_bwd(const void* x, const void* w, const void* dy, void* dx,
-                                 void* dw, void* db, void* part, int nblk, long long rows,
-                                 long long cols, float eps, int dtype, int wdtype,
-                                 void* stream) {
-  if (!bwd_ok(2, nblk, rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
+                                 void* dw, void* db, void* part, long long rows,
+                                 long long cols, float eps, int dtype, int wdtype, int warps,
+                                 int teams, int nblk, long long per, int hold,
+                                 int splits, void* stream) {
+  if (!bwd_ok(rows, cols, warps, teams, nblk, per, splits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_types(dtype, wdtype, [&](auto t, auto wt) {
-    return bwd<true, decltype(t), decltype(wt)>(x, w, dy, dx, dw, db, p, nblk, rows, cols,
-                                                eps, s);
+    return bwd<true, decltype(t), decltype(wt)>(x, w, dy, dx, dw, db, p, rows, cols, eps, warps,
+                                                teams, nblk, per, hold != 0, splits, s);
   });
 }

@@ -49,15 +49,36 @@
 // rstd and g = dy * w: dx = rstd * (g - mean(g) - xh * mean(g * xh)), where
 // the rms norm has no mean(g) term; dw = the sum over rows of dy * xh, and
 // for the layer norm db = the sum over rows of dy.  All in f32; dx in x's
-// dtype, dw and db in w's.  Also bound by memory (x and dy read, dx
-// written).  Two passes, so that dw and db are deterministic: (1) each
-// block takes a range of rows; per row it reduces the sums over the block,
-// writes dx and adds dy * xh (and dy) into its own f32 partial rows in
-// shared memory (each thread owns its columns: no atomics), and at the end
-// writes the partial rows out; (2) a column reduction sums the blocks'
-// partial rows in a fixed order.  The row's later reads hit L1/L2.  Scalar
-// loads: any alignment and width; the width is bounded by the partial
-// rows' shared memory.
+// dtype, dw and db in w's.  Bound: memory (x and dy read, dx written).
+// Two passes, so that dw and db are deterministic (one writer per value,
+// sums in a fixed order, no atomics):
+//
+// - Pass 1 (norm_bwd_kernel) takes the forward's layout: a team of
+//   ceil(cols / 768) warps a row, several teams a block, a thread owning
+//   the same 16-byte column vectors of every row.  It holds x and dy of
+//   those columns in registers, read once a row from a ring of two rows in
+//   shared memory that cp.async fills (the next row's copies in flight
+//   through the current row's sums; registers, not shared memory, are what
+//   run short), holds w in shared memory once a block, and sums dy * xh
+//   (and dy) for its columns across its team's rows in f32 registers,
+//   stored 16 bytes a thread at the end.  A row needs one team reduction
+//   of two sums (rms: x^2 and g * x; the layer norm two: x and g, then
+//   (x - mean)^2 and g * (x - mean)), by warp shuffles and the team's
+//   named barrier; no block-wide barrier a row.
+//   A block takes a contiguous range of rows, its teams interleaved in
+//   it; at the end it adds its teams' sums in team order (through shared
+//   memory; straight from registers for a team alone) and writes one
+//   partial row (dw's cols, then db's).  Columns beyond the held ones,
+//   and every column of a row off a 16-byte boundary or of a ragged
+//   width, are re-read from L2 and summed in shared-memory partial rows
+//   that the owning thread alone updates; rows so wide that those leave
+//   the ring no room hold no columns.  A few hundred blocks, two an SM
+//   (kernels/norms.py norm_bwd_plan): a few hundred partial rows.
+// - Pass 2 (partial_reduce_kernel) sums the partial rows column by
+//   column: a block takes 32 columns and splits the partial rows among
+//   its warps in contiguous ranges of at most 16, each summed in order,
+//   then the ranges in order; enough blocks and short chains that it
+//   takes a few microseconds.
 #pragma once
 
 #include "common.cuh"
@@ -65,37 +86,21 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // the backward's blocks
-constexpr int WARPS = THREADS / 32;
 constexpr size_t MAX_SMEM = 232448;  // a block's dynamic shared memory on sm_90
-// the forward: x values a thread keeps in registers (f32), warps a row at
-// most, and threads a block at most (kernels/norms.py NORM_*)
+// x values a thread keeps in registers (f32), warps a row at most, and
+// threads a block at most (kernels/norms.py NORM_*)
 constexpr int HELD = 24;
 constexpr int MAX_ROW_WARPS = 8;
 constexpr int MAX_BLOCK = 256;
+constexpr int MAX_SPLITS = 32;  // the backward's pass 2: warps a block
+constexpr int RING = 2;  // the backward's ring of rows in shared memory
 
-// Sum each of v[0..K) over the block; every thread gets the sums.  red
-// holds K x WARPS floats and is free again when this returns.
-template <int K>
-__device__ __forceinline__ void block_sum(float (&v)[K], float (*red)[WARPS]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[i] += __shfl_xor_sync(FULL_MASK, v[i], off);
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < K; ++i) red[i][warp] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    v[i] = lane < WARPS ? red[i][lane] : 0.0f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[i] += __shfl_xor_sync(FULL_MASK, v[i], off);
-  }
-  __syncthreads();
+// The 16-byte vectors of a row that a team of tt threads holds in
+// registers: none where the rows take scalar loads.
+template <typename T>
+__host__ __device__ __forceinline__ long long held_vectors(bool vec, long long cols, int tt) {
+  constexpr int N = 16 / sizeof(T);
+  return vec ? min(cols / N, static_cast<long long>(HELD / N) * tt) : 0;
 }
 
 __device__ __forceinline__ void team_barrier(int id, int threads) {
@@ -135,7 +140,7 @@ __global__ void __launch_bounds__(MAX_BLOCK, sizeof(T) == 4 ? 2 : 3)
   const int team = threadIdx.x / tt, t = threadIdx.x % tt;
   const bool vec = cols % N == 0 && aligned16(x) && aligned16(y);
   const long long nvec = vec ? cols / N : 0;
-  const long long held = min(nvec, static_cast<long long>(VPT) * tt);  // vectors a row
+  const long long held = held_vectors<T>(vec, cols, tt);  // vectors a row
   const float n = static_cast<float>(cols);
   const long long stride = static_cast<long long>(gridDim.x) * teams;
   long long row = static_cast<long long>(blockIdx.x) * teams + team;
@@ -255,74 +260,279 @@ __global__ void __launch_bounds__(MAX_BLOCK, sizeof(T) == 4 ? 2 : 3)
   }
 }
 
-// Pass 1 of the gradient: rows [blockIdx.x * per, ...) of x and dy; dx,
-// and this block's partial rows in part[blockIdx.x] (f32: dw's cols, then
-// for the layer norm db's).
-template <bool LN, typename T, typename W>
-__global__ void __launch_bounds__(THREADS)
-    norm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
-                    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
-                    long long rows, long long cols, float eps) {
-  constexpr int R = LN ? 2 : 1;  // partial rows
-  constexpr int K = LN ? 3 : 2;  // row sums: (x - mean)^2, g * (x - mean), g
-  extern __shared__ float acc_s[];
-  __shared__ float red[K][WARPS];
-  for (long long j = threadIdx.x; j < R * cols; j += THREADS) acc_s[j] = 0.0f;
-  const long long per = (rows + gridDim.x - 1) / gridDim.x;
-  const long long r0 = blockIdx.x * per;
-  const long long r1 = min(rows, r0 + per);
-  const float n = static_cast<float>(cols);
-  for (long long row = r0; row < r1; ++row) {
-    const T* xr = x + row * cols;
-    const T* gr = dy + row * cols;
-    float mean = 0.0f;
-    if constexpr (LN) {
-      float s[1] = {0.0f};
-      for (long long j = threadIdx.x; j < cols; j += THREADS) s[0] += to_f32(xr[j]);
-      block_sum<1>(s, red);
-      mean = s[0] / n;
-    }
-    float t[K] = {};
-    for (long long j = threadIdx.x; j < cols; j += THREADS) {
-      const float d = to_f32(xr[j]) - mean;
-      const float g = to_f32(gr[j]) * to_f32(w[j]);
-      t[0] += d * d;
-      t[1] += g * d;
-      if constexpr (LN) t[2] += g;
-    }
-    block_sum<K>(t, red);
-    const float rstd = rsqrtf(t[0] / n + eps);
-    const float mean_gxh = t[1] * rstd / n;
-    const float mean_g = LN ? t[K - 1] / n : 0.0f;
-    T* dxr = dx + row * cols;
-    for (long long j = threadIdx.x; j < cols; j += THREADS) {
-      const float gv = to_f32(gr[j]);
-      const float xh = (to_f32(xr[j]) - mean) * rstd;
-      dxr[j] = from_f32<T>(rstd * (gv * to_f32(w[j]) - mean_g - xh * mean_gxh));
-      acc_s[j] += gv * xh;  // column j belongs to this thread alone
-      if constexpr (LN) acc_s[cols + j] += gv;
-    }
+// The sums a and b over a team of `warps` warps; every thread of the
+// team gets them.  red holds each warp's pair; the caller alternates
+// between two such slots, so one barrier a sum suffices.
+__device__ __forceinline__ void team_sum2(float& a, float& b, float (*red)[2], int warps,
+                                          int team) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(FULL_MASK, a, off);
+    b += __shfl_xor_sync(FULL_MASK, b, off);
   }
-  __syncthreads();  // the write below reads columns across threads
-  float* out = part + static_cast<long long>(blockIdx.x) * R * cols;
-  for (long long j = threadIdx.x; j < R * cols; j += THREADS) out[j] = acc_s[j];
+  if (warps == 1) return;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    red[warp][0] = a;
+    red[warp][1] = b;
+  }
+  team_barrier(1 + team, 32 * warps);
+  a = b = 0.0f;
+  for (int w = team * warps; w < (team + 1) * warps; ++w) {
+    a += red[w][0];
+    b += red[w][1];
+  }
 }
 
-// Pass 2: column j of the nblk partial rows (each nr x cols), summed in
-// order: dw[j] for j < cols, else db[j - cols].
+// Pass 1 of the gradient.  Block b takes rows [b * per, (b + 1) * per):
+// team k of its teams rows b * per + k, + teams, ...; dx, and the block's
+// partial rows in part[b] (f32: dw's cols, then for the layer norm db's).
+// With `hold` a thread holds its columns' 16-byte vectors: it copies them,
+// of x and dy, into its own slots of a ring of RING rows in shared memory
+// by cp.async, the next row's while it sums the current one (each thread
+// reads only what it copied, so no barrier), and takes its row from there
+// into registers; without, it holds none (the widest rows, whose partial
+// rows fill shared memory).  Dynamic shared memory: w of the held columns,
+// in its dtype; the ring; then the f32 partial rows of columns [lo, cols)
+// for each team, where lo is the held width for a team alone (its held sums
+// go straight to part) and 0 for several (their held sums meet there).
+template <bool LN, typename T, typename W>
+__global__ void __launch_bounds__(MAX_BLOCK, sizeof(T) == 4 ? 1 : 2)
+    norm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+                    long long rows, long long cols, float eps, int warps, long long per,
+                    bool hold) {
+  constexpr int N = Vec<T>::N;
+  constexpr int VPT = HELD / N;  // vectors a thread holds
+  constexpr int R = LN ? 2 : 1;  // partial rows
+  extern __shared__ __align__(16) float bwd_s[];
+  __shared__ float red[2][MAX_BLOCK / 32][2];
+  const int tt = 32 * warps;  // threads a team
+  const int teams = blockDim.x / tt;
+  const int team = threadIdx.x / tt, t = threadIdx.x % tt;
+  const bool vec = cols % N == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
+  const long long nvec = vec ? cols / N : 0;
+  const long long held = hold ? held_vectors<T>(vec, cols, tt) : 0;
+  const long long hc = held * N;  // held columns
+  const float n = static_cast<float>(cols);
+  const long long r0 = static_cast<long long>(blockIdx.x) * per;
+  const long long r1 = min(rows, r0 + per);
+  long long row = r0 + team;
+
+  // shared memory: w (16-byte aligned), the ring, the partial rows
+  constexpr int NW = 16 / sizeof(W);
+  W* w_s = reinterpret_cast<W*>(bwd_s);
+  uint4* ring = reinterpret_cast<uint4*>(bwd_s) + (hc + NW - 1) / NW;
+  const long long lo = teams == 1 ? hc : 0;
+  const long long aw = cols - lo;  // columns of the shared partial rows
+  float* acc = reinterpret_cast<float*>(ring + RING * teams * 2 * held);
+  auto slot = [&](int s, int a, long long i) {  // x (a = 0) or dy's vector i of ring row s
+    return ring + ((static_cast<long long>(s) * teams + team) * 2 + a) * held + i;
+  };
+  auto fetch = [&](long long r, int s) {  // row r's held vectors into ring row s
+    if (r < r1) {
+      const uint4* vx = reinterpret_cast<const uint4*>(x + r * cols);
+      const uint4* vdy = reinterpret_cast<const uint4*>(dy + r * cols);
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const long long i = t + static_cast<long long>(k) * tt;
+        if (i < held) {
+          wg::cp_async16(wg::smem_u32(slot(s, 0, i)), vx + i, 16);
+          wg::cp_async16(wg::smem_u32(slot(s, 1, i)), vdy + i, 16);
+        }
+      }
+    }
+    wg::cp_async_commit();
+  };
+
+  // w of the held columns, once for the block's rows (as the forward's),
+  // then the first row
+  if (hc % NW == 0 && aligned16(w)) {
+    for (long long i = threadIdx.x; i < hc / NW; i += blockDim.x) {
+      wg::cp_async16(wg::smem_u32(w_s + i * NW), w + i * NW, 16);
+    }
+  } else {
+    for (long long j = threadIdx.x; j < hc; j += blockDim.x) w_s[j] = w[j];
+  }
+  wg::cp_async_commit();
+  fetch(row, 0);
+  for (long long j = threadIdx.x; j < teams * R * aw; j += blockDim.x) acc[j] = 0.0f;
+  wg::cp_async_wait<1>();  // w has landed
+  __syncthreads();
+  float* acc_t = acc + team * R * aw - lo;  // this team's, indexed by column
+
+  float dw_r[VPT][N] = {}, db_r[VPT][N] = {};  // db_r: the layer norm's
+  int slot_red = 0;
+  for (int it = 0; row < r1; row += teams, ++it) {
+    uint4 cx[VPT], cdy[VPT];
+    if (held) {
+      wg::cp_async_wait<0>();  // this row's vectors have landed
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const long long i = t + static_cast<long long>(k) * tt;
+        if (i < held) {
+          cx[k] = *slot(it % RING, 0, i);
+          cdy[k] = *slot(it % RING, 1, i);
+        }
+      }
+      // into the ring row that the previous row left (read before its sums)
+      fetch(row + teams, (it + 1) % RING);
+    }
+    const T* xr = x + row * cols;
+    const T* gr = dy + row * cols;
+    auto xv = [&](int k, int e) {
+      Vec<T> v;
+      v.raw = cx[k];
+      return to_f32(v.get(e));
+    };
+    auto dyv = [&](int k, int e) {
+      Vec<T> v;
+      v.raw = cdy[k];
+      return to_f32(v.get(e));
+    };
+    auto wv = [&](int k, int e) { return to_f32(w_s[(t + k * tt) * N + e]); };
+    // f(k, e) for each held value; g(j, x[j], dy[j]) for the columns
+    // beyond them: vectors past the held ones, then the scalar tail
+    auto each_held = [&](auto f) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        if (t + static_cast<long long>(k) * tt < held) {
+#pragma unroll
+          for (int e = 0; e < N; ++e) f(k, e);
+        }
+      }
+    };
+    auto beyond = [&](auto g) {
+      const uint4* vx = reinterpret_cast<const uint4*>(xr);
+      const uint4* vdy = reinterpret_cast<const uint4*>(gr);
+      for (long long i = held + t; i < nvec; i += tt) {
+        Vec<T> a, d;
+        a.raw = vx[i];
+        d.raw = vdy[i];
+#pragma unroll
+        for (int e = 0; e < N; ++e) g(i * N + e, to_f32(a.get(e)), to_f32(d.get(e)));
+      }
+      for (long long j = nvec * N + t; j < cols; j += tt) g(j, to_f32(xr[j]), to_f32(gr[j]));
+    };
+
+    float mean = 0.0f, mean_g = 0.0f, s0 = 0.0f, s1 = 0.0f;
+    if constexpr (LN) {
+      // the sums of x and of g
+      each_held([&](int k, int e) {
+        s0 += xv(k, e);
+        s1 += dyv(k, e) * wv(k, e);
+      });
+      beyond([&](long long j, float a, float d) {
+        s0 += a;
+        s1 += d * to_f32(w[j]);
+      });
+      team_sum2(s0, s1, red[slot_red], warps, team);
+      slot_red ^= 1;
+      mean = s0 / n;
+      mean_g = s1 / n;
+      s0 = s1 = 0.0f;
+    }
+    // the sums of (x - mean)^2 and of g * (x - mean)
+    each_held([&](int k, int e) {
+      const float d = xv(k, e) - mean;
+      s0 += d * d;
+      s1 += dyv(k, e) * wv(k, e) * d;
+    });
+    beyond([&](long long j, float a, float g) {
+      const float d = a - mean;
+      s0 += d * d;
+      s1 += g * to_f32(w[j]) * d;
+    });
+    team_sum2(s0, s1, red[slot_red], warps, team);
+    slot_red ^= 1;
+    const float rstd = rsqrtf(s0 / n + eps);
+    const float mean_gxh = s1 * rstd / n;
+
+    // dx, stored in x's dtype; dy * xh (and dy) into the column sums
+    uint4* vout = reinterpret_cast<uint4*>(dx + row * cols);
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const long long i = t + static_cast<long long>(k) * tt;
+      if (i < held) {
+        Vec<T> o;
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float d = dyv(k, e), xh = (xv(k, e) - mean) * rstd;
+          o.set(e, from_f32<T>(rstd * (d * wv(k, e) - mean_g - xh * mean_gxh)));
+          dw_r[k][e] += d * xh;
+          if constexpr (LN) db_r[k][e] += d;
+        }
+        vout[i] = o.raw;
+      }
+    }
+    T* dxr = dx + row * cols;
+    beyond([&](long long j, float a, float d) {
+      const float xh = (a - mean) * rstd;
+      dxr[j] = from_f32<T>(rstd * (d * to_f32(w[j]) - mean_g - xh * mean_gxh));
+      acc_t[j] += d * xh;  // column j belongs to this thread alone
+      if constexpr (LN) acc_t[aw + j] += d;
+    });
+  }
+
+  // the held columns' sums: to part for a team alone, else beside the
+  // other teams'; then every column's sum over the teams, in team order
+  float* out = part + static_cast<long long>(blockIdx.x) * R * cols;
+  // (16-byte stores: a held row's width is a multiple of 4)
+  float* dst = teams == 1 ? out : acc_t;
+  const long long dst_r = teams == 1 ? cols : aw;  // between dw's and db's
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const long long i = t + static_cast<long long>(k) * tt;
+    if (i < held) {
+      float4* dw4 = reinterpret_cast<float4*>(dst + i * N);
+      float4* db4 = reinterpret_cast<float4*>(dst + dst_r + i * N);
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float* v = dw_r[k] + 4 * q;
+        dw4[q] = make_float4(v[0], v[1], v[2], v[3]);
+        if constexpr (LN) {
+          const float* u = db_r[k] + 4 * q;
+          db4[q] = make_float4(u[0], u[1], u[2], u[3]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (long long j = threadIdx.x; j < R * aw; j += blockDim.x) {
+    float s = 0.0f;
+    for (int k = 0; k < teams; ++k) s += acc[k * R * aw + j];
+    out[j / aw * cols + lo + j % aw] = s;
+  }
+}
+
+// Pass 2: column j of the nblk partial rows (each nr x cols): dw[j] for
+// j < cols, else db[j - cols].  A block takes 32 columns; its warp s
+// sums partial rows [s * q, (s + 1) * q) in order, and the warps' sums
+// are added in warp order.
 template <typename W>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32 * MAX_SPLITS)
     partial_reduce_kernel(const float* __restrict__ part, W* __restrict__ dw,
                           W* __restrict__ db, int nblk, long long cols, int nr) {
-  const long long j = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  __shared__ float red[MAX_SPLITS][32];
+  const int lane = threadIdx.x % 32, s = threadIdx.x / 32, splits = blockDim.x / 32;
   const long long width = nr * cols;
-  if (j >= width) return;
-  float s = 0.0f;
-  for (int b = 0; b < nblk; ++b) s += part[static_cast<long long>(b) * width + j];
+  const long long j = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const int q = (nblk + splits - 1) / splits;
+  const int b1 = min(nblk, (s + 1) * q);
+  float acc = 0.0f;
+  if (j < width) {
+#pragma unroll 16
+    for (int b = s * q; b < b1; ++b) acc += part[static_cast<long long>(b) * width + j];
+  }
+  red[s][lane] = acc;
+  __syncthreads();
+  if (s != 0 || j >= width) return;
+  float sum = 0.0f;
+  for (int k = 0; k < splits; ++k) sum += red[k][lane];
   if (j < cols) {
-    dw[j] = from_f32<W>(s);
+    dw[j] = from_f32<W>(sum);
   } else {
-    db[j - cols] = from_f32<W>(s);
+    db[j - cols] = from_f32<W>(sum);
   }
 }
 
@@ -330,7 +540,7 @@ template <bool LN, typename T, typename W>
 int fwd(const void* x, const void* w, const void* b, void* y, long long rows,
         long long cols, float eps, int warps, int teams, int blocks, cudaStream_t stream) {
   constexpr int N = Vec<T>::N, NW = 16 / sizeof(W);
-  const long long held = min(cols / N, static_cast<long long>(HELD / N) * 32 * warps);
+  const long long held = held_vectors<T>(true, cols, 32 * warps);
   const long long padded = (held * N + NW - 1) / NW * NW;  // w's, b's offset
   const size_t smem = (LN ? 2 : 1) * sizeof(W) * static_cast<size_t>(padded);
   auto kern = norm_kernel<LN, T, W>;
@@ -352,23 +562,51 @@ int fwd(const void* x, const void* w, const void* b, void* y, long long rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward's dynamic shared memory (kernels/norms.py bwd_smem): w of
+// the held columns, the ring, then the teams' partial rows of columns
+// [lo, cols).
+template <bool LN, typename T, typename W>
+size_t bwd_smem(bool vec, long long cols, int warps, int teams, bool hold) {
+  constexpr int NW = 16 / sizeof(W);
+  const long long held = hold ? held_vectors<T>(vec, cols, 32 * warps) : 0;
+  const long long hc = held * Vec<T>::N;
+  const long long aw = cols - (teams == 1 ? hc : 0);
+  return 16 * static_cast<size_t>((hc + NW - 1) / NW + RING * teams * 2 * held) +
+         sizeof(float) * static_cast<size_t>(teams * (LN ? 2 : 1) * aw);
+}
+
 template <bool LN, typename T, typename W>
 int bwd(const void* x, const void* w, const void* dy, void* dx, void* dw, void* db,
-        float* part, int nblk, long long rows, long long cols, float eps,
-        cudaStream_t stream) {
+        float* part, long long rows, long long cols, float eps, int warps, int teams,
+        int nblk, long long per, bool hold, int splits, cudaStream_t stream) {
   constexpr int R = LN ? 2 : 1;
+  const bool vec = cols % Vec<T>::N == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
+  const size_t smem = bwd_smem<LN, T, W>(vec, cols, warps, teams, hold);
   auto kern = norm_bwd_kernel<LN, T, W>;
-  const size_t smem = R * static_cast<size_t>(cols) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  // above 48 KB a block's shared memory needs an opt-in, once per device,
+  // up to what the kernel's static shared memory leaves
+  static size_t limit[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<static_cast<unsigned>(nblk), THREADS, smem, stream>>>(
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (limit[dev] == 0) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kern);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int most = static_cast<int>(MAX_SMEM - attr.sharedSizeBytes);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit[dev] = static_cast<size_t>(most);
+  }
+  if (smem > limit[dev]) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<static_cast<unsigned>(nblk), teams * 32 * warps, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const W*>(w), static_cast<const T*>(dy),
-      static_cast<T*>(dx), part, rows, cols, eps);
+      static_cast<T*>(dx), part, rows, cols, eps, warps, per, hold);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((R * cols + THREADS - 1) / THREADS);
-  partial_reduce_kernel<W><<<blocks, THREADS, 0, stream>>>(
+  const unsigned blocks = static_cast<unsigned>((R * cols + 31) / 32);
+  partial_reduce_kernel<W><<<blocks, 32 * splits, 0, stream>>>(
       part, static_cast<W*>(dw), static_cast<W*>(db), nblk, cols, R);
   return static_cast<int>(cudaGetLastError());
 }
@@ -395,9 +633,13 @@ bool fwd_ok(long long rows, long long cols, int warps, int teams, int blocks) {
   return rows > 0 && cols > 0 && warps >= 1 && warps <= MAX_ROW_WARPS && teams >= 1 &&
          teams * 32 * warps <= MAX_BLOCK && blocks >= 1;
 }
-bool bwd_ok(int nr, int nblk, long long rows, long long cols) {
-  return rows > 0 && cols > 0 && nblk > 0 && nblk <= rows &&
-         nr * static_cast<size_t>(cols) * sizeof(float) <= MAX_SMEM - 1024;
+// the backward's plan (kernels/norms.py norm_bwd_plan): every row in one
+// block's range, teams of whole warps
+bool bwd_ok(long long rows, long long cols, int warps, int teams, int nblk, long long per,
+            int splits) {
+  return rows > 0 && cols > 0 && warps >= 1 && warps <= MAX_ROW_WARPS && teams >= 1 &&
+         teams * 32 * warps <= MAX_BLOCK && nblk >= 1 && per >= 1 &&
+         static_cast<long long>(nblk) * per >= rows && splits >= 1 && splits <= MAX_SPLITS;
 }
 
 }  // namespace

@@ -24,17 +24,23 @@ extern "C" int cox_rmsnorm(const void* x, const void* w, void* y, long long rows
 }
 
 // The gradient of cox_rmsnorm: dx (rows, cols) in x's dtype and dw (cols)
-// in w's, from x, w and dy.  part is f32 scratch of nblk * cols values
-// (nblk blocks, each taking a range of rows).
+// in w's, from x, w and dy.  Pass 1 runs teams of `warps` warps a row,
+// `teams` of them a block, on nblk blocks of `per` rows each, holding the
+// rows' 16-byte vectors or not (`hold`); part is f32 scratch of nblk * cols
+// values (a partial row a block), which pass 2 sums with `splits` warps a
+// block (kernels/norms.py norm_bwd_plan).
 extern "C" int cox_rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx,
-                               void* dw, void* part, int nblk, long long rows,
-                               long long cols, float eps, int dtype, int wdtype,
+                               void* dw, void* part, long long rows, long long cols,
+                               float eps, int dtype, int wdtype, int warps, int teams,
+                               int nblk, long long per, int hold, int splits,
                                void* stream) {
-  if (!bwd_ok(1, nblk, rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!bwd_ok(rows, cols, warps, teams, nblk, per, splits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_types(dtype, wdtype, [&](auto t, auto wt) {
-    return bwd<false, decltype(t), decltype(wt)>(x, w, dy, dx, dw, nullptr, p, nblk, rows,
-                                                 cols, eps, s);
+    return bwd<false, decltype(t), decltype(wt)>(x, w, dy, dx, dw, nullptr, p, rows, cols, eps,
+                                                 warps, teams, nblk, per, hold != 0, splits, s);
   });
 }

@@ -42,17 +42,17 @@ SIGNATURES = {
         # x, w, y, rows, cols, eps, x dtype, w dtype, warps a row, teams a
         # block, blocks, stream
         "cox_rmsnorm": [_VP, _VP, _VP, _LL, _LL, _F32] + [_INT] * 5 + [_VP],
-        # x, w, dy, dx, dw, partial dw scratch, blocks, rows, cols, eps,
-        # x dtype, w dtype, stream
-        "cox_rmsnorm_bwd": [_VP] * 6 + [_INT, _LL, _LL, _F32, _INT, _INT, _VP],
+        # x, w, dy, dx, dw, partial dw scratch, rows, cols, eps, x dtype,
+        # w dtype, warps a row, teams a block, blocks, rows a block, whether
+        # rows are held, pass 2's warps a block, stream
+        "cox_rmsnorm_bwd": [_VP] * 6 + [_LL, _LL, _F32] + [_INT] * 5 + [_LL, _INT, _INT, _VP],
     },
     "layernorm": {
         # x, w, b, y, rows, cols, eps, x dtype, w and b dtype, warps a row,
         # teams a block, blocks, stream
         "cox_layernorm": [_VP] * 4 + [_LL, _LL, _F32] + [_INT] * 5 + [_VP],
-        # x, w, dy, dx, dw, db, partial dw/db scratch, blocks, rows, cols,
-        # eps, x dtype, w dtype, stream
-        "cox_layernorm_bwd": [_VP] * 7 + [_INT, _LL, _LL, _F32, _INT, _INT, _VP],
+        # x, w, dy, dx, dw, db, partial dw/db scratch, then cox_rmsnorm_bwd's
+        "cox_layernorm_bwd": [_VP] * 7 + [_LL, _LL, _F32] + [_INT] * 5 + [_LL, _INT, _INT, _VP],
     },
     # q, k, v, kv_len, out, split scratch, nsplit, head group, B, H, Hkv,
     # S, D, k strides (b, s, h), v strides (b, s, h), dtype, stream

@@ -31,10 +31,21 @@ NORM_HELD = 24
 NORM_MAX_WARPS = 8
 NORM_BLOCK = 256
 NORM_ROWS = 4
-BWD_BLOCKS_PER_SM = 4  # the backwards' row ranges: about this many blocks per SM
-# the backwards' partial rows (dw, and the layer norm's db) live in a
-# block's shared memory: their widths together at most this
+# the backwards (csrc/norm.cuh norm_bwd_kernel, the forward's layout): at
+# most this many blocks an SM, each a range of rows and one partial row of
+# dw (and db); a ring of BWD_RING rows of x and dy in shared memory; pass 2
+# (partial_reduce_kernel) sums at most BWD_SUM_VALUES partial rows a
+# thread, with at most BWD_MAX_SPLITS warps a block
+BWD_BLOCKS_PER_SM = 2
+BWD_RING = 2
+BWD_SUM_VALUES = 16
+BWD_MAX_SPLITS = 32
+# the partial rows of the columns that a row does not hold in registers
+# (dw, and the layer norm's db) live in a block's shared memory: their
+# widths together at most this
 MAX_BWD_COLS = 56 * 1024
+MAX_SMEM = 232448  # a block's shared memory on sm_90
+BWD_STATIC_SMEM = 1024  # room left for the backward's static shared memory
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -197,6 +208,53 @@ def _norm_cuda(what: str, x, w, b, eps: float) -> torch.Tensor:
     return y
 
 
+def norm_bwd_plan(rows: int, cols: int, device: torch.device, x_itemsize: int,
+                  w_itemsize: int, nr: int) -> tuple:
+    """The backward's launch, for x and w of these item sizes and ``nr``
+    partial rows (dw, and the layer norm's db): ``(warps a row, teams a
+    block, blocks, rows a block, whether the rows' vectors are held, pass
+    2's warps a block)``.  Warps and teams are the forward's; each block
+    takes a contiguous range of rows (a multiple of the teams, which
+    interleave in it), at most BWD_BLOCKS_PER_SM blocks an SM, so that
+    pass 2 sums a few hundred partial rows; a row's 16-byte vectors are
+    held (through the ring) unless the widest rows' partial rows leave no
+    room; pass 2 splits the partial rows among enough warps that a thread
+    sums at most BWD_SUM_VALUES."""
+    return _norm_bwd_plan(
+        rows, cols, sm_count(device), BWD_BLOCKS_PER_SM, x_itemsize, w_itemsize, nr
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _norm_bwd_plan(rows, cols, sms, blocks_per_sm, x_itemsize, w_itemsize, nr) -> tuple:
+    warps = min(NORM_MAX_WARPS, -(-cols // (32 * NORM_HELD)))
+    teams = max(1, NORM_BLOCK // (32 * warps))
+    blocks = max(1, min(-(-rows // teams), blocks_per_sm * sms))
+    per = teams * -(-rows // (blocks * teams))
+    blocks = -(-rows // per)
+    smem = bwd_smem(cols, warps, teams, nr, x_itemsize, w_itemsize, True)
+    hold = int(smem <= MAX_SMEM - BWD_STATIC_SMEM)
+    splits = min(BWD_MAX_SPLITS, -(-blocks // BWD_SUM_VALUES))
+    return warps, teams, blocks, per, hold, splits
+
+
+def bwd_smem(cols: int, warps: int, teams: int, nr: int, x_itemsize: int, w_itemsize: int,
+             hold: bool, aligned: bool = True) -> int:
+    """Pass 1's dynamic shared memory in bytes (csrc/norm.cuh bwd_smem),
+    for rows on a 16-byte boundary (``aligned``) or not: w of the columns
+    held in registers (``hold``), the ring of their x and dy, then each
+    team's f32 partial rows of the columns it does not hold (of every
+    column where the block has several teams)."""
+    n = 16 // x_itemsize
+    held = 0
+    if aligned and hold and cols % n == 0:
+        held = min(cols // n, NORM_HELD // n * 32 * warps)
+    hc = held * n
+    nw = 16 // w_itemsize
+    ring = BWD_RING * teams * 2 * held  # 16-byte vectors
+    return 16 * (-(-hc // nw) + ring) + 4 * teams * nr * (cols - (hc if teams == 1 else 0))
+
+
 def _norm_bwd_cuda(what: str, x, w, dy, eps: float, *, centred: bool) -> tuple:
     """cox_rmsnorm_bwd, or with ``centred`` cox_layernorm_bwd: ``(dx, dw)``
     or ``(dx, dw, db)``."""
@@ -212,7 +270,9 @@ def _norm_bwd_cuda(what: str, x, w, dy, eps: float, *, centred: bool) -> tuple:
     rows = x.numel() // cols
     if nr * cols > MAX_BWD_COLS:
         raise ValueError(f"{what}: width {cols} > {MAX_BWD_COLS // nr}")
-    nblk = min(rows, BWD_BLOCKS_PER_SM * sm_count(x.device))
+    warps, teams, nblk, per, hold, splits = norm_bwd_plan(
+        rows, cols, x.device, x.element_size(), w.element_size(), nr
+    )
     dx = torch.empty_like(x)
     dwb = [torch.empty_like(w) for _ in range(nr)]
     part = torch.empty(nblk, nr * cols, dtype=torch.float32, device=x.device)
@@ -228,12 +288,17 @@ def _norm_bwd_cuda(what: str, x, w, dy, eps: float, *, centred: bool) -> tuple:
             dx.data_ptr(),
             *(t.data_ptr() for t in dwb),
             part.data_ptr(),
-            nblk,
             rows,
             cols,
             float(eps),
             build.DTYPE_CODES[x.dtype],
             build.DTYPE_CODES[w.dtype],
+            warps,
+            teams,
+            nblk,
+            per,
+            hold,
+            splits,
             stream_of(x),
         )
     build.check(err, f"cox_{what}")

@@ -599,6 +599,15 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         (600, 64),
         (2, 300, 768),  # mamba2-130m's d_model and d_inner
         (2, 300, 1536),
+        # the team edges (LN_SHAPES'): a warp's registers and one vector
+        # past them, eight warps' and one and two vectors past them, teams
+        # that walk many rows
+        (2, 776),
+        (3, 6144),
+        (3, 6148),
+        (3, 6152),
+        (1000, 768),
+        (900, 6144),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -723,6 +732,35 @@ def test_layernorm_backward_kernel_matches_plain(cuda, shape, dtype, wdtype):
     again = pnorms.layernorm_bwd_cuda(x, w, dy)
     for a, g in zip(again, (dx, dw, db)):
         assert torch.equal(a, g)
+
+
+@pytest.mark.parametrize("centred", [False, True], ids=["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("shape", [(5, 768), (3, 6144), (4, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_backwards_take_rows_off_a_16_byte_boundary(cuda, centred, shape, dtype):
+    """x and dy one element past a 16-byte boundary (both, then dy alone)
+    take the scalar loads; the same gradients as the plain version, and the
+    same bits twice."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = shape[0] * shape[1]
+    x = (1.0 + torch.randn(n + 1, generator=gen, device=cuda)).to(dtype)[1:].view(shape)
+    dy = torch.randn(n + 1, generator=gen, device=cuda).to(dtype)[1:].view(shape)
+    w = 1 + 0.3 * torch.randn(shape[-1], generator=gen, device=cuda)
+    b = 0.3 * torch.randn(shape[-1], generator=gen, device=cuda)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    for xs in (x, x.clone()):
+        if centred:
+            got = pnorms.layernorm_bwd_cuda(xs, w, dy)
+            want = ref.layernorm_bwd(xs.float(), w, b, dy.float())
+        else:
+            got = pnorms.rmsnorm_bwd_cuda(xs, w, dy)
+            want = ref.rmsnorm_bwd(xs.float(), w, dy.float())
+        tols = (ATTN_TOL[dtype], ATTN_TOL[torch.float32], ATTN_TOL[torch.float32])
+        for name, g, wt, tol in zip(("dx", "dw", "db"), got, want, tols):
+            _close_to_scale(g, wt, *tol, name)
+        again = (pnorms.layernorm_bwd_cuda if centred else pnorms.rmsnorm_bwd_cuda)(xs, w, dy)
+        for a, g in zip(again, got):
+            assert torch.equal(a, g)
 
 
 def test_layernorm_kernels_refuse_what_they_do_not_take(cuda):
