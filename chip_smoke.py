@@ -513,6 +513,7 @@ SOFTMAX_CASES = [
     ((3, 1001), torch.float32),  # a tail, and rows that start unaligned
     ((3, 1001), torch.bfloat16),
     ((SOFTMAX_ROWS, VOCAB), torch.float32),
+    ((64, VOCAB + 3), torch.bfloat16),  # every other row off the 16-byte boundary
 ]
 REDUCE_CASES = [
     ((8192, D_MODEL), torch.float32),
@@ -544,9 +545,13 @@ def phase_kernels(gen: torch.Generator) -> dict:
             "atol": atol,
             "max_abs_err": err,
             "max_rel_err": rel,
+            "plan": sm.softmax_plan(shape[0], shape[1], dtype, x.device).summary(shape[0]),
             "ms": median_ms(lambda: sm.softmax_cuda(x)),
+            # the device alone: the small cases' eager calls read the host
+            "graph_ms": graph_ms(lambda: sm.softmax_cuda(x)),
             "plain_ms": median_ms(lambda: ref.softmax(x)),
             "library_ms": median_ms(lambda: torch.softmax(x, dim=-1)),
+            "library_graph_ms": graph_ms(lambda: torch.softmax(x, dim=-1)),
         }
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 5 * x.numel())
         emit(rec)
@@ -785,7 +790,8 @@ def phase_serve(cpu_tokens: int, arch: str = ARCH) -> dict:
 
 
 def phase_wrapper_host(gen: torch.Generator, serve_rec: dict) -> None:
-    """The wrappers' host time per call at the serve phase's shapes,
+    """The wrappers' host time per call at the serve phase's shapes (the
+    softmax's at the three-way phase's, beside ``torch.softmax``'s),
     beside a plain PyTorch call's, and their share of a decode step."""
     B, S = SERVE["batch"], SERVE["ctx"]
     x = torch.randn(B, D_MODEL, generator=gen, device="cuda").to(torch.bfloat16)
@@ -799,6 +805,9 @@ def phase_wrapper_host(gen: torch.Generator, serve_rec: dict) -> None:
     rms_us = host_us_per_call(lambda: norms.rmsnorm_cuda(x, w))
     ln_us = host_us_per_call(lambda: norms.layernorm_cuda(xg, wg, bg))
     fd_us = host_us_per_call(lambda: fa.flash_decode_cuda(q, k, k, lens))
+    logits = torch.randn(SOFTMAX_ROWS, VOCAB, generator=gen, device="cuda")
+    sm_us = host_us_per_call(lambda: sm.softmax_cuda(logits))
+    torch_sm_us = host_us_per_call(lambda: torch.softmax(logits, dim=-1))
     add_us = host_us_per_call(lambda: torch.add(x, x))
     per = serve_rec["launches_per_step"]
     host_ms = (per["rmsnorm"] * rms_us + per["flash_decode"] * fd_us) / 1e3
@@ -808,6 +817,9 @@ def phase_wrapper_host(gen: torch.Generator, serve_rec: dict) -> None:
             "rmsnorm_host_us": rms_us,
             "layernorm_host_us": ln_us,
             "flash_decode_host_us": fd_us,
+            # the three-way phase's shape; recorded only
+            "softmax_host_us": sm_us,
+            "torch_softmax_host_us": torch_sm_us,
             "torch_add_host_us": add_us,
             "wrappers_host_ms_per_step": host_ms,
             "wrappers_host_share_of_step": host_ms / serve_rec["step_ms_median"],

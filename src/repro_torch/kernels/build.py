@@ -37,7 +37,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP, _LL, _INT, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "row_reduce": {"cox_row_reduce": [_VP, _VP, _LL, _LL, _INT, _INT, _VP]},
-    "softmax": {"cox_softmax": [_VP, _VP, _LL, _LL, _INT, _VP]},
+    "softmax": {
+        # x, y, rows, cols, dtype, regime, two of its numbers (warps a row
+        # and teams a block, or blocks a cluster and stages), blocks or
+        # clusters, vectors a slice, stream
+        "cox_softmax": [_VP, _VP, _LL, _LL] + [_INT] * 5 + [_LL, _VP],
+        # dtype, regime, blocks a cluster, dynamic shared memory bytes
+        "cox_softmax_clusters": [_INT, _INT, _INT, _LL],
+    },
     "rmsnorm": {
         # x, w, y, rows, cols, eps, x dtype, w dtype, warps a row, teams a
         # block, blocks, stream

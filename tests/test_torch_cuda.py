@@ -13,6 +13,7 @@ JAX, so it runs on a machine with the card:
 Every test carries the ``cuda`` marker and skips where there is no card.
 """
 
+import dataclasses
 import importlib.util
 import pathlib
 import sys
@@ -22,9 +23,11 @@ import pytest
 import torch
 
 from repro_torch.core import cox, execute
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import norms as pnorms
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import softmax as psm
 from repro_torch.kernels import ssd_scan as pssd
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -209,6 +212,150 @@ def test_ragged_vocabulary_widths(cuda):
     x = base[1:].view(3, 1001)
     torch.testing.assert_close(ops.softmax(x), ref.softmax(x), rtol=1e-5, atol=0.0)
     assert torch.equal(ops.row_reduce(x, "max"), ref.row_reduce(x, "max"))
+
+
+# ---------------------------------------------------------------------------
+# softmax's three regimes (kernels/softmax.py softmax_plan)
+# ---------------------------------------------------------------------------
+
+VOCAB = 152064
+
+
+def _long_cols(itemsize: int) -> int:
+    """The narrowest row that takes the long regime: its slice at
+    MAX_CLUSTER blocks outgrows one stage of shared memory."""
+    n = 16 // itemsize
+    return n * (psm.MAX_CLUSTER * ((psm.MAX_SMEM - psm.STATIC_SMEM) // 16) + 1)
+
+
+def _softmax_case(x, dtype, regime=None):
+    """One call, held to the plain version at SOFTMAX_TOL; one launch;
+    bitwise equal to a second call; the plan's regime where one is named."""
+    plan = psm.softmax_plan(x.numel() // x.shape[-1], x.shape[-1], x.dtype, x.device)
+    if regime is not None:
+        assert plan.regime == regime, plan
+    before = psm.launches
+    got = ops.softmax(x)
+    assert psm.launches == before + 1
+    assert got.data_ptr() % 16 == x.data_ptr() % 16 and got.is_contiguous()
+    rtol, atol = SOFTMAX_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.softmax(x).float(), rtol=rtol, atol=atol)
+    assert torch.equal(got, ops.softmax(x)), "not bitwise equal over two calls"
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "rows, cols, regime",
+    [
+        (33, psm.ROW_MAX_COLS, "rows"),
+        (33, psm.ROW_MAX_COLS + 1, "cluster"),
+        (3, 4096, "rows"),
+        (4096, 4096, "rows"),
+        (64, VOCAB, "cluster"),
+        (2, VOCAB, "cluster"),
+        (5, 32769, "cluster"),
+    ],
+)
+def test_softmax_regimes_and_their_boundaries(cuda, dtype, rows, cols, regime):
+    """Each regime, and the widths on both sides of the rows/cluster
+    boundary, against the plain version; bitwise twice; one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + cols)
+    x = (3 * torch.randn(rows, cols, generator=gen, device=cuda)).to(dtype)
+    _softmax_case(x, dtype, regime)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_cluster_long_boundary(cuda, dtype):
+    """The widest rows a cluster holds in shared memory, and one vector
+    wider: the long regime, which reads x twice."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    first = _long_cols(size)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for cols, regime in ((first - 1, "cluster"), (first, "long")):
+        x = (3 * torch.randn(2, cols, generator=gen, device=cuda)).to(dtype)
+        _softmax_case(x, dtype, regime)
+
+
+def test_softmax_long_rows(cuda):
+    """2 x 2^20 f32 (4 MB a row) in the long regime."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = 3 * torch.randn(2, 2**20, generator=gen, device=cuda)
+    _softmax_case(x, torch.float32, "long")
+
+
+@pytest.mark.parametrize("cols", [1001, 8191, VOCAB + 3, _long_cols(4) + 1])
+def test_softmax_odd_widths_start_rows_unaligned(cuda, cols):
+    """Odd widths put every other row off the 16-byte boundary, and an
+    offset view every row: the rows keep their vectors, the head and tail
+    go through plain loads; y shares x's offset modulo 16 bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(cols)
+    x = 3 * torch.randn(4, cols, generator=gen, device=cuda)
+    _softmax_case(x, torch.float32)
+    base = 3 * torch.randn(3 * cols + 8, generator=gen, device=cuda)
+    for off in (1, 2, 3):
+        _softmax_case(base[off : off + 3 * cols].view(3, cols), torch.float32)
+    xb = x.to(torch.bfloat16)
+    _softmax_case(xb, torch.bfloat16)
+    _softmax_case(base.to(torch.bfloat16)[5 : 5 + 3 * cols].view(3, cols), torch.bfloat16)
+
+
+@pytest.mark.parametrize("cols", [VOCAB, _long_cols(4)])
+def test_softmax_a_slice_all_minus_inf(cuda, cols):
+    """A block whose whole slice is -inf adds 0 to the row's sum, in every
+    block's place; its outputs are 0."""
+    x = 3 * torch.randn(2, cols, device=cuda)
+    plan = psm.softmax_plan(2, cols, x.dtype, x.device)
+    assert plan.regime in ("cluster", "long")
+    per = -(-(cols // 4) // plan.cluster)
+    for rank in (0, plan.cluster // 2, plan.cluster - 1):
+        xm = x.clone()
+        xm[0, 4 * rank * per : 4 * (rank + 1) * per] = float("-inf")
+        got = _softmax_case(xm, torch.float32)
+        assert (got[0, 4 * rank * per : 4 * (rank + 1) * per] == 0).all()
+
+
+@pytest.mark.parametrize("cols", [4096, VOCAB, _long_cols(4)])
+def test_softmax_nan_in_the_last_slice(cuda, cols):
+    """A NaN in the last block's slice (the last columns) makes its whole
+    row NaN and no other; a row all -inf gives the plain version's NaN."""
+    x = 3 * torch.randn(3, cols, device=cuda)
+    x[1, cols - 3] = float("nan")
+    x[2] = float("-inf")
+    got = ops.softmax(x)
+    assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()
+    assert torch.isnan(ref.softmax(x)[2]).all()
+    torch.testing.assert_close(got[0], ref.softmax(x)[0], rtol=1e-5, atol=0.0)
+
+
+def test_softmax_f16_at_vocabulary_width(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = (3 * torch.randn(64, VOCAB, generator=gen, device=cuda)).half()
+    _softmax_case(x, torch.float16, "cluster")
+    _softmax_case(x[:2].contiguous(), torch.float16, "cluster")
+
+
+def test_softmax_stages_give_the_same_bits(cuda):
+    """One stage or two (the next row's slice in flight or not): the same
+    sums in the same order, so the same bits, each within SOFTMAX_TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = 3 * torch.randn(64, VOCAB, generator=gen, device=cuda)
+    base = psm.softmax_plan(64, VOCAB, x.dtype, x.device)
+    assert base.regime == "cluster"
+    code = build.DTYPE_CODES[x.dtype]
+    outs = []
+    for stages in (1, 2):
+        smem = 16 * stages * base.slice
+        fit = psm._clusters_that_fit(x.device.index, code, "cluster", base.cluster, smem)
+        plan = dataclasses.replace(base, stages=stages, smem=smem, clusters=min(64, fit))
+        before = psm.launches
+        with torch.cuda.device(x.device):
+            got = psm._launch(x, plan)
+        assert psm.launches == before + 1
+        rtol, atol = SOFTMAX_TOL[torch.float32]
+        torch.testing.assert_close(got, ref.softmax(x), rtol=rtol, atol=atol)
+        outs.append(got)
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_row_sum_is_accurate_at_vocabulary_width(cuda):
