@@ -9,7 +9,10 @@ each against its plain PyTorch version at the widths of qwen2.5-14b
 main paths, each with the launch counts set to 0 before it and read after
 it:
 
-- COX kernels launched on CUDA tensors against the port's numpy oracle,
+- COX kernels launched on CUDA tensors on the serial ``scan`` backend
+  against the port's numpy oracle, and on the block-parallel ``vmap``
+  backend (batched warps, whole-grid waves, grid-stride and cooperative
+  waves) bitwise against the scan launch, one ``cox`` line a launch;
   the three-way check of ``examples/cox_kernels_in_models.py`` (a COX
   warp-collective kernel, the CUDA kernel and the plain version agree),
   and ``serve_requests`` on qwen2.5-14b at full width and depth in bf16
@@ -58,7 +61,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import cox, execute, oracle  # noqa: E402
+from repro_torch.core import cox, execute, oracle, runtime  # noqa: E402
 from repro_torch.core.typeinfer import infer  # noqa: E402
 from repro_torch.core.types import ArraySpec  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
@@ -1728,12 +1731,51 @@ def _oracle_blocks(kern, bids, *, grid, block, args) -> dict:
     return globals_
 
 
-def phase_cox(rng: np.random.Generator) -> None:
-    """COX launches on CUDA tensors against the numpy oracle."""
+SCAN = dict(backend="scan", warp_exec="serial")  # the serial loop, as before PR 21
 
-    def report(name, wall, syncs, **extra):
-        rec = {"phase": "cox", "kernel": name, "wall_s": wall, "host_syncs": syncs}
-        emit({**rec, **extra})
+
+def launch_knobs(kern, *, grid, block, args, collapse="hybrid", **kw) -> dict:
+    """The knobs a launch resolves to (collapse, warps, backend, warp
+    plane, wave, schedule)."""
+    ck = kern.compiled(block=block, collapse=collapse)
+    rl = runtime.resolve_launch(ck, grid=grid, block=block, **kw)
+    shapes = {
+        spec.name: tuple(np.shape(a))
+        for spec, a in zip(ck.kernel.params, args)
+        if isinstance(spec, ArraySpec)
+    }
+    rl = runtime.resolve_schedule(ck, rl, shapes)
+    return {
+        "collapse": "flat" if ck.warp_size == rl.block.total else "hier",
+        "n_warps": rl.n_warps,
+        "backend": rl.backend,
+        "warp_exec": rl.warp_exec,
+        "chunk": rl.chunk,
+        "schedule": rl.schedule,
+        "n_resident": rl.n_resident,
+    }
+
+
+def phase_cox(rng: np.random.Generator) -> None:
+    """COX launches on CUDA tensors: the serial ``scan`` path against the
+    numpy oracle, and the block-parallel ``vmap`` path (batched warps
+    where ``auto`` picks them) bitwise against the scan launch."""
+
+    def run(name, kern, *, grid, block, args, **kw):
+        out, wall, syncs = timed_launch(kern, grid=grid, block=block, args=args, **kw)
+        knobs = launch_knobs(kern, grid=grid, block=block, args=args, **kw)
+        return out, {"phase": "cox", "kernel": name, "wall_s": wall, "host_syncs": syncs, **knobs}
+
+    def same(a, b):
+        return all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+    def vmap_against_scan(name, kern, scan_out, *, grid, block, args, **kw):
+        """One block-parallel launch, bitwise against the scan launch."""
+        kw = {"backend": "vmap", **kw}
+        out, rec = run(name, kern, grid=grid, block=block, args=args, **kw)
+        check(same(out, scan_out), f"{name} {kw} != scan")
+        emit({**rec, "check": "bitwise == scan"})
+        return out
 
     # vectorAdd: the SDK default size, whole grid against the oracle (one
     # f32 add per element on both sides: bitwise)
@@ -1741,10 +1783,11 @@ def phase_cox(rng: np.random.Generator) -> None:
     b = rng.normal(size=VEC_N).astype(np.float32)
     args = (np.zeros(VEC_N, np.float32), a, b, VEC_N)
     grid = -(-VEC_N // 256)
-    out, wall, syncs = timed_launch(vectorAdd, grid=grid, block=256, args=args)
+    out, rec = run("vectorAdd", vectorAdd, grid=grid, block=256, args=args, **SCAN)
     want = oracle.run_grid(vectorAdd.ir, grid=grid, block=256, args=args)
     check(np.array_equal(out["out"].cpu().numpy(), want["out"]), "vectorAdd != oracle")
-    report("vectorAdd", wall, syncs, n=VEC_N, grid=grid, block=256, check="bitwise")
+    emit({**rec, "n": VEC_N, "grid": grid, "block": 256, "check": "bitwise"})
+    vmap_against_scan("vectorAdd", vectorAdd, out, grid=grid, block=256, args=args)
 
     # MatrixMulCUDA at n = 320: the whole product against numpy, two blocks
     # against the oracle (the per-thread oracle of all 400 blocks is slow)
@@ -1753,8 +1796,8 @@ def phase_cox(rng: np.random.Generator) -> None:
     mb = rng.normal(size=(n, n)).astype(np.float32)
     args = (np.zeros((n, n), np.float32), ma, mb, n)
     grid, block = (n // 16, n // 16), (16, 16)
-    out, wall, syncs = timed_launch(MatrixMulCUDA, grid=grid, block=block, args=args)
-    got = out["out"].cpu().numpy()
+    scan_out, rec = run("MatrixMulCUDA", MatrixMulCUDA, grid=grid, block=block, args=args, **SCAN)
+    got = scan_out["out"].cpu().numpy()
     full = ma.astype(np.float64) @ mb.astype(np.float64)
     check(np.allclose(got, full, rtol=1e-4, atol=1e-4), "MatrixMulCUDA != a @ b")
     bids = [0, (n // 16) ** 2 - 1]
@@ -1763,27 +1806,44 @@ def phase_cox(rng: np.random.Generator) -> None:
     tiles = [(slice(0, 16), slice(0, 16)), (slice(n - 16, n), slice(n - 16, n))]
     tile_err = max(float(np.abs(got[t] - want[t]).max()) for t in tiles)
     check(tile_err <= 1e-5, f"MatrixMulCUDA oracle blocks: max err {tile_err}")
-    report(
-        "MatrixMulCUDA",
-        wall,
-        syncs,
-        n=n,
-        grid=list(grid),
-        block=list(block),
-        check="a@b rtol 1e-4 atol 1e-4; oracle blocks 0 and last atol 1e-5",
-        oracle_max_err=tile_err,
+    emit(
+        {
+            **rec,
+            "n": n,
+            "grid": list(grid),
+            "block": list(block),
+            "check": "a@b rtol 1e-4 atol 1e-4; oracle blocks 0 and last atol 1e-5",
+            "oracle_max_err": tile_err,
+        }
     )
+    # the block-parallel variants at the same size, each against the scan
+    # launch.  The default (hybrid) collapse compiles this warp-free kernel
+    # flat, one 256-lane warp a block; the warp-plane variants collapse it
+    # hierarchically into 8 warps: serial warps, the batched warp plane,
+    # the batched plane with the whole grid in one wave; then grid-stride
+    # waves of 64 blocks and the default launch (auto knobs)
+    for kw in (
+        dict(collapse="hier", warp_exec="serial"),
+        dict(collapse="hier", warp_exec="batched"),
+        dict(collapse="hier", warp_exec="batched", chunk=(n // 16) ** 2),
+        dict(schedule="grid_stride", n_resident=64),
+        dict(),
+    ):
+        vmap_against_scan(
+            "MatrixMulCUDA", MatrixMulCUDA, scan_out, grid=grid, block=block, args=args, **kw
+        )
 
     # warp shuffle reduction: small integers, so every sum is exact
     nb = 128
     val = rng.integers(-8, 9, size=nb * 256).astype(np.float32)
     args = (np.zeros(nb, np.float32), val)
-    out, wall, syncs = timed_launch(warpReduce, grid=nb, block=256, args=args)
+    out, rec = run("warpReduce", warpReduce, grid=nb, block=256, args=args, **SCAN)
     want = oracle.run_grid(warpReduce.ir, grid=nb, block=256, args=args)
     got = out["out"].cpu().numpy()
     check(np.array_equal(got, want["out"]), "warpReduce != oracle")
     check(np.array_equal(got, val.reshape(nb, 256).sum(1)), "warpReduce != sums")
-    report("warpReduce", wall, syncs, grid=nb, block=256, check="bitwise")
+    emit({**rec, "grid": nb, "block": 256, "check": "bitwise"})
+    vmap_against_scan("warpReduce", warpReduce, out, grid=nb, block=256, args=args)
 
     # vote / ballot: lane 31 sets bit 31 of the u32 ballot
     nb = 64
@@ -1791,27 +1851,31 @@ def phase_cox(rng: np.random.Generator) -> None:
     inp[31::32] = 1
     zeros = np.zeros(nb * 256, np.int32)
     args = (zeros, zeros, zeros.astype(np.uint32), inp)
-    out, wall, syncs = timed_launch(voteBallot, grid=nb, block=256, args=args)
+    out, rec = run("voteBallot", voteBallot, grid=nb, block=256, args=args, **SCAN)
     want = oracle.run_grid(voteBallot.ir, grid=nb, block=256, args=args)
     for k in ("any_out", "all_out", "bits"):
         got = out[k].cpu().numpy()
-        same = got.dtype == want[k].dtype and np.array_equal(got, want[k])
-        check(same, f"voteBallot {k} != oracle")
+        same_k = got.dtype == want[k].dtype and np.array_equal(got, want[k])
+        check(same_k, f"voteBallot {k} != oracle")
     check(bool((out["bits"].cpu().numpy() >> 31).all()), "ballot lost bit 31")
-    report("voteBallot", wall, syncs, grid=nb, block=256, check="bitwise")
+    emit({**rec, "grid": nb, "block": 256, "check": "bitwise"})
+    vmap_against_scan("voteBallot", voteBallot, out, grid=nb, block=256, args=args)
 
-    # gridReduce: grid sync, phased scan
+    # gridReduce: grid sync; phased scan, then vmap as one all-resident
+    # wave and as grid-stride phase waves of 16 blocks, each against the
+    # oracle
     nb, n = 64, 8000
     data = rng.integers(-8, 9, size=n).astype(np.float32)
     args = (np.zeros(1, np.float32), np.zeros(nb, np.float32), data, n)
-    out, wall, syncs = timed_launch(gridReduce, grid=nb, block=128, args=args)
     want = oracle.run_grid(gridReduce.ir, grid=nb, block=128, args=args)
-    for k in ("total", "partial"):
-        same = np.array_equal(out[k].cpu().numpy(), want[k])
-        check(same, f"gridReduce {k} != oracle")
-    check(float(out["total"][0]) == float(data.sum()), "gridReduce total")
-    report("gridReduce", wall, syncs, grid=nb, block=128, n=n, check="bitwise")
-    check(all(t.device.type == DEVICE for t in out.values()), "outputs left the card")
+    for kw in (SCAN, dict(backend="vmap"), dict(backend="vmap", n_resident=16)):
+        out, rec = run("gridReduce", gridReduce, grid=nb, block=128, args=args, **kw)
+        for k in ("total", "partial"):
+            same_k = np.array_equal(out[k].cpu().numpy(), want[k])
+            check(same_k, f"gridReduce {kw} {k} != oracle")
+        check(float(out["total"][0]) == float(data.sum()), "gridReduce total")
+        check(all(t.device.type == DEVICE for t in out.values()), "outputs left the card")
+        emit({**rec, "grid": nb, "block": 128, "n": n, "check": "bitwise == oracle"})
 
 
 def phase_three_way(gen: torch.Generator) -> None:

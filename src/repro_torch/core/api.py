@@ -106,17 +106,14 @@ class KernelFn:
         (and raises where there is none), ``"cpu"`` runs on the host.
         ``grid``/``block`` accept CUDA dim3 geometry (``int | (x, y[,
         z])``).  ``mode``, ``simd`` and ``collapse`` behave as in the
-        reference.  The knobs of paths not ported yet --
-        ``backend='vmap'|'sharded'``, ``warp_exec='batched'``, ``chunk``,
-        ``schedule``, ``n_resident``, ``mesh``, ``donate``, ``autotune``,
-        ``stream`` -- raise :class:`CoxUnsupported` naming the ROADMAP
-        item that brings them."""
-        if chunk is not None and chunk != "auto":
-            raise _runtime.unported("chunk")
-        if schedule != "auto":
-            raise _runtime.unported("schedule")
-        if n_resident is not None:
-            raise _runtime.unported("n_resident")
+        reference, and so do ``backend`` (``'scan'`` or the
+        block-parallel ``'vmap'``), ``warp_exec`` (``'serial'`` or the
+        ``'batched'`` warp plane), ``chunk`` (blocks a ``vmap`` wave),
+        ``schedule`` (``'chunked'`` or ``'grid_stride'``) and
+        ``n_resident`` (the grid-stride wave width).  The knobs of paths
+        not ported yet -- ``backend='sharded'``, ``mesh``, ``donate``,
+        ``autotune``, ``stream`` -- raise :class:`CoxUnsupported` naming
+        the ROADMAP item that brings them."""
         if autotune:
             raise _runtime.unported("autotune")
         if stream is not None:
@@ -131,7 +128,10 @@ class KernelFn:
             mode=mode,
             simd=simd,
             backend=backend,
+            chunk=chunk,
             warp_exec=warp_exec,
+            schedule=schedule,
+            n_resident=n_resident,
             device=device,
             mesh=mesh,
             donate=donate,

@@ -1,18 +1,25 @@
 """Grid-execution backends for the COX launcher.
 
 A backend turns a :class:`~repro_torch.core.backends.plan.LaunchPlan`
-into ``run(globals_, scalars, device) -> globals_`` via ``build_fn``.  The port
-has the loop-carried ``scan`` backend; the block-parallel ``vmap`` and
-the multi-device ``sharded`` backends are ROADMAP queue items A.5 and
-A.10.
+into ``run(globals_, scalars, device) -> globals_`` via ``build_fn``:
+
+* ``scan`` -- the loop-carried baseline: one block after another, in
+  place (minimal memory, the grid fully serialized);
+* ``vmap`` -- block-parallel: a wave of blocks runs at once as a leading
+  copy axis of the executor's tensors, reconciled by the write-mask /
+  atomic-delta merge (``merge.py``).
+
+The multi-device ``sharded`` backend is ROADMAP queue item A.10.
+``flat.choose_backend`` is the 'auto' heuristic; ``get_backend``
+resolves a name to its module.
 """
 
 from __future__ import annotations
 
-from . import scan
+from . import block_vmap, scan
 from .plan import LaunchPlan  # noqa: F401
 
-BACKENDS = {scan.name: scan}
+BACKENDS = {scan.name: scan, block_vmap.name: block_vmap}
 
 
 def available_backends():

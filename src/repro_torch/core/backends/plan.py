@@ -1,10 +1,11 @@
-"""LaunchPlan -- everything the grid backend needs, precomputed.
+"""LaunchPlan -- everything a grid-execution backend needs, precomputed.
 
 A plan captures the launch geometry (grid, block, warps), the execution
-flavor (mode, simd), and the arg-binding convention (arrays flattened to
-CUDA-pointer 1-D views, scalars split off as block-uniform parameters).
-This is the serial subset of the reference's plan: the chunk tables of
-the block-parallel backends are queue item A.5.
+flavor (mode, simd, warp_exec), the schedule of block ids into waves
+(the chunk table, or the grid-stride wave width), and the arg-binding
+convention (arrays flattened to CUDA-pointer 1-D views, scalars split
+off as block-uniform parameters).  Backends are functions of a plan;
+none of them re-derives this state.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..execute import CompiledKernel, _cast, make_block_fn, with_sink
+from .. import kernel_ir as K
+from ..execute import CompiledKernel, _cast, make_block_fn, walk_instrs, with_sink
 from ..types import (
+    COOP_MAX_RESIDENT_BLOCKS,
     U32_MASK,
     ArraySpec,
     CoxUnsupported,
@@ -25,6 +28,9 @@ from ..types import (
     as_dim3,
     check_launch_geometry,
 )
+
+DEFAULT_CHUNK = 8  # blocks run at once per wave of the vmap backend
+
 
 def _to_tensor(val, dtype: DType, device: torch.device, name: str) -> torch.Tensor:
     """One argument as a tensor of ``dtype``'s compute type on ``device``.
@@ -91,8 +97,10 @@ def unbind_outputs(
 class LaunchPlan:
     """Immutable description of one ``kernel<<<grid, block>>>`` launch.
 
-    ``grid``/``block`` are the *linear totals*; ``grid_dim``/``block_dim``
-    carry the canonical dim3 geometry for the per-axis intrinsics only.
+    ``grid``/``block`` are the *linear totals* -- the chunk tables, warp
+    counts and merges key on them, so ``grid=4`` and ``grid=(4, 1, 1)``
+    build identical plans; ``grid_dim``/``block_dim`` carry the canonical
+    dim3 geometry for the per-axis intrinsics only.
     """
 
     ck: CompiledKernel
@@ -101,10 +109,15 @@ class LaunchPlan:
     n_warps: int
     mode: str  # 'normal' | 'jit' (resolved, never 'auto')
     simd: bool
-    warp_exec: str = "serial"
+    chunk: int  # blocks per vmap wave (1 = one block at a time)
+    has_atomics: bool
+    captures_atomic_old: bool  # AtomicRMW with dst -- serial only
+    warp_exec: str = "serial"  # 'serial' | 'batched' (resolved)
     grid_dim: Optional[Dim3] = None
     block_dim: Optional[Dim3] = None
     n_phases: int = 1  # >1 -> cooperative (grid_sync) launch
+    schedule: str = "chunked"  # 'chunked' | 'grid_stride'
+    n_resident: Optional[int] = None  # grid-stride wave width (else None)
 
     @classmethod
     def build(
@@ -115,7 +128,10 @@ class LaunchPlan:
         block,
         mode: str = "normal",
         simd: bool = True,
+        chunk: Optional[int] = None,
         warp_exec: str = "serial",
+        schedule: str = "chunked",
+        n_resident: Optional[int] = None,
     ) -> "LaunchPlan":
         grid3 = as_dim3(grid, "grid")
         block3 = as_dim3(block, "block")
@@ -126,24 +142,110 @@ class LaunchPlan:
                 f"mode must be resolved to 'normal' or 'jit' before plan build, "
                 f"got {mode!r} (flat.choose_mode resolves 'auto')"
             )
-        if warp_exec != "serial":
-            raise CoxUnsupported(
-                f"warp_exec={warp_exec!r}: only the serial inter-warp loop is "
-                f"ported (the batched warp plane is ROADMAP queue item A.5)"
+        if warp_exec not in ("serial", "batched"):
+            raise ValueError(
+                f"warp_exec must be resolved to 'serial' or 'batched' before "
+                f"plan build, got {warp_exec!r} (flat.choose_warp_exec "
+                f"resolves 'auto')"
+            )
+        if schedule not in ("chunked", "grid_stride"):
+            raise ValueError(
+                f"schedule must be resolved to 'chunked' or 'grid_stride' "
+                f"before plan build, got {schedule!r} "
+                f"(runtime.resolve_schedule resolves 'auto')"
             )
         n_warps = -(-block // ck.warp_size)
-        return cls(
+        n_phases = ck.n_phases
+        name = ck.kernel.name
+        if schedule == "grid_stride":
+            # the wave width doubles as the merge chunk: wave i covers
+            # the block ids [i*R, (i+1)*R), row i of the chunk table a
+            # chunked plan with chunk=R walks -- so the two schedules are
+            # bitwise equal by construction
+            n_resident = (
+                min(grid, DEFAULT_CHUNK)
+                if n_resident is None
+                else max(1, min(int(n_resident), grid))
+            )
+            if n_phases > 1 and n_resident > COOP_MAX_RESIDENT_BLOCKS:
+                raise CoxUnsupported(
+                    f"cooperative launch of '{name}': n_resident={n_resident} "
+                    f"exceeds the resident capacity ({COOP_MAX_RESIDENT_BLOCKS}) "
+                    f"-- the grid-stride wave is the resident set, as "
+                    f"cudaLaunchCooperativeKernel's occupancy rule"
+                )
+            chunk = n_resident
+        elif n_phases > 1:
+            # CUDA's cooperative-launch rule: every block resident per
+            # phase, so the chunked schedule may not split the grid
+            if grid > COOP_MAX_RESIDENT_BLOCKS:
+                raise CoxUnsupported(
+                    f"cooperative launch of '{name}': grid={grid} blocks exceeds "
+                    f"the resident capacity ({COOP_MAX_RESIDENT_BLOCKS}) -- every "
+                    f"block must be resident per phase for a grid barrier, as "
+                    f"cudaLaunchCooperativeKernel's occupancy rule "
+                    f"(schedule='grid_stride' pages blocks through a "
+                    f"capacity-sized resident wave instead)"
+                )
+            if chunk is not None and int(chunk) < grid:
+                raise CoxUnsupported(
+                    f"cooperative launch of '{name}': chunk={chunk} would split "
+                    f"the grid into waves, but a grid barrier needs every block "
+                    f"resident per phase -- drop chunk= (the plan schedules all "
+                    f"{grid} blocks as one wave)"
+                )
+            chunk = grid
+        else:
+            n_resident = None  # chunked plans carry no wave width
+        if chunk is None:
+            chunk = min(grid, DEFAULT_CHUNK)
+        chunk = max(1, min(int(chunk), grid))
+        atomics = [s for s in walk_instrs(ck) if isinstance(s, K.AtomicRMW)]
+        plan = cls(
             ck,
             grid,
             block,
             n_warps,
             mode,
             simd,
+            chunk,
+            has_atomics=bool(atomics),
+            captures_atomic_old=any(s.dst for s in atomics),
             warp_exec=warp_exec,
             grid_dim=grid3,
             block_dim=block3,
-            n_phases=ck.n_phases,
+            n_phases=n_phases,
+            schedule=schedule,
+            n_resident=n_resident,
         )
+        plan.check_warp_batchable()
+        return plan
+
+    def check_warp_batchable(self):
+        """Refuse what the batched plane's per-warp delta merge cannot
+        reproduce: captured atomic old values are unique only under a
+        serial warp order (per-warp delta buffers would hand every warp
+        of a block the same ticket)."""
+        if self.warp_exec == "batched" and self.captures_atomic_old:
+            raise CoxUnsupported(
+                f"kernel '{self.ck.kernel.name}' captures atomic old values "
+                f"(atomic_add_old): old values are only unique under a serial "
+                f"warp order, which warp-batched execution's per-warp delta "
+                f"merge cannot reproduce -- use warp_exec='serial' (the 'auto' "
+                f"heuristic picks it)"
+            )
+
+    def check_mergeable(self, backend: str):
+        """Refuse what the block-parallel delta merge cannot reproduce:
+        captured atomic old values (the ticket pattern) are unique only
+        under serial execution, so such kernels run on ``scan`` alone."""
+        if self.captures_atomic_old:
+            raise CoxUnsupported(
+                f"kernel '{self.ck.kernel.name}' captures atomic old values "
+                f"(atomic_add_old): old values are only unique under serial "
+                f"execution, which the {backend!r} backend's delta merge cannot "
+                f"reproduce -- use backend='scan' (the 'auto' heuristic picks it)"
+            )
 
     # ---------------- phase staging (cooperative grid sync) ----------------
 
@@ -157,7 +259,7 @@ class LaunchPlan:
             tuple(s.name for s in self.ck.kernel.shared),
         )
 
-    def block_fns(self):
+    def block_fns(self, *, track_writes: bool = False):
         """One block function per phase (a single-entry list for
         ordinary kernels), all built with identical launch knobs."""
         persist = self.persist_spec()
@@ -167,6 +269,7 @@ class LaunchPlan:
                 n_warps=self.n_warps,
                 mode=self.mode,
                 simd=self.simd,
+                track_writes=track_writes,
                 warp_exec=self.warp_exec,
                 block_dim=self.block_dim,
                 grid_dim=self.grid_dim,
@@ -198,8 +301,9 @@ class LaunchPlan:
         return {"bv": bv, "sh": sh}
 
     def uniforms(self, bid: torch.Tensor, scalars: Dict[str, Any]) -> Dict[str, Any]:
-        """The block-uniform environment for one block: 0-d int32
-        tensors on the launch's device."""
+        """The block-uniform environment: ``bid`` (0-d for one block, or
+        ``(C,)`` for a wave of blocks), bdim, gdim and the scalars, as
+        int32 tensors on the launch's device."""
         dev = bid.device
         u = {
             "bid": bid,
@@ -208,3 +312,27 @@ class LaunchPlan:
         }
         u.update(scalars)
         return u
+
+    # ---------------- waves ----------------
+
+    def n_stride_waves(self) -> int:
+        """How many resident waves a grid-stride launch runs:
+        ``ceil(grid / n_resident)``."""
+        return max(1, -(-self.grid // self.n_resident))
+
+    def stride_bids(self, wave: int) -> np.ndarray:
+        """Block ids of one grid-stride wave: ``wave*R`` on, ``R =
+        n_resident`` of them, those past the grid as -1 -- row ``wave``
+        of the table the chunked schedule walks, made as it is needed
+        (the sharded backend's per-device offsets are ROADMAP A.10)."""
+        bids = wave * self.n_resident + np.arange(self.n_resident, dtype=np.int32)
+        return np.where(bids < self.grid, bids, -1).astype(np.int32)
+
+    def chunked_bids(self) -> np.ndarray:
+        """The whole grid's block ids as a ``(n_chunks, chunk)`` table,
+        -1-padded."""
+        n = self.grid
+        n_chunks = -(-n // self.chunk)
+        bids = np.full((n_chunks * self.chunk,), -1, np.int32)
+        bids[:n] = np.arange(n, dtype=np.int32)
+        return bids.reshape(n_chunks, self.chunk)

@@ -11,6 +11,12 @@ Cooperative (grid-sync) launches run the loop once per phase: global
 memory carries across (phase *p+1* blocks observe every phase-*p*
 write -- the grid barrier's guarantee) while each block's persistent
 state (carried locals + shared memory) is paged in and out by block id.
+
+``schedule='grid_stride'`` changes nothing here: the reference swaps its
+scanned ``arange(grid)`` for a counted loop in the same block order, and
+this loop already is one.  With ``warp_exec='batched'`` the block
+function merges each PR's per-warp copies into the carried arrays and
+hands back the updated dict.
 """
 
 from __future__ import annotations

@@ -12,19 +12,31 @@ Loop peeling (paper section 3.3.1): branch conditions are evaluated by
 *all* lanes but the direction is taken from lane 0 (warp level) or warp
 0 lane 0 (block level) -- sound under the aligned-barrier assumption.
 
-The port runs eagerly.  A warp-uniform program counter is a Python
-integer, so the reference's ``lax.while_loop``/``lax.switch`` machines
-become Python loops, and a peel or a lane-divergent ``while`` reads one
-flag back from the device.  Every such read goes through
-:func:`_host_bool`, which counts it in the module-level ``host_syncs``.
+The port runs eagerly.  Program counters live on the host, so the
+reference's ``lax.while_loop``/``lax.switch`` machines become Python
+loops, and a peel or a lane-divergent ``while`` reads flags back from
+the device.  Every such read goes through :func:`_host_bool` or
+:func:`_host_flags`, which count it in the module-level ``host_syncs``.
 
 Modes:
 * ``jit``    -- static-trip predicated loops up to ``_UNROLL_LIMIT`` are
                unrolled (no flag read per iteration);
 * ``normal`` -- every loop runs as a masked while.
 
-Warp execution is ``serial`` (the paper's inter-warp loop).  The
-batched ``(n_warps, W)`` plane is queue item A.5 and raises here.
+Warp execution (``warp_exec``, orthogonal to the mode):
+* ``serial``  -- the inter-warp loop above (the paper's Code 3 shape);
+* ``batched`` -- all warps of a block-level PR run at once as one
+  ``(n_warps, W)`` lane plane, each on its own copy of the shared and
+  global arrays the PR writes, merged at the PR's end (a barrier) by the
+  single-writer select of ``backends/merge.py``: bitwise the serial
+  loop's result for race-free kernels.
+
+Block-parallel execution (the ``vmap`` backend) runs a chunk of blocks
+the same way, as one more leading *copy* axis of every lane tensor.  The
+reference gets a program counter per copy from ``vmap`` of its lax
+machines; here the machines keep one PC per copy on the host, decided
+by one flag read for all copies at a peel, and run a node once for every
+copy that sits at it (:func:`_walk`).
 
 Memory semantics follow the reference exactly:
 * global and shared arrays live flat with one extra *sink* slot at the
@@ -43,8 +55,9 @@ Memory semantics follow the reference exactly:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from . import collectives
@@ -350,6 +363,12 @@ def _binop(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Memory: flat arrays with a sink slot at the end
 # ---------------------------------------------------------------------------
+#
+# An array may carry leading *copy* axes -- one copy per block of a
+# block-parallel wave, or per warp of the batched plane -- that are a
+# prefix of the lane tensors' copy axes.  A lane reaches its own copy
+# through a flat offset (``_offsets``); an array without copy axes is
+# shared by every lane.
 
 
 def _norm_index(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -358,27 +377,74 @@ def _norm_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + n, idx)
 
 
-def load(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _offsets(arr: torch.Tensor, nb: int, consts: Dict[Any, torch.Tensor]):
+    """Flat offsets of ``arr``'s copies for lanes with ``nb`` copy axes:
+    ``None`` for an array without copy axes, else a tensor of shape
+    ``copy axes + (1,) * (nb - their count) + (1,)``."""
+    if arr.dim() == 1:
+        return None
+    key = ("offsets", tuple(arr.shape), nb, arr.device)
+    t = consts.get(key)
+    if t is None:
+        copies = tuple(arr.shape[:-1])
+        t = torch.arange(_prod(copies), dtype=torch.int64, device=arr.device)
+        t = (t * arr.shape[-1]).reshape(copies + (1,) * (nb - len(copies) + 1))
+        consts[key] = t
+    return t
+
+
+def _bshape(a, b) -> tuple:
+    """The broadcast of two shapes (``torch.broadcast_shapes`` costs a
+    hundred microseconds a call, on the executor's hottest path)."""
+    if a == b:
+        return tuple(a)
+    if len(a) < len(b):
+        a, b = b, a
+    b = (1,) * (len(a) - len(b)) + tuple(b)
+    return tuple(x if y == 1 else y for x, y in zip(a, b))
+
+
+def load(arr: torch.Tensor, idx: torch.Tensor, offs=None) -> torch.Tensor:
     """``arr.at[idx].get(mode="fill", fill_value=0)`` on a sink-slotted
-    flat array (logical length ``arr.numel() - 1``)."""
-    n = arr.shape[0] - 1
+    flat array (logical length ``arr.shape[-1] - 1``); ``offs`` selects
+    each lane's copy."""
+    n = arr.shape[-1] - 1
     i = _norm_index(idx, n)
     ok = (i >= 0) & (i < n)
-    return arr[torch.where(ok, i, n)].masked_fill(~ok, 0)
+    j = torch.where(ok, i, n)
+    if offs is not None:
+        return arr.reshape(-1)[offs + j].masked_fill(~ok, 0)
+    return arr[j].masked_fill(~ok, 0)
 
 
 def store_index(idx: torch.Tensor, m: torch.Tensor, n: int) -> torch.Tensor:
     """The index a masked store writes: the normalized index for active
     in-range lanes, the sink slot ``n`` for every other lane -- what
     ``.at[].set(mode="drop")`` drops."""
-    i = _norm_index(idx.expand(m.shape), n)
+    shape = _bshape(idx.shape, m.shape)
+    i = _norm_index(idx.expand(shape), n)
     ok = m & (i >= 0) & (i < n)
     return torch.where(ok, i, n)
 
 
+def _flat_index(idx: torch.Tensor, val: torch.Tensor, offs):
+    """Index and value of a scatter into a flattened array, broadcast to
+    one shape."""
+    flat = idx if offs is None else offs + idx
+    shape = _bshape(flat.shape, val.shape)
+    return flat.expand(shape), val.expand(shape)
+
+
+def _scatter(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, offs=None):
+    """``arr[idx] = val`` in place, each lane into its own copy."""
+    flat, val = _flat_index(idx, val, offs)
+    arr.view(-1).index_put_((flat,), val)
+
+
 def with_sink(flat: torch.Tensor) -> torch.Tensor:
-    """A fresh copy of a flat array with the sink slot appended."""
-    return torch.cat([flat, flat.new_zeros(1)])
+    """A fresh copy of a flat array (or of its copies) with the sink
+    slot appended."""
+    return torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -387,21 +453,41 @@ def with_sink(flat: torch.Tensor) -> torch.Tensor:
 
 
 class _Env:
-    """Mutable view over the machine state for one (block, warp) context.
+    """Mutable view over the machine state of one warp context.
 
-    Block-replicated vars are lists of per-warp ``(W,)`` rows and warp
-    vars are ``(W,)`` tensors; both are replaced on write, never written
-    in place, so a value read earlier never changes under a reader.
-    Global and shared arrays are updated in place (every read of them is
-    a gather, which copies)."""
+    Lane tensors have ``shape`` = copy axes + ``(W,)``: no copy axes for
+    one warp of one block (the serial ``scan`` path), ``(C,)`` for warp
+    ``wid`` of each block of a chunk, ``(n_warps,)`` or ``(C, n_warps)``
+    for the batched warp plane, whose ``wid`` is a ``(n_warps, 1)``
+    tensor.  Values may be smaller and broadcast against ``shape``.
+
+    Block-replicated vars are lists of per-warp rows (serial warps) or
+    one ``(..., n_warps, W)`` plane (``block_rows``); warp vars are
+    tensors.  Both are replaced on write, never written in place, so a
+    value read earlier never changes under a reader.  Global and shared
+    arrays are updated in place (every read of them is a gather, which
+    copies).
+
+    ``live`` is the set of copies this context runs for -- ``None`` for
+    all, else ``(host flags, device mask)`` over the copy axes -- and
+    ``copy_mask`` the copies at the machine node being executed: every
+    variable write, store and atomic honours it, so a copy outside it
+    changes nothing.
+
+    Under ``track_writes`` (a copy of memory whose writes are merged
+    later) stores also set ``store_masks``, atomics add into
+    ``atomic_deltas`` instead of the arrays, and a load of an atomic
+    target adds the copy's own delta.  Stores to ``log_arrays`` are
+    appended to ``store_log`` and replayed after the batched plane."""
 
     def __init__(
         self,
         ck: CompiledKernel,
         *,
-        wid: int,
+        wid,
+        shape: Tuple[int, ...],
         uniforms: Dict[str, Any],
-        block_vars: Dict[str, List[torch.Tensor]],
+        block_vars: Dict[str, Any],
         shmem: Dict[str, torch.Tensor],
         globals_: Dict[str, torch.Tensor],
         simd: bool,
@@ -409,6 +495,13 @@ class _Env:
         block_total: int,
         block_dim3: Optional[Tuple[int, int, int]] = None,
         grid_dim3: Optional[Tuple[int, int, int]] = None,
+        block_rows: bool = False,
+        track_writes: bool = False,
+        store_masks: Optional[Dict[str, torch.Tensor]] = None,
+        atomic_deltas: Optional[Dict[str, torch.Tensor]] = None,
+        shared_masks: Optional[Dict[str, torch.Tensor]] = None,
+        log_arrays: Set[str] = frozenset(),
+        live=None,
     ):
         self.ck = ck
         # static dim3 extents for the per-axis intrinsics; None means a
@@ -417,16 +510,28 @@ class _Env:
         self.grid_dim3 = grid_dim3
         self.W = ck.warp_size
         self.wid = wid
+        self.shape = shape
+        self.nb = len(shape) - 1  # copy axes of the lane tensors
         self.uniforms = uniforms
         self.warp_vars: Dict[str, torch.Tensor] = {}
         self.block_vars = block_vars
+        self.block_rows = block_rows
         self.shmem = shmem
         self.globals = globals_
         self.simd = simd
         self.consts = consts
         self.device = uniforms["bid"].device
+        self.track_writes = track_writes
+        self.store_masks = store_masks if store_masks is not None else {}
+        self.atomic_deltas = atomic_deltas if atomic_deltas is not None else {}
+        self.shared_masks = shared_masks if shared_masks is not None else {}
+        self.log_arrays = log_arrays
+        self.store_log: List[Tuple[str, torch.Tensor, torch.Tensor]] = []
+        self.live = live
+        self.copy_mask = None if live is None else live[1].unsqueeze(-1)
         self.lane = self.const_lanes()
-        self.base_mask = self.lane + wid * self.W < block_total
+        self.tid = self.lane + wid * self.W
+        self.base_mask = self.tid < block_total
 
     # ---------------- constants (cached per launch, per device) ----------
 
@@ -445,6 +550,9 @@ class _Env:
             self.consts[key] = t
         return t
 
+    def offsets(self, arr: torch.Tensor):
+        return _offsets(arr, self.nb, self.consts)
+
     # ---------------- variables ----------------
 
     def _dtype(self, name: str) -> DType:
@@ -456,16 +564,22 @@ class _Env:
         if self.ck.classes.get(name, "warp") == "warp":
             v = self.warp_vars.get(name)
             if v is None:  # never written: zero, like the reference's carry
-                v = self.const(0, self._dtype(name).compute).expand(self.W)
+                v = self.const(0, self._dtype(name).compute).expand(self.shape)
             return v
+        if self.block_rows:
+            return self.block_vars[name]
         return self.block_vars[name][self.wid]
 
     def write_var(self, name: str, value, mask=None):
-        value = _cast(value, self._dtype(name).compute).expand(self.W)
+        value = _cast(value, self._dtype(name).compute).expand(self.shape)
+        if self.copy_mask is not None:
+            mask = self.copy_mask if mask is None else (mask & self.copy_mask)
         if mask is not None:
             value = torch.where(mask, value, self.read_var(name))
         if self.ck.classes.get(name, "warp") == "warp":
             self.warp_vars[name] = value
+        elif self.block_rows:
+            self.block_vars[name] = value
         else:
             self.block_vars[name][self.wid] = value
 
@@ -500,9 +614,17 @@ def eval_expr(e: K.Expr, env: _Env) -> torch.Tensor:
         a, b = _promote(eval_expr(e.on_true, env), eval_expr(e.on_false, env))
         return torch.where(cond, a, b)
     if isinstance(e, K.LoadGlobal):
-        return load(env.globals[e.array], _cast(eval_expr(e.index, env), torch.int32))
+        idx = _cast(eval_expr(e.index, env), torch.int32)
+        arr = env.globals[e.array]
+        val = load(arr, idx, env.offsets(arr))
+        delta = env.atomic_deltas.get(e.array) if env.track_writes else None
+        if delta is not None:  # the copy sees its own atomic updates
+            val = _binop("+", val, load(delta, idx, env.offsets(delta)))
+        return val
     if isinstance(e, K.LoadShared):
-        return load(env.shmem[e.array], _cast(eval_expr(e.index, env), torch.int32))
+        idx = _cast(eval_expr(e.index, env), torch.int32)
+        arr = env.shmem[e.array]
+        return load(arr, idx, env.offsets(arr))
     raise CoxUnsupported(f"cannot evaluate {e!r}")
 
 
@@ -548,15 +670,15 @@ def _eval_special(e: K.Special, env: _Env) -> torch.Tensor:
     if e.kind == "lane":
         return env.lane
     if e.kind == "wid":
-        return env.const(env.wid, i32).expand(env.W)
+        wid = env.wid if torch.is_tensor(env.wid) else env.const(env.wid, i32)
+        return wid.expand(env.shape)
     if e.kind == "wsize":
         return env.const(env.W, i32)
     axis = getattr(e, "axis", "x")
     if e.kind == "tid":
-        lin = env.lane + env.wid * env.W
         if env.block_dim3 is None:  # direct make_block_fn caller: 1-D
-            return lin if axis == "x" else torch.zeros_like(lin)
-        return _decompose(lin, env.block_dim3, axis)
+            return env.tid if axis == "x" else torch.zeros_like(env.tid)
+        return _decompose(env.tid, env.block_dim3, axis)
     if e.kind == "bid":
         bid = env.uniforms["bid"]
         if env.grid_dim3 is None:
@@ -579,12 +701,12 @@ def _eval_special(e: K.Special, env: _Env) -> torch.Tensor:
 
 
 def _store_mask(env: _Env, mask):
-    m = env.base_mask
-    return m if mask is None else (m & mask)
+    m = env.base_mask if mask is None else (env.base_mask & mask)
+    return m if env.copy_mask is None else (m & env.copy_mask)
 
 
 def _lanes_of(env: _Env, v: torch.Tensor) -> torch.Tensor:
-    return v.to(torch.bool).expand(env.W)
+    return v.to(torch.bool).expand(env.shape)
 
 
 def exec_instrs(instrs: List, env: _Env, mask, *, jit_mode: bool):
@@ -592,21 +714,29 @@ def exec_instrs(instrs: List, env: _Env, mask, *, jit_mode: bool):
         exec_instr(ins, env, mask, jit_mode=jit_mode)
 
 
-def _store(arr: torch.Tensor, ins, env: _Env, mask):
+def _store(ins, env: _Env, mask, *, shared: bool):
+    arr = env.shmem[ins.array] if shared else env.globals[ins.array]
     m = _store_mask(env, mask)
     raw = _cast(eval_expr(ins.index, env), torch.int32)
-    idx = store_index(raw, m, arr.shape[0] - 1)
-    val = _cast(eval_expr(ins.value, env), arr.dtype).expand(m.shape)
-    arr.index_put_((idx,), val)
+    idx = store_index(raw, m, arr.shape[-1] - 1)
+    val = _cast(eval_expr(ins.value, env), arr.dtype)
+    if not shared and ins.array in env.log_arrays:
+        env.store_log.append((ins.array, idx, val))
+        return
+    offs = env.offsets(arr)
+    _scatter(arr, idx, val, offs)
+    masks = env.shared_masks if shared else env.store_masks
+    if ins.array in masks:
+        _scatter(masks[ins.array], idx, env.const(True, torch.bool), offs)
 
 
 def exec_instr(ins, env: _Env, mask, *, jit_mode: bool):
     if isinstance(ins, K.Assign):
         env.write_var(ins.name, eval_expr(ins.value, env), mask)
     elif isinstance(ins, K.StoreGlobal):
-        _store(env.globals[ins.array], ins, env, mask)
+        _store(ins, env, mask, shared=False)
     elif isinstance(ins, K.StoreShared):
-        _store(env.shmem[ins.array], ins, env, mask)
+        _store(ins, env, mask, shared=True)
     elif isinstance(ins, K.AtomicRMW):
         _atomic(ins, env, mask)
     elif isinstance(ins, K.Barrier):
@@ -648,30 +778,47 @@ def _atomic(ins: K.AtomicRMW, env: _Env, mask):
     sum's order is the device's and changes from run to run: it is exact
     only where every order rounds alike (counts, small integers), and
     otherwise agrees with the CPU within rtol = atol = 1e-5
-    (``tests/test_torch_cuda.py``); max, min and integer sums are exact."""
+    (``tests/test_torch_cuda.py``); max, min and integer sums are exact.
+
+    Under ``track_writes`` the update goes into the copy's delta buffer,
+    merged later by summing (``backends/merge.py``)."""
     m = _store_mask(env, mask)
-    tgt = env.globals[ins.array]
-    raw = _cast(eval_expr(ins.index, env), torch.int32).expand(m.shape)
-    idx = store_index(raw, m, tgt.shape[0] - 1)
-    val = _cast(eval_expr(ins.value, env), tgt.dtype).expand(m.shape)
+    tgt = env.atomic_deltas[ins.array] if env.track_writes else env.globals[ins.array]
+    offs = env.offsets(tgt)
+    raw = _cast(eval_expr(ins.index, env), torch.int32)
+    idx = store_index(raw, m, tgt.shape[-1] - 1)
+    val = _cast(eval_expr(ins.value, env), tgt.dtype)
     if ins.dst:
+        if env.track_writes:
+            # the delta buffer is not the value a serial execution would
+            # observe; LaunchPlan.check_mergeable / check_warp_batchable
+            # refuse such launches first, this guards direct callers
+            raise CoxUnsupported(
+                "atomic old-value capture under write-tracking: captured old "
+                "values are only exact under serial execution -- use the "
+                "scan backend with serial warps"
+            )
         # every lane observes the pre-op value, as the reference gathers it
-        old = load(tgt, torch.where(m, raw, 0))
+        old = load(tgt, torch.where(m, raw, 0), offs)
         env.write_var(ins.dst, old, mask)
+    flat, val = _flat_index(idx, val, offs)
+    flat, val = flat.reshape(-1), val.reshape(-1)
+    t = tgt.view(-1)
     if ins.op == "add":
-        tgt.index_add_(0, idx, val)
-        if tgt.dtype == torch.int64:
-            tgt.bitwise_and_(U32_MASK)
+        t.index_add_(0, flat, val)
+        if t.dtype == torch.int64:
+            t.bitwise_and_(U32_MASK)
     else:
-        tgt.scatter_reduce_(0, idx, val, "amax" if ins.op == "max" else "amin")
+        t.scatter_reduce_(0, flat, val, "amax" if ins.op == "max" else "amin")
 
 
 def _exec_masked_while(ins: K.While, env: _Env, mask, *, jit_mode: bool):
     """Barrier-free loop with potentially lane-divergent trip counts:
     iterate while any lane is active, with per-lane masking.  The active
-    set is ``mask_in & cond``, recomputed every trip (a lane whose
-    condition turns true again re-enters, as in the reference); each
-    trip's any-lane test is one counted host read."""
+    set is ``mask_in & cond`` (and the copy mask), recomputed every trip
+    (a lane whose condition turns true again re-enters, as in the
+    reference); each trip's any-lane test is one counted host read for
+    all copies at once."""
     if jit_mode and ins.static_trip is not None and ins.static_trip <= _UNROLL_LIMIT:
         for _ in range(ins.static_trip):
             cond = _lanes_of(env, eval_expr(ins.cond, env))
@@ -679,21 +826,242 @@ def _exec_masked_while(ins: K.While, env: _Env, mask, *, jit_mode: bool):
             exec_instrs(ins.body, env, m, jit_mode=jit_mode)
         return
     while True:
-        cond = _lanes_of(env, eval_expr(ins.cond, env))
-        active = cond if mask is None else (mask & cond)
+        active = _lanes_of(env, eval_expr(ins.cond, env))
+        if mask is not None:
+            active = mask & active
+        if env.copy_mask is not None:
+            active = active & env.copy_mask
         if not _host_bool(active.any()):
             return
         exec_instrs(ins.body, env, active, jit_mode=jit_mode)
 
 
 # ---------------------------------------------------------------------------
-# Warp-level machine (runs one warp through one block-level PR)
+# Write sets and the batched plane's per-PR plan
 # ---------------------------------------------------------------------------
 
 
-def run_warp_graph(node: BlockPR, env: _Env, *, jit_mode: bool) -> int:
-    """Execute the block-level PR's warp-level region graph for env.wid.
-    Returns the exit index (which block-level successor to take)."""
+def _written_names(instrs) -> Tuple[Set[str], Set[str], Set[str], Set[str]]:
+    """(variables, global arrays, shared arrays, atomic targets) a
+    statement list may write, descending into If/While.  Atomic targets
+    are also members of the global set; they are reported apart because
+    they merge by delta sum, not by writer selection."""
+    wv: Set[str] = set()
+    arrays: Set[str] = set()
+    sh: Set[str] = set()
+    atomics: Set[str] = set()
+    stack = list(instrs)
+    while stack:
+        s = stack.pop()
+        if isinstance(s, K.Assign):
+            wv.add(s.name)
+        elif isinstance(s, K.StoreGlobal):
+            arrays.add(s.array)
+        elif isinstance(s, K.StoreShared):
+            sh.add(s.array)
+        elif isinstance(s, K.AtomicRMW):
+            arrays.add(s.array)
+            atomics.add(s.array)
+            if s.dst:
+                wv.add(s.dst)
+        elif isinstance(s, WarpBufStore):
+            wv.add(s.buf)
+        elif isinstance(s, WarpBufCompute):
+            wv.add(s.dst)
+        elif isinstance(s, K.If):
+            stack.extend(s.then_body)
+            stack.extend(s.else_body)
+        elif isinstance(s, K.While):
+            stack.extend(s.body)
+    return wv, arrays, sh, atomics
+
+
+def _instr_exprs(s):
+    """Every expression an instruction evaluates (not descending into
+    nested statements)."""
+    if isinstance(s, K.Assign):
+        return [s.value]
+    if isinstance(s, (K.StoreGlobal, K.StoreShared, K.AtomicRMW)):
+        return [s.index, s.value]
+    if isinstance(s, WarpBufStore):
+        return [s.value]
+    if isinstance(s, WarpBufCompute):
+        return list(s.args)
+    if isinstance(s, (K.If, K.While)):
+        return [s.cond]
+    return []
+
+
+def _loaded_globals(instrs) -> Set[str]:
+    """Global arrays any expression in ``instrs`` may read."""
+    out: Set[str] = set()
+    stack = list(instrs)
+    estack: List[K.Expr] = []
+    while stack:
+        s = stack.pop()
+        estack.extend(_instr_exprs(s))
+        if isinstance(s, K.If):
+            stack.extend(s.then_body)
+            stack.extend(s.else_body)
+        elif isinstance(s, K.While):
+            stack.extend(s.body)
+    while estack:
+        e = estack.pop()
+        if isinstance(e, K.LoadGlobal):
+            out.add(e.array)
+        estack.extend(K.expr_children(e))
+    return out
+
+
+def _stored_in_while(instrs, in_while: bool = False) -> Set[str]:
+    """Global arrays stored from inside a While body (the reference's
+    log entries cannot escape a ``lax.while`` trace; the port keeps its
+    classification)."""
+    out: Set[str] = set()
+    for s in instrs:
+        if isinstance(s, K.StoreGlobal) and in_while:
+            out.add(s.array)
+        elif isinstance(s, K.If):
+            out |= _stored_in_while(s.then_body, in_while)
+            out |= _stored_in_while(s.else_body, in_while)
+        elif isinstance(s, K.While):
+            out |= _stored_in_while(s.body, True)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _PRPlan:
+    """Static per-block-level-PR plan of the batched warp plane: what to
+    copy, mask and merge, and which stores go through the replay log."""
+
+    block_vars: Tuple[str, ...]  # block-replicated vars written
+    shared: Tuple[str, ...]  # shared arrays written (mask + merge)
+    masked: Tuple[str, ...]  # globals on the copy/mask/merge path
+    atomics: Tuple[str, ...]  # atomic targets (delta merge)
+    logged: Tuple[str, ...]  # globals on the store-log path
+
+
+def _pr_plan(ck: CompiledKernel, node: BlockPR) -> _PRPlan:
+    """Write sets and store-log eligibility of one block-level PR.
+
+    An array's stores go through the log when the warp graph is linear,
+    every store to it sits outside While bodies, the PR never *loads* it
+    (a logged store skips the per-warp copy, so a same-lane reload would
+    read stale data), and it is not an atomic target in this PR."""
+    wv: Set[str] = set()
+    g: Set[str] = set()
+    sh: Set[str] = set()
+    at: Set[str] = set()
+    loads: Set[str] = set()
+    in_while: Set[str] = set()
+    for bname in node.blocks:
+        instrs = ck.cfg.blocks[bname].instrs
+        w, a, s, t = _written_names(instrs)
+        wv |= w
+        g |= a
+        sh |= s
+        at |= t
+        loads |= _loaded_globals(instrs)
+        in_while |= _stored_in_while(instrs)
+    bvw = {v for v in wv if ck.classes.get(v) == "block"}
+    logged: Set[str] = set()
+    if _try_linear(node.warp) is not None:
+        logged = (g - at) - loads - in_while
+    return _PRPlan(
+        tuple(sorted(bvw)),
+        tuple(sorted(sh)),
+        tuple(sorted(g - logged)),
+        tuple(sorted(at)),
+        tuple(sorted(logged)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# PC machines over copies
+# ---------------------------------------------------------------------------
+#
+# The reference gets a program counter per copy from vmap of
+# lax.while_loop/lax.switch.  Here a machine keeps one PC per copy on the
+# host (and a device twin, to build copy masks without a transfer).
+# While every live copy sits at one node the node runs once for all of
+# them; when a peel sends them apart, each step runs the lowest node some
+# copy sits at, under the mask of the copies there, until every copy has
+# left the machine.
+
+
+def _host_flags(t: torch.Tensor) -> np.ndarray:
+    """One counted host read of a bool tensor, flattened."""
+    global host_syncs
+    host_syncs += 1
+    return t.reshape(-1).cpu().numpy()
+
+
+def _branch(flag: torch.Tensor, sel: np.ndarray, shape, on_true: int, on_false: int):
+    """Next PCs at a peel: an int when the selected copies agree, else
+    ``(host PCs, device PCs)`` per copy."""
+    flag = flag.to(torch.bool).expand(shape)
+    host = _host_flags(flag)
+    taken = host[sel]
+    if taken.all():
+        return on_true
+    if not taken.any():
+        return on_false
+    return (
+        np.where(host, on_true, on_false),
+        torch.where(flag, on_true, on_false).to(torch.int64),
+    )
+
+
+def _walk(n_nodes: int, entry: int, step, shape, live, device):
+    """Run a PC machine whose nodes are ``0 .. n_nodes - 1`` over the
+    copies of ``shape``; a PC of ``n_nodes`` or more has left it.
+    ``step(pc, sel, mask)`` runs node ``pc`` for the copies ``sel``
+    (host flags) under the device copy mask ``mask`` (``None``: every
+    copy) and returns the next PC as an int or per copy (``_branch``).
+    Returns the final PCs, on the host and (several copies) the device."""
+    n = _prod(shape)
+    live_h = None if live is None else live[0]
+    live_d = None if live is None else live[1]
+    n_live = n if live_h is None else int(live_h.sum())
+    pcs = np.full(n, entry, dtype=np.int64)
+    pcs_d = torch.full(shape, entry, dtype=torch.int64, device=device) if n > 1 else None
+    while True:
+        todo = pcs < n_nodes if live_h is None else (pcs < n_nodes) & live_h
+        if not todo.any():
+            return pcs, pcs_d
+        p = int(pcs[todo].min())
+        sel = todo & (pcs == p)
+        if int(sel.sum()) == n_live:  # every live copy is here
+            mask = live_d
+        else:
+            mask = pcs_d == p if live_d is None else (live_d & (pcs_d == p))
+        nxt = step(p, sel, mask)
+        if isinstance(nxt, int):
+            pcs[sel] = nxt
+            if pcs_d is not None:
+                pcs_d = torch.where(mask, nxt, pcs_d) if mask is not None else (
+                    torch.full_like(pcs_d, nxt)
+                )
+        else:
+            host, dev = nxt
+            pcs = np.where(sel, host, pcs)
+            pcs_d = dev if mask is None else torch.where(mask, dev, pcs_d)
+
+
+def _result(host: np.ndarray, dev, live):
+    """A per-copy machine result as an int when the live copies agree,
+    else ``(host, device)``."""
+    vals = host if live is None else host[live[0]]
+    if vals.size == 0 or (vals == vals[0]).all():
+        return int(vals[0]) if vals.size else 0
+    return host, dev
+
+
+def run_warp_graph(node: BlockPR, env: _Env, *, jit_mode: bool):
+    """Execute the block-level PR's warp-level region graph for every
+    copy of ``env``.  Returns the exit index (which block-level
+    successor to take): an int, or ``(host, device)`` per copy when the
+    copies leave by different exits."""
     g = node.warp
     linear = _try_linear(g)
     if linear is not None:
@@ -701,23 +1069,24 @@ def run_warp_graph(node: BlockPR, env: _Env, *, jit_mode: bool) -> int:
             exec_instrs_of_warp_pr(wnode, env, jit_mode=jit_mode)
         return linear[-1].succ[1]
 
-    # general case: PC-dispatch machine, the PC a Python int
-    exit_pc = len(g.nodes)
-    pc, exit_ix = g.entry, 0
-    while pc != exit_pc:
+    n_nodes = len(g.nodes)
+
+    def enc(target) -> int:
+        kind, val = target
+        return val if kind == "node" else n_nodes + val
+
+    def step(pc, sel, mask):
+        env.copy_mask = None if mask is None else mask.unsqueeze(-1)
         wnode = g.nodes[pc]
         if isinstance(wnode, WarpPR):
             exec_instrs_of_warp_pr(wnode, env, jit_mode=jit_mode)
-            target = wnode.succ
-        else:  # WarpPeel -- loop peeling: lane 0 decides (paper 3.3.1)
-            flag = _host_bool(env.read_var(wnode.cond)[0])
-            target = wnode.on_true if flag else wnode.on_false
-        kind, val = target
-        if kind == "node":
-            pc = val
-        else:
-            pc, exit_ix = exit_pc, val
-    return exit_ix
+            return enc(wnode.succ)
+        # WarpPeel -- loop peeling: each copy's lane 0 decides (paper 3.3.1)
+        flag = env.read_var(wnode.cond)[..., 0]
+        return _branch(flag, sel, env.shape[:-1], enc(wnode.on_true), enc(wnode.on_false))
+
+    pcs, pcs_d = _walk(n_nodes, g.entry, step, env.shape[:-1], env.live, env.device)
+    return _result(pcs - n_nodes, None if pcs_d is None else pcs_d - n_nodes, env.live)
 
 
 def exec_instrs_of_warp_pr(wnode: WarpPR, env: _Env, *, jit_mode: bool):
@@ -754,21 +1123,43 @@ def make_block_fn(
     n_warps: int,
     mode: str = "jit",
     simd: bool = True,
+    track_writes: bool = False,
     warp_exec: str = "serial",
     block_dim=None,
     grid_dim=None,
     persist: Optional[Tuple[Tuple[str, ...], Tuple[str, ...]]] = None,
 ):
-    """Build ``f(uniforms, globals[, state]) -> globals[, state]`` that
-    executes one CUDA block, updating the sink-slotted flat ``globals``
-    tensors in place.  ``uniforms`` holds 0-d tensors for bid, bdim,
-    gdim and every scalar kernel parameter.
+    """Build the function that executes one CUDA block -- or a chunk of
+    blocks at once.
 
-    ``persist=(var_names, shared_names)`` makes the block function one
-    *phase* of a cooperative (grid-sync) kernel: it takes
-    ``state={"bv": {var: (n_warps, W)}, "sh": {name: flat}}`` holding
-    this block's carried locals and shared memory from the previous
-    phase (zeros for phase 0), and returns their final values too.
+    ``f(uniforms, globals_[, state])``: ``uniforms`` holds 0-d tensors
+    for bdim, gdim and every scalar kernel parameter, and ``bid`` -- a
+    0-d tensor for one block, or a ``(C,)`` tensor for a chunk of C
+    blocks, which then run as a leading copy axis of every lane tensor.
+    ``globals_`` holds the sink-slotted flat arrays.
+
+    Without ``track_writes`` the blocks update ``globals_`` and it is
+    returned (the serial ``scan`` path: one block, in place).  With
+    ``track_writes`` (the block-parallel ``vmap`` path) ``globals_`` is
+    left alone: each block runs on its own copy of every array the
+    phase stores to, with write masks, and adds its atomics into delta
+    buffers; ``f`` returns ``(copies, masks, deltas)``, each keyed by
+    array with the chunk axis first, for ``backends/merge.py``.
+
+    ``warp_exec='batched'`` replaces the inter-warp loop by one
+    ``(n_warps, W)`` lane plane per block-level PR: every warp runs on
+    its own copy of the shared and global arrays the PR writes, with
+    write masks and atomic deltas, and the copies are merged at the PR's
+    end (a block barrier) by the same single-writer select.  Stores to
+    arrays a PR never reads go through a log replayed once after the
+    plane (:func:`_pr_plan`).  Bitwise the serial loop's result for
+    race-free kernels.
+
+    ``persist=(var_names, shared_names)`` makes the function one *phase*
+    of a cooperative (grid-sync) kernel: it takes ``state={"bv": {var:
+    (..., n_warps, W)}, "sh": {name: (..., size)}}`` holding the blocks'
+    carried locals and shared memory (leading chunk axis as ``bid``'s)
+    and returns their final values as a last output.
 
     ``block_dim``/``grid_dim`` are the launch's static dim3 extents; they
     feed only the per-axis intrinsics.  ``None`` means a 1-D launch."""
@@ -776,22 +1167,36 @@ def make_block_fn(
         raise ValueError(
             f"unknown warp_exec {warp_exec!r}; expected 'serial' or 'batched'"
         )
-    if warp_exec == "batched":
-        raise CoxUnsupported(
-            "warp_exec='batched' (the (n_warps, W) warp plane) is not ported "
-            "yet: ROADMAP queue item A.5"
-        )
     if ck.phases:
         raise ValueError(
             "make_block_fn runs one phase: pass a phase CompiledKernel "
             "(ck.phase_list()), not the multi-phase container"
         )
+    from .backends import merge  # deferred: backends imports execute
+
     jit_mode = mode == "jit"
     W = ck.warp_size
     bdim3 = dim3_tuple(block_dim)
     gdim3 = dim3_tuple(grid_dim)
     block_total = bdim3[0] * bdim3[1] * bdim3[2] if bdim3 else None
+    instrs = list(_all_instrs(ck))
+    stored = sorted({s.array for s in instrs if isinstance(s, K.StoreGlobal)})
+    atomic_targets = sorted({s.array for s in instrs if isinstance(s, K.AtomicRMW)})
+    batch_warps = warp_exec == "batched" and n_warps > 1
+    if batch_warps and any(isinstance(s, K.AtomicRMW) and s.dst for s in instrs):
+        # LaunchPlan.check_warp_batchable refuses these first
+        raise CoxUnsupported(
+            "atomic old-value capture under warp-batched execution: captured "
+            "old values are only unique under serial warp order -- use "
+            "warp_exec='serial'"
+        )
+    pr_plans = (
+        {n.id: _pr_plan(ck, n) for n in ck.machine.nodes if isinstance(n, BlockPR)}
+        if batch_warps
+        else {}
+    )
     linear = _try_linear_block(ck.machine)
+    n_nodes = len(ck.machine.nodes)
     consts: Dict[Any, torch.Tensor] = {}
     block_types = {
         v: ck.var_types.get(v, DType.f32).compute
@@ -800,14 +1205,28 @@ def make_block_fn(
     }
 
     def block_fn(uniforms: Dict[str, Any], globals_: Dict[str, Any], state=None):
-        dev = uniforms["bid"].device
+        bid = uniforms["bid"]
+        bshape = tuple(bid.shape)  # copy axes of the block machine
+        dev = bid.device
         bt = block_total if block_total is not None else int(uniforms["bdim"])
-        block_vars = {
-            v: [torch.zeros(W, dtype=dt, device=dev)] * n_warps
-            for v, dt in block_types.items()
-        }
-        shmem = {
-            s.name: torch.zeros(_prod(s.shape) + 1, dtype=s.dtype.compute, device=dev)
+
+        def lanes_bid(extra: int):
+            # bid against lane tensors with `extra` more axes than bshape
+            return bid if not bshape else bid.reshape(bshape + (1,) * extra)
+
+        u_serial = {**uniforms, "bid": lanes_bid(1)}
+        u_plane = {**uniforms, "bid": lanes_bid(2)}
+        zero = {dt: torch.zeros(W, dtype=dt, device=dev) for dt in set(block_types.values())}
+        if batch_warps:
+            bv: Dict[str, Any] = {
+                v: zero[dt].expand(bshape + (n_warps, W)) for v, dt in block_types.items()
+            }
+        else:
+            bv = {v: [zero[dt]] * n_warps for v, dt in block_types.items()}
+        sh = {
+            s.name: torch.zeros(
+                bshape + (_prod(s.shape) + 1,), dtype=s.dtype.compute, device=dev
+            )
             for s in ck.kernel.shared
         }
         if persist is not None:
@@ -816,51 +1235,187 @@ def make_block_fn(
                     "persist block fn needs state= (carried per-block "
                     "locals + shared memory)"
                 )
-            block_vars.update({v: list(state["bv"][v].unbind(0)) for v in persist[0]})
-            shmem.update({s: with_sink(state["sh"][s]) for s in persist[1]})
+            for v in persist[0]:
+                plane = state["bv"][v]
+                bv[v] = plane if batch_warps else list(plane.unbind(-2))
+            sh.update({s: with_sink(state["sh"][s]) for s in persist[1]})
+        if track_writes:
+            g = dict(globals_)
+            for k in stored:
+                g[k] = globals_[k].expand(bshape + globals_[k].shape).clone()
+            sm = merge.zeros_masks({k: globals_[k] for k in stored}, bshape)
+            ad = merge.zeros_deltas({k: globals_[k] for k in atomic_targets}, bshape)
+        else:
+            g, sm, ad = globals_, {}, {}
 
-        def run_block_pr(node: BlockPR) -> int:
+        def env_for(wid, shape, uniforms_, mem, **kw):
+            return _Env(
+                ck,
+                wid=wid,
+                shape=shape,
+                uniforms=uniforms_,
+                block_vars=bv,
+                shmem=mem[0],
+                globals_=mem[1],
+                simd=simd,
+                consts=consts,
+                block_total=bt,
+                block_dim3=bdim3,
+                grid_dim3=gdim3,
+                **kw,
+            )
+
+        def run_warp_plane(node: BlockPR, live):
+            """All warps of one block-level PR as one ``(n_warps, W)``
+            lane plane (per block of the chunk).  Sound because warps are
+            independent between barriers and a block-level PR boundary is
+            a barrier.  Each warp runs on its own copy of the shared and
+            global arrays the PR writes; the copies merge here.  Block-
+            replicated vars are written only at each warp's own row, so
+            the plane is already merged.  All warps of a block reach the
+            same exit under the aligned-barrier assumption; warp 0's is
+            taken."""
+            plan = pr_plans[node.id]
+            wshape = bshape + (n_warps,)
+
+            def per_warp(t):
+                return t.unsqueeze(-2).expand(wshape + t.shape[-1:]).clone()
+
+            g_w = {k: per_warp(g[k]) for k in plan.masked}
+            sh_w = {k: per_warp(sh[k]) for k in plan.shared}
+            if track_writes:
+                # the block's deltas so far, so loads see its earlier atomics
+                ad_w = {k: per_warp(ad[k]) for k in plan.atomics}
+            else:
+                ad_w = merge.zeros_deltas({k: g[k] for k in plan.atomics}, wshape)
+            wlive = None
+            if live is not None:
+                wlive = (np.repeat(live[0], n_warps), live[1].unsqueeze(-1).expand(wshape))
+            wids = consts.get(("wids", n_warps))
+            if wids is None:
+                wids = torch.arange(n_warps, dtype=torch.int32, device=dev)
+                wids = consts[("wids", n_warps)] = wids.reshape(n_warps, 1)
+            env = env_for(
+                wids,
+                wshape + (W,),
+                u_plane,
+                ({**sh, **sh_w}, {**g, **g_w}),
+                block_rows=True,
+                track_writes=True,
+                store_masks=merge.zeros_masks(g_w, wshape),
+                atomic_deltas={**ad, **ad_w},
+                shared_masks=merge.zeros_masks(sh_w, wshape),
+                log_arrays=set(plan.logged),
+                live=wlive,
+            )
+            ex = run_warp_graph(node, env, jit_mode=jit_mode)
+            for k in plan.shared:
+                sh[k], _ = merge.select_writer(
+                    sh[k], sh_w[k], env.shared_masks[k], axis=-2
+                )
+            if track_writes:
+                new_d = {k: merge.wrap(ad_w[k] - ad[k].unsqueeze(-2)) for k in plan.atomics}
+                g_new, wrote, dsum = merge.merge_chunk(
+                    {k: g[k] for k in plan.masked},
+                    g_w,
+                    env.store_masks,
+                    new_d,
+                    fold_deltas=False,
+                    axis=-2,
+                )
+                for k in stored:
+                    if k in wrote:
+                        g[k], sm[k] = g_new[k], sm[k] | wrote[k]
+                for k, d in dsum.items():
+                    ad[k] = merge.wrap(ad[k] + d)
+            else:
+                g_new, _, _ = merge.merge_chunk(
+                    {k: g[k] for k in plan.masked},
+                    g_w,
+                    env.store_masks,
+                    ad_w,
+                    fold_deltas=True,
+                    axis=-2,
+                )
+                g.update(g_new)
+            # the store log: one flat scatter per logged store (the
+            # single-writer contract makes the warps' lanes disjoint;
+            # masked-off lanes carry the sink index)
+            for name, idx, val in env.store_log:
+                offs = _offsets(g[name], len(wshape), consts)
+                _scatter(g[name], idx, val, offs)
+                if track_writes:
+                    _scatter(sm[name], idx, env.const(True, torch.bool), offs)
+            if isinstance(ex, int):
+                return ex
+            host, dev_ex = ex
+            return _result(host.reshape(-1, n_warps)[:, 0], dev_ex[..., 0], live)
+
+        def run_block_pr(node: BlockPR, live):
             """One block-level PR: the inter-warp loop (paper's Code 3
-            outer loop).  Returns the block-level successor."""
+            outer loop), or the batched warp plane.  Returns the exit
+            index of the last warp (warp 0's on the plane)."""
+            if batch_warps:
+                return run_warp_plane(node, live)
             ex = 0
             for wid in range(n_warps):
-                env = _Env(
-                    ck,
-                    wid=wid,
-                    uniforms=uniforms,
-                    block_vars=block_vars,
-                    shmem=shmem,
-                    globals_=globals_,
-                    simd=simd,
-                    consts=consts,
-                    block_total=bt,
-                    block_dim3=bdim3,
-                    grid_dim3=gdim3,
+                env = env_for(
+                    wid,
+                    bshape + (W,),
+                    u_serial,
+                    (sh, g),
+                    track_writes=track_writes,
+                    store_masks=sm,
+                    atomic_deltas=ad,
+                    live=live,
                 )
                 ex = run_warp_graph(node, env, jit_mode=jit_mode)
-            if not node.succ_ids:
-                return EXIT
-            return node.succ_ids[min(max(ex, 0), len(node.succ_ids) - 1)]
+            return ex
+
+        def block_step(pc, sel, mask):
+            node = ck.machine.nodes[pc]
+            live = None if mask is None else (sel, mask)
+            if isinstance(node, BlockPR):
+                return _succ(node, run_block_pr(node, live))
+            # BlockPeel -- each block's warp 0 lane 0 decides
+            rows = bv[node.cond]
+            flag = rows[..., 0, 0] if batch_warps else rows[0][..., 0]
+            t, f = (n_nodes if i == EXIT else i for i in (node.t_id, node.f_id))
+            return _branch(flag, sel, bshape, t, f)
 
         if linear is not None:
             for node in linear:
-                run_block_pr(node)
-        else:  # general PC machine at block level
-            pc = ck.machine.entry
-            while pc != EXIT:
-                node = ck.machine.nodes[pc]
-                if isinstance(node, BlockPR):
-                    pc = run_block_pr(node)
-                else:  # BlockPeel -- warp 0 lane 0 decides
-                    flag = _host_bool(block_vars[node.cond][0][0])
-                    pc = node.t_id if flag else node.f_id
-        if persist is None:
-            return globals_
-        out_state = {
-            "bv": {v: torch.stack(block_vars[v]) for v in persist[0]},
-            "sh": {s: shmem[s][:-1] for s in persist[1]},
-        }
-        return globals_, out_state
+                run_block_pr(node, None)
+        else:
+            _walk(n_nodes, ck.machine.entry, block_step, bshape, None, dev)
+        if track_writes:
+            out = ({k: g[k] for k in stored}, sm, ad)
+        else:
+            out = (g,)
+        if persist is not None:
+            rows = {
+                v: bv[v]
+                if batch_warps
+                else torch.stack([r.expand(bshape + (W,)) for r in bv[v]], dim=-2)
+                for v in persist[0]
+            }
+            out += ({"bv": rows, "sh": {s: sh[s][..., :-1] for s in persist[1]}},)
+        return out if len(out) > 1 else out[0]
+
+    def _succ(node: BlockPR, ex):
+        """Block-level successor(s) of a PR's exit index."""
+        succ = [n_nodes if s == EXIT else s for s in node.succ_ids] or [n_nodes]
+        if isinstance(ex, int):
+            return succ[min(max(ex, 0), len(succ) - 1)]
+        host, dev_ex = ex
+        key = ("succ", node.id, dev_ex.device)
+        table = consts.get(key)
+        if table is None:
+            table = consts[key] = torch.tensor(succ, dtype=torch.int64, device=dev_ex.device)
+        return (
+            np.asarray(succ)[np.clip(host, 0, len(succ) - 1)],
+            table[dev_ex.clamp(0, len(succ) - 1)],
+        )
 
     return block_fn
 
@@ -879,3 +1434,23 @@ def _try_linear_block(machine: Machine) -> Optional[List[BlockPR]]:
         out.append(node)
         cur = node.succ_ids[0] if node.succ_ids else EXIT
     return out
+
+
+def walk_instrs(ck: CompiledKernel):
+    """Every instruction of the kernel, descending into If/While (and
+    into every phase of a multi-phase compilation)."""
+    return _all_instrs(ck)
+
+
+def _all_instrs(ck: CompiledKernel):
+    for sub in ck.phase_list():
+        for blk in sub.cfg.blocks.values():
+            stack = list(blk.instrs)
+            while stack:
+                s = stack.pop()
+                yield s
+                if isinstance(s, K.If):
+                    stack.extend(s.then_body)
+                    stack.extend(s.else_body)
+                elif isinstance(s, K.While):
+                    stack.extend(s.body)

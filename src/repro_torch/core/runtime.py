@@ -1,11 +1,20 @@
 """COX runtime: grid launch (the paper section 4 host side).
 
-The paper forks one pthread per CUDA block.  Here the grid runs as the
-``scan`` backend's serial loop over block ids on one torch device.  The
-reference's ``auto`` heuristics (``flat.choose_backend`` /
-``choose_warp_exec``) still run, so a launch records what the reference
-would have picked; the port clamps it to the paths it has and says so
-in :attr:`ResolvedLaunch.clamped`.
+The paper forks one pthread per CUDA block.  Here the grid runs on one
+torch device through a pluggable backend (``backends``):
+
+* ``scan`` -- one block after another, carrying global memory in place
+  (a legal schedule: CUDA guarantees nothing about cross-block ordering
+  between grid-wide syncs);
+* ``vmap`` -- waves of blocks run at once as a leading copy axis of the
+  executor's tensors; the blocks' copies of global memory are
+  reconciled with single-writer write masks and summed atomic deltas
+  (``backends/merge.py``).
+
+``backend='auto'`` and ``warp_exec='auto'`` apply the reference's
+heuristics (``flat.choose_backend`` / ``choose_warp_exec``), and
+``schedule='auto'`` its footprint verdict (``costmodel``), so a launch
+takes the path the reference would.
 
 Knobs the port does not run yet raise :class:`CoxUnsupported` naming the
 ROADMAP queue item that brings them (:data:`UNPORTED`); none is
@@ -15,23 +24,24 @@ silently ignored.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 from . import backends as _backends
 from . import flat as _flat
-from .backends.plan import LaunchPlan, bind_kernel_args, unbind_outputs
+from .backends.plan import DEFAULT_CHUNK, LaunchPlan, bind_kernel_args, unbind_outputs
 from .execute import CompiledKernel
-from .types import CoxUnsupported, Dim3, as_dim3, check_launch_geometry
+from .types import (
+    COOP_MAX_RESIDENT_BLOCKS,
+    CoxUnsupported,
+    Dim3,
+    as_dim3,
+    check_launch_geometry,
+)
 
 # knob -> the ROADMAP queue item that ports it
 UNPORTED = {
-    "backend='vmap'": "A.5 (block-parallel grid execution)",
-    "warp_exec='batched'": "A.5 (block-parallel grid execution)",
-    "chunk": "A.5 (block-parallel grid execution)",
-    "schedule": "A.5 (block-parallel grid execution)",
-    "n_resident": "A.5 (block-parallel grid execution)",
     "backend='sharded'": "A.10 (multi-device)",
     "mesh": "A.10 (multi-device)",
     "donate": "A.9 (runtime services)",
@@ -74,17 +84,51 @@ def resolve_device(device) -> torch.device:
 class ResolvedLaunch:
     """Launch knobs after dim3 normalization and 'auto' resolution.
 
-    ``clamped`` lists each 'auto' choice the reference heuristic made
-    that the port replaced with its serial path, e.g.
-    ``("backend: vmap -> scan",)``."""
+    ``chunk``/``chunk_source`` are the blocks a wave and where that came
+    from: ``'explicit'`` (the caller's ``chunk=``), ``'heuristic'``
+    (``min(grid, DEFAULT_CHUNK)``) or ``'cooperative'`` (pinned by the
+    grid-sync residency rule).  ``schedule``/``n_resident``/
+    ``schedule_source`` do the same for the schedule: ``'chunked'``
+    walks the ``(n_chunks, chunk)`` block-id table, ``'grid_stride'``
+    runs waves of ``n_resident`` blocks over the grid; the source is
+    ``'explicit'``, ``'heuristic'`` (the footprint verdict, applied once
+    argument shapes are bound) or ``'cooperative'`` (a grid-sync grid
+    beyond the resident capacity)."""
 
     grid: Dim3
     block: Dim3
-    backend: str  # 'scan'
+    backend: str  # 'scan' | 'vmap'
     mode: str  # 'normal' | 'jit'
-    warp_exec: str  # 'serial'
+    warp_exec: str  # 'serial' | 'batched'
     n_warps: int
-    clamped: Tuple[str, ...] = ()
+    chunk: Optional[int] = None
+    chunk_source: str = "heuristic"
+    schedule: str = "chunked"
+    n_resident: Optional[int] = None
+    schedule_source: str = "heuristic"
+
+
+def resolve_chunk(ck: CompiledKernel, grid: int, chunk) -> tuple:
+    """The ``chunk`` knob as ``(value, source)``: an int is explicit
+    (clamped to the grid), ``None``/'auto' the ``min(grid,
+    DEFAULT_CHUNK)`` heuristic; cooperative launches pin ``chunk ==
+    grid`` as ``LaunchPlan.build`` does."""
+    auto = chunk is None or chunk == "auto"
+    if ck.n_phases > 1:
+        if not auto and int(chunk) < grid:
+            raise CoxUnsupported(
+                f"cooperative launch of '{ck.kernel.name}': chunk={chunk} "
+                f"would split the grid into waves, but a grid barrier needs "
+                f"every block resident per phase -- drop chunk= (the plan "
+                f"schedules all {grid} blocks as one wave)"
+            )
+        return grid, "cooperative"
+    if auto:
+        return min(grid, DEFAULT_CHUNK), "heuristic"
+    c = int(chunk)
+    if c < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk!r}")
+    return min(c, grid), "explicit"
 
 
 def resolve_launch(
@@ -95,33 +139,118 @@ def resolve_launch(
     mode: str = "auto",
     backend: str = "auto",
     warp_exec: str = "auto",
+    chunk=None,
+    schedule: str = "auto",
+    n_resident: Optional[int] = None,
 ) -> ResolvedLaunch:
     """Normalize ``grid``/``block`` to dim3, enforce CUDA's launch
-    limits and resolve the 'auto' knobs.  ``backend='auto'`` resolves to
-    ``scan`` and ``warp_exec='auto'`` to ``serial``; an explicit request
-    for a path the port lacks raises."""
+    limits and resolve the 'auto' knobs with the reference's rules.
+
+    ``n_resident`` sizes the grid-stride wave and implies
+    ``schedule='grid_stride'``.  A cooperative grid beyond the resident
+    capacity lowers to a grid-strided phase wave instead of raising,
+    unless the caller pins ``schedule='chunked'``."""
     grid3 = as_dim3(grid, "grid")
     block3 = as_dim3(block, "block")
     check_launch_geometry(grid3, block3)
-    clamped = []
-    if backend in ("vmap", "sharded"):
-        raise unported(f"backend={backend!r}")
-    want = _flat.choose_backend(ck.kernel, grid=grid3.total, requested=backend)
-    if want != "scan":
-        clamped.append(f"backend: {want} -> scan")
+    if backend == "sharded":
+        raise unported("backend='sharded'")
+    if schedule not in ("auto", "chunked", "grid_stride"):
+        raise ValueError(
+            f"schedule must be 'auto', 'chunked' or 'grid_stride', got {schedule!r}"
+        )
+    if n_resident is not None:
+        n_resident = int(n_resident)
+        if n_resident < 1:
+            raise ValueError(f"n_resident must be >= 1, got {n_resident}")
+        if schedule == "chunked":
+            raise ValueError(
+                "n_resident= only applies to schedule='grid_stride' "
+                "(the chunked schedule sizes waves with chunk=)"
+            )
+        schedule = "grid_stride"
+    sched = "chunked" if schedule == "auto" else schedule
+    sched_src = "heuristic" if schedule == "auto" else "explicit"
+    n_res = n_resident
+    total = grid3.total
+    bname = _flat.choose_backend(ck.kernel, grid=total, requested=backend)
     n_warps = -(-block3.total // ck.warp_size)
     mode = _flat.choose_mode(ck.kernel, n_warps=n_warps, requested=mode)
-    if warp_exec == "batched":
-        raise unported("warp_exec='batched'")
     machines = ck.machine if not ck.phases else tuple(p.machine for p in ck.phases)
-    want = _flat.choose_warp_exec(
+    warp_exec = _flat.choose_warp_exec(
         ck.kernel, n_warps=n_warps, requested=warp_exec, machine=machines
     )
-    if want != "serial":
-        clamped.append(f"warp_exec: {want} -> serial")
+    ch, ch_src = resolve_chunk(ck, total, chunk)
+    if ck.n_phases > 1:
+        if total > COOP_MAX_RESIDENT_BLOCKS:
+            if schedule == "chunked":
+                raise CoxUnsupported(
+                    f"cooperative launch of '{ck.kernel.name}': grid={total} "
+                    f"blocks exceeds the resident capacity "
+                    f"({COOP_MAX_RESIDENT_BLOCKS}) and schedule='chunked' pins "
+                    f"the all-resident wave -- drop schedule= to let the "
+                    f"grid-stride lowering page blocks through "
+                    f"{COOP_MAX_RESIDENT_BLOCKS} resident slots"
+                )
+            sched = "grid_stride"
+            if sched_src != "explicit":
+                sched_src = "cooperative"
+            n_res = min(n_res or COOP_MAX_RESIDENT_BLOCKS, COOP_MAX_RESIDENT_BLOCKS)
+            ch, ch_src = n_res, "cooperative"
+        elif sched == "grid_stride":
+            n_res = min(n_res or total, total, COOP_MAX_RESIDENT_BLOCKS)
+            ch, ch_src = n_res, "cooperative"
+    elif sched == "grid_stride" and n_res is not None:
+        n_res = min(n_res, total)
     return ResolvedLaunch(
-        grid3, block3, "scan", mode, "serial", n_warps, tuple(clamped)
+        grid3, block3, bname, mode, warp_exec, n_warps, ch, ch_src, sched, n_res, sched_src
     )
+
+
+def resolve_schedule(
+    ck: CompiledKernel,
+    rl: ResolvedLaunch,
+    shapes: Dict[str, tuple],
+    *,
+    budget: Optional[int] = None,
+) -> ResolvedLaunch:
+    """Apply the footprint verdict once the argument shapes are bound.
+    An explicit schedule or chunk is kept (an explicit ``'grid_stride'``
+    without ``n_resident=`` gets the cost model's wave width), and so is
+    a cooperative lowering; otherwise ``costmodel.schedule_verdict``
+    routes a chunked launch whose footprint exceeds the budget to
+    grid-stride."""
+    from . import costmodel as _costmodel
+
+    if rl.schedule == "grid_stride":
+        if rl.n_resident is None:
+            n_res = _costmodel.resident_slots(
+                ck,
+                shapes,
+                grid=rl.grid.total,
+                n_warps=rl.n_warps,
+                warp_exec=rl.warp_exec,
+                budget=budget,
+            )
+            return dataclasses.replace(rl, n_resident=min(n_res, rl.grid.total))
+        return rl
+    if rl.schedule_source == "explicit" or rl.chunk_source == "explicit" or ck.n_phases > 1:
+        return rl
+    sched, n_res = _costmodel.schedule_verdict(
+        ck,
+        shapes,
+        grid=rl.grid.total,
+        chunk=rl.chunk if rl.chunk else DEFAULT_CHUNK,
+        n_warps=rl.n_warps,
+        warp_exec=rl.warp_exec,
+        backend=rl.backend,
+        budget=budget,
+    )
+    if sched == "grid_stride":
+        return dataclasses.replace(
+            rl, schedule="grid_stride", n_resident=n_res, schedule_source="heuristic"
+        )
+    return rl
 
 
 def build_resolved(ck: CompiledKernel, rl: ResolvedLaunch, *, simd: bool = True):
@@ -133,7 +262,10 @@ def build_resolved(ck: CompiledKernel, rl: ResolvedLaunch, *, simd: bool = True)
         block=rl.block,
         mode=rl.mode,
         simd=simd,
+        chunk=rl.chunk,
         warp_exec=rl.warp_exec,
+        schedule=rl.schedule,
+        n_resident=rl.n_resident,
     )
     return plan, _backends.get_backend(rl.backend).build_fn(plan)
 
@@ -147,7 +279,10 @@ def launch(
     mode: str = "auto",
     simd: bool = True,
     backend: str = "auto",
+    chunk=None,
     warp_exec: str = "auto",
+    schedule: str = "auto",
+    n_resident: Optional[int] = None,
     device=None,
     mesh=None,
     donate: bool = False,
@@ -170,7 +305,11 @@ def launch(
         mode=mode,
         backend=backend,
         warp_exec=warp_exec,
+        chunk=chunk,
+        schedule=schedule,
+        n_resident=n_resident,
     )
     globals_, shapes, scalars = bind_kernel_args(ck, args, dev)
+    rl = resolve_schedule(ck, rl, shapes)
     _, run = build_resolved(ck, rl, simd=simd)
     return unbind_outputs(ck, run(globals_, scalars, dev), shapes)

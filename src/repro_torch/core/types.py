@@ -33,6 +33,13 @@ CUDA_MAX_GRID = (2**31 - 1, 65535, 65535)
 
 U32_MASK = 0xFFFFFFFF
 
+# Cooperative-launch residency cap: CUDA's cudaLaunchCooperativeKernel
+# needs every block of the grid resident at once.  Here every block's
+# carried state (locals + shared memory) must fit one resident wave of
+# the block-parallel schedule; larger cooperative grids page through a
+# wave of this width (the grid-stride schedule) or raise.
+COOP_MAX_RESIDENT_BLOCKS = 4096
+
 
 class CoxUnsupported(Exception):
     """Raised when a kernel uses a feature outside the supported set,

@@ -67,7 +67,7 @@ def _ref(func, buf, extra, width, mask, table=RC.VECTORIZED):
 BACKENDS = [(PC.VECTORIZED, RC.VECTORIZED), (PC.SCALAR, RC.SCALAR)]
 
 
-@pytest.mark.parametrize("lead", [(), (4,)], ids=["1d", "plane"])
+@pytest.mark.parametrize("lead", [(), (4,), (3, 4)], ids=["1d", "plane", "chunk-plane"])
 @pytest.mark.parametrize("partial", [False, True], ids=["full", "partial"])
 @pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("func", FUNCS)

@@ -72,6 +72,62 @@ def test_suite_on_cuda_matches_cpu(cuda, name):
         assert torch.equal(got[k].cpu(), w), f"{name}.{k}"
 
 
+@pytest.mark.parametrize("warp_exec", ["serial", "batched"])
+@pytest.mark.parametrize(
+    "name,knobs",
+    [
+        ("MatrixMulCUDA", {"chunk": 3}),
+        ("MatrixMulCUDA", {"chunk": 16}),
+        ("reduce4", {"chunk": 3}),
+        ("histogram64", {"chunk": 5}),
+        ("gridReduce", {}),
+        ("gridReduce", {"n_resident": 3}),
+    ],
+)
+def test_vmap_on_cuda_matches_scan(cuda, name, knobs, warp_exec):
+    """The block-parallel backend and the batched warp plane on the card,
+    bitwise the serial scan launch on the card; the outputs stay there."""
+    sk = SUITE[name]
+    args = sk.make_args()
+    kw = dict(grid=sk.grid, block=sk.block, args=args)
+    want = sk.kernel.launch(backend="scan", warp_exec="serial", **kw)
+    got = sk.kernel.launch(backend="vmap", warp_exec=warp_exec, **knobs, **kw)
+    for k, w in want.items():
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k], w), f"{name}.{k}"
+
+
+@cox.kernel
+def _bid_trips(c, out: cox.Array(cox.f32), a: cox.Array(cox.f32)):
+    # a block-level loop whose trip count is the block id: the blocks of
+    # a wave leave it at different peels
+    tile = c.shared((64,), cox.f32)
+    tid = c.thread_idx()
+    i = c.block_idx() * c.block_dim() + tid
+    acc = a[i]
+    t = 0
+    while t < c.block_idx():
+        tile[tid] = acc
+        c.syncthreads()
+        acc = acc + tile[(tid + 1) % 64]
+        c.syncthreads()
+        t = t + 1
+    out[i] = acc
+
+
+@pytest.mark.parametrize("warp_exec", ["serial", "batched"])
+def test_vmap_divergent_blocks_on_cuda(cuda, warp_exec):
+    a = torch.randint(-4, 5, (7 * 64,), device=cuda).float()
+    kw = dict(grid=7, block=64, args=(torch.zeros_like(a), a), collapse="hier")
+    want = _bid_trips.launch(backend="scan", warp_exec="serial", **kw)["out"]
+    before = execute.host_syncs
+    got = _bid_trips.launch(backend="vmap", warp_exec=warp_exec, **kw)["out"]
+    assert execute.host_syncs - before == 7  # one flag vector a trip
+    assert torch.equal(got, want)
+    cpu = _bid_trips.launch(device="cpu", backend="scan", **{**kw, "args": (a.cpu() * 0, a.cpu())})
+    assert torch.equal(got.cpu(), cpu["out"])
+
+
 @cox.kernel
 def _scale(c, out: cox.Array(cox.f32), a: cox.Array(cox.f32), n: cox.i32):
     i = c.block_idx() * c.block_dim() + c.thread_idx()

@@ -315,31 +315,14 @@ def test_tensor_on_another_device_raises():
 @pytest.mark.parametrize(
     "knobs,item",
     [
-        ({"backend": "vmap"}, "A.5"),
         ({"backend": "sharded"}, "A.10"),
-        ({"warp_exec": "batched"}, "A.5"),
-        ({"chunk": 4}, "A.5"),
-        ({"schedule": "grid_stride"}, "A.5"),
-        ({"n_resident": 2}, "A.5"),
         ({"mesh": object()}, "A.10"),
         ({"donate": True}, "A.9"),
         ({"autotune": True}, "A.9"),
         ({"stream": object()}, "A.9"),
         ({"device": 0}, "A.9"),
     ],
-    ids=[
-        "vmap",
-        "sharded",
-        "batched",
-        "chunk",
-        "schedule",
-        "n_resident",
-        "mesh",
-        "donate",
-        "autotune",
-        "stream",
-        "pin",
-    ],
+    ids=["sharded", "mesh", "donate", "autotune", "stream", "pin"],
 )
 def test_unported_knobs_raise(knobs, item):
     knobs = {"device": "cpu", **knobs}
@@ -349,10 +332,18 @@ def test_unported_knobs_raise(knobs, item):
 
 
 def test_auto_knobs_clamp_to_the_serial_path_and_say_so(pairs):
+    """Nothing is clamped any more: 'auto' resolves MatrixMulCUDA to the
+    block-parallel backend and the batched warp plane, as the
+    reference's heuristics do."""
+    from repro.core import runtime as ref_runtime
     from repro_torch.core import runtime
 
-    _, p, _ = pairs["MatrixMulCUDA"]
+    r, p, _ = pairs["MatrixMulCUDA"]
     ck = p.kernel.compiled(collapse="hier")
     rl = runtime.resolve_launch(ck, grid=p.grid, block=p.block)
-    assert (rl.backend, rl.warp_exec) == ("scan", "serial")
-    assert rl.clamped == ("backend: vmap -> scan", "warp_exec: batched -> serial")
+    assert (rl.backend, rl.warp_exec) == ("vmap", "batched")
+    want = ref_runtime.resolve_launch(
+        r.kernel.compiled(collapse="hier"), grid=r.grid, block=r.block
+    )
+    assert (rl.backend, rl.warp_exec, rl.chunk) == (want.backend, want.warp_exec, want.chunk)
+    assert not hasattr(rl, "clamped")

@@ -1,0 +1,94 @@
+"""Kernels parsed by both packages, for the port's parity tests.
+
+``pairs()`` maps every runnable kernel's name to ``(reference
+SuiteKernel, port SuiteKernel, args drawn once)``: the same inputs go to
+both launches.  The port's copy of ``benchmarks/kernels_suite.py`` has
+its ``cox`` import pointed at ``repro_torch.core``; the kernels keep
+their parsed source, so the copy is gone once it has run.
+"""
+
+import importlib.util
+import pathlib
+import sys
+import tempfile
+
+import numpy as np
+
+from benchmarks import kernels_suite as ref_suite
+from repro.core import cox as rcox
+from repro_torch.core import cox as pcox
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+REF_IMPORT = "from repro.core import cox"
+
+# kernels whose reference result XLA contracts into fused multiply-adds
+# while eager torch rounds twice: held at rtol = atol = 1e-5
+FMA_KERNELS = {
+    "gpuSpMV",
+    "MatrixMulCUDA",
+    "matrixMul",
+    "matrixMultiplyKernel",
+    "matrixMul1D",
+}
+
+
+def load_port_suite(stem: str):
+    src = (ROOT / "benchmarks" / "kernels_suite.py").read_text()
+    assert src.count(REF_IMPORT) == 1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / f"{stem}.py"
+        path.write_text(src.replace(REF_IMPORT, "from repro_torch.core import cox"))
+        spec = importlib.util.spec_from_file_location(stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[stem] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def pairs(stem: str):
+    port = load_port_suite(stem)
+    out = {}
+    for r, p in zip(ref_suite.all_kernels(), port.all_kernels()):
+        if r.kernel is not None:
+            out[r.name] = (r, p, p.make_args())
+    return out
+
+
+def as_numpy(out):
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def assert_same(got, want, name, tolerant=False):
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, (name, k)
+        if tolerant and got[k].dtype.kind == "f":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{name}.{k}")
+
+
+def define(fn, annotations):
+    """One kernel body, parsed by both packages: ``(reference, port)``."""
+    fn.__annotations__ = annotations(rcox)
+    r = rcox.kernel(fn)
+    fn.__annotations__ = annotations(pcox)
+    return r, pcox.kernel(fn)
+
+
+def annot(**kinds):
+    """Annotations from one letter a parameter: f (f32 array), i (i32
+    array), n (i32 scalar)."""
+
+    def annotations(m):
+        table = {"f": m.Array(m.f32), "i": m.Array(m.i32), "n": m.i32}
+        return {name: table[k] for name, k in kinds.items()}
+
+    return annotations
+
+
+def both(kernels, **kw):
+    """The port's launch on the CPU and the reference's, both with ``kw``."""
+    r, p = kernels
+    want = as_numpy(r.launch(**kw))
+    return as_numpy(p.launch(device="cpu", **kw)), want
