@@ -31,14 +31,30 @@ it:
   decode steps launch the layernorm and flash_decode kernels;
 - ``train`` on granite-20b at full width cut to 4 layers, bf16, batch 2 of
   4,096 tokens, 3 steps, whose steps launch the flash_attention and
-  layernorm kernels and their backward kernels.
+  layernorm kernels and their backward kernels;
+- ``serve_requests`` on zamba2-1.2b (the hybrid family: 38 Mamba2 layers
+  and 7 applications of one shared attention+MLP block) at full width and
+  depth, whose decode steps launch rmsnorm 91 times and flash_decode 7
+  times, and ``train`` on it at full width and depth, batch 4 of 4,096,
+  whose steps launch all six: ssd_scan, flash_attention, rmsnorm and their
+  backwards;
+- ``serve_requests`` on deepseek-moe-16b (the MoE family, 64 experts, top
+  6) at full width and depth, and ``train`` on it cut to 4 layers, batch 2
+  of 4,096, at the published capacity factor 1.25 (tokens drop; each
+  step's dropped share is printed): rmsnorm and flash_decode, and
+  flash_attention and rmsnorm and their backwards;
+- ``serve_requests`` on llava-next-34b (the VLM family, text only, as the
+  reference serves it) at full width cut to 8 layers, and ``train`` on it
+  cut to 4 layers, batch 2 of 4,096 = 2,880 frontend rows + 1,216 tokens.
 
 Then it times the kernel wrappers' host cost, profiles a few decode steps
 and one train step of each model (device busy and idle time, kernels by
 name), and holds each serving path (full width, 2 layers, f32) and one
 train step of each (full width, 1 layer, f32) on the card against the
-same on the CPU.  Each model's phases free its weights before the next
-model's start.  Each phase prints one JSON line; the last line is
+same on the CPU; the MoE checks compare the router's top-k first (a
+choice may flip only on a near tie, counted and printed).  Each model's
+phases free its weights before the next model's start.  Each phase
+prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and fails without one, and imports neither ``jax``
@@ -46,6 +62,7 @@ nor the JAX package.  The COX kernels are defined in this file because
 the frontend parses kernel source with ``inspect.getsource``.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -72,6 +89,7 @@ from repro_torch.kernels import softmax as sm  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import warp_reduce as wr  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -145,8 +163,60 @@ GRANITE_TRAIN = dict(
     seed=0,
     cuts="from train_4k: layers 52 -> 4, batch 256 -> 2; seq 4,096 and widths kept",
 )
+# the hybrid family, zamba2-1.2b: 38 Mamba2 layers (d 2,048, d_inner 4,096,
+# 64 SSD heads of P 64, N 64) and one shared attention+MLP block (32/32
+# heads of 64, window 4,096, gelu MLP of 8,192) after every 6 of them, 7
+# applications; serve at full width and depth, train at full width and
+# depth, cut from train_4k in batch only
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_TRAIN = dict(
+    batch=4,
+    seq=4096,
+    steps=3,
+    seed=0,
+    cuts="from train_4k: batch 256 -> 4; seq 4,096, widths and depth kept",
+)
+# the decode cross-check's window, under CROSS_CTX, so the ring wraps
+HYBRID_CROSS_WINDOW = 32
+# the MoE family, deepseek-moe-16b: 28 layers, d 2,048, 16/16 heads of 128,
+# 64 experts of 1,408 (top 6) and 2 shared, vocabulary 102,400; serve at
+# full width and depth, train cut as qwen's, at the published capacity
+# factor 1.25, which drops tokens
+MOE_ARCH = "deepseek-moe-16b"
+MOE_TRAIN = dict(
+    n_layers=4,
+    batch=2,
+    seq=4096,
+    steps=3,
+    seed=0,
+    cuts="from train_4k: layers 28 -> 4, batch 256 -> 2; seq 4,096, widths and "
+    "capacity_factor 1.25 kept",
+)
+# the VLM family, llava-next-34b: 60 layers, d 7,168, 56/8 heads of 128,
+# swiglu of 20,480, vocabulary 64,000, 2,880 frontend rows.  Its decode
+# step is the dense family's, which qwen and granite run at full depth:
+# serving is cut to 8 layers to keep the script within its time limit
+VLM_ARCH = "llava-next-34b"
+VLM_SERVE_LAYERS = 8
+VLM_TRAIN = dict(
+    n_layers=4,
+    batch=2,
+    seq=4096,
+    steps=3,
+    seed=0,
+    cuts="from train_4k: layers 60 -> 4, batch 256 -> 2; seq 4,096 = 2,880 frontend "
+    "rows + 1,216 tokens, widths kept",
+)
+VLM_CROSS_FRONTEND = 128  # the train cross-check's frontend rows (2,880 -> 128)
 # a phase's name: the model's prefix and the phase, e.g. granite_serve
-PHASE_PREFIX = {ARCH: "", SSM_ARCH: "ssm_", GRANITE_ARCH: "granite_"}
+PHASE_PREFIX = {
+    ARCH: "",
+    SSM_ARCH: "ssm_",
+    GRANITE_ARCH: "granite_",
+    HYBRID_ARCH: "hybrid_",
+    MOE_ARCH: "moe_",
+    VLM_ARCH: "vlm_",
+}
 
 
 T_START = time.perf_counter()
@@ -155,7 +225,8 @@ T_START = time.perf_counter()
 def phase_name(cfg, base: str) -> str:
     """A phase's name in the output: ``base``, after its model's prefix
     (none for qwen2.5-14b, ``ssm_`` for mamba2-130m, ``granite_`` for
-    granite-20b; a smoke twin takes its model's)."""
+    granite-20b, ``hybrid_``, ``moe_`` and ``vlm_`` for zamba2-1.2b,
+    deepseek-moe-16b and llava-next-34b; a smoke twin takes its model's)."""
     return PHASE_PREFIX[cfg.name.removesuffix("-smoke")] + base
 
 
@@ -601,9 +672,14 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
 SSM_TOKENS = SSM_TRAIN["batch"] * SSM_TRAIN["seq"]
 SSM_D_MODEL, SSM_D_INNER = 768, 1536  # mamba2-130m
+HYBRID_TOKENS = HYBRID_TRAIN["batch"] * HYBRID_TRAIN["seq"]
+HYBRID_D_MODEL, HYBRID_D_INNER = 2048, 4096  # zamba2-1.2b (deepseek-moe-16b's d too)
+VLM_D_MODEL = 7168  # llava-next-34b
 # rmsnorm: (shape, x dtype, w dtype); the headline, the serving shape
 # (the decode batch of the serve phase), f32, a ragged unaligned width,
-# and mamba2-130m's inner norm in training and its norm in serving
+# mamba2-130m's inner norm in training and its norm in serving; then
+# zamba2-1.2b's and llava-next-34b's in serving and training (zamba2's
+# d 2,048 is deepseek-moe-16b's too)
 RMS_CASES = [
     ((8192, D_MODEL), torch.bfloat16, torch.float32),
     ((SERVE["batch"], D_MODEL), torch.bfloat16, torch.float32),
@@ -611,20 +687,33 @@ RMS_CASES = [
     ((3, 1001), torch.float32, torch.float32),
     ((SSM_TOKENS, SSM_D_INNER), torch.bfloat16, torch.float32),
     ((SERVE["batch"], SSM_D_MODEL), torch.bfloat16, torch.float32),
+    ((SERVE["batch"], HYBRID_D_MODEL), torch.bfloat16, torch.float32),
+    ((SERVE["batch"], HYBRID_D_INNER), torch.bfloat16, torch.float32),
+    ((SERVE["batch"], VLM_D_MODEL), torch.bfloat16, torch.float32),
+    ((HYBRID_TOKENS, HYBRID_D_INNER), torch.bfloat16, torch.float32),
+    ((8192, VLM_D_MODEL), torch.bfloat16, torch.float32),
 ]
 RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
-# flash_decode: (B, S, kv_len per row, dtype, query heads, kv heads); the
-# headline is one layer of decode_32k's context, then ragged lengths (1
-# and past S), the serve phase's shape, and f32, at qwen2.5-14b's 40/8
-# heads; then granite-20b's MQA (48 heads over 1, g = 48) at the serve
-# phase's shape and in f32
+# flash_decode: (B, S, kv_len per row, dtype, query heads, kv heads, head
+# dim); the headline is one layer of decode_32k's context, then ragged
+# lengths (1 and past S), the serve phase's shape, and f32, at
+# qwen2.5-14b's 40/8 heads; then granite-20b's MQA (48 heads over 1, g =
+# 48) at the serve phase's shape and in f32; then at the serve phase's
+# shape zamba2-1.2b's shared block (32/32 heads of 64, G 1) and a full
+# ring of its window, deepseek-moe-16b's 16/16 and llava-next-34b's 56/8
+# (g = 7)
+SERVE_LENS = [300, 400, 500, 512]
 DECODE_CASES = [
-    (8, 32768, [32768] * 8, torch.bfloat16, N_HEADS, N_KV),
-    (4, 4096, [1, 1000, 4096, 5000], torch.bfloat16, N_HEADS, N_KV),
-    (SERVE["batch"], SERVE["ctx"], [300, 400, 500, 512], torch.bfloat16, N_HEADS, N_KV),
-    (2, 2048, [2048, 77], torch.float32, N_HEADS, N_KV),
-    (SERVE["batch"], SERVE["ctx"], [300, 400, 500, 512], torch.bfloat16, 48, 1),
-    (2, 2048, [2048, 77], torch.float32, 48, 1),
+    (8, 32768, [32768] * 8, torch.bfloat16, N_HEADS, N_KV, D_HEAD),
+    (4, 4096, [1, 1000, 4096, 5000], torch.bfloat16, N_HEADS, N_KV, D_HEAD),
+    (SERVE["batch"], SERVE["ctx"], SERVE_LENS, torch.bfloat16, N_HEADS, N_KV, D_HEAD),
+    (2, 2048, [2048, 77], torch.float32, N_HEADS, N_KV, D_HEAD),
+    (SERVE["batch"], SERVE["ctx"], SERVE_LENS, torch.bfloat16, 48, 1, D_HEAD),
+    (2, 2048, [2048, 77], torch.float32, 48, 1, D_HEAD),
+    (SERVE["batch"], SERVE["ctx"], SERVE_LENS, torch.bfloat16, 32, 32, 64),
+    (SERVE["batch"], 4096, [4096] * 4, torch.bfloat16, 32, 32, 64),
+    (SERVE["batch"], SERVE["ctx"], SERVE_LENS, torch.bfloat16, 16, 16, D_HEAD),
+    (SERVE["batch"], SERVE["ctx"], SERVE_LENS, torch.bfloat16, 56, 8, D_HEAD),
 ]
 DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-6)}
 
@@ -668,10 +757,10 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * x.numel())
         emit(rec)
         headline.setdefault("rmsnorm", rec)
-    for B, S, kv_len, dtype, H, Hkv in DECODE_CASES:
-        q = torch.randn(B, H, D_HEAD, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(B, S, Hkv, D_HEAD, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(B, S, Hkv, D_HEAD, generator=gen, device="cuda").to(dtype)
+    for B, S, kv_len, dtype, H, Hkv, D in DECODE_CASES:
+        q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
         lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         got = fa.flash_decode_cuda(q, k, v, lens)
         want = ref.decode_attention(q, k, v, lens)
@@ -697,7 +786,7 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
         rec = {
             "phase": "kernel",
             "name": "flash_decode",
-            "shape": [B, S, H, Hkv, D_HEAD],
+            "shape": [B, S, H, Hkv, D],
             "kv_len": kv_len,
             "dtype": _dtype_name(dtype),
             "rtol": rtol,
@@ -712,9 +801,9 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
             rec["library_graph_ms"] = graph_ms(library)
         # the bytes this run's data needs: the valid rows of K and V
         rows = sum(min(n, S) for n in kv_len)
-        kv_bytes = 2 * rows * Hkv * D_HEAD * k.element_size()
+        kv_bytes = 2 * rows * Hkv * D * k.element_size()
         nbytes = kv_bytes + 2 * q.numel() * q.element_size() + lens.numel() * 4
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * rows * H * D_HEAD)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * rows * H * D)
         emit(rec)
         headline.setdefault("flash_decode", rec)
         del q, k, v, q4, k4, v4, got, want
@@ -736,22 +825,47 @@ def host_us_per_call(fn, calls: int = 300) -> float:
 
 
 def serve_cache_bytes(cfg) -> int:
-    """The cache bytes a decode step moves: every K/V row read (dense), or
-    the recurrent state read and written (SSM)."""
-    leaves = tree_leaves(lm.cache_specs(cfg, SERVE["batch"], SERVE["ctx"]))
-    nbytes = sum(math.prod(s.shape) * s.dtype.itemsize for s in leaves)
-    return nbytes if cfg.family == "dense" else 2 * nbytes
+    """The cache bytes a decode step moves: every K/V row read (the
+    attention layers' caches, or the hybrid's rings), and the recurrent
+    state read and written (SSM layers)."""
+    specs = lm.cache_specs(cfg, SERVE["batch"], SERVE["ctx"])
+    nbytes = {k: math.prod(s.shape) * s.dtype.itemsize for k, s in specs.items()}
+    return sum(n if k in ("k", "v") else 2 * n for k, n in nbytes.items())
 
 
-def phase_serve(cpu_tokens: int, arch: str = ARCH) -> dict:
+def applications(cfg) -> int:
+    """The hybrid family's applications of its shared block (0 for the
+    other families): one after each group of Mamba2 layers."""
+    return len(lm._groups(cfg)) if cfg.family == "hybrid" else 0
+
+
+def decode_launches(cfg) -> tuple:
+    """(norm, flash_decode) launches of one decode step: two norms a layer
+    (an SSM layer's ln1 and inner norm, an attention layer's ln1 and ln2)
+    and the final one, and one flash_decode an attention layer; the
+    hybrid's shared block adds two norms and one flash_decode an
+    application."""
+    apps = applications(cfg)
+    if cfg.family == "hybrid":
+        return 2 * cfg.n_layers + 2 * apps + 1, apps
+    return 2 * cfg.n_layers + 1, 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def expert_params(cfg) -> int:
+    """One routed expert's weights (gate, up and down) of a MoE layer."""
+    return 3 * cfg.d_model * (cfg.d_expert or cfg.d_ff)
+
+
+def phase_serve(cpu_tokens: int, arch=ARCH, cuts: str = "none") -> dict:
     """A main path's serving part: serve_requests through the port's
-    BatchedServer at full width and depth in bf16."""
-    cfg = registry.get(arch)
+    BatchedServer at full width and depth in bf16 (``arch`` a registry
+    name, or a config with its depth cut, as ``cuts`` says)."""
+    cfg = registry.get(arch) if isinstance(arch, str) else arch
     name = phase_name(cfg, "serve")
     torch.cuda.reset_peak_memory_stats()
     before = ops.launch_counts()
     # device None: the entry point's default, the card
-    out = serve.serve_requests(arch, device=None if DEVICE == "cuda" else DEVICE, **SERVE)
+    out = serve.serve_requests(cfg, device=None if DEVICE == "cuda" else DEVICE, **SERVE)
     after = ops.launch_counts()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -761,15 +875,25 @@ def phase_serve(cpu_tokens: int, arch: str = ARCH) -> dict:
     steps = out["steps"]
     norm = norm_kernel(cfg)
     per_step = {n: (after[n] - before[n]) / steps for n in (norm, "flash_decode")}
-    # an SSM layer's two norms (ln1, the inner norm) as a dense layer's
-    check(per_step[norm] == 2 * cfg.n_layers + 1, f"{norm} launches {per_step}")
-    attn_layers = cfg.n_layers if cfg.family == "dense" else 0
-    check(per_step["flash_decode"] == attn_layers, f"flash_decode launches {per_step}")
+    want_norm, want_decode = decode_launches(cfg)
+    check(per_step[norm] == want_norm, f"{norm} launches {per_step}, want {want_norm}")
+    check(per_step["flash_decode"] == want_decode, f"flash_decode launches {per_step}")
     weight_bytes = cfg.param_count() * 2
     cache_bytes = serve_cache_bytes(cfg)
+    extra = {}
+    if cfg.family == "moe":
+        # the capacity dispatch reads every expert (the bound below); the
+        # step's routing can touch at most B x k experts a layer
+        idle = max(cfg.n_experts - SERVE["batch"] * cfg.top_k, 0)
+        touched = weight_bytes - 2 * cfg.n_layers * idle * expert_params(cfg)
+        extra = {
+            "touched_weight_bytes": touched,
+            "bound_touched_ms_per_step": (touched + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        }
     rec = {
         "phase": name,
-        "arch": arch,
+        "arch": cfg.name,
+        "cuts": cuts,
         **{k: SERVE[k] for k in ("batch", "ctx", "n_requests", "max_tokens")},
         "n_layers": cfg.n_layers,
         "dtype": "bfloat16",
@@ -785,6 +909,7 @@ def phase_serve(cpu_tokens: int, arch: str = ARCH) -> dict:
         "weight_bytes": weight_bytes,
         "cache_bytes": cache_bytes,
         "bound_ms_per_step": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        **extra,
         "launches_per_step": per_step,
         "peak_alloc_gb": peak / 1e9,
     }
@@ -833,7 +958,7 @@ def phase_wrapper_host(gen: torch.Generator, serve_rec: dict) -> None:
 PROFILE_STEPS = 5  # decode steps traced by phase_serve_profile
 
 
-def phase_serve_profile(arch: str = ARCH) -> None:
+def phase_serve_profile(arch=ARCH) -> None:
     """Where a decode step's time goes: torch.profiler over a few steps of
     a BatchedServer at the serve phase's width, depth, batch and context,
     after its slots are prefilled.  Device busy time is the sum of the
@@ -845,6 +970,7 @@ def phase_serve_profile(arch: str = ARCH) -> None:
 
     server = serve.BatchedServer(arch, batch=SERVE["batch"], ctx=SERVE["ctx"], seed=0)
     name = phase_name(server.cfg, "serve_profile")
+    arch = server.cfg.name
     rng = np.random.default_rng(SERVE["seed"])
     for slot in range(SERVE["batch"]):
         server.prefill_prompt(slot, list(rng.integers(1, server.cfg.vocab, size=8)))
@@ -891,6 +1017,8 @@ def _randomise_zero_inits(params, gen) -> None:
     model has them."""
     layers = params["layers"]
     draws = [(params, "final_norm", 1.0), (layers, "ln1", 1.0)]
+    if "shared_attn" in params:  # the hybrid's shared block
+        draws += [(params["shared_attn"], name, 1.0) for name in ("ln1", "ln2")]
     draws += [(t, n, 0.0) for t, n in ((params, "final_norm_b"), (layers, "ln1_b")) if n in t]
     if "attn" in layers:
         attn = layers["attn"]
@@ -916,15 +1044,65 @@ def _cross_weights(cfg, seed: int) -> tuple:
     return cpu, tree_map(lambda t: t.to(DEVICE, copy=True), cpu)
 
 
+@contextlib.contextmanager
+def router_logits():
+    """The router logits of every ``topk_gate`` call made inside the block,
+    copied to the host, in call order (one call a MoE layer)."""
+    seen, plain = [], ops.topk_gate
+
+    def record(logits, k):
+        seen.append(logits.detach().to("cpu", copy=True))
+        return plain(logits, k)
+
+    ops.topk_gate = record
+    try:
+        yield seen
+    finally:
+        ops.topk_gate = plain
+
+
+def routing_flips(card: torch.Tensor, cpu: torch.Tensor, k: int) -> torch.Tensor:
+    """Per token (row) of one router call: 0 where the card's top k, in
+    order, equal the CPU's; 1 where they differ by one swap of adjacent
+    ranks r, r + 1 (r < k) whose CPU gap is below the two logits' own
+    card-vs-CPU differences, a near tie that rounding can flip; 2
+    otherwise (a fault)."""
+    vals, idx = torch.sort(cpu, dim=-1, descending=True, stable=True)
+    idx_d = torch.sort(card, dim=-1, descending=True, stable=True).indices
+    out = torch.zeros(cpu.shape[0], dtype=torch.int64)
+    for t in torch.nonzero((idx[:, :k] != idx_d[:, :k]).any(-1)).flatten().tolist():
+        r = int(torch.nonzero(idx[t, :k] != idx_d[t, :k])[0])
+        swapped = idx[t, : k + 1].clone()
+        swapped[[r, r + 1]] = idx[t, [r + 1, r]]
+        a, b = idx[t, r], idx[t, r + 1]
+        gap = float(vals[t, r] - vals[t, r + 1])
+        moved = float((card[t, a] - cpu[t, a]).abs() + (card[t, b] - cpu[t, b]).abs())
+        out[t] = 1 if torch.equal(swapped[:k], idx_d[t, :k]) and gap < moved else 2
+    return out
+
+
 def phase_cross_check(arch: str = ARCH) -> None:
     """A serving path on the card (the CUDA kernels) against the same path
     on the CPU (their plain versions), same weights: the model at full
     width, 2 layers, f32 (TF32 off, PyTorch's default for matmul); the
-    logits and every cache leaf (K/V, or the SSM state h and conv)."""
+    logits and every cache leaf (K/V, the SSM state h and conv, or both,
+    the hybrid's K/V rings at a cut window so that they wrap).
+
+    A MoE model's router top-k is compared first, layer by layer: a batch
+    row whose choice flips on a near tie (``routing_flips``) is counted
+    and left out of the comparisons from then on (its later hidden
+    states, logits and cache rows follow another expert); any other flip
+    fails."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
-    cfg = dataclasses.replace(
-        registry.get(arch), n_layers=CROSS_LAYERS, param_dtype=torch.float32
-    )
+    changes, cuts = dict(n_layers=CROSS_LAYERS, param_dtype=torch.float32), "none"
+    base = registry.get(arch)
+    if base.family == "hybrid":
+        changes["window"] = HYBRID_CROSS_WINDOW
+        cuts = (
+            f"window {base.window:,} -> {HYBRID_CROSS_WINDOW}: the ring wraps under "
+            f"ctx {CROSS_CTX}"
+        )
+    cfg = dataclasses.replace(base, **changes)
     name = phase_name(cfg, "cross_check")
     t0 = time.perf_counter()
     cpu, card = _cross_weights(cfg, 1)
@@ -935,13 +1113,23 @@ def phase_cross_check(arch: str = ARCH) -> None:
     cache_card = init_params(specs, None, DEVICE)
     rng = np.random.default_rng(2)
     worst, counts0 = 0.0, ops.launch_counts()
+    kept = torch.ones(B, dtype=torch.bool)  # rows whose routing never flipped
+    near_ties = 0
     for step in range(CROSS_STEPS):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=B).astype(np.int32))
         # one slot at, then past, the end of the cache: the write clamps
         pos = torch.tensor([step, 10 + step, 40 + step, CROSS_CTX - 1 + step], dtype=torch.int32)
-        want, cache_cpu = lm.decode_step(cfg, cpu, cache_cpu, toks, pos)
-        got, cache_card = lm.decode_step(cfg, card, cache_card, toks.to(DEVICE), pos.to(DEVICE))
-        got = got.cpu()
+        with router_logits() as seen_cpu:
+            want, cache_cpu = lm.decode_step(cfg, cpu, cache_cpu, toks, pos)
+        with router_logits() as seen_card:
+            got, cache_card = lm.decode_step(cfg, card, cache_card, toks.to(DEVICE), pos.to(DEVICE))
+        for got_l, want_l in zip(seen_card, seen_cpu):
+            flips = routing_flips(got_l, want_l, cfg.top_k)
+            check(not (flips[kept] == 2).any(), f"{name} step {step}: routing differs {flips}")
+            near_ties += int((flips[kept] == 1).sum())
+            kept &= flips == 0
+        check(bool(kept.any()), f"{name} step {step}: every row's routing flipped")
+        got, want = got.cpu()[kept], want[kept]
         rel = float((got - want).abs().max() / want.abs().max())
         worst = max(worst, rel)
         check(rel <= CROSS_RTOL, f"cross-check step {step}: logits rel err {rel}")
@@ -949,13 +1137,13 @@ def phase_cross_check(arch: str = ARCH) -> None:
     counts = ops.launch_counts()
     norm = norm_kernel(cfg)
     launched = {n: counts[n] - counts0[n] for n in (norm, "flash_decode")}
-    want_decode = CROSS_STEPS * CROSS_LAYERS if cfg.family == "dense" else 0
-    check(launched["flash_decode"] == want_decode, f"launches {launched}")
-    check(launched[norm] == CROSS_STEPS * (2 * CROSS_LAYERS + 1), f"launches {launched}")
+    want_norm, want_decode = decode_launches(cfg)
+    check(launched["flash_decode"] == CROSS_STEPS * want_decode, f"launches {launched}")
+    check(launched[norm] == CROSS_STEPS * want_norm, f"launches {launched}")
     cache_rel = {}
     for leaf in cache_cpu:
-        want = cache_cpu[leaf]
-        rel = float((cache_card[leaf].cpu() - want).abs().max() / want.abs().max())
+        want = cache_cpu[leaf][:, kept]  # every leaf is (layers, B, ...)
+        rel = float((cache_card[leaf].cpu()[:, kept] - want).abs().max() / want.abs().max())
         check(rel <= CROSS_RTOL, f"{name} {leaf} cache rel err {rel}")
         cache_rel[f"{leaf}_cache_max_rel_err"] = rel
     emit(
@@ -963,6 +1151,7 @@ def phase_cross_check(arch: str = ARCH) -> None:
             "phase": name,
             "arch": arch,
             "n_layers": CROSS_LAYERS,
+            "cuts": cuts,
             "dtype": "float32",
             "steps": CROSS_STEPS,
             "batch": B,
@@ -971,6 +1160,8 @@ def phase_cross_check(arch: str = ARCH) -> None:
             "logits_max_rel_err": worst,
             **cache_rel,
             "tokens_equal": True,
+            "routing_near_tie_flips": near_ties,
+            "rows_left_out": int((~kept).sum()),
             "launches": launched,
             "init_s": init_s,
         }
@@ -994,6 +1185,14 @@ GRANITE_TRAIN_SHAPE = (
 TRAIN_ATTN_CASES = (
     [(*shape, True, 0, dtype) for dtype in (torch.bfloat16, torch.float32)
      for shape in (TRAIN_SHAPE, GRANITE_TRAIN_SHAPE)]
+    # one layer of the new families' train phases, bf16: zamba2-1.2b's
+    # shared block (32/32 heads of 64, window 4,096), deepseek-moe-16b's
+    # 16/16 of 128, llava-next-34b's 56/8 (g = 7)
+    + [
+        (HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], 32, 32, 64, True, 4096, torch.bfloat16),
+        (MOE_TRAIN["batch"], MOE_TRAIN["seq"], 16, 16, D_HEAD, True, 0, torch.bfloat16),
+        (VLM_TRAIN["batch"], VLM_TRAIN["seq"], 56, 8, D_HEAD, True, 0, torch.bfloat16),
+    ]
     + [
         (1, S, H, Hkv, D, causal, 0, dtype)
         for S, H, Hkv, D in ((256, 4, 4, 64), (256, 8, 2, 64), (128, 4, 1, 128))
@@ -1012,13 +1211,17 @@ TRAIN_ATTN_CASES = (
 TRAIN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-5)}
 ATTN_GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-2)}
 # rmsnorm backward: the train phase's (B x S, d_model) in bf16 with f32 w,
-# then f32, a ragged width, and mamba2-130m's two norms in training
+# then f32, a ragged width, mamba2-130m's two norms in training, then
+# zamba2-1.2b's two and llava-next-34b's
 RMS_BWD_CASES = [
     ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.bfloat16, torch.float32),
     ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.float32, torch.float32),
     ((3, 1001), torch.float32, torch.float32),
     ((SSM_TOKENS, SSM_D_INNER), torch.bfloat16, torch.float32),
     ((SSM_TOKENS, SSM_D_MODEL), torch.bfloat16, torch.float32),
+    ((HYBRID_TOKENS, HYBRID_D_MODEL), torch.bfloat16, torch.float32),
+    ((HYBRID_TOKENS, HYBRID_D_INNER), torch.bfloat16, torch.float32),
+    ((8192, VLM_D_MODEL), torch.bfloat16, torch.float32),
 ]
 
 
@@ -1081,7 +1284,7 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
             check(ok, f"flash_attention_bwd {name} {what}: err {errs[name]}")
         del want_o, want_g, f32, grads
         lib_fwd = lib_bwd = lib_fwd_bwd = None
-        if not window:  # SDPA has no single call for a window
+        if not window or window >= S:  # SDPA has no single call for a window under S
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
             out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
@@ -1299,10 +1502,12 @@ def phase_ln_kernels(gen: torch.Generator) -> dict:
 
 
 # the SSD scan: (B, S, H, P, N), f32.  The headline is one layer of the SSM
-# train phase; then a reference sweep (tests/test_kernels.py).
+# train phase; then a reference sweep (tests/test_kernels.py) and one
+# layer of the hybrid train phase (zamba2-1.2b: 64 heads, P 64, N 64).
 SSD_CASES = [
     (SSM_TRAIN["batch"], SSM_TRAIN["seq"], 24, 64, 128),
     (1, 256, 2, 64, 32),
+    (HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], 64, 64, 64),
 ]
 # f32 against the plain chunked form, whose chunk is not the kernels'
 # tile: sums in another order, 1e-4 of the largest magnitude (rtol, atol
@@ -1442,22 +1647,59 @@ def phase_ssd_kernels(gen: torch.Generator) -> dict:
 
 
 def _train_cfg(arch: str = ARCH, run: dict = TRAIN):
-    """A dense model at full width, depth cut to the run's layers; bf16 and
-    full remat, the config's own."""
+    """A model at full width, depth cut to the run's layers; bf16 and full
+    remat, the config's own."""
     return dataclasses.replace(registry.get(arch), n_layers=run["n_layers"])
 
 
 def train_model_flops(cfg, run: dict = TRAIN) -> float:
-    """6 N per token for the weights, plus each layer's attention forward
-    (two products) and backward (five) over the causal pairs, or each
-    layer's SSD scan forward and backward (ssd_ops)."""
+    """6 per token for each weight a token meets, plus each attention's
+    forward (two products) and backward (five) over the causal pairs, and
+    each SSD scan's forward and backward (ssd_ops).  A token meets the
+    body's weights at every position, the frontend rows too, and the
+    (tied) unembedding at the text positions; a MoE layer's router, its
+    shared experts and top_k routed experts; the hybrid's shared block at
+    each of its applications."""
     B, S = run["batch"], run["seq"]
-    weights = 6 * cfg.param_count() * B * S
-    if cfg.family == "ssm":
+    S_text = S - cfg.n_frontend_tokens
+    unembed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    body = cfg.param_count() - unembed
+    if cfg.family == "moe":
+        body -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * expert_params(cfg)
+    attn_apps = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        attn_apps = applications(cfg)
+        mamba = cfg.param_count() - unembed - cfg.d_model  # one final norm
+        if attn_apps:
+            h, kv, dh, d = cfg.n_heads, cfg.n_kv, cfg.d_head, cfg.d_model
+            shared = d * (h + 2 * kv) * dh + h * dh * d + 2 * d * cfg.d_ff + 2 * d
+            mamba -= shared
+            body = mamba + attn_apps * shared + cfg.d_model
+    flops = 6 * (body * B * S + unembed * B * S_text)
+    if cfg.family in ("ssm", "hybrid"):
         fwd, bwd = ssd_ops(B, S, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
-        return weights + cfg.n_layers * (fwd + bwd)
+        flops += cfg.n_layers * (fwd + bwd)
     pairs = visible_pairs(S, True, cfg.window)
-    return weights + 14 * cfg.d_head * pairs * B * cfg.n_heads * cfg.n_layers
+    return flops + 14 * cfg.d_head * pairs * B * cfg.n_heads * attn_apps
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Per MoE block call inside the block, on the device: (dropped, all)
+    (token, choice) pairs, read from the routing's kept masks."""
+    seen, plain = [], L._gshard_slots
+
+    def record(idx, **kw):
+        slots, keeps = plain(idx, **kw)
+        kept = torch.stack(keeps).sum()
+        seen.append(torch.stack([idx.numel() - kept, kept.new_tensor(idx.numel())]))
+        return slots, keeps
+
+    L._gshard_slots = record
+    try:
+        yield seen
+    finally:
+        L._gshard_slots = plain
 
 
 def phase_train(cfg=None, run: dict = TRAIN) -> dict:
@@ -1468,15 +1710,16 @@ def phase_train(cfg=None, run: dict = TRAIN) -> dict:
     name = phase_name(cfg, "train")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    out = train.train(
-        cfg,
-        steps=run["steps"],
-        batch=run["batch"],
-        seq=run["seq"],
-        seed=run["seed"],
-        log_every=1,
-        device=None if DEVICE == "cuda" else DEVICE,  # None: the entry point's default, the card
-    )
+    with moe_drops() as drops:
+        out = train.train(
+            cfg,
+            steps=run["steps"],
+            batch=run["batch"],
+            seq=run["seq"],
+            seed=run["seed"],
+            log_every=1,
+            device=None if DEVICE == "cuda" else DEVICE,  # None: the entry point's default
+        )
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     losses, gnorms = out["losses"], out["grad_norms"]
@@ -1510,8 +1753,24 @@ def phase_train(cfg=None, run: dict = TRAIN) -> dict:
         "init_s": out["init_s"],
         "peak_alloc_gb": peak / 1e9,
     }
+    if drops:  # a MoE model: the dropped share of each step's (token, choice) pairs
+        per_step = torch.stack(drops).cpu().view(run["steps"], -1, 2).sum(1)
+        rec["dropped_share_by_step"] = (per_step[:, 0] / per_step[:, 1]).tolist()
+        rec["capacity_factor"] = cfg.capacity_factor
     emit(rec)
     return rec
+
+
+def frontend_batch(cfg, B: int, S: int, gen, device) -> dict:
+    """Random tokens and labels, and for a model with frontend rows their
+    embeddings (f32, as the data pipeline makes them), for S positions."""
+    S_text = S - cfg.n_frontend_tokens
+    toks = torch.randint(0, cfg.vocab, (B, S_text + 1), generator=gen, device=device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.n_frontend_tokens:
+        shape = (B, cfg.n_frontend_tokens, cfg.d_model)
+        batch["frontend"] = torch.randn(shape, generator=gen, device=device)
+    return batch
 
 
 def _kernel_kind(name: str) -> str:
@@ -1569,9 +1828,7 @@ def phase_train_profile(cfg=None, run: dict = TRAIN) -> None:
     gen = torch.Generator(device="cuda").manual_seed(run["seed"] + 1)
     params = init_params(specs, gen, "cuda")
     opt = adamw.init_state(params, opt_cfg)
-    B, S = run["batch"], run["seq"]
-    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device="cuda")
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = frontend_batch(cfg, run["batch"], run["seq"], gen, "cuda")
     params, opt, _ = step_fn(params, opt, batch)  # warm
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1624,30 +1881,53 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
     ``adamw.update``, so the gradients can be held too: each gradient and
     each updated parameter within CROSS_GRAD_RTOL of its largest
     magnitude, or a gradient beyond that within CROSS_ROUNDING_K times
-    the CPU's own distance from the same step in f64."""
+    the CPU's own distance from the same step in f64.  A VLM model takes
+    VLM_CROSS_FRONTEND frontend rows of its 256 positions.  A MoE model's
+    router top-k is compared first, call by call: a choice may flip only
+    on a near tie (``routing_flips``), and the flips are counted."""
     check(
         not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
         "TF32 is on",
     )
-    cfg = dataclasses.replace(
-        registry.get(arch), n_layers=CROSS_TRAIN["n_layers"], param_dtype=torch.float32
-    )
+    changes, cuts = dict(n_layers=CROSS_TRAIN["n_layers"], param_dtype=torch.float32), "none"
+    base = registry.get(arch)
+    if base.n_frontend_tokens:
+        changes["n_frontend_tokens"] = VLM_CROSS_FRONTEND
+        cuts = (
+            f"frontend rows {base.n_frontend_tokens:,} -> {VLM_CROSS_FRONTEND}, "
+            f"with {CROSS_TRAIN['seq'] - VLM_CROSS_FRONTEND} text tokens"
+        )
+    cfg = dataclasses.replace(base, **changes)
     name = phase_name(cfg, "train_cross_check")
     cpu, card = _cross_weights(cfg, 3)
     B, S = CROSS_TRAIN["batch"], CROSS_TRAIN["seq"]
-    toks = np.random.default_rng(4).integers(0, cfg.vocab, size=(B, S + 1)).astype(np.int32)
+    rng = np.random.default_rng(4)
+    S_text = S - cfg.n_frontend_tokens
+    toks = rng.integers(0, cfg.vocab, size=(B, S_text + 1)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    if cfg.n_frontend_tokens:
+        fe = rng.normal(size=(B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+        batch["frontend"] = torch.from_numpy(fe)
     opt_cfg = adamw.AdamWConfig(total_steps=1)
     counts0 = ops.launch_counts()
     t0 = time.perf_counter()
-    loss_d, grads_d = steps.loss_and_grads(cfg, card, {k: t.to(DEVICE) for k, t in batch.items()})
+    with router_logits() as seen_card:
+        loss_d, grads_d = steps.loss_and_grads(
+            cfg, card, {k: t.to(DEVICE) for k, t in batch.items()}
+        )
     counts = ops.launch_counts()
     card, _, met_d = adamw.update(grads_d, adamw.init_state(card, opt_cfg), card, opt_cfg)
     sync()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    loss_c, grads_c = steps.loss_and_grads(cfg, cpu, batch)
+    with router_logits() as seen_cpu:
+        loss_c, grads_c = steps.loss_and_grads(cfg, cpu, batch)
     cpu_s = time.perf_counter() - t0
+    near_ties = 0
+    for got_l, want_l in zip(seen_card, seen_cpu, strict=True):
+        flips = routing_flips(got_l, want_l, cfg.top_k)
+        check(not (flips == 2).any(), f"{name}: routing differs beyond a near tie")
+        near_ties += int((flips == 1).sum())
     grad_err = _leaf_errors(grads_d, grads_c)
     rounding = {}  # leaf -> (the card's, the CPU's distance from f64)
     over = [leaf for leaf, err in grad_err.items() if err > CROSS_GRAD_RTOL]
@@ -1682,6 +1962,7 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
             "phase": name,
             "arch": arch,
             **CROSS_TRAIN,
+            "cuts": cuts,
             "dtype": "float32",
             "tf32": False,
             "loss_rtol": CROSS_LOSS_RTOL,
@@ -1697,6 +1978,7 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
                 for leaf, (c, p) in rounding.items()
             },
             "param_max_rel_err": worst_param,
+            "routing_near_tie_flips": near_ties,
             "launches": launched,
             "card_s": card_s,
             "cpu_s": cpu_s,
@@ -1976,6 +2258,19 @@ PATH_KERNELS = {
     "ssm_train": ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd"),
     "granite_serve": ("layernorm", "flash_decode"),
     "granite_train": ("layernorm", "layernorm_bwd", "flash_attention", "flash_attention_bwd"),
+    "hybrid_serve": ("rmsnorm", "flash_decode"),
+    "hybrid_train": (
+        "ssd_scan",
+        "ssd_scan_bwd",
+        "rmsnorm",
+        "rmsnorm_bwd",
+        "flash_attention",
+        "flash_attention_bwd",
+    ),
+    "moe_serve": ("rmsnorm", "flash_decode"),
+    "moe_train": ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"),
+    "vlm_serve": ("rmsnorm", "flash_decode"),
+    "vlm_train": ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"),
 }
 
 
@@ -2003,6 +2298,7 @@ def main() -> int:
     cpu_tokens = cpu_token_count()
     ssm_cpu_tokens = cpu_token_count(SSM_ARCH)
     granite_cpu_tokens = cpu_token_count(GRANITE_ARCH)
+    new_cpu_tokens = {a: cpu_token_count(a) for a in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH)}
 
     # the main paths, each counted alone: COX launches, the three-way
     # checks and the serve phase; the train phase; the SSM serve phase;
@@ -2029,6 +2325,26 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_train(granite_cfg, GRANITE_TRAIN)
     paths["granite_train"] = ops.launch_counts()
+    # the hybrid, MoE and VLM families: each model's serve phase, then its
+    # train phase, each counted alone
+    vlm_serve_cfg = dataclasses.replace(registry.get(VLM_ARCH), n_layers=VLM_SERVE_LAYERS)
+    vlm_cuts = (
+        f"layers 60 -> {VLM_SERVE_LAYERS}: the dense family's decode step, which qwen "
+        "and granite run at full depth"
+    )
+    # (arch, serve config, its cuts, train config, train run)
+    new_paths = [
+        (HYBRID_ARCH, registry.get(HYBRID_ARCH), "none", registry.get(HYBRID_ARCH), HYBRID_TRAIN),
+        (MOE_ARCH, registry.get(MOE_ARCH), "none", _train_cfg(MOE_ARCH, MOE_TRAIN), MOE_TRAIN),
+        (VLM_ARCH, vlm_serve_cfg, vlm_cuts, _train_cfg(VLM_ARCH, VLM_TRAIN), VLM_TRAIN),
+    ]
+    for arch, serve_cfg, serve_cuts, train_cfg, run in new_paths:
+        ops.reset_launch_counts()
+        phase_serve(new_cpu_tokens[arch], serve_cfg, serve_cuts)
+        paths[PHASE_PREFIX[arch] + "serve"] = ops.launch_counts()
+        ops.reset_launch_counts()
+        phase_train(train_cfg, run)
+        paths[PHASE_PREFIX[arch] + "train"] = ops.launch_counts()
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()
@@ -2037,6 +2353,9 @@ def main() -> int:
     phase_train_profile(ssm_cfg, SSM_TRAIN)
     phase_serve_profile(GRANITE_ARCH)
     phase_train_profile(granite_cfg, GRANITE_TRAIN)
+    for _, serve_cfg, _, train_cfg, run in new_paths:
+        phase_serve_profile(serve_cfg)
+        phase_train_profile(train_cfg, run)
     # the f32 cross-checks run in full f32: TF32 off for matmuls (PyTorch's
     # default) and for cuDNN (on by default), stated in their lines
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2047,6 +2366,9 @@ def main() -> int:
     phase_train_cross_check(SSM_ARCH)
     phase_cross_check(GRANITE_ARCH)
     phase_train_cross_check(GRANITE_ARCH)
+    for arch in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH):
+        phase_cross_check(arch)
+        phase_train_cross_check(arch)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")

@@ -8,7 +8,8 @@ mode (a CUDA kernel has none).  Ported: ``softmax``, ``row_reduce``,
 ``ssd_scan``: every kernel of the reference.  ``rmsnorm``, ``layernorm``,
 ``attention`` and ``ssd_scan`` are differentiable, with hand-written
 backward kernels on the card and autograd through the plain versions on
-the CPU.
+the CPU.  ``topk_gate`` (the MoE router) is the plain version on every
+device, as in the reference, which has no kernel for it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from . import flash_attention as _fa
 from . import norms as _norms
+from . import ref as _ref
 from . import softmax as _sm
 from . import ssd_scan as _ssd
 from . import warp_reduce as _wr
@@ -77,6 +79,11 @@ def ssd_scan(
     reference's ``ops.ssd_scan`` takes one sequence and is vmapped over the
     batch (``layers.mamba2_apply``)."""
     return _ssd.ssd_scan(x, a, b, c, chunk=chunk)
+
+
+def topk_gate(logits: torch.Tensor, k: int):
+    """(T, E) router logits -> ``(weights (T, k), indices (T, k))``."""
+    return _ref.topk_gate(logits, k)
 
 
 # each kernel's launch counter: (wrapper module, attribute)

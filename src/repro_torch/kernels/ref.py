@@ -9,7 +9,9 @@ Likewise ``decode_attention`` with ``kv_len = 0`` returns zeros, as the
 Pallas kernel does, where the JAX package's plain version returns the mean
 of V.)  The gradients ``rmsnorm_bwd``, ``layernorm_bwd``,
 ``attention_bwd`` and ``ssd_scan_bwd`` are autograd through the plain
-versions: the yardsticks of the backward kernels.
+versions: the yardsticks of the backward kernels.  ``topk_gate``, the MoE
+router's top-k, has no kernel in either package: this plain version is
+its only route.
 """
 
 from __future__ import annotations
@@ -257,3 +259,16 @@ def ssd_scan_bwd(x, a, b, c, dy, chunk: int = 128):
     gradient ``dy``: autograd through the plain version, the yardstick of
     the backward kernel."""
     return _grads(lambda *t: ssd_scan_chunked(*t, chunk=chunk), (x, a, b, c), dy)
+
+
+def topk_gate(logits: torch.Tensor, k: int):
+    """MoE router: the top ``k`` of each row, a softmax over the selected
+    values.  logits: (T, E) -> ``(weights (T, k), indices (T, k))``, in f32
+    (f64 for an f64 input).
+
+    ``lax.top_k`` puts the lower index first among equal values, and
+    ``torch.topk`` promises no order on ties, so the top k come from a
+    stable descending sort: equal values keep their index order."""
+    vals, idx = torch.sort(logits.to(compute_dtype(logits)), dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    return torch.softmax(vals, dim=-1), idx

@@ -4,13 +4,23 @@
 Requests enter a fixed-size batch of decode slots; a finished sequence
 frees its slot for the next queued request (continuous batching).  Every
 step, prefill included, is the same decode step on the whole batch, so on
-a CUDA device each step of a dense model launches the hand-written norm
-kernel (``rmsnorm``, or ``layernorm`` for granite's ``norm="ln"``) and
-``flash_decode`` (2 x n_layers + 1 and n_layers times), and each step of
-an SSM model (mamba2) the norm kernel 2 x n_layers + 1 times (its
-recurrent step has no kernel of its own).  As in
-the reference, a reused slot's SSM state is not reset: the next request
-starts from the previous one's state (ROADMAP C).
+a CUDA device each step launches the hand-written norm kernel
+(``rmsnorm``, or ``layernorm`` for granite's ``norm="ln"``) and
+``flash_decode``:
+
+- dense (qwen, granite), MoE (deepseek-moe, granite-moe) and VLM (llava)
+  models: the norm 2 x n_layers + 1 times and flash_decode n_layers
+  times (the MoE router's top-k and the expert products are plain torch,
+  as in the reference);
+- an SSM model (mamba2): the norm 2 x n_layers + 1 times (its recurrent
+  step has no kernel of its own);
+- a hybrid model (zamba2): the norm 2 x n_layers + 2 x A + 1 times and
+  flash_decode A times, A the shared block's applications.
+
+As in the reference, a reused slot's SSM state and a hybrid slot's K/V
+ring are not reset: the next request starts from the previous one's
+(ROADMAP C), and the VLM family serves text only (the reference's server
+takes no frontend embeddings).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --batch 4 --ctx 512 --requests 4 --tokens 16
@@ -27,13 +37,13 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..configs import registry
-from ..configs.base import ShapeConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..core.runtime import resolve_device
 from ..core.types import CoxUnsupported
 from ..models.params import init_params
@@ -51,8 +61,10 @@ def _unported(what: str) -> CoxUnsupported:
 class BatchedServer:
     """A pool of ``batch`` decode slots over a ``ctx``-long KV cache.
 
-    ``params`` takes weights carried in (``models.carry``); without it the
-    weights are drawn from ``seed`` on the device.  ``init_s`` is the
+    ``arch`` is a registry name, or a ``ModelConfig`` (a registry config
+    with, say, its depth cut).  ``params`` takes weights carried in
+    (``models.carry``); without it the weights are drawn from ``seed`` on
+    the device.  ``init_s`` is the
     seconds that drawing (or placing) the weights took; ``steps`` counts
     decode steps run (prefill included) and ``step_s`` holds the host-clock
     seconds of each ``decode`` step, each ending when its next tokens
@@ -60,7 +72,7 @@ class BatchedServer:
 
     def __init__(
         self,
-        arch: str,
+        arch: Union[str, ModelConfig],
         *,
         batch: int = 4,
         ctx: int = 128,
@@ -69,7 +81,7 @@ class BatchedServer:
         device=None,
     ):
         self.device = resolve_device(device)
-        self.cfg = registry.get(arch)
+        self.cfg = registry.get(arch) if isinstance(arch, str) else arch
         self.shape = ShapeConfig(f"serve_{ctx}", ctx, batch, "decode")
         self.step_fn, self.specs = steps_mod.make_serve_step(self.cfg)
         t0 = time.perf_counter()
@@ -151,7 +163,7 @@ class BatchedServer:
 
 
 def serve_requests(
-    arch: str,
+    arch: Union[str, ModelConfig],
     *,
     batch: int,
     ctx: int,
@@ -164,7 +176,8 @@ def serve_requests(
     device=None,
 ) -> Dict[str, Any]:
     """Continuous batching over a queue of synthetic prompt requests (8
-    tokens each, drawn from ``seed`` with numpy, as in the reference).
+    tokens each, drawn from ``seed`` with numpy, as in the reference);
+    ``arch`` as :class:`BatchedServer` takes it.
 
     Returns the reference's counts (``completed``, ``tokens``, ``wall_s``,
     ``tok_per_s``) and the server's ``init_s``, ``steps`` and ``step_s``."""

@@ -2,8 +2,10 @@
 ``src/repro/launch/specs.py``).
 
 It mirrors the reference's layout: the serving driver asks for its cache
-by ``ShapeConfig`` here, and the batch and dry-run spec trees of that file
-join it when the training path is ported (ROADMAP A.7)."""
+by ``ShapeConfig`` here.  The reference's batch and dry-run spec trees
+feed its dry-run, which comes with multi-device (ROADMAP A.10); the
+trainer's batches come from ``data/pipeline.py``, with ``frontend`` for
+the VLM family."""
 
 from __future__ import annotations
 
@@ -13,5 +15,6 @@ from ..models import lm
 
 def cache_spec_tree(cfg: ModelConfig, shape: ShapeConfig):
     """The decode cache's spec tree for ``shape``'s batch and context (the
-    families the port does not run raise in ``lm.cache_specs``)."""
+    encoder-decoder family, not ported yet, raises in
+    ``lm.cache_specs``)."""
     return lm.cache_specs(cfg, shape.global_batch, shape.seq_len)

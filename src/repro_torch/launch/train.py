@@ -6,10 +6,13 @@ watchdog and failure injection (port of ``src/repro/launch/train.py``).
 
 Training runs on the CUDA card unless it is given ``device="cpu"``
 (``--device cpu``), and raises where there is no card.  On a card every
-step of a dense model launches the hand-written ``flash_attention`` and
-norm kernels (``rmsnorm``, or ``layernorm`` for granite's ``norm="ln"``)
-and their backward kernels; every step of an SSM model (mamba2) the
-``ssd_scan`` and ``rmsnorm`` kernels and theirs.  Checkpointing and
+step of a dense, MoE or VLM model launches the hand-written
+``flash_attention`` and norm kernels (``rmsnorm``, or ``layernorm`` for
+granite's ``norm="ln"``) and their backward kernels; every step of an
+SSM model (mamba2) the ``ssd_scan`` and ``rmsnorm`` kernels and theirs;
+every step of a hybrid model (zamba2) all six: ``ssd_scan``,
+``flash_attention`` and ``rmsnorm`` and their backwards.  A VLM batch
+carries its ``frontend`` embeddings (``data/pipeline.py``).  Checkpointing and
 restart (``ckpt_dir=``, ``retry_loop``) need ``checkpoint/ckpt.py``, which is not ported yet
 (ROADMAP A.8): ``ckpt_dir=`` raises ``CoxUnsupported``.
 """

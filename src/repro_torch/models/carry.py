@@ -7,9 +7,13 @@ tree that ``repro.models.params.init_params(lm_specs(cfg), key)`` returns,
 as nested dicts of numpy arrays (``np.asarray`` of each leaf), and returns
 the port's parameters; :func:`cache_from_numpy` does the same for a decode
 cache.  Both keep the stacked-layer layout as it is (``params["layers"]``
-leaves lead with ``n_layers``; every cache leaf is ``(n_layers, B, ...)``),
-since the port's layout is the reference's.  Every leaf is checked
-against the port's spec tree: same keys, shapes and dtypes.
+leaves lead with ``n_layers``, the MoE experts are ``(n_layers, E, d,
+fe)`` and ``(n_layers, E, fe, d)`` with the router in f32, and the hybrid
+family's ``shared_attn`` has no layer axis; every cache leaf is
+``(n_layers, B, ...)``, but the hybrid family's ``k``/``v`` rings, which
+lead with the number of shared-block applications), since the port's
+layout is the reference's.  Every leaf is checked against the port's
+spec tree: same keys, shapes and dtypes.
 
 This module takes numpy arrays only, so it imports nothing of JAX.
 """
@@ -58,9 +62,10 @@ def from_jax_params(cfg, tree, device) -> Any:
 
 def cache_from_numpy(cfg, tree, device) -> Any:
     """The port's decode cache from a JAX cache tree (numpy leaves: K/V of
-    shape ``(n_layers, B, S, Hkv, Dh)``, or the SSM state ``h`` and
-    ``conv``), on ``device``.  The batch is axis 1 of every leaf; the
-    length, axis 2 of K (an SSM cache has none)."""
+    shape ``(n_layers, B, S, Hkv, Dh)``, the SSM state ``h`` and ``conv``,
+    or both, the hybrid family's K/V rings leading with its applications),
+    on ``device``.  The batch is axis 1 of every leaf; the length, axis 2
+    of K (an SSM cache has none; a ring's is its W rows)."""
     batch = np.shape(next(iter(tree.values())))[1]
     seq_len = np.shape(tree["k"])[2] if "k" in tree else 0
     return _carry(lm.cache_specs(cfg, batch, seq_len), tree, torch.device(device))

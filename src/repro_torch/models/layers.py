@@ -1,16 +1,17 @@
 """Model building blocks: spec builders and apply functions (port of
-``src/repro/models/layers.py``, the parts the dense and SSM families'
-decode and training paths run).
+``src/repro/models/layers.py``: the parts the dense, MoE, SSM, hybrid
+and VLM families' decode and training paths run).
 
 Parameters are nested dicts of tensors; every apply function takes them
 and plain tensors.  The norms, both attentions and the SSD scan call the
 kernel dispatch layer (``repro_torch.kernels.ops``), which launches the
 CUDA kernels for CUDA tensors and runs their plain versions for CPU
 tensors; the norms, the training attention and the SSD scan are
-differentiable on both.  Matrix products, the Mamba2 projections and its
-depthwise convolution are plain torch, as the reference leaves them to
-XLA.  There is no sharding (ROADMAP A.10): the reference's ``constrain``
-is the identity on one device and is not ported.
+differentiable on both.  Matrix products, the MoE router and expert
+products, the Mamba2 projections and its depthwise convolution are plain
+torch, as the reference leaves them to XLA.  There is no sharding
+(ROADMAP A.10): the reference's ``constrain`` is the identity on one
+device and is not ported.
 """
 
 from __future__ import annotations
@@ -189,6 +190,138 @@ def mlp_apply(p, x, *, cfg):
         return h @ p["w_down"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg) -> Dict[str, ParamSpec]:
+    d, fe = cfg.d_model, cfg.d_expert or cfg.d_ff
+    E = cfg.n_experts
+    dt = cfg.param_dtype
+    sp = {
+        "router": ParamSpec((d, E), torch.float32),
+        "w_gate": ParamSpec((E, d, fe), dt),
+        "w_up": ParamSpec((E, d, fe), dt),
+        "w_down": ParamSpec((E, fe, d), dt),
+    }
+    if cfg.n_shared:
+        fs = fe * cfg.n_shared
+        sp.update(
+            {
+                "s_gate": ParamSpec((d, fs), dt),
+                "s_up": ParamSpec((d, fs), dt),
+                "s_down": ParamSpec((fs, d), dt),
+            }
+        )
+    return sp
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """Rows an expert takes from ``n_tokens`` tokens: ``top_k x n_tokens x
+    capacity_factor / n_experts`` rounded up to a multiple of 8, at least 8
+    (the reference's float arithmetic, verbatim)."""
+    c = int(-(-cfg.top_k * n_tokens * cfg.capacity_factor // cfg.n_experts))
+    return max(8, -(-c // 8) * 8)
+
+
+def _gshard_slots(idx, *, E: int, C: int, e_lo: int, E_loc: int):
+    """GShard positions, as the reference: for each choice j of idx (T, k)
+    a running ``cumsum`` over the tokens, offset by ``base_count``, the
+    rows the choices before j took in each expert.  Returns ``(slots,
+    keeps)``, k tensors of (T,) each: the dispatch row of each (token, j)
+    pair, and whether it is kept.  A pair past its expert's capacity C, or
+    for an expert outside ``[e_lo, e_lo + E_loc)``, goes to the trash row
+    ``E_loc * C``."""
+    base_count = torch.zeros(E, dtype=torch.int64, device=idx.device)
+    slots, keeps = [], []
+    for j in range(idx.shape[1]):
+        mask_j = F.one_hot(idx[:, j], E)
+        pos_in_e = torch.cumsum(mask_j, dim=0) - mask_j
+        pos_j = (pos_in_e * mask_j).sum(-1) + base_count[idx[:, j]]
+        base_count = base_count + mask_j.sum(0)
+        rel_e = idx[:, j] - e_lo
+        mine = (pos_j < C) & (rel_e >= 0) & (rel_e < E_loc)
+        slots.append(torch.where(mine, rel_e * C + pos_j, E_loc * C))
+        keeps.append(mine)
+    return slots, keeps
+
+
+def _moe_local(p, xt, *, cfg, C: int, e_lo: int, E_loc: int):
+    """Token-choice top-k over a token slab xt (T, d), computing only the
+    experts ``[e_lo, e_lo + E_loc)``; returns their combined output (T, d)
+    in f32 (f64 for f64 weights).  The trash row of the dropped pairs
+    (:func:`_gshard_slots`) is cut before the products.  The dispatch
+    buffer is built out of place, so autograd reaches xt and, through the
+    gate weights, the router."""
+    T, d = xt.shape
+    k = cfg.top_k
+    ct = compute_dtype(xt)
+    logits = xt.to(ct) @ p["router"]  # (T, E)
+    w, idx = ops.topk_gate(logits, k)  # (T, k)
+    slots, keeps = _gshard_slots(idx, E=cfg.n_experts, C=C, e_lo=e_lo, E_loc=E_loc)
+
+    xe = xt.new_zeros(E_loc * C + 1, d)
+    for j in range(k):
+        xe = xe.index_put((slots[j],), xt)
+    xe = xe[: E_loc * C].reshape(E_loc, C, d)
+
+    # the reference's einsums, outside any kernel there too
+    h = torch.bmm(xe, p["w_gate"])
+    u = torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(F.silu(h) * u, p["w_down"]).to(ct)
+    ye_flat = torch.cat([ye.reshape(E_loc * C, d), ye.new_zeros(1, d)], dim=0)
+
+    y = xt.new_zeros(T, d, dtype=ct)
+    for j in range(k):
+        y = y + ye_flat[slots[j]] * (w[:, j] * keeps[j])[:, None]
+    return y
+
+
+def _shared_experts(p, xt):
+    return (F.silu(xt @ p["s_gate"]) * (xt @ p["s_up"])) @ p["s_down"]
+
+
+def moe_apply(p, x, *, cfg, mesh=None):
+    """Capacity-based token-choice top-k MoE: x (B, S, d) -> (B, S, d),
+    the reference's single-device path (all experts local, capacity from
+    the B x S tokens).  The k contributions are summed in f32 in choice
+    order, cast to x's dtype, then the shared experts are added.  The
+    reference's expert-parallel ``shard_map`` path is not ported: a
+    ``mesh`` raises ``CoxUnsupported``."""
+    if mesh is not None:
+        raise CoxUnsupported(
+            "moe_apply over a mesh (expert parallelism) is not ported to "
+            "repro_torch yet: ROADMAP queue item A.10 (multi-device)"
+        )
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    C = moe_capacity(cfg, B * S)
+    y = _moe_local(p, xt, cfg=cfg, C=C, e_lo=0, E_loc=cfg.n_experts)
+    out = y.to(x.dtype)
+    if cfg.n_shared:
+        out = out + _shared_experts(p, xt)
+    return out.reshape(B, S, d)
+
+
+def moe_apply_dense(p, x, *, cfg):
+    """Dense-dispatch oracle (exact, no capacity): every token through
+    every expert, combined by its gate weights."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    ct = compute_dtype(x)
+    xt = x.reshape(B * S, d)
+    w, idx = ops.topk_gate(xt.to(ct) @ p["router"], k)
+    combine = (w[..., None] * F.one_hot(idx, E).to(ct)).sum(1)  # (T, E)
+    h = torch.einsum("td,edf->tef", xt, p["w_gate"])
+    u = torch.einsum("td,edf->tef", xt, p["w_up"])
+    yv = torch.einsum("tef,efd->ted", F.silu(h) * u, p["w_down"]).to(ct)
+    out = torch.einsum("ted,te->td", yv, combine).to(x.dtype)
+    if cfg.n_shared:
+        out = out + _shared_experts(p, xt)
+    return out.reshape(B, S, d)
 
 
 # ---------------------------------------------------------------------------

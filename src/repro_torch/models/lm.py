@@ -1,21 +1,26 @@
 """Decoder-only LM assembly (port of ``src/repro/models/lm.py``): the
-dense and SSM families' parameter and cache layouts, their training
-forward and their one-token decode step.
+dense, MoE, SSM, hybrid and VLM families' parameter and cache layouts,
+their training forward and their one-token decode step.
 
 Layers keep the reference's stacked layout: every leaf under
 ``params["layers"]`` has a leading ``n_layers`` axis, the KV cache is
 ``(n_layers, B, S, Hkv, Dh)`` and the SSM cache ``h (n_layers, B, H, N,
-P)`` and ``conv (n_layers, B, K-1, C)``.  Where the reference scans the
-stack, the port loops over it and takes layer ``i`` of each leaf (a view,
-no copy).  The other families are not ported yet and raise
-``CoxUnsupported`` naming their ROADMAP item.
+P)`` and ``conv (n_layers, B, K-1, C)``.  The hybrid family (zamba2) adds
+one shared attention+MLP block, ``params["shared_attn"]`` (no layer
+axis), applied after every ``attn_every`` Mamba2 layers (the last group
+may be short), and its cache one K/V ring of ``min(S, window)`` rows for
+each application: ``k``/``v`` of shape ``(n_applications, B, W, Hkv,
+Dh)``.  Where the reference scans the stack, the port loops over it and
+takes layer ``i`` of each leaf (a view, no copy).  The encoder-decoder
+family is not ported yet and raises ``CoxUnsupported`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -24,19 +29,20 @@ from ..core.types import CoxUnsupported
 from . import layers as L
 from .params import ParamSpec, tree_map
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+
 
 def check_family(cfg) -> None:
     """Raise unless the port runs ``cfg``'s family.  Both norms (``rms``
-    and ``ln``, whose specs add the ``_b`` bias leaves) run in either
+    and ``ln``, whose specs add the ``_b`` bias leaves) run in every
     family, as in the reference."""
-    if cfg.family not in ("dense", "ssm"):
-        item = "A.7 (the model stack: MoE, hybrid and VLM families)"
-        if cfg.family == "encdec":
-            item = "A.7 (models/encdec.py)"
+    if cfg.family == "encdec":
         raise CoxUnsupported(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
-            f"yet: ROADMAP queue item {item}"
+            f"family 'encdec' ({cfg.name}) is not ported to repro_torch yet: "
+            "ROADMAP queue item A.7.4 (models/encdec.py)"
         )
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -63,7 +69,10 @@ def _dense_layer_specs(cfg) -> Dict[str, Any]:
     sp.update(_norm_pair(cfg, "ln1"))
     sp["attn"] = L.attention_specs(cfg)
     sp.update(_norm_pair(cfg, "ln2"))
-    sp["mlp"] = L.mlp_specs(cfg)
+    if cfg.family == "moe":
+        sp["moe"] = L.moe_specs(cfg)
+    else:
+        sp["mlp"] = L.mlp_specs(cfg)
     return sp
 
 
@@ -78,9 +87,22 @@ def lm_specs(cfg) -> Dict[str, Any]:
     check_family(cfg)
     specs: Dict[str, Any] = {"embed": L.embed_specs(cfg)}
     specs.update(_norm_pair(cfg, "final_norm"))
-    layer = _dense_layer_specs if cfg.family == "dense" else _ssm_layer_specs
-    specs["layers"] = _stack(layer(cfg), cfg.n_layers)
+    if cfg.family in ("ssm", "hybrid"):
+        specs["layers"] = _stack(_ssm_layer_specs(cfg), cfg.n_layers)
+    else:
+        specs["layers"] = _stack(_dense_layer_specs(cfg), cfg.n_layers)
+    if cfg.family == "hybrid":
+        # the shared block: a dense layer with an MLP, no layer axis
+        specs["shared_attn"] = _dense_layer_specs(cfg)
     return specs
+
+
+def _groups(cfg) -> List[Tuple[int, int]]:
+    """The hybrid family's groups of Mamba2 layers, ``(start, width)``,
+    each followed by one application of the shared block: ``attn_every``
+    layers each, the last group possibly short."""
+    ae = cfg.attn_every or cfg.n_layers
+    return [(s, min(ae, cfg.n_layers - s)) for s in range(0, cfg.n_layers, ae)]
 
 
 # ---------------------------------------------------------------------------
@@ -88,19 +110,33 @@ def lm_specs(cfg) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(cfg, lp, h):
+    """A dense layer's feed-forward part: the MoE block for the MoE
+    family, else the MLP."""
+    if cfg.family == "moe":
+        return L.moe_apply(lp["moe"], h, cfg=cfg)
+    return L.mlp_apply(lp["mlp"], h, cfg=cfg)
+
+
 def _dense_layer_apply(cfg, lp, x, positions):
     h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"))
     h = L.attention_apply(lp["attn"], h, positions, cfg=cfg, causal=True, window=cfg.window)
     x = x + h
     h = L.apply_norm(lp["ln2"], x, cfg.norm, lp.get("ln2_b"))
-    return x + L.mlp_apply(lp["mlp"], h, cfg=cfg)
+    return x + _ffn(cfg, lp, h)
 
 
 def _ssm_layer_apply(cfg, lp, x, positions):
     """A Mamba2 layer; ``positions`` is unused (no rotary embedding), kept
-    so both families' layers take the same arguments."""
+    so both kinds of layer take the same arguments."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"))
     return x + L.mamba2_apply(lp["mamba"], h, cfg=cfg)
+
+
+def _shared_attn_apply(cfg, sp, x, positions):
+    """The hybrid family's shared block: attention over the config's
+    window, then the MLP, with the same weights at every application."""
+    return _dense_layer_apply(cfg, sp, x, positions)
 
 
 def _unstack(tree, n: int):
@@ -114,30 +150,52 @@ def _unstack(tree, n: int):
 
 def hidden_states(cfg, params, x, positions):
     """Run the layer stack on embedded inputs x: (B, S, d), then the final
-    norm.  With ``cfg.remat == "full"`` each layer runs under
+    norm.  With ``cfg.remat == "full"`` each stacked layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
     and the backward recomputes the layer, as the reference wraps the
-    scanned layer in ``jax.checkpoint``."""
+    scanned layer in ``jax.checkpoint``.  The hybrid family's shared
+    block runs outside the scan in the reference, so it is not
+    checkpointed here either; its gradient is the sum over its
+    applications."""
     check_family(cfg)
-    layer = _dense_layer_apply if cfg.family == "dense" else _ssm_layer_apply
-    for lp in _unstack(params["layers"], cfg.n_layers):
+    ssm = cfg.family in ("ssm", "hybrid")
+    layer = _ssm_layer_apply if ssm else _dense_layer_apply
+    layers = _unstack(params["layers"], cfg.n_layers)
+
+    def run(lp, x):
         fn = functools.partial(layer, cfg, lp)
         if cfg.remat == "full":
-            x = checkpoint(fn, x, positions, use_reentrant=False)
-        else:
-            x = fn(x, positions)
+            return checkpoint(fn, x, positions, use_reentrant=False)
+        return fn(x, positions)
+
+    if cfg.family == "hybrid":
+        for start, width in _groups(cfg):
+            for lp in layers[start : start + width]:
+                x = run(lp, x)
+            x = _shared_attn_apply(cfg, params["shared_attn"], x, positions)
+    else:
+        for lp in layers:
+            x = run(lp, x)
     return L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"))
 
 
 def forward(cfg, params, batch):
-    """Training forward.  batch: ``tokens`` (B, S) and ``labels`` (B, S),
-    int tensors.  Returns ``(loss, logits (B, S, Vpad) f32)``."""
+    """Training forward.  batch: ``tokens`` (B, S_text) and ``labels`` (B,
+    S_text), int tensors, and for a model with ``n_frontend_tokens`` (the
+    VLM family) ``frontend`` (B, Nf, d), precomputed embeddings cast to
+    the activations' dtype and put before the tokens; positions run over
+    the whole sequence, and the frontend rows are cut before the
+    unembedding.  Returns ``(loss, logits (B, S_text, Vpad) f32)``."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    x = L.embed_apply(params["embed"], tokens)
+    x = L.embed_apply(params["embed"], batch["tokens"])
+    nf = cfg.n_frontend_tokens
+    if nf:
+        x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     h = hidden_states(cfg, params, x, positions)
+    if nf:
+        h = h[:, nf:]
     logits = L.unembed_apply(params["embed"], h, cfg)
     loss = L.cross_entropy(logits, batch["labels"], cfg.vocab)
     return loss, logits
@@ -149,23 +207,31 @@ def forward(cfg, params, batch):
 
 
 def cache_specs(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
-    """Cache layout for one-token decode, zero-initialised.  Dense: per-layer
-    K and V of shape (n_layers, B, S, Hkv, Dh) in the parameter dtype.
-    SSM: the recurrent state ``h`` (n_layers, B, H, N, P) in f32 and the
-    conv tail ``conv`` (n_layers, B, K-1, d_inner + 2N) in the parameter
-    dtype; ``seq_len`` does not enter it."""
+    """Cache layout for one-token decode, zero-initialised.  Dense, MoE
+    and VLM: per-layer K and V of shape (n_layers, B, S, Hkv, Dh) in the
+    parameter dtype.  SSM: the recurrent state ``h`` (n_layers, B, H, N,
+    P) in f32 and the conv tail ``conv`` (n_layers, B, K-1, d_inner + 2N)
+    in the parameter dtype; ``seq_len`` does not enter it.  Hybrid: the
+    SSM state plus one K/V ring per application of the shared block,
+    (n_applications, B, min(S, window), Hkv, Dh)."""
     check_family(cfg)
     Lc, dt = cfg.n_layers, cfg.param_dtype
-    if cfg.family == "dense":
-        kv = ParamSpec((Lc, batch, seq_len, cfg.n_kv, cfg.d_head), dt, init="zeros")
+    Hkv, Dh = cfg.n_kv, cfg.d_head
+    if cfg.family not in ("ssm", "hybrid"):
+        kv = ParamSpec((Lc, batch, seq_len, Hkv, Dh), dt, init="zeros")
         return {"k": kv, "v": kv}
     H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    return {
+    ssm = {
         "h": ParamSpec((Lc, batch, H, N, P), torch.float32, init="zeros"),
         "conv": ParamSpec(
             (Lc, batch, cfg.conv_k - 1, cfg.ssm_inner + 2 * N), dt, init="zeros"
         ),
     }
+    if cfg.family == "ssm":
+        return ssm
+    W = min(seq_len, cfg.window) if cfg.window else seq_len
+    kv = ParamSpec((len(_groups(cfg)), batch, W, Hkv, Dh), dt, init="zeros")
+    return {**ssm, "k": kv, "v": kv}
 
 
 def _layer(tree, i: int):
@@ -173,32 +239,57 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _ssm_layer_decode(cfg, lp, cache, i: int, h):
+    """Mamba2 layer ``i``'s step; its ``h`` and ``conv`` state in
+    ``cache`` are overwritten in place."""
+    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
+    state = {"h": cache["h"][i], "conv": cache["conv"][i]}
+    y, new = L.mamba2_decode(lp["mamba"], hn, state, cfg=cfg)
+    state["h"].copy_(new["h"])
+    state["conv"].copy_(new["conv"])
+    return h + y
+
+
+def _dense_layer_decode(cfg, lp, kv, h, pos, slot=None, kv_len=None):
+    """A dense (or MoE, or shared) layer's step; the token's K/V is written
+    into ``kv`` in place, at ``slot`` (``pos`` by default).  The MoE block
+    takes the step's B tokens as (B, 1, d), so its capacity is
+    ``moe_capacity(cfg, B)``."""
+    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
+    y, _ = L.attention_decode(lp["attn"], hn, kv, pos, slot=slot, kv_len=kv_len)
+    h = h + y
+    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"))
+    return h + _ffn(cfg, lp, hn[:, None])[:, 0]
+
+
 @torch.no_grad()
 def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor):
     """One token for every sequence.  tokens: (B,) int; pos: (B,) int32
     current lengths.  Returns ``(logits (B, Vpad) f32, cache)``; the cache
-    is updated in place: each dense layer writes the token's K/V at
+    is updated in place: each attention layer writes the token's K/V at
     ``pos``, each SSM layer overwrites its ``h`` and ``conv`` state (which
-    ``pos`` does not enter)."""
+    ``pos`` does not enter).  The hybrid family's shared block writes its
+    ring of W rows at ``pos % W`` and attends to ``min(pos + 1, W)`` rows,
+    with RoPE at the absolute ``pos``."""
     check_family(cfg)
-    x = L.embed_apply(params["embed"], tokens)  # (B, d)
-    h = x
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
-        if cfg.family == "ssm":
-            state = {"h": cache["h"][i], "conv": cache["conv"][i]}
-            y, new = L.mamba2_decode(lp["mamba"], hn, state, cfg=cfg)
-            state["h"].copy_(new["h"])
-            state["conv"].copy_(new["conv"])
-            h = h + y
-            continue
-        kv = {"k": cache["k"][i], "v": cache["v"][i]}
-        y, _ = L.attention_decode(lp["attn"], hn, kv, pos)
-        h = h + y
-        hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"))
-        h = h + L.mlp_apply(lp["mlp"], hn, cfg=cfg)
+    h = L.embed_apply(params["embed"], tokens)  # (B, d)
+    if cfg.family == "hybrid":
+        W = cache["k"].shape[2]
+        slot, kv_len = pos % W, torch.clamp(pos + 1, max=W)
+        sp = params["shared_attn"]
+        for app, (start, width) in enumerate(_groups(cfg)):
+            for i in range(start, start + width):
+                h = _ssm_layer_decode(cfg, _layer(params["layers"], i), cache, i, h)
+            kv = {"k": cache["k"][app], "v": cache["v"][app]}
+            h = _dense_layer_decode(cfg, sp, kv, h, pos, slot=slot, kv_len=kv_len)
+    else:
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            if cfg.family == "ssm":
+                h = _ssm_layer_decode(cfg, lp, cache, i, h)
+            else:
+                kv = {"k": cache["k"][i], "v": cache["v"][i]}
+                h = _dense_layer_decode(cfg, lp, kv, h, pos)
     h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"))
     logits = L.unembed_apply(params["embed"], h, cfg)
     return logits, cache
-

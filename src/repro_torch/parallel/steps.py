@@ -45,7 +45,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
     ``loss``, ``grad_norm`` and ``lr`` in ``metrics`` (0-dim tensors on the
     parameters' device); the parameters and moments are updated in place.
     ``batch`` holds ``tokens`` and ``labels`` (B, S) int tensors on the
-    parameters' device; ``specs`` is the model's parameter spec tree."""
+    parameters' device, and ``frontend`` (B, Nf, d) for a VLM; ``specs``
+    is the model's parameter spec tree.  The kernels a step launches, by
+    family, are listed in ``launch/train.py``."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     specs = lm.lm_specs(cfg)
 
@@ -61,7 +63,9 @@ def make_serve_step(cfg: ModelConfig):
     """Returns ``(step, specs)``: ``step(params, cache, tokens, pos)`` runs
     one decode step and returns ``(next_tokens (B,) int32, cache)``, the
     greedy ``argmax`` over the padded vocabulary (the first maximum, as
-    ``jnp.argmax``); ``specs`` is the model's parameter spec tree."""
+    ``jnp.argmax``); ``specs`` is the model's parameter spec tree.  The
+    kernels a step launches, by family, are listed in
+    ``launch/serve.py``."""
     specs = lm.lm_specs(cfg)
 
     def step(params, cache, tokens, pos):

@@ -1219,3 +1219,63 @@ def test_ssd_scan_refuses_what_it_does_not_take(cuda):
         ops.ssd_scan(x[:, :100], a[:, :100], b[:, :100], c[:, :100], chunk=64)
     with pytest.raises(ValueError, match="CUDA"):
         pssd.ssd_scan_cuda(x.cpu(), a, b, c)
+
+
+# ---------------------------------------------------------------------------
+# the kernels at the hybrid (zamba2-1.2b) and VLM (llava-next-34b) shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "H,Hkv,D,window",
+    [
+        pytest.param(32, 32, 64, 4096, id="zamba2-shared-block"),  # g = 1, D 64, windowed
+        pytest.param(56, 8, 128, 0, id="llava"),  # g = 7
+    ],
+)
+def test_flash_attention_at_the_new_families_train_shapes(cuda, H, Hkv, D, window):
+    """bf16 forward and backward at S 4,096 (one sequence of the train
+    shape) against the plain versions in f32, and bitwise twice.  D 64 at
+    g = 1 is where a register-fragment path once went wrong (ROADMAP
+    B.2.1); g = 7 must split dK/dV over a divisor of 7."""
+    S = 4096
+    q, k, v, do = _attn_inputs(cuda, 1, S, H, Hkv, D, torch.bfloat16, seed=11)
+    o, lse = pfa.flash_attention_cuda(q, k, v, window=window)
+    o2, lse2 = pfa.flash_attention_cuda(q, k, v, window=window)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    grads = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)
+    for a, b in zip(grads, pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)):
+        assert torch.equal(a, b)
+    f32 = [t.float() for t in (q, k, v, do)]
+    _close_to_scale(o, ref.attention(*f32[:3], window=window), *ATTN_TOL[torch.bfloat16], "o")
+    want = ref.attention_bwd(*f32, window=window)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        _close_to_scale(got, w, *ATTN_GRAD_TOL[torch.bfloat16], name)
+
+
+def test_ssd_scan_at_the_zamba2_shape(cuda):
+    """zamba2-1.2b's layer: 64 heads, P 64, N 64 (mamba2 runs N 128), S
+    4,096 at batch 1, forward and backward against the plain chunked
+    form, and bitwise twice."""
+    x, a, b, c, dy = _ssd_inputs(cuda, 1, 4096, 64, 64, 64, seed=12)
+    y, grads = _ssd_check_both(x, a, b, c, dy, chunk=128)
+    y2, states = pssd.ssd_scan_cuda(x, a, b, c, keep_states=True)
+    assert torch.equal(y, y2)
+    for g, g2 in zip(grads, pssd.ssd_scan_bwd_cuda(x, a, b, c, states, dy)):
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_on_a_full_ring(cuda, dtype):
+    """zamba2-1.2b's shared block in decode: G 1, D 64, 32 heads over a
+    ring of 4,096 rows (the window) whose kv_len is the whole ring, and
+    one row short of it; bitwise twice."""
+    B, W = 4, 4096
+    q, k, v = _decode_inputs(cuda, B, W, 32, 32, 64, dtype, seed=13)
+    lens = torch.tensor([W, W, W, W - 1], dtype=torch.int32, device=cuda)
+    got = pfa.flash_decode_cuda(q, k, v, lens)
+    assert torch.equal(got, pfa.flash_decode_cuda(q, k, v, lens))
+    rtol, atol = DECODE_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention(q, k, v, lens).float(), rtol=rtol, atol=atol
+    )

@@ -379,8 +379,19 @@ def test_carry_takes_bf16_leaves():
 @pytest.mark.parametrize("arch", ["llava-next-34b-smoke", "zamba2-1.2b-smoke",
                                   "deepseek-moe-16b-smoke", "seamless-m4t-large-v2-smoke"])
 def test_unported_families_and_norms_raise(arch):
-    with pytest.raises(CoxUnsupported, match="ROADMAP"):
-        pserve.BatchedServer(arch, batch=1, ctx=8, device="cpu")
+    """The VLM, hybrid and MoE families (ported: ROADMAP A.7.1-A.7.3)
+    build a server whose cache has the reference's keys, shapes and
+    dtypes; the encoder-decoder family still raises, naming A.7.4."""
+    if arch.startswith("seamless"):
+        with pytest.raises(CoxUnsupported, match=r"ROADMAP queue item A\.7\.4 \(models/encdec"):
+            pserve.BatchedServer(arch, batch=1, ctx=8, device="cpu")
+        return
+    server = pserve.BatchedServer(arch, batch=2, ctx=8, device="cpu")
+    want = jlm.cache_specs(jreg.get(arch), 2, 8)
+    assert set(server.cache) == set(want)
+    for leaf, t in server.cache.items():
+        assert tuple(t.shape) == want[leaf].shape, leaf
+        assert str(t.dtype) == f"torch.{jnp.dtype(want[leaf].dtype)}", leaf
 
 
 @pytest.mark.parametrize("knob", ["postproc", "graph", "chaos"])
