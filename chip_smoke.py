@@ -45,7 +45,19 @@ it:
   flash_attention and rmsnorm and their backwards;
 - ``serve_requests`` on llava-next-34b (the VLM family, text only, as the
   reference serves it) at full width cut to 8 layers, and ``train`` on it
-  cut to 4 layers, batch 2 of 4,096 = 2,880 frontend rows + 1,216 tokens.
+  cut to 4 layers, batch 2 of 4,096 = 2,880 frontend rows + 1,216 tokens;
+- ``serve_requests`` on seamless-m4t-large-v2 (the encoder-decoder family,
+  24 + 24 layers, layer norms) at full width and depth, whose decode
+  steps cross-attend to the zero memory of 3,072 rows that the
+  reference's server also reads: layernorm 73 times and flash_decode 48
+  times a step; and ``train`` on it at full width and depth, batch 2 of
+  4,096 frames and tokens: flash_attention non-causal in the encoder and
+  the cross-attention and causal in the decoder, layernorm, and their
+  backwards;
+- the checkpoint drill: ``train`` on mamba2-130m at full width and depth
+  with a checkpoint every 2 steps and a failure injected before step 4,
+  against the same run uninterrupted: the parameters, the moments and
+  the losses equal bit for bit.
 
 Then it times the kernel wrappers' host cost, profiles a few decode steps
 and one train step of each model (device busy and idle time, kernels by
@@ -67,9 +79,11 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,7 +102,11 @@ from repro_torch.kernels import norms  # noqa: E402
 from repro_torch.kernels import softmax as sm  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import warp_reduce as wr  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.ft.watchdog import FailureInjector  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import specs as launch_specs  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
@@ -208,6 +226,25 @@ VLM_TRAIN = dict(
     "rows + 1,216 tokens, widths kept",
 )
 VLM_CROSS_FRONTEND = 128  # the train cross-check's frontend rows (2,880 -> 128)
+# the encoder-decoder family, seamless-m4t-large-v2: 24 encoder and 24
+# decoder layers, d 1,024, 16/16 heads of 64, gelu MLP of 8,192, layer
+# norms, vocabulary 256,206 (tied); serve at full width and depth over a
+# cross memory of ENC_LEN rows, train at full width and depth, cut from
+# train_4k in batch only
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_D_MODEL = 1024
+ENC_LEN = launch_specs.ENC_LEN_DECODE  # the serving cache's cross memory rows
+ENCDEC_TRAIN = dict(
+    batch=2,
+    seq=4096,
+    steps=3,
+    seed=0,
+    cuts="from train_4k: batch 256 -> 2; seq 4,096 (frames and tokens), widths and "
+    "depth (24 + 24 layers) kept",
+)
+# the checkpoint drill: train() with a checkpoint every 2 steps and a
+# failure before step 4, against the same run uninterrupted
+CKPT_DRILL = dict(batch=2, seq=256, steps=6, seed=0, ckpt_every=2, fail_at=4)
 # a phase's name: the model's prefix and the phase, e.g. granite_serve
 PHASE_PREFIX = {
     ARCH: "",
@@ -216,6 +253,7 @@ PHASE_PREFIX = {
     HYBRID_ARCH: "hybrid_",
     MOE_ARCH: "moe_",
     VLM_ARCH: "vlm_",
+    ENCDEC_ARCH: "encdec_",
 }
 
 
@@ -225,8 +263,9 @@ T_START = time.perf_counter()
 def phase_name(cfg, base: str) -> str:
     """A phase's name in the output: ``base``, after its model's prefix
     (none for qwen2.5-14b, ``ssm_`` for mamba2-130m, ``granite_`` for
-    granite-20b, ``hybrid_``, ``moe_`` and ``vlm_`` for zamba2-1.2b,
-    deepseek-moe-16b and llava-next-34b; a smoke twin takes its model's)."""
+    granite-20b, ``hybrid_``, ``moe_``, ``vlm_`` and ``encdec_`` for
+    zamba2-1.2b, deepseek-moe-16b, llava-next-34b and
+    seamless-m4t-large-v2; a smoke twin takes its model's)."""
     return PHASE_PREFIX[cfg.name.removesuffix("-smoke")] + base
 
 
@@ -701,7 +740,8 @@ RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
 # 48) at the serve phase's shape and in f32; then at the serve phase's
 # shape zamba2-1.2b's shared block (32/32 heads of 64, G 1) and a full
 # ring of its window, deepseek-moe-16b's 16/16 and llava-next-34b's 56/8
-# (g = 7)
+# (g = 7); then seamless-m4t-large-v2's self cache (16/16 of 64) and its
+# cross memory of ENC_LEN rows, read whole
 SERVE_LENS = [300, 400, 500, 512]
 DECODE_CASES = [
     (8, 32768, [32768] * 8, torch.bfloat16, N_HEADS, N_KV, D_HEAD),
@@ -714,6 +754,8 @@ DECODE_CASES = [
     (SERVE["batch"], 4096, [4096] * 4, torch.bfloat16, 32, 32, 64),
     (SERVE["batch"], SERVE["ctx"], SERVE_LENS, torch.bfloat16, 16, 16, D_HEAD),
     (SERVE["batch"], SERVE["ctx"], SERVE_LENS, torch.bfloat16, 56, 8, D_HEAD),
+    (SERVE["batch"], SERVE["ctx"], SERVE_LENS, torch.bfloat16, 16, 16, 64),
+    (SERVE["batch"], ENC_LEN, [ENC_LEN] * 4, torch.bfloat16, 16, 16, 64),
 ]
 DECODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-6)}
 
@@ -796,7 +838,7 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
             "plain_ms": median_ms(lambda: ref.decode_attention(q, k, v, lens), batches=3),
             "library_ms": median_ms(library, batches=5),
         }
-        if (B, S) == (SERVE["batch"], SERVE["ctx"]):
+        if B == SERVE["batch"] and S in (SERVE["ctx"], ENC_LEN):  # the serving shapes
             rec["graph_ms"] = graph_ms(lambda: fa.flash_decode_cuda(q, k, v, lens))
             rec["library_graph_ms"] = graph_ms(library)
         # the bytes this run's data needs: the valid rows of K and V
@@ -826,11 +868,28 @@ def host_us_per_call(fn, calls: int = 300) -> float:
 
 def serve_cache_bytes(cfg) -> int:
     """The cache bytes a decode step moves: every K/V row read (the
-    attention layers' caches, or the hybrid's rings), and the recurrent
-    state read and written (SSM layers)."""
-    specs = lm.cache_specs(cfg, SERVE["batch"], SERVE["ctx"])
+    attention layers' caches, the hybrid's rings, the encoder-decoder's
+    cross memory), and the recurrent state read and written (SSM
+    layers)."""
+    shape = ShapeConfig("serve", SERVE["ctx"], SERVE["batch"], "decode")
+    specs = launch_specs.cache_spec_tree(cfg, shape)
     nbytes = {k: math.prod(s.shape) * s.dtype.itemsize for k, s in specs.items()}
-    return sum(n if k in ("k", "v") else 2 * n for k, n in nbytes.items())
+    return sum(n if k in ("k", "v", "xk", "xv") else 2 * n for k, n in nbytes.items())
+
+
+def decode_weight_bytes(cfg) -> int:
+    """The weight bytes a decode step reads: every parameter, counted as
+    bf16; for an encoder-decoder model only those its decode step reads:
+    the decoder's, the final norm's and the (tied) unembedding's, not the
+    encoder's, nor the cross-attention's wk and wv, whose products sit in
+    the cache."""
+    if cfg.family != "encdec":
+        return cfg.param_count() * 2
+    specs = steps.model_specs(cfg)
+    read = {k: v for k, v in specs.items() if k in ("embed", "final_norm", "final_norm_b")}
+    read["dec_layers"] = dict(specs["dec_layers"])
+    read["dec_layers"]["xattn"] = {k: specs["dec_layers"]["xattn"][k] for k in ("wq", "wo")}
+    return sum(math.prod(s.shape) * s.dtype.itemsize for s in tree_leaves(read))
 
 
 def applications(cfg) -> int:
@@ -844,8 +903,11 @@ def decode_launches(cfg) -> tuple:
     (an SSM layer's ln1 and inner norm, an attention layer's ln1 and ln2)
     and the final one, and one flash_decode an attention layer; the
     hybrid's shared block adds two norms and one flash_decode an
-    application."""
+    application; an encoder-decoder layer has three norms (ln1, lnx,
+    ln2) and two flash_decode (its self cache, its cross memory)."""
     apps = applications(cfg)
+    if cfg.family == "encdec":
+        return 3 * cfg.n_layers + 1, 2 * cfg.n_layers
     if cfg.family == "hybrid":
         return 2 * cfg.n_layers + 2 * apps + 1, apps
     return 2 * cfg.n_layers + 1, 0 if cfg.family == "ssm" else cfg.n_layers
@@ -878,7 +940,7 @@ def phase_serve(cpu_tokens: int, arch=ARCH, cuts: str = "none") -> dict:
     want_norm, want_decode = decode_launches(cfg)
     check(per_step[norm] == want_norm, f"{norm} launches {per_step}, want {want_norm}")
     check(per_step["flash_decode"] == want_decode, f"flash_decode launches {per_step}")
-    weight_bytes = cfg.param_count() * 2
+    weight_bytes = decode_weight_bytes(cfg)
     cache_bytes = serve_cache_bytes(cfg)
     extra = {}
     if cfg.family == "moe":
@@ -1014,7 +1076,16 @@ def _randomise_zero_inits(params, gen) -> None:
     """Biases, A_log and dt_bias start at zero, norm weights and D at one:
     draw them so the cross-check runs their paths (A = -exp(A_log) stays
     negative).  The QKV biases and the norm biases are drawn where the
-    model has them."""
+    model has them; an encoder-decoder model's every norm, in both
+    stacks."""
+    if "dec_layers" in params:
+        draws = [(params, n, 0.0 if n.endswith("_b") else 1.0) for n in params if "norm" in n]
+        for stack in (params["enc_layers"], params["dec_layers"]):
+            names = [n for n in stack if n.startswith("ln")]
+            draws += [(stack, n, 0.0 if n.endswith("_b") else 1.0) for n in names]
+        for tree, name, mean in draws:
+            tree[name].copy_(mean + 0.3 * torch.randn(tree[name].shape, generator=gen))
+        return
     layers = params["layers"]
     draws = [(params, "final_norm", 1.0), (layers, "ln1", 1.0)]
     if "shared_attn" in params:  # the hybrid's shared block
@@ -1032,15 +1103,41 @@ def _randomise_zero_inits(params, gen) -> None:
         tree[name].copy_(mean + 0.3 * torch.randn(tree[name].shape, generator=gen))
 
 
+def _attention_blocks(tree):
+    for sub in tree.values():
+        if isinstance(sub, dict):
+            yield from [sub] if "wq" in sub else _attention_blocks(sub)
+
+
+def at_model_fan_in(params) -> None:
+    """Scale every attention block's wq and wk, (..., d, H, Dh), in place
+    from the reference's init, whose fan-in is the head count, to a
+    fan-in of d_model.  The encoder-decoder model's phases start from
+    these weights, as the CPU tests draw them: at the reference's own
+    init its attention is nearly one-hot and the gradient grows layer
+    after layer from the loss back, so at 24 + 24 layers its norm
+    overflows f32 (``phase_reference_init``; the JAX package likewise,
+    ROADMAP C.3), and f32 card-vs-CPU checks part by amplified rounding
+    (C.4)."""
+    for block in _attention_blocks(params):
+        for name in ("wq", "wk"):
+            w = block[name]
+            w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
+
+
 def _cross_weights(cfg, seed: int) -> tuple:
     """``(cpu, card)``: the same weights on each side for a card-vs-CPU
     check, drawn from ``seed`` on DEVICE (at full width the CPU's generator
-    takes ~10x longer), the zero and one initialisations randomised.  Each
+    takes ~10x longer), the zero and one initialisations randomised (an
+    encoder-decoder model's attention at ``at_model_fan_in``).  Each
     side has its own copy: the train step updates its weights in place."""
-    drawn = init_params(lm.lm_specs(cfg), torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    drawn = init_params(steps.model_specs(cfg), gen, DEVICE)
     cpu = tree_map(lambda t: t.to("cpu", copy=True), drawn)
     del drawn
     _randomise_zero_inits(cpu, torch.Generator().manual_seed(seed))
+    if cfg.family == "encdec":
+        at_model_fan_in(cpu)
     return cpu, tree_map(lambda t: t.to(DEVICE, copy=True), cpu)
 
 
@@ -1096,6 +1193,8 @@ def phase_cross_check(arch: str = ARCH) -> None:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
     changes, cuts = dict(n_layers=CROSS_LAYERS, param_dtype=torch.float32), "none"
     base = registry.get(arch)
+    if base.family == "encdec":
+        changes["enc_layers"] = CROSS_LAYERS
     if base.family == "hybrid":
         changes["window"] = HYBRID_CROSS_WINDOW
         cuts = (
@@ -1108,9 +1207,22 @@ def phase_cross_check(arch: str = ARCH) -> None:
     cpu, card = _cross_weights(cfg, 1)
     init_s = time.perf_counter() - t0
     B = CROSS_BATCH
-    specs = lm.cache_specs(cfg, B, CROSS_CTX)
+    extra = {}
+    if cfg.family == "encdec":
+        specs = encdec.cache_specs(cfg, B, CROSS_CTX, ENC_LEN)
+        decode = encdec.decode_step
+    else:
+        specs = lm.cache_specs(cfg, B, CROSS_CTX)
+        decode = lm.decode_step
     cache_cpu = init_params(specs, None, "cpu")
     cache_card = init_params(specs, None, DEVICE)
+    if cfg.family == "encdec":
+        xk, xv, extra = _cross_memory(cfg, cpu, card, B)
+        cache_card["xk"].copy_(xk)
+        cache_card["xv"].copy_(xv)
+        cache_cpu["xk"].copy_(xk.cpu())
+        cache_cpu["xv"].copy_(xv.cpu())
+        del xk, xv
     rng = np.random.default_rng(2)
     worst, counts0 = 0.0, ops.launch_counts()
     kept = torch.ones(B, dtype=torch.bool)  # rows whose routing never flipped
@@ -1120,9 +1232,9 @@ def phase_cross_check(arch: str = ARCH) -> None:
         # one slot at, then past, the end of the cache: the write clamps
         pos = torch.tensor([step, 10 + step, 40 + step, CROSS_CTX - 1 + step], dtype=torch.int32)
         with router_logits() as seen_cpu:
-            want, cache_cpu = lm.decode_step(cfg, cpu, cache_cpu, toks, pos)
+            want, cache_cpu = decode(cfg, cpu, cache_cpu, toks, pos)
         with router_logits() as seen_card:
-            got, cache_card = lm.decode_step(cfg, card, cache_card, toks.to(DEVICE), pos.to(DEVICE))
+            got, cache_card = decode(cfg, card, cache_card, toks.to(DEVICE), pos.to(DEVICE))
         for got_l, want_l in zip(seen_card, seen_cpu):
             flips = routing_flips(got_l, want_l, cfg.top_k)
             check(not (flips[kept] == 2).any(), f"{name} step {step}: routing differs {flips}")
@@ -1164,8 +1276,39 @@ def phase_cross_check(arch: str = ARCH) -> None:
             "rows_left_out": int((~kept).sum()),
             "launches": launched,
             "init_s": init_s,
+            **extra,
         }
     )
+
+
+def _cross_memory(cfg, cpu, card, B: int) -> tuple:
+    """An encoder-decoder model's cross K/V for the decode cross-check, so
+    that both sides decode over the same memory that is not zero: the
+    port's ``encode`` of random frames of ENC_LEN rows and each decoder
+    layer's ``_mem_kv`` of it, on the card.  ``encode`` is held on the
+    card against the CPU within CROSS_RTOL of the memory's largest
+    magnitude.  Returns ``(xk, xv, record)``, xk and xv (layers, B,
+    ENC_LEN, Hkv, Dh) on the card."""
+    frames = torch.randn(B, ENC_LEN, cfg.d_model, generator=torch.Generator().manual_seed(5))
+    counts0 = ops.launch_counts()
+    with torch.no_grad():
+        mem = encdec.encode(cfg, card, frames.to(DEVICE))
+        sync()
+        launched = {n: c - counts0[n] for n, c in ops.launch_counts().items() if c > counts0[n]}
+        t0 = time.perf_counter()
+        want = encdec.encode(cfg, cpu, frames)
+        cpu_s = time.perf_counter() - t0
+        rel = float((mem.cpu() - want).abs().max() / want.abs().max())
+        check(rel <= CROSS_RTOL, f"encode rel err {rel}")
+        kv = [encdec._mem_kv(lm._layer(card["dec_layers"]["xattn"], i), mem) for i in range(cfg.n_layers)]
+    xk, xv = (torch.stack(t) for t in zip(*kv))
+    record = {
+        "enc_len": ENC_LEN,
+        "encode_max_rel_err": rel,
+        "encode_launches": launched,
+        "encode_cpu_s": cpu_s,
+    }
+    return xk, xv, record
 
 
 # ---------------------------------------------------------------------------
@@ -1187,11 +1330,15 @@ TRAIN_ATTN_CASES = (
      for shape in (TRAIN_SHAPE, GRANITE_TRAIN_SHAPE)]
     # one layer of the new families' train phases, bf16: zamba2-1.2b's
     # shared block (32/32 heads of 64, window 4,096), deepseek-moe-16b's
-    # 16/16 of 128, llava-next-34b's 56/8 (g = 7)
+    # 16/16 of 128, llava-next-34b's 56/8 (g = 7), seamless's
     + [
         (HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], 32, 32, 64, True, 4096, torch.bfloat16),
         (MOE_TRAIN["batch"], MOE_TRAIN["seq"], 16, 16, D_HEAD, True, 0, torch.bfloat16),
         (VLM_TRAIN["batch"], VLM_TRAIN["seq"], 56, 8, D_HEAD, True, 0, torch.bfloat16),
+        # seamless-m4t-large-v2's encoder and cross-attention (non-causal)
+        # and its decoder's self-attention: 16/16 heads of 64
+        (ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["seq"], 16, 16, 64, False, 0, torch.bfloat16),
+        (ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["seq"], 16, 16, 64, True, 0, torch.bfloat16),
     ]
     + [
         (1, S, H, Hkv, D, causal, 0, dtype)
@@ -1402,15 +1549,20 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
 # layernorm: (shape, x dtype, w and b dtype).  The headline is the granite
 # train phase's (B x S, d_model) in bf16 with f32 w and b; then the
 # serving shape (the serve phase's decode batch), f32, a bf16 case at four
-# times the rows, and a ragged unaligned width.  The backward: the train
-# shape in bf16 and f32, the larger bf16 case, the ragged width.
+# times the rows, a ragged unaligned width, and seamless's train and
+# serving shapes.  The backward: the train shapes in bf16 and f32, the
+# larger bf16 case, the ragged width.
 LN_TOKENS = GRANITE_TRAIN["batch"] * GRANITE_TRAIN["seq"]
+ENCDEC_TOKENS = ENCDEC_TRAIN["batch"] * ENCDEC_TRAIN["seq"]
 LN_CASES = [
     ((LN_TOKENS, GRANITE_D_MODEL), torch.bfloat16, torch.float32),
     ((SERVE["batch"], GRANITE_D_MODEL), torch.bfloat16, torch.float32),
     ((LN_TOKENS, GRANITE_D_MODEL), torch.float32, torch.float32),
     ((4 * LN_TOKENS, GRANITE_D_MODEL), torch.bfloat16, torch.float32),
     ((3, 1001), torch.float32, torch.float32),
+    # seamless-m4t-large-v2's norms in training and in serving
+    ((ENCDEC_TOKENS, ENCDEC_D_MODEL), torch.bfloat16, torch.float32),
+    ((SERVE["batch"], ENCDEC_D_MODEL), torch.bfloat16, torch.float32),
 ]
 LN_BWD_CASES = [c for c in LN_CASES if c[0][0] != SERVE["batch"]]
 
@@ -1659,7 +1811,8 @@ def train_model_flops(cfg, run: dict = TRAIN) -> float:
     body's weights at every position, the frontend rows too, and the
     (tied) unembedding at the text positions; a MoE layer's router, its
     shared experts and top_k routed experts; the hybrid's shared block at
-    each of its applications."""
+    each of its applications; an encoder-decoder model's encoder at every
+    frame (as many as the tokens) and its decoder at every token."""
     B, S = run["batch"], run["seq"]
     S_text = S - cfg.n_frontend_tokens
     unembed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
@@ -1679,6 +1832,11 @@ def train_model_flops(cfg, run: dict = TRAIN) -> float:
     if cfg.family in ("ssm", "hybrid"):
         fwd, bwd = ssd_ops(B, S, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
         flops += cfg.n_layers * (fwd + bwd)
+    if cfg.family == "encdec":
+        # the encoder's attention over all S^2 pairs, the decoder's over the
+        # causal ones, the cross-attention over all S x S_enc (frames = S)
+        pairs = cfg.enc_layers * S * S + cfg.n_layers * (visible_pairs(S, True, 0) + S * S)
+        return flops + 14 * cfg.d_head * pairs * B * cfg.n_heads
     pairs = visible_pairs(S, True, cfg.window)
     return flops + 14 * cfg.d_head * pairs * B * cfg.n_heads * attn_apps
 
@@ -1702,14 +1860,71 @@ def moe_drops():
         L._gshard_slots = plain
 
 
+def phase_reference_init(cfg, run: dict) -> None:
+    """One forward and backward of a train phase's model at the
+    reference's own init (the seed's weights, no ``at_model_fan_in``) on
+    a batch of the run's shape: the loss, the gradient's global norm in
+    f32 (as AdamW's clipping computes it) and its largest entry.  For
+    seamless-m4t-large-v2 at 24 + 24 layers the norm overflows: every
+    step's update is then clipped to nothing but weight decay, in the
+    JAX package too (ROADMAP C.3)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(run["seed"])
+    params = init_params(steps.model_specs(cfg), gen, DEVICE)
+    batch = frontend_batch(cfg, run["batch"], run["seq"], gen, DEVICE)
+    loss, grads = steps.loss_and_grads(cfg, params, batch)
+    leaves = tree_leaves(grads)
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    emit(
+        {
+            "phase": phase_name(cfg, "reference_init"),
+            "arch": cfg.name,
+            "n_layers": cfg.n_layers,
+            "enc_layers": cfg.enc_layers,
+            **{k: run[k] for k in ("batch", "seq", "seed")},
+            "loss": float(loss),
+            "grad_norm_f32": float(norm),
+            "largest_grad": max(float(g.float().abs().max()) for g in leaves),
+            "grads_finite": all(bool(torch.isfinite(g).all()) for g in leaves),
+        }
+    )
+    del params, grads, batch
+    torch.cuda.empty_cache()
+
+
+def encdec_train_launches(cfg) -> dict:
+    """An encoder-decoder train step's launches: each layer's forward once,
+    and again in the backward under full remat (an encoder layer's two
+    norms and attention, a decoder layer's three norms, self- and
+    cross-attention), the two final norms once, and each of their
+    backwards once."""
+    runs = 2 if cfg.remat == "full" else 1
+    norms_in_layers = 2 * cfg.enc_layers + 3 * cfg.n_layers
+    attentions = cfg.enc_layers + 2 * cfg.n_layers
+    return {
+        "layernorm": runs * norms_in_layers + 2,
+        "layernorm_bwd": norms_in_layers + 2,
+        "flash_attention": runs * attentions,
+        "flash_attention_bwd": attentions,
+    }
+
+
 def phase_train(cfg=None, run: dict = TRAIN) -> dict:
     """A main path's training part: train() through the port's entry
     point, bf16, from the run's seed; qwen2.5-14b at full width and 4
-    layers unless ``cfg`` says otherwise."""
+    layers unless ``cfg`` says otherwise.  An encoder-decoder model starts
+    from the seed's weights with its attention at ``at_model_fan_in``
+    (passed as ``params``), and its launches a step are held to
+    ``encdec_train_launches``."""
     cfg = cfg or _train_cfg()
     name = phase_name(cfg, "train")
     torch.cuda.empty_cache()
+    params = None  # None: train() draws the weights from the seed
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=DEVICE).manual_seed(run["seed"])
+        params = init_params(steps.model_specs(cfg), gen, DEVICE)
+        at_model_fan_in(params)
     torch.cuda.reset_peak_memory_stats()
+    counts0 = ops.launch_counts()
     with moe_drops() as drops:
         out = train.train(
             cfg,
@@ -1718,17 +1933,25 @@ def phase_train(cfg=None, run: dict = TRAIN) -> dict:
             seq=run["seq"],
             seed=run["seed"],
             log_every=1,
+            params=params,
             device=None if DEVICE == "cuda" else DEVICE,  # None: the entry point's default
         )
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    per_step = {n: (c - counts0[n]) / run["steps"] for n, c in counts.items() if c > counts0[n]}
+    if cfg.family == "encdec":
+        want = encdec_train_launches(cfg)
+        check(per_step == want, f"{name}: launches a step {per_step}, want {want}")
     losses, gnorms = out["losses"], out["grad_norms"]
     check(all(math.isfinite(x) for x in losses + gnorms), f"losses {losses}, norms {gnorms}")
-    gen = torch.Generator(device=DEVICE).manual_seed(run["seed"])
-    init = init_params(lm.lm_specs(cfg), gen, DEVICE)
+    init = params
+    if init is None:
+        gen = torch.Generator(device=DEVICE).manual_seed(run["seed"])
+        init = init_params(steps.model_specs(cfg), gen, DEVICE)
     same = sum(torch.equal(a, b) for a, b in zip(tree_leaves(init), tree_leaves(out["params"])))
     check(same == 0, f"{same} parameter tensors did not change")
-    del init, out["params"]
+    del init, params, out["params"], out["opt"]
     torch.cuda.empty_cache()
     step_s = statistics.median(out["step_s"][1:])
     tokens = run["batch"] * run["seq"]
@@ -1737,6 +1960,7 @@ def phase_train(cfg=None, run: dict = TRAIN) -> dict:
         "phase": name,
         "arch": cfg.name,
         "n_layers": cfg.n_layers,
+        "enc_layers": cfg.enc_layers,
         "dtype": "bfloat16",
         "remat": cfg.remat,
         "cuts": run["cuts"],
@@ -1752,6 +1976,7 @@ def phase_train(cfg=None, run: dict = TRAIN) -> dict:
         "model_flop_share_of_989": flops / step_s / BF16_OPS_PER_S,
         "init_s": out["init_s"],
         "peak_alloc_gb": peak / 1e9,
+        "launches_per_step": per_step,
     }
     if drops:  # a MoE model: the dropped share of each step's (token, choice) pairs
         per_step = torch.stack(drops).cpu().view(run["steps"], -1, 2).sum(1)
@@ -1763,13 +1988,14 @@ def phase_train(cfg=None, run: dict = TRAIN) -> dict:
 
 def frontend_batch(cfg, B: int, S: int, gen, device) -> dict:
     """Random tokens and labels, and for a model with frontend rows their
-    embeddings (f32, as the data pipeline makes them), for S positions."""
+    embeddings (f32, as the data pipeline makes them), for S positions; an
+    encoder-decoder model's S frames beside its S tokens."""
     S_text = S - cfg.n_frontend_tokens
     toks = torch.randint(0, cfg.vocab, (B, S_text + 1), generator=gen, device=device)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    if cfg.n_frontend_tokens:
-        shape = (B, cfg.n_frontend_tokens, cfg.d_model)
-        batch["frontend"] = torch.randn(shape, generator=gen, device=device)
+    if cfg.n_frontend_tokens or cfg.family == "encdec":
+        rows = S if cfg.family == "encdec" else cfg.n_frontend_tokens
+        batch["frontend"] = torch.randn((B, rows, cfg.d_model), generator=gen, device=device)
     return batch
 
 
@@ -1827,6 +2053,8 @@ def phase_train_profile(cfg=None, run: dict = TRAIN) -> None:
     step_fn, specs = steps.make_train_step(cfg, opt_cfg)
     gen = torch.Generator(device="cuda").manual_seed(run["seed"] + 1)
     params = init_params(specs, gen, "cuda")
+    if cfg.family == "encdec":
+        at_model_fan_in(params)
     opt = adamw.init_state(params, opt_cfg)
     batch = frontend_batch(cfg, run["batch"], run["seq"], gen, "cuda")
     params, opt, _ = step_fn(params, opt, batch)  # warm
@@ -1882,7 +2110,8 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
     each updated parameter within CROSS_GRAD_RTOL of its largest
     magnitude, or a gradient beyond that within CROSS_ROUNDING_K times
     the CPU's own distance from the same step in f64.  A VLM model takes
-    VLM_CROSS_FRONTEND frontend rows of its 256 positions.  A MoE model's
+    VLM_CROSS_FRONTEND frontend rows of its 256 positions; an
+    encoder-decoder model 1 + 1 layers and 256 frames.  A MoE model's
     router top-k is compared first, call by call: a choice may flip only
     on a near tie (``routing_flips``), and the flips are counted."""
     check(
@@ -1891,6 +2120,8 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
     )
     changes, cuts = dict(n_layers=CROSS_TRAIN["n_layers"], param_dtype=torch.float32), "none"
     base = registry.get(arch)
+    if base.family == "encdec":
+        changes["enc_layers"] = CROSS_TRAIN["n_layers"]
     if base.n_frontend_tokens:
         changes["n_frontend_tokens"] = VLM_CROSS_FRONTEND
         cuts = (
@@ -1905,8 +2136,9 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
     S_text = S - cfg.n_frontend_tokens
     toks = rng.integers(0, cfg.vocab, size=(B, S_text + 1)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
-    if cfg.n_frontend_tokens:
-        fe = rng.normal(size=(B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.n_frontend_tokens or cfg.family == "encdec":
+        rows = S if cfg.family == "encdec" else cfg.n_frontend_tokens
+        fe = rng.normal(size=(B, rows, cfg.d_model)).astype(np.float32)
         batch["frontend"] = torch.from_numpy(fe)
     opt_cfg = adamw.AdamWConfig(total_steps=1)
     counts0 = ops.launch_counts()
@@ -1984,6 +2216,83 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
             "cpu_s": cpu_s,
         }
     )
+
+
+_INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (-0.0 and 0.0 differ, a NaN equals itself)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = _INT_OF_SIZE[a.element_size()]
+    return torch.equal(a.view(as_int), b.view(as_int))
+
+
+def phase_ckpt_drill(arch: str = SSM_ARCH, run: dict = CKPT_DRILL) -> None:
+    """Checkpoint and restart on the card: ``train`` with a checkpoint
+    every ``ckpt_every`` steps and a failure injected before step
+    ``fail_at`` (``retry_loop`` restores the latest checkpoint and runs
+    on), then the same run uninterrupted, without checkpoints, from the
+    same seed.  The final parameters and moments, and every step's loss,
+    must be equal bit for bit: the kernels are deterministic, the data
+    source is indexed by the step, and a restore is exact.  The
+    checkpoints go to a temporary directory, removed at the end."""
+    cfg = registry.get(arch)
+    name = "ckpt_drill"
+    kw = dict(
+        steps=run["steps"],
+        batch=run["batch"],
+        seq=run["seq"],
+        seed=run["seed"],
+        log_every=run["steps"],
+        device=None if DEVICE == "cuda" else DEVICE,  # None: the entry point's default
+    )
+    tmp = tempfile.mkdtemp(prefix="ckpt_drill_")
+    try:
+        inj = FailureInjector({run["fail_at"]: RuntimeError("ckpt_drill: injected failure")})
+        t0 = time.perf_counter()
+        resumed = train.train(
+            cfg, ckpt_dir=tmp, ckpt_every=run["ckpt_every"], injector=inj, **kw
+        )
+        resumed_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in pathlib.Path(tmp).rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    plain = train.train(cfg, **kw)
+    plain_s = time.perf_counter() - t0
+    log = resumed["ckpt_log"]
+    restores = [r for r in log if r["op"] == "restore"]
+    check(len(restores) == 1, f"{name}: restores {restores}")
+    check(resumed["losses"] == plain["losses"], f"{name}: losses {resumed['losses']}, {plain['losses']}")
+    differ = {}
+    for part in ("params", "opt"):
+        pairs = zip(tree_leaves(resumed[part]), tree_leaves(plain[part]), strict=True)
+        differ[part] = sum(not same_bits(a, b) for a, b in pairs)
+    check(differ == {"params": 0, "opt": 0}, f"{name}: leaves that differ {differ}")
+    saves = [r for r in log if r["op"] == "save"]
+    emit(
+        {
+            "phase": name,
+            "arch": cfg.name,
+            **run,
+            "losses": resumed["losses"],
+            "losses_equal": True,
+            "leaves_equal_bitwise": len(tree_leaves(plain["params"])) + len(tree_leaves(plain["opt"])),
+            "restored_step": restores[0]["step"],
+            "saves": [
+                {k: r[k] for k in ("step", "bytes", "snapshot_s", "write_s")} for r in saves
+            ],
+            "restore": {k: restores[0][k] for k in ("step", "bytes", "s")},
+            "bytes_written": sum(r["bytes"] for r in saves),
+            "bytes_on_disk_at_end": on_disk,
+            "resumed_run_s": resumed_s,
+            "plain_run_s": plain_s,
+        }
+    )
+    del resumed, plain
+    torch.cuda.empty_cache()
 
 
 def _oracle_blocks(kern, bids, *, grid, block, args) -> dict:
@@ -2271,6 +2580,9 @@ PATH_KERNELS = {
     "moe_train": ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"),
     "vlm_serve": ("rmsnorm", "flash_decode"),
     "vlm_train": ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"),
+    "encdec_serve": ("layernorm", "flash_decode"),
+    "encdec_train": ("layernorm", "layernorm_bwd", "flash_attention", "flash_attention_bwd"),
+    "ckpt_drill": ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd"),
 }
 
 
@@ -2298,7 +2610,9 @@ def main() -> int:
     cpu_tokens = cpu_token_count()
     ssm_cpu_tokens = cpu_token_count(SSM_ARCH)
     granite_cpu_tokens = cpu_token_count(GRANITE_ARCH)
-    new_cpu_tokens = {a: cpu_token_count(a) for a in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH)}
+    new_cpu_tokens = {
+        a: cpu_token_count(a) for a in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH, ENCDEC_ARCH)
+    }
 
     # the main paths, each counted alone: COX launches, the three-way
     # checks and the serve phase; the train phase; the SSM serve phase;
@@ -2325,8 +2639,8 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_train(granite_cfg, GRANITE_TRAIN)
     paths["granite_train"] = ops.launch_counts()
-    # the hybrid, MoE and VLM families: each model's serve phase, then its
-    # train phase, each counted alone
+    # the hybrid, MoE, VLM and encoder-decoder families: each model's serve
+    # phase, then its train phase, each counted alone
     vlm_serve_cfg = dataclasses.replace(registry.get(VLM_ARCH), n_layers=VLM_SERVE_LAYERS)
     vlm_cuts = (
         f"layers 60 -> {VLM_SERVE_LAYERS}: the dense family's decode step, which qwen "
@@ -2337,14 +2651,27 @@ def main() -> int:
         (HYBRID_ARCH, registry.get(HYBRID_ARCH), "none", registry.get(HYBRID_ARCH), HYBRID_TRAIN),
         (MOE_ARCH, registry.get(MOE_ARCH), "none", _train_cfg(MOE_ARCH, MOE_TRAIN), MOE_TRAIN),
         (VLM_ARCH, vlm_serve_cfg, vlm_cuts, _train_cfg(VLM_ARCH, VLM_TRAIN), VLM_TRAIN),
+        (
+            ENCDEC_ARCH,
+            registry.get(ENCDEC_ARCH),
+            "none",
+            registry.get(ENCDEC_ARCH),
+            ENCDEC_TRAIN,
+        ),
     ]
     for arch, serve_cfg, serve_cuts, train_cfg, run in new_paths:
         ops.reset_launch_counts()
         phase_serve(new_cpu_tokens[arch], serve_cfg, serve_cuts)
         paths[PHASE_PREFIX[arch] + "serve"] = ops.launch_counts()
+        if train_cfg.family == "encdec":
+            phase_reference_init(train_cfg, run)
         ops.reset_launch_counts()
         phase_train(train_cfg, run)
         paths[PHASE_PREFIX[arch] + "train"] = ops.launch_counts()
+    # checkpoint and restart
+    ops.reset_launch_counts()
+    phase_ckpt_drill()
+    paths["ckpt_drill"] = ops.launch_counts()
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()
@@ -2366,7 +2693,7 @@ def main() -> int:
     phase_train_cross_check(SSM_ARCH)
     phase_cross_check(GRANITE_ARCH)
     phase_train_cross_check(GRANITE_ARCH)
-    for arch in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH):
+    for arch in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH, ENCDEC_ARCH):
         phase_cross_check(arch)
         phase_train_cross_check(arch)
     for path, names in PATH_KERNELS.items():

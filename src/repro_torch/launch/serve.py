@@ -15,12 +15,17 @@ a CUDA device each step launches the hand-written norm kernel
 - an SSM model (mamba2): the norm 2 x n_layers + 1 times (its recurrent
   step has no kernel of its own);
 - a hybrid model (zamba2): the norm 2 x n_layers + 2 x A + 1 times and
-  flash_decode A times, A the shared block's applications.
+  flash_decode A times, A the shared block's applications;
+- an encoder-decoder model (seamless): ``layernorm`` 3 x n_layers + 1
+  times and flash_decode 2 x n_layers times, over each layer's self cache
+  and over its cross memory of ``ENC_LEN_DECODE`` rows (``specs.py``).
 
 As in the reference, a reused slot's SSM state and a hybrid slot's K/V
 ring are not reset: the next request starts from the previous one's
-(ROADMAP C), and the VLM family serves text only (the reference's server
-takes no frontend embeddings).
+(ROADMAP C); the VLM family serves text only (the reference's server
+takes no frontend embeddings); and the encoder-decoder family's server
+never runs the encoder: its cross memory is the cache's zero
+initialisation, so every token cross-attends to zeros (ROADMAP C.3).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --batch 4 --ctx 512 --requests 4 --tokens 16

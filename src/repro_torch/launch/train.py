@@ -1,8 +1,9 @@
-"""The trainer: the AdamW train loop on one card, with the straggler
-watchdog and failure injection (port of ``src/repro/launch/train.py``).
+"""The trainer: the AdamW train loop on one card, with checkpoint and
+restart, the straggler watchdog and failure injection (port of
+``src/repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b-smoke \\
-        --steps 3 --batch 2 --seq 128 --device cpu
+        --steps 3 --batch 2 --seq 128 --device cpu [--ckpt-dir DIR --ckpt-every 25]
 
 Training runs on the CUDA card unless it is given ``device="cpu"``
 (``--device cpu``), and raises where there is no card.  On a card every
@@ -11,10 +12,14 @@ step of a dense, MoE or VLM model launches the hand-written
 granite's ``norm="ln"``) and their backward kernels; every step of an
 SSM model (mamba2) the ``ssd_scan`` and ``rmsnorm`` kernels and theirs;
 every step of a hybrid model (zamba2) all six: ``ssd_scan``,
-``flash_attention`` and ``rmsnorm`` and their backwards.  A VLM batch
-carries its ``frontend`` embeddings (``data/pipeline.py``).  Checkpointing and
-restart (``ckpt_dir=``, ``retry_loop``) need ``checkpoint/ckpt.py``, which is not ported yet
-(ROADMAP A.8): ``ckpt_dir=`` raises ``CoxUnsupported``.
+``flash_attention`` and ``rmsnorm`` and their backwards; every step of an
+encoder-decoder model (seamless) ``flash_attention`` non-causal in the
+encoder and the cross-attention and causal in the decoder, and
+``layernorm``, and their backwards.  A VLM or encoder-decoder batch
+carries its ``frontend`` embeddings (``data/pipeline.py``).  With
+``ckpt_dir=`` the parameters and the optimizer state go to
+``checkpoint/ckpt.py``'s ``CheckpointManager``, and ``retry_loop``
+restarts a failed run from the latest checkpoint.
 """
 
 from __future__ import annotations
@@ -25,15 +30,25 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from ..checkpoint.ckpt import CheckpointManager
 from ..configs import registry
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.runtime import resolve_device
-from ..core.types import CoxUnsupported
 from ..data.pipeline import DataConfig, TokenSource
-from ..ft.watchdog import FailureInjector, StepWatchdog
-from ..models.params import init_params
+from ..ft.watchdog import FailureInjector, StepWatchdog, retry_loop
+from ..models.params import ParamSpec, init_params, tree_map
 from ..optim import adamw
 from ..parallel import steps as steps_mod
+
+
+def _opt_like(specs, opt_cfg: adamw.AdamWConfig):
+    """The optimizer state's layout for a restore: f32 moments shaped like
+    the parameters, and the int32 step."""
+    mom = tree_map(lambda s: ParamSpec(s.shape, torch.float32), specs)
+    out = {"m": mom, "v": mom, "step": ParamSpec((), torch.int32)}
+    if opt_cfg.grad_compress:
+        out["err"] = mom
+    return out
 
 
 def train(
@@ -43,77 +58,115 @@ def train(
     batch: int = 8,
     seq: int = 128,
     ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 25,
     data_cfg: Optional[DataConfig] = None,
     seed: int = 0,
     log_every: int = 10,
     injector: Optional[FailureInjector] = None,
     deadline_s: float = 300.0,
     opt_cfg: Optional[adamw.AdamWConfig] = None,
+    params=None,
     device=None,
 ) -> Dict[str, Any]:
     """Train ``arch`` for ``steps`` steps of ``batch`` sequences of ``seq``
     tokens from the deterministic token source; weights are drawn from
-    ``seed`` on the device with a ``torch.Generator``.
+    ``seed`` on the device with a ``torch.Generator``, or start from
+    ``params`` (weights carried in, as ``BatchedServer`` takes them; each
+    run starts from a copy, so the caller's tensors are not changed).
 
     ``arch`` is a registry name, or a ``ModelConfig`` (a registry config
-    with, say, its depth cut).  Returns the reference's ``final_step``,
-    ``losses`` and ``params``, and ``grad_norms``, ``step_s`` (host-clock
-    seconds of each step, ending when its loss reaches the host) and
-    ``init_s`` (seconds to draw the weights and the optimizer state)."""
-    if ckpt_dir is not None:
-        raise CoxUnsupported(
-            "ckpt_dir= is not ported to repro_torch yet: ROADMAP queue item A.8 "
-            "(checkpoint/ckpt.py and the resume drills)"
-        )
+    with, say, its depth cut).  With ``ckpt_dir`` the parameters and the
+    optimizer state are saved every ``ckpt_every`` steps and at the end,
+    and a failure restarts from the latest checkpoint (``retry_loop``);
+    the losses of replayed steps are appended again, as in the reference.
+    Returns the reference's ``final_step``, ``losses`` and ``params``, and
+    ``opt`` (the optimizer state), ``grad_norms``, ``step_s`` (host-clock
+    seconds of each step, ending when its loss reaches the host),
+    ``init_s`` (seconds to draw the weights and the optimizer state the
+    first time) and ``ckpt_log`` (each save's and restore's bytes and
+    seconds)."""
     device = resolve_device(device)
     cfg = registry.get(arch) if isinstance(arch, str) else arch
     shape = ShapeConfig(f"train_{seq}", seq, batch, "train")
     opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=steps)
     step_fn, specs = steps_mod.make_train_step(cfg, opt_cfg)
     source = TokenSource(cfg, shape, data_cfg or DataConfig(seed=seed))
-
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(specs, gen, device)
-    opt = adamw.init_state(params, opt_cfg)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    init_s = time.perf_counter() - t0
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
     losses: list = []
     grad_norms: list = []
     step_s: list = []
-    wd = StepWatchdog(deadline_s)
-    for step in range(steps):
-        if injector is not None:
-            injector.maybe_fail(step)
-        batch_dev = {
-            k: torch.from_numpy(v).to(device) for k, v in source.batch_at(step).items()
-        }
-        wd.start(step)
+    state: Dict[str, Any] = {}
+
+    def init_state():
         t0 = time.perf_counter()
-        params, opt, metrics = step_fn(params, opt, batch_dev)
-        loss = float(metrics["loss"])
-        step_s.append(time.perf_counter() - t0)
-        wd.stop()
-        wd.check()
-        losses.append(loss)
-        grad_norms.append(float(metrics["grad_norm"]))
-        if step % log_every == 0 or step == steps - 1:
-            print(
-                f"[train {cfg.name}] step {step} loss {loss:.4f} "
-                f"gnorm {grad_norms[-1]:.3f} "
-                f"lr {float(metrics['lr']):.2e} "
-                f"dt {step_s[-1]:.2f}s",
-                flush=True,
-            )
+        if params is None:  # train()'s argument: draw the weights from the seed
+            gen = torch.Generator(device=device).manual_seed(seed)
+            weights = init_params(specs, gen, device)
+        else:
+            weights = tree_map(lambda t: t.to(device, copy=True), params)
+        opt = adamw.init_state(weights, opt_cfg)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        state.setdefault("init_s", time.perf_counter() - t0)
+        return weights, opt
+
+    def run_from(start_step: int) -> int:
+        params = opt = None
+        if start_step > 0 and mgr is not None and mgr.latest_step() is not None:
+            ck = mgr.latest_step()
+            like = {"params": specs, "opt": _opt_like(specs, opt_cfg)}
+            blob = mgr.restore(ck, like, device)
+            params, opt = blob["params"], blob["opt"]
+            start_step = ck + 1
+        if params is None:
+            params, opt = init_state()
+            start_step = 0
+
+        wd = StepWatchdog(deadline_s)
+        for step in range(start_step, steps):
+            if injector is not None:
+                injector.maybe_fail(step)
+            batch_dev = {
+                k: torch.from_numpy(v).to(device) for k, v in source.batch_at(step).items()
+            }
+            wd.start(step)
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch_dev)
+            loss = float(metrics["loss"])
+            step_s.append(time.perf_counter() - t0)
+            wd.stop()
+            wd.check()
+            losses.append(loss)
+            grad_norms.append(float(metrics["grad_norm"]))
+            if step % log_every == 0 or step == steps - 1:
+                print(
+                    f"[train {cfg.name}] step {step} loss {loss:.4f} "
+                    f"gnorm {grad_norms[-1]:.3f} "
+                    f"lr {float(metrics['lr']):.2e} "
+                    f"dt {step_s[-1]:.2f}s",
+                    flush=True,
+                )
+            if mgr is not None and (step + 1) % ckpt_every == 0:
+                mgr.save(step, {"params": params, "opt": opt})
+        if mgr is not None:
+            mgr.save(steps - 1, {"params": params, "opt": opt}, blocking=True)
+        state["params"], state["opt"] = params, opt
+        return steps - 1
+
+    if mgr is not None:
+        final = retry_loop(run_from, ckpt_mgr=mgr)
+    else:
+        final = run_from(0)
     return {
-        "final_step": steps - 1,
+        "final_step": final,
         "losses": losses,
-        "params": params,
+        "params": state.get("params"),
+        "opt": state.get("opt"),
         "grad_norms": grad_norms,
         "step_s": step_s,
-        "init_s": init_s,
+        "init_s": state.get("init_s"),
+        "ckpt_log": mgr.log if mgr is not None else [],
     }
 
 
@@ -124,6 +177,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -133,6 +187,7 @@ def main(argv=None):
         batch=args.batch,
         seq=args.seq,
         ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
         seed=args.seed,
         device=args.device,
     )

@@ -3,13 +3,15 @@
 The JAX package initialises its parameters with ``jax.random``, which
 torch cannot reproduce, so both packages compute from the same weights
 only when one is handed the other's.  :func:`from_jax_params` takes the
-tree that ``repro.models.params.init_params(lm_specs(cfg), key)`` returns,
-as nested dicts of numpy arrays (``np.asarray`` of each leaf), and returns
-the port's parameters; :func:`cache_from_numpy` does the same for a decode
-cache.  Both keep the stacked-layer layout as it is (``params["layers"]``
-leaves lead with ``n_layers``, the MoE experts are ``(n_layers, E, d,
-fe)`` and ``(n_layers, E, fe, d)`` with the router in f32, and the hybrid
-family's ``shared_attn`` has no layer axis; every cache leaf is
+tree that ``repro.models.params.init_params(model_specs(cfg), key)``
+returns, as nested dicts of numpy arrays (``np.asarray`` of each leaf),
+and returns the port's parameters; :func:`cache_from_numpy` does the same
+for a decode cache.  Both keep the stacked-layer layout as it is
+(``params["layers"]`` leaves lead with ``n_layers``, an encoder-decoder
+model's ``enc_layers`` and ``dec_layers`` with their depths, the MoE
+experts are ``(n_layers, E, d, fe)`` and ``(n_layers, E, fe, d)`` with the
+router in f32, and the hybrid family's ``shared_attn`` has no layer axis;
+every cache leaf is
 ``(n_layers, B, ...)``, but the hybrid family's ``k``/``v`` rings, which
 lead with the number of shared-block applications), since the port's
 layout is the reference's.  Every leaf is checked against the port's
@@ -25,7 +27,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import lm
+from ..parallel.steps import model_specs
+from . import encdec, lm
 from .params import ParamSpec, is_spec
 
 
@@ -57,15 +60,21 @@ def _carry(spec_tree, tree, device, where: str = "") -> Any:
 def from_jax_params(cfg, tree, device) -> Any:
     """The port's parameters for ``cfg`` from the JAX package's parameter
     tree (numpy leaves), on ``device``."""
-    return _carry(lm.lm_specs(cfg), tree, torch.device(device))
+    return _carry(model_specs(cfg), tree, torch.device(device))
 
 
 def cache_from_numpy(cfg, tree, device) -> Any:
     """The port's decode cache from a JAX cache tree (numpy leaves: K/V of
     shape ``(n_layers, B, S, Hkv, Dh)``, the SSM state ``h`` and ``conv``,
-    or both, the hybrid family's K/V rings leading with its applications),
-    on ``device``.  The batch is axis 1 of every leaf; the length, axis 2
-    of K (an SSM cache has none; a ring's is its W rows)."""
+    or both, the hybrid family's K/V rings leading with its applications,
+    and an encoder-decoder model's cross K/V ``xk``/``xv``), on
+    ``device``.  The batch is axis 1 of every leaf; the length, axis 2 of
+    K (an SSM cache has none; a ring's is its W rows); the encoder
+    memory's, axis 2 of ``xk``."""
     batch = np.shape(next(iter(tree.values())))[1]
     seq_len = np.shape(tree["k"])[2] if "k" in tree else 0
-    return _carry(lm.cache_specs(cfg, batch, seq_len), tree, torch.device(device))
+    if cfg.family == "encdec":
+        specs = encdec.cache_specs(cfg, batch, seq_len, np.shape(tree["xk"])[2])
+    else:
+        specs = lm.cache_specs(cfg, batch, seq_len)
+    return _carry(specs, tree, torch.device(device))

@@ -11,9 +11,7 @@ axis), applied after every ``attn_every`` Mamba2 layers (the last group
 may be short), and its cache one K/V ring of ``min(S, window)`` rows for
 each application: ``k``/``v`` of shape ``(n_applications, B, W, Hkv,
 Dh)``.  Where the reference scans the stack, the port loops over it and
-takes layer ``i`` of each leaf (a view, no copy).  The encoder-decoder
-family is not ported yet and raises ``CoxUnsupported`` naming its ROADMAP
-item.
+takes layer ``i`` of each leaf (a view, no copy).
 """
 
 from __future__ import annotations
@@ -25,7 +23,6 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..core.types import CoxUnsupported
 from . import layers as L
 from .params import ParamSpec, tree_map
 
@@ -33,14 +30,10 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_family(cfg) -> None:
-    """Raise unless the port runs ``cfg``'s family.  Both norms (``rms``
-    and ``ln``, whose specs add the ``_b`` bias leaves) run in every
-    family, as in the reference."""
-    if cfg.family == "encdec":
-        raise CoxUnsupported(
-            f"family 'encdec' ({cfg.name}) is not ported to repro_torch yet: "
-            "ROADMAP queue item A.7.4 (models/encdec.py)"
-        )
+    """Raise ``ValueError`` unless ``cfg`` is a decoder-only family (the
+    encoder-decoder family is ``models/encdec.py``'s).  Both norms
+    (``rms`` and ``ln``, whose specs add the ``_b`` bias leaves) run in
+    every family, as in the reference."""
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
 

@@ -15,9 +15,14 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..models import lm
+from ..models import encdec, lm
 from ..models.params import tree_map
 from ..optim import adamw
+
+
+def model_specs(cfg: ModelConfig):
+    """The parameter spec tree of ``cfg``'s family."""
+    return encdec.encdec_specs(cfg) if cfg.family == "encdec" else lm.lm_specs(cfg)
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch):
@@ -32,9 +37,10 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
         leaves.append(leaf)
         return leaf
 
+    fwd = encdec.forward if cfg.family == "encdec" else lm.forward
     with torch.enable_grad():
         tracked = tree_map(track, params)
-        loss, _ = lm.forward(cfg, tracked, batch)
+        loss, _ = fwd(cfg, tracked, batch)
         grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -45,11 +51,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
     ``loss``, ``grad_norm`` and ``lr`` in ``metrics`` (0-dim tensors on the
     parameters' device); the parameters and moments are updated in place.
     ``batch`` holds ``tokens`` and ``labels`` (B, S) int tensors on the
-    parameters' device, and ``frontend`` (B, Nf, d) for a VLM; ``specs``
+    parameters' device, and ``frontend`` (B, Nf, d) for a VLM or (B, S,
+    d) for an encoder-decoder model; ``specs``
     is the model's parameter spec tree.  The kernels a step launches, by
     family, are listed in ``launch/train.py``."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
-    specs = lm.lm_specs(cfg)
+    specs = model_specs(cfg)
 
     def step(params, opt_state, batch):
         loss, grads = loss_and_grads(cfg, params, batch)
@@ -66,10 +73,11 @@ def make_serve_step(cfg: ModelConfig):
     ``jnp.argmax``); ``specs`` is the model's parameter spec tree.  The
     kernels a step launches, by family, are listed in
     ``launch/serve.py``."""
-    specs = lm.lm_specs(cfg)
+    specs = model_specs(cfg)
+    decode = encdec.decode_step if cfg.family == "encdec" else lm.decode_step
 
     def step(params, cache, tokens, pos):
-        logits, cache = lm.decode_step(cfg, params, cache, tokens, pos)
+        logits, cache = decode(cfg, params, cache, tokens, pos)
         return logits.argmax(dim=-1).to(torch.int32), cache
 
     return step, specs

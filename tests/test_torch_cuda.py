@@ -982,6 +982,18 @@ def test_layernorm_kernels_refuse_what_they_do_not_take(cuda):
         pnorms.layernorm_cuda(x.cpu(), w, w)
 
 
+def _at_model_fan_in(params) -> None:
+    """Scale every attention block's wq and wk, (..., d, H, Dh), in place
+    from the reference's fan-in (the head count) to one of d_model."""
+    for sub in params.values():
+        if isinstance(sub, dict):
+            if "wq" in sub:
+                for name in ("wq", "wk"):
+                    sub[name].mul_((sub[name].shape[-2] / sub[name].shape[-3]) ** 0.5)
+            else:
+                _at_model_fan_in(sub)
+
+
 # the model train steps held card against CPU: (config, overrides, tokens a
 # row, leaves (dotted paths) drawn N(0, 0.5^2) as they start at zero,
 # kernels that must launch, gradient tolerance as a share of its largest
@@ -1016,6 +1028,17 @@ TRAIN_STEP_CASES = [
         1e-3,
         id="granite",
     ),
+    # seamless: the encoder and the cross-attention non-causal, the decoder
+    # causal, layer norms with biases in both stacks; heads of 64
+    pytest.param(
+        "seamless-m4t-large-v2-smoke",
+        dict(d_model=128, n_heads=2, n_kv=2, d_head=64),
+        128,
+        ("enc_layers.ln1_b", "dec_layers.lnx_b", "enc_norm_b", "final_norm_b"),
+        ("flash_attention", "flash_attention_bwd", "layernorm", "layernorm_bwd"),
+        1e-3,
+        id="encdec",
+    ),
 ]
 
 
@@ -1035,25 +1058,32 @@ def test_training_step_on_the_card_matches_the_cpu(
     granite's too, makes the attention nearly one-hot, and the card's f32 sums round apart from
     the CPU's.  ssm (d 64, N 16, P 16): no attention, so the SSD kernels'
     own 1e-4 (their tiles sum in another order than the plain form's
-    chunk).  The kernels' own tolerances are held above."""
+    chunk).  encdec (heads of 64): the dense case's 1e-3, with every
+    attention's wq and wk at a fan-in of d_model (``_at_model_fan_in``),
+    as the CPU tests draw them: at the reference's init three attentions
+    a layer pair amplify f32 rounding to 8e-3 of the embedding's
+    gradient.  The kernels' own tolerances are held above."""
     import dataclasses
 
     from repro_torch.configs import registry
-    from repro_torch.models import lm
     from repro_torch.models.params import init_params, tree_map
     from repro_torch.parallel import steps
 
     cfg = dataclasses.replace(registry.get(arch), remat="full", **overrides)
     gen = torch.Generator().manual_seed(0)
-    cpu = init_params(lm.lm_specs(cfg), gen, "cpu")
+    cpu = init_params(steps.model_specs(cfg), gen, "cpu")
     for path in drawn:
         t = cpu
         for key in path.split("."):
             t = t[key]
         t.copy_(0.5 * torch.randn(t.shape, generator=gen))
+    if cfg.family == "encdec":
+        _at_model_fan_in(cpu)
     card = tree_map(lambda t: t.to(cuda), cpu)
     toks = torch.randint(0, cfg.vocab, (2, seq + 1), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.randn(2, seq, cfg.d_model, generator=gen)
     counts = ops.launch_counts()
     loss_c, grads_c = steps.loss_and_grads(cfg, card, {k: t.to(cuda) for k, t in batch.items()})
     after = ops.launch_counts()
@@ -1227,28 +1257,31 @@ def test_ssd_scan_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize(
-    "H,Hkv,D,window",
+    "H,Hkv,D,causal,window",
     [
-        pytest.param(32, 32, 64, 4096, id="zamba2-shared-block"),  # g = 1, D 64, windowed
-        pytest.param(56, 8, 128, 0, id="llava"),  # g = 7
+        pytest.param(32, 32, 64, True, 4096, id="zamba2-shared-block"),  # g = 1, D 64, windowed
+        pytest.param(56, 8, 128, True, 0, id="llava"),  # g = 7
+        pytest.param(16, 16, 64, False, 0, id="seamless-encoder"),  # non-causal, D 64
     ],
 )
-def test_flash_attention_at_the_new_families_train_shapes(cuda, H, Hkv, D, window):
+def test_flash_attention_at_the_new_families_train_shapes(cuda, H, Hkv, D, causal, window):
     """bf16 forward and backward at S 4,096 (one sequence of the train
     shape) against the plain versions in f32, and bitwise twice.  D 64 at
     g = 1 is where a register-fragment path once went wrong (ROADMAP
-    B.2.1); g = 7 must split dK/dV over a divisor of 7."""
+    B.2.1); g = 7 must split dK/dV over a divisor of 7; seamless's encoder
+    and cross-attention run it non-causal."""
     S = 4096
+    mask = dict(causal=causal, window=window)
     q, k, v, do = _attn_inputs(cuda, 1, S, H, Hkv, D, torch.bfloat16, seed=11)
-    o, lse = pfa.flash_attention_cuda(q, k, v, window=window)
-    o2, lse2 = pfa.flash_attention_cuda(q, k, v, window=window)
+    o, lse = pfa.flash_attention_cuda(q, k, v, **mask)
+    o2, lse2 = pfa.flash_attention_cuda(q, k, v, **mask)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
-    grads = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)
-    for a, b in zip(grads, pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)):
+    grads = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
+    for a, b in zip(grads, pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)):
         assert torch.equal(a, b)
     f32 = [t.float() for t in (q, k, v, do)]
-    _close_to_scale(o, ref.attention(*f32[:3], window=window), *ATTN_TOL[torch.bfloat16], "o")
-    want = ref.attention_bwd(*f32, window=window)
+    _close_to_scale(o, ref.attention(*f32[:3], **mask), *ATTN_TOL[torch.bfloat16], "o")
+    want = ref.attention_bwd(*f32, **mask)
     for name, got, w in zip(("dq", "dk", "dv"), grads, want):
         _close_to_scale(got, w, *ATTN_GRAD_TOL[torch.bfloat16], name)
 
@@ -1279,3 +1312,60 @@ def test_flash_decode_on_a_full_ring(cuda, dtype):
     torch.testing.assert_close(
         got.float(), ref.decode_attention(q, k, v, lens).float(), rtol=rtol, atol=atol
     )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_over_the_cross_memory(cuda, dtype):
+    """seamless-m4t-large-v2's cross-attention in decode: G 1, D 64, 16
+    heads over the 3,072-row encoder memory, read whole; bitwise twice."""
+    B, Se = 4, 3072
+    q, k, v = _decode_inputs(cuda, B, Se, 16, 16, 64, dtype, seed=14)
+    lens = torch.full((B,), Se, dtype=torch.int32, device=cuda)
+    got = pfa.flash_decode_cuda(q, k, v, lens)
+    assert torch.equal(got, pfa.flash_decode_cuda(q, k, v, lens))
+    rtol, atol = DECODE_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention(q, k, v, lens).float(), rtol=rtol, atol=atol
+    )
+
+
+def test_encdec_decode_step_on_the_card_matches_the_cpu(cuda):
+    """The encoder-decoder decode step over a memory that is not zero
+    (``encode`` of random frames, each layer's ``_mem_kv``), f32, heads of
+    64, the attention at a fan-in of d_model (``_at_model_fan_in``): the card (layernorm, flash_decode over the self cache and the
+    cross memory) against the CPU, the memory within 1e-4 of its scale and
+    the logits and the written K/V within 1e-4 of theirs, each kernel
+    launched."""
+    from repro_torch.configs import registry
+    from repro_torch.models import encdec
+    from repro_torch.models.lm import _layer
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.parallel import steps
+
+    cfg = dataclasses.replace(
+        registry.get("seamless-m4t-large-v2-smoke"), d_model=128, n_heads=2, n_kv=2, d_head=64
+    )
+    gen = torch.Generator().manual_seed(0)
+    cpu = init_params(steps.model_specs(cfg), gen, "cpu")
+    _at_model_fan_in(cpu)
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    frames = torch.randn(2, 256, cfg.d_model, generator=gen)
+    caches = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        mem = encdec.encode(cfg, params, frames.to(dev))
+        cache = init_params(encdec.cache_specs(cfg, 2, 16, 256), None, dev)
+        for i in range(cfg.n_layers):
+            k, v = encdec._mem_kv(_layer(params["dec_layers"]["xattn"], i), mem)
+            cache["xk"][i], cache["xv"][i] = k, v
+        caches.append((mem, cache))
+    _close_to_scale(caches[1][0].cpu(), caches[0][0], 1e-4, 1e-4, "memory")
+    toks, pos = torch.tensor([3, 9]), torch.tensor([0, 5], dtype=torch.int32)
+    counts = ops.launch_counts()
+    got, card_cache = encdec.decode_step(cfg, card, caches[1][1], toks.to(cuda), pos.to(cuda))
+    after = ops.launch_counts()
+    assert after["flash_decode"] - counts["flash_decode"] == 2 * cfg.n_layers
+    assert after["layernorm"] - counts["layernorm"] == 3 * cfg.n_layers + 1
+    want, cpu_cache = encdec.decode_step(cfg, cpu, caches[0][1], toks, pos)
+    _close_to_scale(got.cpu(), want, 1e-4, 1e-4, "logits")
+    for leaf in ("k", "v"):
+        _close_to_scale(card_cache[leaf].cpu(), cpu_cache[leaf], 1e-4, 1e-4, leaf)

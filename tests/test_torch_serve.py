@@ -35,7 +35,9 @@ import torch
 from jax.sharding import AxisType
 
 from repro.configs import registry as jreg
+from repro.configs.base import ShapeConfig as JShape
 from repro.launch import serve as jserve
+from repro.launch import specs as jspecs
 from repro.models import layers as jL
 from repro.models import lm as jlm
 from repro.models import params as jparams
@@ -379,15 +381,12 @@ def test_carry_takes_bf16_leaves():
 @pytest.mark.parametrize("arch", ["llava-next-34b-smoke", "zamba2-1.2b-smoke",
                                   "deepseek-moe-16b-smoke", "seamless-m4t-large-v2-smoke"])
 def test_unported_families_and_norms_raise(arch):
-    """The VLM, hybrid and MoE families (ported: ROADMAP A.7.1-A.7.3)
-    build a server whose cache has the reference's keys, shapes and
-    dtypes; the encoder-decoder family still raises, naming A.7.4."""
-    if arch.startswith("seamless"):
-        with pytest.raises(CoxUnsupported, match=r"ROADMAP queue item A\.7\.4 \(models/encdec"):
-            pserve.BatchedServer(arch, batch=1, ctx=8, device="cpu")
-        return
+    """The VLM, hybrid, MoE and encoder-decoder families (ported: ROADMAP
+    A.7.1-A.7.4) build a server whose cache has the reference server's
+    keys, shapes and dtypes (the encoder-decoder cache with its cross K/V
+    of ENC_LEN_DECODE rows)."""
     server = pserve.BatchedServer(arch, batch=2, ctx=8, device="cpu")
-    want = jlm.cache_specs(jreg.get(arch), 2, 8)
+    want = jspecs.cache_spec_tree(jreg.get(arch), JShape("serve_8", 8, 2, "decode"))
     assert set(server.cache) == set(want)
     for leaf, t in server.cache.items():
         assert tuple(t.shape) == want[leaf].shape, leaf

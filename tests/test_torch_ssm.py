@@ -53,7 +53,6 @@ from repro.models import params as jparams
 from repro.optim import adamw as jadamw
 from repro.parallel import steps as jsteps
 from repro_torch.configs import registry as preg
-from repro_torch.core.types import CoxUnsupported
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as pserve
 from repro_torch.launch import train as ptrain
@@ -574,19 +573,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, arch, ca
     ],
 )
 def test_unported_families_and_norms_still_raise(arch, item):
-    """ROADMAP ``item`` ported the hybrid, MoE and VLM families
-    (A.7.1-A.7.3): their spec trees equal the reference's.  The
-    encoder-decoder family still raises, naming A.7.4."""
+    """ROADMAP ``item`` ported the hybrid, MoE, VLM and encoder-decoder
+    families (A.7.1-A.7.4): their spec trees (``steps.model_specs``) equal
+    the reference's.  ``lm.lm_specs`` of the encoder-decoder family raises
+    ``ValueError`` in both packages: its tree is ``encdec.encdec_specs``."""
     if arch.startswith("seamless"):
-        with pytest.raises(CoxUnsupported, match=item.replace(".", r"\.") + r"\.4 \(models/encdec"):
+        with pytest.raises(ValueError, match="encdec"):
             plm.lm_specs(preg.get(arch))
-        return
-    sj = jax.tree_util.tree_leaves_with_path(jlm.lm_specs(jreg.get(arch)), is_leaf=jparams.is_spec)
+        with pytest.raises(ValueError, match="encdec"):
+            jlm.lm_specs(jreg.get(arch))
+    sj = jax.tree_util.tree_leaves_with_path(
+        jsteps.model_specs(jreg.get(arch)), is_leaf=jparams.is_spec
+    )
     flat = {jax.tree_util.keystr(path): s for path, s in sj}
     port = {
         jax.tree_util.keystr(path): s
         for path, s in jax.tree_util.tree_leaves_with_path(
-            plm.lm_specs(preg.get(arch)), is_leaf=pparams.is_spec
+            psteps.model_specs(preg.get(arch)), is_leaf=pparams.is_spec
         )
     }
     assert set(port) == set(flat)

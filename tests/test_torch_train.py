@@ -23,7 +23,7 @@ generators and handed to both packages.
 - ``TokenSource.batch_at`` equals the reference's bit for bit;
 - three steps of ``make_train_step`` match the reference's
   ``jit_train_step`` (losses, grad norms, parameters);
-- ``train(..., device="cpu")`` runs end to end; ``ckpt_dir=`` raises.
+- ``train(..., device="cpu")`` runs end to end, with ``ckpt_dir=`` too.
 
 The JAX train step is built on a mesh with Auto axes: the reference's
 default mesh fails under the installed JAX (ROADMAP queue C).
@@ -52,7 +52,6 @@ from repro.optim import adamw as jadamw
 from repro.parallel import steps as jsteps
 from repro_torch.configs import registry as preg
 from repro_torch.configs.base import ShapeConfig as PShape
-from repro_torch.core.types import CoxUnsupported
 from repro_torch.data import pipeline as ppipe
 from repro_torch.ft import watchdog as pwatch
 from repro_torch.kernels import ops, ref
@@ -554,6 +553,22 @@ def test_train_runs_on_the_cpu_end_to_end(capsys):
     assert again["losses"] == out["losses"]
 
 
+def test_train_starts_from_the_weights_it_is_given():
+    """``train(params=)`` starts from a copy of the given weights: its first
+    loss is theirs on the step-0 batch, and the caller's tensors are left
+    as they were."""
+    cfg = dataclasses.replace(preg.get(ARCH), n_layers=1, name="one-layer")
+    params = pparams.init_params(psteps.model_specs(cfg), torch.Generator().manual_seed(3), "cpu")
+    before = pparams.tree_map(lambda t: t.clone(), params)
+    out = ptrain.train(cfg, steps=2, batch=1, seq=32, params=params, device="cpu")
+    for got, want in zip(pparams.tree_leaves(params), pparams.tree_leaves(before)):
+        assert torch.equal(got, want)
+    shape = PShape("train_32", 32, 1, "train")
+    batch = ppipe.TokenSource(cfg, shape, ppipe.DataConfig(seed=0)).batch_at(0)
+    loss, _ = psteps.loss_and_grads(cfg, params, to_torch(batch))
+    assert out["losses"][0] == float(loss)
+
+
 def test_train_takes_a_model_config_and_an_injector():
     cfg = dataclasses.replace(preg.get(ARCH), n_layers=1, name="one-layer")
     out = ptrain.train(cfg, steps=1, batch=1, seq=32, device="cpu")
@@ -563,8 +578,13 @@ def test_train_takes_a_model_config_and_an_injector():
         ptrain.train(cfg, steps=3, batch=1, seq=32, injector=inj, device="cpu")
 
 
-def test_train_refuses_what_is_not_ported():
-    with pytest.raises(CoxUnsupported, match="A.8"):
-        ptrain.train(ARCH, steps=1, ckpt_dir="/nonexistent", device="cpu")
-    with pytest.raises(CoxUnsupported, match=r"A\.7\.4 \(models/encdec"):
-        ptrain.train("seamless-m4t-large-v2-smoke", steps=1, batch=1, seq=32, device="cpu")
+def test_train_refuses_what_is_not_ported(tmp_path):
+    """Checkpointing (ROADMAP A.8) and the encoder-decoder family (A.7.4)
+    are ported: ``train`` saves to ``ckpt_dir`` and trains seamless."""
+    out = ptrain.train(ARCH, steps=2, batch=1, seq=32, ckpt_dir=str(tmp_path), ckpt_every=1,
+                       device="cpu")
+    assert out["final_step"] == 1 and len(out["losses"]) == 2
+    assert (tmp_path / "LATEST").read_text() == "step_00000001"
+    out = ptrain.train("seamless-m4t-large-v2-smoke", steps=1, batch=1, seq=32, device="cpu")
+    assert out["params"]["enc_layers"]["attn"]["wq"].shape[0] == 2
+    assert all(np.isfinite(out["losses"]))

@@ -1,10 +1,12 @@
-"""Shared helpers of the model-family parity tests (MoE, hybrid, VLM):
+"""Shared helpers of the model-family parity tests (MoE, hybrid, VLM,
+encoder-decoder):
 both packages' configs, the JAX package's weights carried into the port,
 tolerance checks, spec-tree comparison and the Auto-axes mesh the JAX
 steps need (ROADMAP queue C: the reference's default mesh fails under
 the installed JAX).
 
-Weights come from the JAX package's ``init_params``; the leaves it
+Weights come from the JAX package's ``init_params`` of its family's spec
+tree (``steps.model_specs``); the leaves it
 initialises to constants (norm weights and biases, attention biases,
 Mamba2's ``A_log``, ``dt_bias``, ``D`` and inner norm) are overwritten
 with random values so that their paths are tested (``A = -exp(A_log)``
@@ -20,10 +22,13 @@ import torch
 from jax.sharding import AxisType
 
 from repro.configs import registry as jreg
+from repro.models import encdec as jencdec
 from repro.models import lm as jlm
 from repro.models import params as jparams
+from repro.parallel import steps as jsteps
 from repro_torch.configs import registry as preg
 from repro_torch.models import carry
+from repro_torch.models import encdec as pencdec
 from repro_torch.models import lm as plm
 from repro_torch.models import params as pparams
 
@@ -39,9 +44,12 @@ def configs(arch, **changes):
 
 
 def published_f32(arch, n_layers=1):
-    """``arch`` at its published widths, cut to ``n_layers``, in f32 on
-    both sides."""
-    cj, cp = configs(arch, n_layers=n_layers)
+    """``arch`` at its published widths, cut to ``n_layers`` (an
+    encoder-decoder model's encoder too), in f32 on both sides."""
+    cuts = dict(n_layers=n_layers)
+    if jreg.get(arch).enc_layers:
+        cuts["enc_layers"] = n_layers
+    cj, cp = configs(arch, **cuts)
     return (
         dataclasses.replace(cj, param_dtype=jnp.float32),
         dataclasses.replace(cp, param_dtype=torch.float32),
@@ -73,7 +81,7 @@ def _randomise(tree, rng) -> None:
         sub = tree[name]
         if isinstance(sub, dict):
             _randomise(sub, rng)
-        elif name in ("ln1", "ln2", "final_norm", "norm", "D"):
+        elif name in ("ln1", "ln2", "lnx", "final_norm", "enc_norm", "norm", "D"):
             tree[name] = draw(sub.shape, 1.0, 0.3)
         elif name.endswith("_b") or name in ("bq", "bk", "bv", "A_log"):
             tree[name] = draw(sub.shape, 0.0, 0.3 if name != "A_log" else 0.5)
@@ -81,27 +89,39 @@ def _randomise(tree, rng) -> None:
             tree[name] = draw(sub.shape, 0.0, 0.5)
 
 
-def jax_weights(cfg_j, seed=0):
-    """The JAX package's weights as numpy, the constant inits randomised."""
-    tree = jparams.init_params(jlm.lm_specs(cfg_j), jax.random.PRNGKey(seed))
+def jax_weights(cfg_j, seed=0, model_fan_in=False):
+    """The JAX package's weights as numpy, the constant inits randomised;
+    with ``model_fan_in`` every attention block's ``wq`` and ``wk`` at a
+    fan-in of d_model (:func:`at_model_fan_in`)."""
+    tree = jparams.init_params(jsteps.model_specs(cfg_j), jax.random.PRNGKey(seed))
     tree = jax.tree_util.tree_map(np.asarray, tree)
     _randomise(tree, np.random.default_rng(seed + 100))
+    if model_fan_in:
+        for attn in _attention_blocks(tree):
+            at_model_fan_in(attn)
     return tree
 
 
+def _attention_blocks(tree):
+    for sub in tree.values():
+        if isinstance(sub, dict):
+            yield from [sub] if "wq" in sub else _attention_blocks(sub)
+
+
 def at_model_fan_in(attn) -> None:
-    """Redraw an attention block's ``wq`` and ``wk`` (d, H, Dh) at a
-    fan-in of d_model, where the reference's init takes the head count
-    (``shape[-2]``): its attention is then nearly one-hot, which
-    amplifies f32 rounding layer after layer.  Scales them in place."""
+    """Redraw an attention block's ``wq`` and ``wk`` (d, H, Dh), or a
+    stack of them (L, d, H, Dh), at a fan-in of d_model, where the
+    reference's init takes the head count (``shape[-2]``): its attention
+    is then nearly one-hot, which amplifies f32 rounding layer after
+    layer.  Scales them in place."""
     for name in ("wq", "wk"):
         w = attn[name]
-        attn[name] = (w * np.sqrt(w.shape[-2] / w.shape[0])).astype(w.dtype)
+        attn[name] = (w * np.sqrt(w.shape[-2] / w.shape[-3])).astype(w.dtype)
 
 
-def both_weights(cj, cp, seed=0):
+def both_weights(cj, cp, seed=0, model_fan_in=False):
     """``(JAX params, port params)`` from the same numpy tree."""
-    tree = jax_weights(cj, seed)
+    tree = jax_weights(cj, seed, model_fan_in)
     return as_jax(tree), carry.from_jax_params(cp, tree, "cpu")
 
 
@@ -150,11 +170,14 @@ def assert_same_specs(port_tree, jax_tree):
 
 def tokens_batch(cfg, B, S, seed=0):
     """tokens and labels (B, S) int32, and the frontend embeddings (B, Nf,
-    d) f32 for a model that takes them, drawn with numpy."""
+    d) f32 for a model that takes them ((B, S, d) frames for an
+    encoder-decoder model), drawn with numpy."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, size=(B, S + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    if cfg.n_frontend_tokens:
+    if cfg.family == "encdec":
+        batch["frontend"] = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    elif cfg.n_frontend_tokens:
         fe = rng.normal(size=(B, cfg.n_frontend_tokens, cfg.d_model))
         batch["frontend"] = fe.astype(np.float32)
     return batch
@@ -171,10 +194,19 @@ def random_caches(cj, cp, B, S, seed, scale=1.0):
     return as_jax(tree), carry.cache_from_numpy(cp, tree, "cpu")
 
 
+def forwards(cj):
+    """The reference's and the port's training forward of ``cj``'s
+    family."""
+    if cj.family == "encdec":
+        return jencdec.forward, pencdec.forward
+    return jlm.forward, plm.forward
+
+
 def forward_both(cj, cp, pj, pp, batch, backend):
     """``((loss, logits) of the reference, (loss, logits) of the port)``."""
-    want = jlm.forward(cj, pj, {k: jnp.asarray(v) for k, v in batch.items()}, backend=backend)
-    got = plm.forward(cp, pp, to_torch(batch))
+    jfwd, pfwd = forwards(cj)
+    want = jfwd(cj, pj, {k: jnp.asarray(v) for k, v in batch.items()}, backend=backend)
+    got = pfwd(cp, pp, to_torch(batch))
     return want, got
 
 
@@ -185,7 +217,8 @@ def grads_both(cj, cp, tree_np, batch):
     from repro_torch.parallel import steps as psteps
 
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    loss_j, grads_j = jax.value_and_grad(lambda p: jlm.forward(cj, p, jb, backend="xla")[0])(
+    jfwd = forwards(cj)[0]
+    loss_j, grads_j = jax.value_and_grad(lambda p: jfwd(cj, p, jb, backend="xla")[0])(
         as_jax(tree_np)
     )
     params = carry.from_jax_params(cp, tree_np, "cpu")
@@ -218,13 +251,13 @@ def check_grads(cj, cp, tree_np, batch, jax_rtol=2e-4):
     return grads_p
 
 
-def train_steps_both(arch, steps=3, B=2, S=64, seed=7):
+def train_steps_both(arch, steps=3, B=2, S=64, seed=7, model_fan_in=False):
     """Three steps of the port's ``make_train_step`` beside the reference's
-    ``jit_train_step`` from the same carried weights and batches (the
-    reference's token source, frontend included), at the settings of
-    ``tests/test_torch_train.py``: lr 1e-3 from the first step, AdamW eps
-    1e-2.  Yields ``(port metrics, JAX metrics)`` a step, then the final
-    ``(port params, JAX params as numpy)``."""
+    ``jit_train_step`` from the same carried weights (``jax_weights``) and
+    batches (the reference's token source, frontend included), at the
+    settings of ``tests/test_torch_train.py``: lr 1e-3 from the first
+    step, AdamW eps 1e-2.  Yields ``(port metrics, JAX metrics)`` a step,
+    then the final ``(port params, JAX params as numpy)``."""
     from repro.configs.base import ShapeConfig as JShape
     from repro.data import pipeline as jpipe
     from repro.optim import adamw as jadamw
@@ -238,7 +271,7 @@ def train_steps_both(arch, steps=3, B=2, S=64, seed=7):
     jitted, bundle, _ = jsteps.jit_train_step(
         cj, auto_mesh(), shape, opt_cfg=jadamw.AdamWConfig(**opt_kw)
     )
-    tree = jax_weights(cj, seed=seed)
+    tree = jax_weights(cj, seed=seed, model_fan_in=model_fan_in)
     jp = jax.device_put(as_jax(tree), bundle["param_sh"])
     jo = jax.device_put(jadamw.init_state(jp, bundle["opt_cfg"]), bundle["opt_sh"])
     step, specs = psteps.make_train_step(cp, padamw.AdamWConfig(**opt_kw))
