@@ -58,6 +58,14 @@ it:
   with a checkpoint every 2 steps and a failure injected before step 4,
   against the same run uninterrupted: the parameters, the moments and
   the losses equal bit for bit.
+- the COX runtime services: the graph chain on two cox streams with an
+  event edge and vectorAdd on a third, bitwise the serial launches, the
+  default stream's legacy barrier, one injected fault of each site and a
+  degradation-ladder walk, and the serving token pipeline captured once as
+  a ``torch.cuda.CUDAGraph`` and replayed 200 times, bitwise the eager
+  pipeline; ``serve_requests(postproc=True, graph=True)`` on qwen2.5-14b
+  at full width and depth (rmsnorm and flash_decode), and
+  ``serve_requests(postproc=True, chaos=True)`` on mamba2-130m (rmsnorm).
 
 Then it times the kernel wrappers' host cost, profiles a few decode steps
 and one train step of each model (device busy and idle time, kernels by
@@ -459,6 +467,53 @@ def rowStats(
     if lane == 0:
         sums[row] = s
         maxes[row] = m
+
+
+# the runtime services' chain (tests/test_graphs.py's saxpy -> scale ->
+# tile_sum) and a kernel whose auto knobs resolve to the batched warp
+# plane, so a fault walks the degradation ladder
+@cox.kernel
+def svc_saxpy(
+    c, out: cox.Array(cox.f32), x: cox.Array(cox.f32), y: cox.Array(cox.f32), n: cox.i32
+):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        out[i] = 2.5 * x[i] + y[i]
+
+
+@cox.kernel
+def svc_scale(c, out: cox.Array(cox.f32), x: cox.Array(cox.f32), n: cox.i32):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        out[i] = x[i] * 3.0 + 1.0
+
+
+@cox.kernel
+def svc_tile_sum(c, out: cox.Array(cox.f32), x: cox.Array(cox.f32), n: cox.i32):
+    tile = c.shared((256,), cox.f32)
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    v = 0.0
+    if i < n:
+        v = x[i]
+    tile[c.thread_idx()] = v
+    c.syncthreads()
+    s = 0.0
+    for k in range(256):
+        s += tile[k]
+    out[c.block_idx()] = s
+
+
+@cox.kernel
+def svc_warpstage(c, out: cox.Array(cox.f32), a: cox.Array(cox.f32)):
+    tile = c.shared((4,), cox.f32)
+    tid = c.thread_idx()
+    v = a[c.block_idx() * c.block_dim() + tid]
+    s = c.red_add(v)
+    if c.lane_id() == 0:
+        tile[c.warp_id()] = s
+    c.syncthreads()
+    t = tile[tid % 4]
+    out[c.block_idx() * c.block_dim() + tid] = v + t
 
 
 # ---------------------------------------------------------------------------
@@ -2295,6 +2350,292 @@ def phase_ckpt_drill(arch: str = SSM_ARCH, run: dict = CKPT_DRILL) -> None:
     torch.cuda.empty_cache()
 
 
+SVC_N = 2048  # the services chain: tests/test_graphs.py's size, grid 8 x 256
+SVC_REPLAYS = 200  # token-pipeline replays with rebound tokens
+SVC_DEADLINE_S = 0.05
+
+
+def _services_chain(stream_a, stream_b, x, y):
+    """saxpy on ``stream_a``, then, after an event edge, scale and
+    tile_sum on ``stream_b``: the handles."""
+    n = SVC_N
+    zeros = np.zeros(n, np.float32)
+    h1 = stream_a.launch(svc_saxpy, grid=8, block=256, args=(zeros, x, y, n))
+    stream_b.wait_event(stream_a.record_event())
+    h2 = stream_b.launch(svc_scale, grid=8, block=256, args=(zeros, h1.outputs["out"], n))
+    h3 = stream_b.launch(
+        svc_tile_sum, grid=8, block=256, args=(np.zeros(8, np.float32), h2.outputs["out"], n)
+    )
+    return h1, h2, h3
+
+
+def _fault_drills() -> dict:
+    """One injected fault of each site on a private dispatcher (the
+    default one stays clean for the serve phases), each surfaced with its
+    type, and one ladder walk batched -> serial, bitwise the serial
+    launch."""
+    from repro_torch.core.streams import Dispatcher
+
+    x = np.arange(SVC_N, dtype=np.float32) / SVC_N
+    args = (np.zeros(SVC_N, np.float32), x, x, SVC_N)
+    out = {}
+    for site, err in (
+        ("dispatch", cox.CoxLaunchError),
+        ("stage", cox.CoxCompileError),
+        ("timeout", cox.CoxTimeoutError),
+        ("sticky-device", cox.CoxDeviceError),
+    ):
+        d = Dispatcher(devices=[DEVICE], launch_deadline_s=SVC_DEADLINE_S)
+        s = cox.Stream(f"drill-{site}", d)
+        # explicit knobs: no ladder rung may absorb the fault
+        with cox.faults.inject("svc_saxpy", site=site) as spec:
+            h = s.launch(svc_saxpy, grid=8, block=256, args=args, **SCAN)
+        try:
+            h.result()
+            got = None
+        except cox.CoxError as e:
+            got = e
+        check(spec.fired == 1 and isinstance(got, err), f"fault {site}: fired {spec.fired}, {got!r}")
+        rec = {"error": type(got).__name__, "failures": d.failures}
+        if site == "timeout":
+            check(d.timeouts == 1, f"fault timeout: {d.timeouts} timeouts")
+        if site == "sticky-device":
+            try:
+                s.launch(svc_scale, grid=8, block=256, args=args[:2] + (SVC_N,), **SCAN)
+                blocked = False
+            except cox.CoxDeviceError:
+                blocked = True
+            check(blocked, "a sticky error did not block the next launch")
+            d.device_reset()
+            ok = s.launch(svc_saxpy, grid=8, block=256, args=args, **SCAN).result()["out"]
+            check(bool(torch.isfinite(ok).all()), "no launch after device_reset")
+            rec["blocked_until_reset"] = True
+        out[site] = rec
+    d = Dispatcher(devices=[DEVICE])
+    s = cox.Stream("drill-ladder", d)
+    a = np.random.default_rng(3).integers(-8, 9, 256).astype(np.float32)
+    largs = (np.zeros(256, np.float32), a)
+    want = s.launch(svc_warpstage, grid=2, block=128, args=largs, warp_exec="serial").result()["out"]
+    with cox.faults.inject("svc_warpstage", site="dispatch", times=1):
+        h = s.launch(svc_warpstage, grid=2, block=128, args=largs)
+        got = h.result()["out"]
+    walk = [e["to"] for e in d.degradation_log]
+    check(h.request.rl.warp_exec == "serial" and walk == ["warp_exec=serial"], f"ladder {walk}")
+    check(torch.equal(got, want), "ladder batched -> serial is not bitwise the serial launch")
+    out["ladder"] = {"walk": walk, "degradations": d.degradations, "bitwise": True}
+    return out
+
+
+def phase_services(rng: np.random.Generator) -> dict:
+    """The COX runtime services on the card, no model: the chain of
+    tests/test_graphs.py on two streams with an event edge and vectorAdd
+    on a third, bitwise the serial launches; a default-stream launch after
+    them sees their writes (the legacy barrier); Event.elapsed beside the
+    host clock; the overlap of two streams' launches; one injected fault
+    of each site and one ladder walk; the token pipeline captured once and
+    replayed SVC_REPLAYS times, bitwise the eager pipeline, as a
+    torch.cuda.CUDAGraph, with the host time of a step and the device
+    time of a replay."""
+    d = cox.get_dispatcher()
+    x = rng.standard_normal(SVC_N).astype(np.float32)
+    y = rng.standard_normal(SVC_N).astype(np.float32)
+    va = rng.standard_normal(VEC_N).astype(np.float32)
+    vb = rng.standard_normal(VEC_N).astype(np.float32)
+    vargs = (np.zeros(VEC_N, np.float32), va, vb, VEC_N)
+    vgrid = -(-VEC_N // 256)
+    dev = {"device": None if DEVICE == "cuda" else DEVICE}
+
+    def serial_chain():
+        w1 = svc_saxpy.launch(grid=8, block=256, args=(np.zeros(SVC_N, np.float32), x, y, SVC_N), **dev)
+        w2 = svc_scale.launch(grid=8, block=256, args=(np.zeros(SVC_N, np.float32), w1["out"], SVC_N), **dev)
+        w3 = svc_tile_sum.launch(grid=8, block=256, args=(np.zeros(8, np.float32), w2["out"], SVC_N), **dev)
+        wd = svc_scale.launch(grid=1, block=256, args=(np.zeros(8, np.float32), w3["out"], 8), **dev)
+        return w1, w2, w3, wd
+
+    # serial issue on the default stream, once to stage every launch
+    # shape (the stage cache the streams share), then timed
+    serial_chain()
+    vectorAdd.launch(grid=vgrid, block=256, args=vargs, **dev)
+    sync()
+    t0 = time.perf_counter()
+    w1, w2, w3, wd = serial_chain()
+    sync()
+    chain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wv = vectorAdd.launch(grid=vgrid, block=256, args=vargs, **dev)
+    sync()
+    vec_s = time.perf_counter() - t0
+
+    # the same launches on three streams, an event edge between two
+    s_a = cox.Stream("svc-a", device=DEVICE)
+    s_b = cox.Stream("svc-b", device=DEVICE)
+    s_c = cox.Stream("svc-c", device=DEVICE)
+    sync()
+    syncs0 = execute.host_syncs
+    t0 = time.perf_counter()
+    start = cox.Event().record(s_a)
+    h1, h2, h3 = _services_chain(s_a, s_b, x, y)
+    hv = s_c.launch(vectorAdd, grid=vgrid, block=256, args=vargs)
+    stop = s_b.record_event()
+    # a default-stream launch reads tile_sum's output through a view (no
+    # data edge): only the legacy barrier orders it after stream b
+    hd = d.default.launch(
+        svc_scale, grid=1, block=256, args=(np.zeros(8, np.float32), h3.outputs["out"].view(-1), 8), **dev
+    )
+    sync()
+    both_s = time.perf_counter() - t0
+    host_syncs = execute.host_syncs - syncs0
+    got = {"saxpy": h1.result()["out"], "scale": h2.result()["out"], "tile_sum": h3.result()["out"]}
+    got["vectorAdd"] = hv.result()["out"]
+    got["default_after"] = hd.result()["out"]
+    want = {
+        "saxpy": w1["out"],
+        "scale": w2["out"],
+        "tile_sum": w3["out"],
+        "vectorAdd": wv["out"],
+        "default_after": wd["out"],
+    }
+    for k in want:
+        check(torch.equal(got[k], want[k]), f"services: {k} on streams != serial")
+    elapsed_ms = start.elapsed(stop)
+    overlap = (chain_s + vec_s - both_s) / min(chain_s, vec_s)
+    check(d.degradations == 0 and d.health()["sticky"] is None, f"services: {d.health()}")
+
+    drills = _fault_drills()
+
+    # the token pipeline: eager against one capture replayed
+    g_pipe = serve.TokenPipeline(SERVE["batch"], graph=True, device=DEVICE)
+    e_pipe = serve.TokenPipeline(SERVE["batch"], graph=False, device=DEVICE)
+    vocab = registry.get(ARCH).vocab
+    steps = [
+        (rng.integers(0, vocab, size=SERVE["batch"]).astype(np.int32), rng.random(SERVE["batch"]) < 0.9)
+        for _ in range(SVC_REPLAYS)
+    ]
+    g_pipe.step(*steps[0])  # capture + first replay
+    e_pipe.step(*steps[0])
+    sync()
+    t0 = time.perf_counter()
+    for toks, active in steps[1:]:
+        e_pipe.step(toks, active)
+    eager_host_us = (time.perf_counter() - t0) / (SVC_REPLAYS - 1) * 1e6
+    sync()
+    t0 = time.perf_counter()
+    for toks, active in steps[1:]:
+        g_pipe.step(toks, active)
+    replay_host_us = (time.perf_counter() - t0) / (SVC_REPLAYS - 1) * 1e6
+    sync()
+    g_stats, e_stats = g_pipe.collect(), e_pipe.collect()
+    for k in e_stats:
+        check(np.array_equal(g_stats[k], e_stats[k]), f"token pipeline: replay {k} != eager")
+    check(int(g_stats["hist"].sum()) == int(sum(a.sum() for _, a in steps)), "token pipeline: tokens lost")
+    exe = g_pipe.graph_exec
+    is_graph = exe is not None and isinstance(exe.cuda_graph, torch.cuda.CUDAGraph)
+    check(is_graph or DEVICE != "cuda", "token pipeline: the replay is not a torch.cuda.CUDAGraph")
+    replay_ms = median_ms(exe.cuda_graph.replay) if is_graph else None
+    check(d.degradations == 0, f"token pipeline: {d.degradations} degradations")
+    rec = {
+        "phase": "services",
+        "chain": {"n": SVC_N, "grid": 8, "block": 256, "streams": 2, "check": "bitwise == serial"},
+        "vectorAdd": {"n": VEC_N, "stream": "svc-c", "check": "bitwise == serial"},
+        "legacy_barrier": "default-stream launch after them read tile_sum through a view: bitwise",
+        "serial_chain_s": chain_s,
+        "serial_vectorAdd_s": vec_s,
+        "streams_both_s": both_s,
+        "overlap_share": overlap,
+        "host_syncs_on_streams": host_syncs,
+        "event_elapsed_ms": elapsed_ms,
+        "event_elapsed_is": "device" if DEVICE == "cuda" else "host clock",
+        "faults": drills,
+        "pipeline": {
+            "batch": SERVE["batch"],
+            "replays": SVC_REPLAYS,
+            "cuda_graph": is_graph,
+            "eager_host_us_per_step": eager_host_us,
+            "replay_host_us_per_step": replay_host_us,
+            "replay_device_ms": replay_ms,
+            "check": "bitwise == eager",
+        },
+        "dispatch_health": {k: d.health()[k] for k in ("failures", "retries", "degradations", "sticky")},
+    }
+    emit(rec)
+    return rec
+
+
+def phase_services_serve(cpu_tokens: int, serve_rec: dict) -> dict:
+    """serve_requests on qwen2.5-14b at full width and depth in bf16 with
+    the per-slot postprocess kernels on cox streams and the token
+    pipeline captured and replayed every decode step (beside its eager
+    shadow); the reference's asserts hold inside; the decode step beside
+    phase_serve's, so the pipelines' cost to the step is on record."""
+    cfg = registry.get(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    out = serve.serve_requests(
+        ARCH, postproc=True, graph=True, device=None if DEVICE == "cuda" else DEVICE, **SERVE
+    )
+    after = ops.launch_counts()
+    sync()
+    torch.cuda.empty_cache()
+    check(out["completed"] == SERVE["n_requests"], f"services_serve: {out['completed']} requests")
+    check(out["tokens"] == cpu_tokens, f"services_serve: {out['tokens']} tokens, CPU {cpu_tokens}")
+    per_step = {n: (after[n] - before[n]) / out["steps"] for n in ("rmsnorm", "flash_decode")}
+    want_norm, want_decode = decode_launches(cfg)
+    check(per_step == {"rmsnorm": want_norm, "flash_decode": want_decode}, f"services_serve launches {per_step}")
+    check(out["graph"]["cuda_graph"] or DEVICE != "cuda", f"services_serve: graph {out['graph']}")
+    dh = out["dispatch_health"]
+    check(dh["degradations"] == 0 and dh["sticky"] is None, f"services_serve: {dh}")
+    rec = {
+        "phase": "services_serve",
+        "arch": cfg.name,
+        **{k: SERVE[k] for k in ("batch", "ctx", "n_requests", "max_tokens")},
+        "n_layers": cfg.n_layers,
+        "dtype": "bfloat16",
+        "tokens": out["tokens"],
+        "steps": out["steps"],
+        "step_ms_median": statistics.median(out["step_s"]) * 1e3,
+        "serve_step_ms_median": serve_rec["step_ms_median"],
+        "tok_per_s": out["tok_per_s"],
+        "wall_s": out["wall_s"],
+        "launches_per_step": per_step,
+        "postproc": {k: out["postproc"][k] for k in ("requests", "hist_tokens", "failed")},
+        "graph": out["graph"],
+        "dispatch_health": {k: dh[k] for k in ("failures", "retries", "degradations", "sticky", "devices")},
+    }
+    emit(rec)
+    return rec
+
+
+def phase_services_chaos(cpu_tokens: int) -> dict:
+    """serve_requests on mamba2-130m at full width and depth with the
+    per-slot postprocess kernels and the fault drill: the first
+    postprocess launch fails, slot 0 is isolated, every other slot
+    completes (the reference's asserts, inside serve_requests)."""
+    cfg = registry.get(SSM_ARCH)
+    out = serve.serve_requests(
+        SSM_ARCH, postproc=True, chaos=True, device=None if DEVICE == "cuda" else DEVICE, **SERVE
+    )
+    sync()
+    torch.cuda.empty_cache()
+    check(out["tokens"] == cpu_tokens, f"services_chaos: {out['tokens']} tokens, CPU {cpu_tokens}")
+    h = out["postproc"]["health"]
+    check(set(h["failed_slots"]) == {0} and h["completed"] == h["submitted"] - h["failed"], f"services_chaos: {h}")
+    rec = {
+        "phase": "services_chaos",
+        "arch": cfg.name,
+        **{k: SERVE[k] for k in ("batch", "ctx", "n_requests", "max_tokens")},
+        "tokens": out["tokens"],
+        "steps": out["steps"],
+        "step_ms_median": statistics.median(out["step_s"]) * 1e3,
+        "postproc": {k: h[k] for k in ("submitted", "completed", "failed", "failed_slots")},
+        "root_errors": [e for e in h["errors"] if not e.startswith("CoxDependencyError")],
+        "dispatch_failures": out["dispatch_health"]["failures"],
+    }
+    emit(rec)
+    # drain the default dispatcher's last-error register
+    cox.get_last_error()
+    return rec
+
+
 def _oracle_blocks(kern, bids, *, grid, block, args) -> dict:
     """Run chosen blocks of a launch through the numpy oracle (blocks that
     read only their own inputs; used where the whole grid would be slow)."""
@@ -2583,6 +2924,8 @@ PATH_KERNELS = {
     "encdec_serve": ("layernorm", "flash_decode"),
     "encdec_train": ("layernorm", "layernorm_bwd", "flash_attention", "flash_attention_bwd"),
     "ckpt_drill": ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd"),
+    "services_serve": ("rmsnorm", "flash_decode"),
+    "services_chaos": ("rmsnorm",),
 }
 
 
@@ -2672,6 +3015,16 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_ckpt_drill()
     paths["ckpt_drill"] = ops.launch_counts()
+    # the runtime services: COX on streams and graphs, then the serving
+    # paths that ride them (postprocess kernels, the captured token
+    # pipeline, the fault drill)
+    phase_services(rng)
+    ops.reset_launch_counts()
+    phase_services_serve(cpu_tokens, serve_rec)
+    paths["services_serve"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    phase_services_chaos(ssm_cpu_tokens)
+    paths["services_chaos"] = ops.launch_counts()
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()

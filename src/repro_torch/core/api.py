@@ -12,7 +12,11 @@
     out = vec_add.launch(grid=4, block=256, args=(out, a, b, n))["out"]
 
 A launch runs on the CUDA device unless ``device=`` names the CPU, and
-returns a dict of tensors.  Kernels are parsed from their source file
+returns a dict of tensors.  Every launch goes through the stream
+dispatcher (``streams.py``): ``launch`` enqueues on the default stream;
+``cox.Stream``, ``cox.Event`` and ``cox.Graph`` are CUDA's streams,
+events and graphs (``torch.cuda.Stream``/``Event``/``CUDAGraph`` on the
+card).  Kernels are parsed from their source file
 (``inspect.getsource``), so they must be defined in a file, not typed
 into an interactive prompt or ``python -c``.
 """
@@ -20,14 +24,47 @@ into an interactive prompt or ``python -c``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Sequence
 
+from . import costmodel  # noqa: F401  (cox.costmodel: op/mem estimates)
+from . import errors  # noqa: F401  (cox.errors: typed error hierarchy)
+from . import faults  # noqa: F401  (cox.faults: fault injection)
 from . import flat as _flat
 from . import kernel_ir as K
+from . import placement  # noqa: F401  (cox.placement: device policies)
 from . import runtime as _runtime
+from . import streams as _streams
+from .backends.plan import hold_kernel_args
+from .errors import (  # noqa: F401
+    CoxCompileError,
+    CoxDependencyError,
+    CoxDeviceError,
+    CoxError,
+    CoxLaunchError,
+    CoxTimeoutError,
+)
 from .execute import CompiledKernel, compile_kernel
 from .frontend import Array, parse_kernel  # noqa: F401  (cox.Array re-export)
-from .types import CoxUnsupported, DType, Dim3, WARP_SIZE, as_dim3  # noqa: F401
+from .graphs import Graph, GraphExec, GraphNodeHandle  # noqa: F401
+from .placement import (  # noqa: F401
+    AffinityPlacement,
+    HealthAwarePlacement,
+    PlacementPolicy,
+    RoundRobinPlacement,
+)
+from .streams import (  # noqa: F401
+    Event,
+    LaunchHandle,
+    Stream,
+    default_stream,
+    device_reset,
+    get_dispatcher,
+    get_last_error,
+    peek_at_last_error,
+    synchronize,
+)
+from .types import CoxUnsupported, DType, Dim3, GraphRef, WARP_SIZE, as_dim3  # noqa: F401
 
 # dtype shorthands (annotation + c.shared dtype arguments)
 f32 = DType.f32
@@ -37,14 +74,33 @@ i32 = DType.i32
 u32 = DType.u32
 b1 = DType.b1
 
+# the reference's switch for tuning every all-auto launch (ROADMAP A.9.3)
+ENV_AUTOTUNE = "COX_AUTOTUNE"
+
+
+def _autotune_requested(autotune: Optional[bool]) -> bool:
+    if autotune is not None:
+        return bool(autotune)
+    return os.environ.get(ENV_AUTOTUNE, "").strip().lower() in ("1", "true", "on", "yes")
+
 
 @dataclasses.dataclass
 class KernelFn:
     """A parsed CUDA-style kernel plus the pass-pipeline cache
-    (``compiled``), keyed by collapse choice and warp size."""
+    (``compiled``), keyed by collapse choice and warp size.  The
+    launch-level cache of staged plans lives behind the stream
+    dispatcher (``streams.py``) and is shared by every stream;
+    ``_launch_cache`` is a read view of this kernel's entries."""
 
     ir: K.Kernel
     _cache: Dict[Any, CompiledKernel] = dataclasses.field(default_factory=dict)
+
+    @property
+    def _launch_cache(self) -> Dict[Any, Any]:
+        """This kernel's staged ``(plan, run)`` entries in the
+        dispatcher's shared cache (compile token first, phase count
+        second)."""
+        return get_dispatcher().cache_view(self._cache.values())
 
     @property
     def name(self) -> str:
@@ -78,6 +134,83 @@ class KernelFn:
             self._compile_key(collapse=collapse, warp_size=warp_size, block=block)
         )
 
+    def make_request(
+        self,
+        *,
+        grid,
+        block,
+        args: Sequence[Any],
+        collapse: str = "hybrid",
+        mode: str = "auto",
+        simd: bool = True,
+        warp_size: int = WARP_SIZE,
+        mesh=None,
+        backend: str = "auto",
+        chunk=None,
+        warp_exec: str = "auto",
+        schedule: str = "auto",
+        n_resident: Optional[int] = None,
+        donate: bool = False,
+        device=None,
+        autotune: Optional[bool] = None,
+    ) -> _streams.LaunchRequest:
+        """Resolve the launch knobs and hold the arguments in a
+        :class:`~streams.LaunchRequest`, the unit the dispatcher
+        consumes.  Compilation and knob resolution happen here, so a bad
+        launch fails at its call; the arguments reach the device at
+        dispatch, on the launch's stream.
+
+        ``device=`` pins the launch to a torch device (``'cpu'``, or a
+        card); left ``None`` the launch runs on its stream's device, by
+        default the current CUDA device.  The knobs of paths not ported
+        yet raise :class:`CoxUnsupported` naming the ROADMAP item:
+        ``mesh``/``backend='sharded'`` (A.10), ``donate``, ``autotune``
+        (and ``COX_AUTOTUNE``) and ``COX_COSTMODEL=xla`` (A.9.3)."""
+        if device is not None and mesh is not None:
+            raise CoxUnsupported(
+                f"kernel '{self.name}': device= and mesh= are mutually exclusive -- "
+                f"a sharded launch spans the mesh's own devices; placement applies "
+                f"to single-device launches"
+            )
+        if donate:
+            raise _runtime.unported("donate")
+        if mesh is not None:
+            raise _runtime.unported("mesh")
+        if _autotune_requested(autotune):
+            raise _runtime.unported("autotune")
+        costmodel.telemetry_mode()  # COX_COSTMODEL=xla raises at the launch
+        dev = None if device is None else _runtime.resolve_device(device)
+        block3 = as_dim3(block, "block")
+        token = self._compile_key(collapse=collapse, warp_size=warp_size, block=block3.total)
+        ck = self._compiled_for(token)
+        rl = _runtime.resolve_launch(
+            ck,
+            grid=grid,
+            block=block3,
+            mode=mode,
+            backend=backend,
+            warp_exec=warp_exec,
+            chunk=chunk,
+            schedule=schedule,
+            n_resident=n_resident,
+        )
+        globals_, shapes, scalars = hold_kernel_args(ck, args)
+        rl = _runtime.resolve_schedule(ck, rl, shapes)
+        return _streams.LaunchRequest(
+            ck=ck,
+            token=token,
+            rl=rl,
+            simd=simd,
+            chunk=rl.chunk,
+            donate=donate,
+            globals_=globals_,
+            shapes=shapes,
+            scalars=scalars,
+            device=dev,
+            req_backend=backend,
+            req_warp_exec=warp_exec,
+        )
+
     def launch(
         self,
         *,
@@ -97,45 +230,51 @@ class KernelFn:
         donate: bool = False,
         device=None,
         autotune: Optional[bool] = None,
-        stream=None,
+        stream: Optional[Stream] = None,
     ) -> Dict[str, Any]:
-        """Launch ``kernel<<<grid, block>>>(*args)`` and return every
-        array parameter's final value as a tensor.
+        """Launch ``kernel<<<grid, block>>>(*args)``: enqueue on the
+        (default) stream and dispatch, and return every array
+        parameter's final value as a tensor.  The launch is issued (host
+        errors surface here) but the host does not wait for the card.
 
-        ``device`` is the torch device to run on: ``None`` means CUDA
-        (and raises where there is none), ``"cpu"`` runs on the host.
-        ``grid``/``block`` accept CUDA dim3 geometry (``int | (x, y[,
-        z])``).  ``mode``, ``simd`` and ``collapse`` behave as in the
-        reference, and so do ``backend`` (``'scan'`` or the
-        block-parallel ``'vmap'``), ``warp_exec`` (``'serial'`` or the
-        ``'batched'`` warp plane), ``chunk`` (blocks a ``vmap`` wave),
-        ``schedule`` (``'chunked'`` or ``'grid_stride'``) and
-        ``n_resident`` (the grid-stride wave width).  The knobs of paths
-        not ported yet -- ``backend='sharded'``, ``mesh``, ``donate``,
-        ``autotune``, ``stream`` -- raise :class:`CoxUnsupported` naming
-        the ROADMAP item that brings them."""
-        if autotune:
-            raise _runtime.unported("autotune")
-        if stream is not None:
-            raise _runtime.unported("stream")
-        block3 = as_dim3(block, "block")
-        ck = self.compiled(collapse=collapse, warp_size=warp_size, block=block3)
-        return _runtime.launch(
-            ck,
+        ``device`` is the torch device to run on: ``None`` means the
+        stream's device, by default CUDA (and raises where there is
+        none), ``"cpu"`` runs on the host.  ``grid``/``block`` accept
+        CUDA dim3 geometry (``int | (x, y[, z])``).  ``mode``, ``simd``
+        and ``collapse`` behave as in the reference, and so do
+        ``backend`` (``'scan'`` or the block-parallel ``'vmap'``),
+        ``warp_exec`` (``'serial'`` or the ``'batched'`` warp plane),
+        ``chunk`` (blocks a ``vmap`` wave), ``schedule`` (``'chunked'``
+        or ``'grid_stride'``) and ``n_resident`` (the grid-stride wave
+        width).  ``stream=`` enqueues on a :class:`Stream` instead of
+        the default one.  See :meth:`make_request` for the knobs that
+        raise."""
+        return self.launch_async(
             grid=grid,
-            block=block3,
+            block=block,
             args=args,
+            collapse=collapse,
             mode=mode,
             simd=simd,
+            warp_size=warp_size,
+            mesh=mesh,
             backend=backend,
             chunk=chunk,
             warp_exec=warp_exec,
             schedule=schedule,
             n_resident=n_resident,
-            device=device,
-            mesh=mesh,
             donate=donate,
-        )
+            device=device,
+            autotune=autotune,
+            stream=stream,
+        ).arrays()
+
+    def launch_async(self, *, stream: Optional[Stream] = None, **knobs) -> LaunchHandle:
+        """Enqueue on ``stream`` (default: the legacy-sync default
+        stream) and return a :class:`LaunchHandle` future at once.
+        Takes the keyword knobs of :meth:`launch`."""
+        st = stream if stream is not None else get_dispatcher().default
+        return st.launch(self, **knobs)
 
     def uses_warp_features(self) -> bool:
         return K.uses_warp_features(self.ir)

@@ -25,6 +25,7 @@ from ..types import (
     CoxUnsupported,
     Dim3,
     DType,
+    GraphRef,
     as_dim3,
     check_launch_geometry,
 )
@@ -36,11 +37,7 @@ def _to_tensor(val, dtype: DType, device: torch.device, name: str) -> torch.Tens
     """One argument as a tensor of ``dtype``'s compute type on ``device``.
     Numpy data is copied to the device; a tensor must already be there."""
     if isinstance(val, torch.Tensor):
-        if val.device != device:
-            raise ValueError(
-                f"argument '{name}' is on {val.device} but the launch runs on "
-                f"{device}: move it with .to({str(device)!r}) or pass numpy"
-            )
+        check_arg_device(val, device, name)
         t = val.detach()
         if t.dtype == torch.uint32:  # torch has few uint32 kernels: reinterpret
             t = t.view(torch.int32).to(torch.int64) & U32_MASK
@@ -48,35 +45,126 @@ def _to_tensor(val, dtype: DType, device: torch.device, name: str) -> torch.Tens
         a = np.asarray(val)
         if a.dtype == np.uint32:
             a = a.astype(np.int64)
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t = _host_to_device(torch.from_numpy(np.ascontiguousarray(a)), torch.device(device))
     return _cast(t, dtype.compute)
 
 
-def bind_kernel_args(
-    ck: CompiledKernel, args: Sequence[Any], device
-) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple], Dict[str, torch.Tensor]]:
-    """Split positional args into (globals dict, shapes, scalar uniforms).
+def _host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Host data onto ``device`` without blocking the host: on a card a
+    scalar becomes a fill kernel and an array goes through pinned memory
+    with a non-blocking copy (torch's pinned-memory cache keeps the
+    buffer until the copy is done).  A plain ``.to(cuda)`` from pageable
+    memory synchronises the issuing stream, which would make every
+    launch wait for its stream to drain, and which a CUDA graph capture
+    refuses."""
+    if device.type != "cuda":
+        return t.to(device)
+    if t.dim() == 0:
+        return torch.full((), t.item(), dtype=t.dtype, device=device)
+    return t.pin_memory().to(device, non_blocking=True)
 
-    Arrays become fresh flat tensors on ``device`` (CUDA pointer
-    semantics) with one sink slot appended, so the launch updates its own
-    copies and never the caller's.  Scalars become 0-d tensors."""
-    device = torch.device(device)
+
+def check_arg_device(val, device, name: str) -> None:
+    """A tensor argument must already sit on the launch's device."""
+    if isinstance(val, torch.Tensor) and val.device != torch.device(device):
+        raise ValueError(
+            f"argument '{name}' is on {val.device} but the launch runs on "
+            f"{device}: move it with .to({str(device)!r}) or pass numpy"
+        )
+
+
+def hold_kernel_args(
+    ck: CompiledKernel, args: Sequence[Any]
+) -> Tuple[Dict[str, Any], Dict[str, tuple], Dict[str, Any]]:
+    """Split positional args into (globals dict, shapes, scalars) without
+    putting anything on a device: what a ``LaunchRequest`` holds between
+    its ``make_request`` and its dispatch.
+
+    Tensors are held as flat views (no copy), everything else as a flat
+    numpy copy, so a caller mutating its numpy array after the call does
+    not change the launch.  A :class:`~types.GraphRef` (a captured
+    launch's output placeholder) binds symbolically: its shape is
+    recorded and the value passes through for the graph to resolve.
+    :func:`materialize_args` makes a launch's own device copies from
+    what is held -- afresh for every attempt, so a retry or a fallback
+    rung never sees an earlier attempt's in-place writes."""
     if len(args) != len(ck.kernel.params):
         raise TypeError(
             f"kernel {ck.kernel.name} takes {len(ck.kernel.params)} args, "
             f"got {len(args)}"
         )
-    globals_: Dict[str, torch.Tensor] = {}
+    globals_: Dict[str, Any] = {}
     shapes: Dict[str, tuple] = {}
-    scalars: Dict[str, torch.Tensor] = {}
+    scalars: Dict[str, Any] = {}
     for spec, val in zip(ck.kernel.params, args):
-        t = _to_tensor(val, spec.dtype, device, spec.name)
         if isinstance(spec, ArraySpec):
-            shapes[spec.name] = tuple(t.shape)
-            globals_[spec.name] = with_sink(t.reshape(-1))
+            if isinstance(val, GraphRef):
+                shapes[spec.name] = tuple(val.shape)
+                globals_[spec.name] = val
+                continue
+            if isinstance(val, torch.Tensor):
+                shapes[spec.name] = tuple(val.shape)
+                # a flat tensor is held as the very object passed: the
+                # dispatcher knows a launch's outputs by identity (the
+                # data edges of handle.outputs chaining)
+                flat = val.dim() == 1 and not val.requires_grad
+                globals_[spec.name] = val if flat else val.detach().reshape(-1)
+                continue
+            held = np.array(val)
+            shapes[spec.name] = tuple(held.shape)
+            globals_[spec.name] = held.reshape(-1)
         else:
-            scalars[spec.name] = t.reshape(())
+            if isinstance(val, GraphRef):
+                raise CoxUnsupported(
+                    f"kernel {ck.kernel.name}: scalar parameter '{spec.name}' "
+                    f"bound to a captured array output ({val!r}) -- graph data "
+                    f"edges carry global-memory arrays, not by-value uniforms"
+                )
+            scalars[spec.name] = val.detach() if isinstance(val, torch.Tensor) else np.array(val)
     return globals_, shapes, scalars
+
+
+def materialize_args(
+    ck: CompiledKernel, globals_: Dict[str, Any], scalars: Dict[str, Any], device
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Fresh flat tensors on ``device`` with one sink slot appended (CUDA
+    pointer semantics: the launch updates its own copies, never the
+    held values), and the scalars as 0-d tensors."""
+    device = torch.device(device)
+    g: Dict[str, torch.Tensor] = {}
+    s: Dict[str, torch.Tensor] = {}
+    for spec in ck.kernel.params:
+        if isinstance(spec, ArraySpec):
+            t = _to_tensor(globals_[spec.name], spec.dtype, device, spec.name)
+            g[spec.name] = with_sink(t.reshape(-1))
+        else:
+            s[spec.name] = _to_tensor(scalars[spec.name], spec.dtype, device, spec.name).reshape(())
+    return g, s
+
+
+def bind_kernel_args(
+    ck: CompiledKernel, args: Sequence[Any], device
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple], Dict[str, torch.Tensor]]:
+    """Split positional args into (globals dict, shapes, scalar uniforms)
+    on ``device``: :func:`hold_kernel_args` then :func:`materialize_args`.
+    Arrays become fresh flat tensors with one sink slot appended, so the
+    launch updates its own copies and never the caller's; scalars become
+    0-d tensors."""
+    held, shapes, held_s = hold_kernel_args(ck, args)
+    globals_, scalars = materialize_args(ck, held, held_s, device)
+    return globals_, shapes, scalars
+
+
+def flat_outputs(ck: CompiledKernel, globals_: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Every array parameter's final value, flat: the sink slot stripped
+    and u32 arrays back as ``torch.uint32`` (their low 32 bits)."""
+    out = {}
+    for spec in ck.array_params:
+        t = globals_[spec.name][:-1]
+        if spec.dtype is DType.u32:
+            t = t.to(torch.int32).view(torch.uint32)
+        out[spec.name] = t
+    return out
 
 
 def unbind_outputs(
@@ -84,13 +172,7 @@ def unbind_outputs(
 ) -> Dict[str, torch.Tensor]:
     """Strip the sink slots and restore shapes; u32 arrays go back to
     ``torch.uint32`` by reinterpreting their low 32 bits."""
-    out = {}
-    for spec in ck.array_params:
-        t = globals_[spec.name][:-1].reshape(shapes[spec.name])
-        if spec.dtype is DType.u32:
-            t = t.to(torch.int32).view(torch.uint32)
-        out[spec.name] = t
-    return out
+    return {k: v.reshape(shapes[k]) for k, v in flat_outputs(ck, globals_).items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,10 +387,13 @@ class LaunchPlan:
         ``(C,)`` for a wave of blocks), bdim, gdim and the scalars, as
         int32 tensors on the launch's device."""
         dev = bid.device
+        # torch.full, not torch.tensor: a fill kernel, where torch.tensor
+        # would copy from pageable host memory -- illegal while a CUDA
+        # graph captures the launch (graphs.py)
         u = {
             "bid": bid,
-            "bdim": torch.tensor(self.block, dtype=torch.int32, device=dev),
-            "gdim": torch.tensor(self.grid, dtype=torch.int32, device=dev),
+            "bdim": torch.full((), self.block, dtype=torch.int32, device=dev),
+            "gdim": torch.full((), self.grid, dtype=torch.int32, device=dev),
         }
         u.update(scalars)
         return u

@@ -54,7 +54,11 @@ def _lanes(W: int, device) -> torch.Tensor:
 
 def _as_index(v, device) -> torch.Tensor:
     """An offset / source-lane operand as an int32 tensor (a Python int,
-    a 0-d tensor, a (W,) lane vector or a per-warp plane)."""
+    a 0-d tensor, a (W,) lane vector or a per-warp plane).  A Python int
+    becomes a fill, not a copy from host memory, so the launch stays
+    capturable in a CUDA graph."""
+    if isinstance(v, int):
+        return torch.full((), v, dtype=torch.int32, device=device)
     return torch.as_tensor(v, device=device).to(torch.int32)
 
 

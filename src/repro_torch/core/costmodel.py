@@ -14,20 +14,36 @@ Bytes are priced at each type's declared width, as the reference prices
 them (an ``i64`` array counts 8 bytes though both packages store it in
 32 bits), so ``auto`` picks the reference's schedule.
 
-The per-launch ``estimate`` (the reference reads XLA's
-``cost_analysis``) is ROADMAP queue item A.9.2 and is not here.
+``estimate`` is the per-launch cost record the dispatcher's telemetry
+keeps (tinygrad's ``op_estimate``/``mem_estimate`` idiom): the
+reference's ``static`` source, an IR walk -- arithmetic instructions x
+threads for operations, twice the bound global bytes for memory -- which
+gives the reference's numbers field by field.  The reference's second
+source, ``xla``, reads XLA's cost analysis of the compiled program;
+nothing in PyTorch counts a COX launch's operations and bytes without
+running it (``torch.utils.flop_counter`` sees matmul-class ops only), so
+``mode='xla'`` and ``COX_COSTMODEL=xla`` raise ``CoxUnsupported`` naming
+ROADMAP A.9.3, which brings the measured counterpart with the autotuner.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import threading
 from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 from . import flat as _flat
 from . import kernel_ir as K
 from .execute import CompiledKernel, walk_instrs
 from .regions import warp_peel_count
-from .types import ArraySpec, DType
+from .types import ArraySpec, CoxUnsupported, DType
+
+# estimate source for the dispatcher's always-on telemetry: 'static' (the
+# default, and the only one the port has)
+ENV_MODE = "COX_COSTMODEL"
 
 # residency budget for a chunked wave's schedule-dependent footprint
 FOOTPRINT_BUDGET = 64 << 20
@@ -35,6 +51,54 @@ ENV_BUDGET = "COX_FOOTPRINT_BUDGET"
 
 # wave widths the residency sizer considers, widest first
 RESIDENT_CANDIDATES = (32, 16, 8, 4, 2, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class CostEstimate:
+    """One launch's cost record (the ASTRunner fields plus the static
+    features the autotuner prunes candidates with)."""
+
+    op_estimate: float  # arithmetic-op proxy per dispatch
+    mem_estimate: float  # bytes touched per dispatch
+    coll_estimate: float  # collective bytes (sharded launches: A.10)
+    shared_footprint: int  # static shared-memory bytes per block
+    peel_count: int  # warp-graph peel blocks (batched-exec cost)
+    collective_density: float  # warp collectives per IR instruction
+    source: str  # 'static'
+
+    def gflops(self, seconds: float) -> float:
+        """Achieved GFLOPS for a measured wall time."""
+        if seconds <= 0:
+            return 0.0
+        return self.op_estimate / seconds / 1e9
+
+    def gbps(self, seconds: float) -> float:
+        """Achieved memory bandwidth (GB/s) for a measured wall time."""
+        if seconds <= 0:
+            return 0.0
+        return self.mem_estimate / seconds / 1e9
+
+
+_cache: Dict[tuple, CostEstimate] = {}
+_cache_lock = threading.Lock()
+_CACHE_MAX = 1024
+
+
+def _xla_unported() -> CoxUnsupported:
+    return CoxUnsupported(
+        "costmodel mode 'xla' (the compiled program's own cost analysis) is "
+        "not ported to repro_torch yet: ROADMAP queue item A.9.3 (autotune.py "
+        "and the measured cost model); use the 'static' estimate"
+    )
+
+
+def telemetry_mode() -> str:
+    """``COX_COSTMODEL``: 'static' (default; any unknown value reads as
+    'static', as in the reference), and 'xla' raises (ROADMAP A.9.3)."""
+    mode = os.environ.get(ENV_MODE, "static").strip().lower()
+    if mode == "xla":
+        raise _xla_unported()
+    return "static"
 
 
 def footprint_budget() -> int:
@@ -201,3 +265,76 @@ def schedule_verdict(
     return "grid_stride", resident_slots(
         ck, shapes, grid=grid, n_warps=n_warps, warp_exec=warp_exec, budget=budget
     )
+
+
+def _static_estimate(ck: CompiledKernel, rl, shapes: Dict[str, tuple]) -> CostEstimate:
+    shared, peels, density = kernel_features(ck)
+    # arithmetic proxy: every non-structural instruction is ~1 op per
+    # thread; warp collectives cost ~log2(W) lane ops
+    arith = 0.0
+    for s in walk_instrs(ck):
+        if isinstance(s, K.WarpCall):
+            arith += max(1, int(np.log2(max(2, ck.warp_size))))
+        elif not isinstance(s, K.Barrier):
+            arith += 1
+    threads = rl.grid.total * rl.block.total
+    return CostEstimate(
+        op_estimate=arith * threads,
+        mem_estimate=2.0 * global_bytes(ck, shapes),
+        coll_estimate=0.0,
+        shared_footprint=shared,
+        peel_count=peels,
+        collective_density=density,
+        source="static",
+    )
+
+
+def estimate(
+    ck: CompiledKernel,
+    rl,
+    shapes: Dict[str, tuple],
+    *,
+    simd: bool = True,
+    mode: Optional[str] = None,
+) -> CostEstimate:
+    """The cost record of one resolved launch shape, cached per (kernel,
+    knobs, shapes).  ``mode=None`` follows ``COX_COSTMODEL``; 'xla'
+    raises ``CoxUnsupported`` (ROADMAP A.9.3) rather than hand back the
+    static record under another name."""
+    mode = telemetry_mode() if mode is None else mode
+    if mode == "xla":
+        raise _xla_unported()
+    key = (
+        id(ck),
+        rl.backend,
+        rl.mode,
+        rl.warp_exec,
+        rl.grid.astuple(),
+        rl.block.astuple(),
+        rl.chunk,
+        rl.schedule,
+        rl.n_resident,
+        simd,
+        tuple(sorted(shapes.items())),
+        mode,
+    )
+    with _cache_lock:
+        hit = _cache.get(key)
+        if hit is not None:
+            return hit
+    est = _static_estimate(ck, rl, shapes)
+    with _cache_lock:
+        _cache[key] = est
+        while len(_cache) > _CACHE_MAX:
+            _cache.pop(next(iter(_cache)))
+    return est
+
+
+def estimate_request(req, mode: Optional[str] = None) -> CostEstimate:
+    """:func:`estimate` keyed off a dispatcher ``LaunchRequest``."""
+    return estimate(req.ck, req.rl, req.shapes, simd=req.simd, mode=mode)
+
+
+def clear_cache() -> None:
+    with _cache_lock:
+        _cache.clear()

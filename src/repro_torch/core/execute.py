@@ -412,9 +412,11 @@ def load(arr: torch.Tensor, idx: torch.Tensor, offs=None) -> torch.Tensor:
     i = _norm_index(idx, n)
     ok = (i >= 0) & (i < n)
     j = torch.where(ok, i, n)
+    # torch.take, not arr[j]: indexing with a 0-d tensor reads it to the
+    # host (.item()), which a CUDA graph capture refuses
     if offs is not None:
-        return arr.reshape(-1)[offs + j].masked_fill(~ok, 0)
-    return arr[j].masked_fill(~ok, 0)
+        return torch.take(arr, offs + j).masked_fill(~ok, 0)
+    return torch.take(arr, j).masked_fill(~ok, 0)
 
 
 def store_index(idx: torch.Tensor, m: torch.Tensor, n: int) -> torch.Tensor:

@@ -16,6 +16,12 @@ heuristics (``flat.choose_backend`` / ``choose_warp_exec``), and
 ``schedule='auto'`` its footprint verdict (``costmodel``), so a launch
 takes the path the reference would.
 
+``KernelFn.launch`` does not call :func:`launch` any more: it builds a
+request (``api.KernelFn.make_request``) and issues it on the default
+stream of the dispatcher (``streams.py``), which stages the plan through
+its shared cache, orders it against the other streams and runs it.
+:func:`launch` stays the uncached entry point, as in the reference.
+
 Knobs the port does not run yet raise :class:`CoxUnsupported` naming the
 ROADMAP queue item that brings them (:data:`UNPORTED`); none is
 silently ignored.
@@ -44,10 +50,9 @@ from .types import (
 UNPORTED = {
     "backend='sharded'": "A.10 (multi-device)",
     "mesh": "A.10 (multi-device)",
-    "donate": "A.9 (runtime services)",
-    "autotune": "A.9 (runtime services: autotune.py)",
-    "stream": "A.9 (runtime services: streams.py)",
-    "device pin": "A.9 (runtime services: placement.py)",
+    "multi-device pool": "A.10 (multi-device placement)",
+    "donate": "A.9.3 (runtime services: buffer donation)",
+    "autotune": "A.9.3 (runtime services: autotune.py)",
 }
 
 
@@ -61,12 +66,15 @@ def unported(knob: str) -> CoxUnsupported:
 def resolve_device(device) -> torch.device:
     """The launch's torch device.  ``None`` means CUDA: a launch runs on
     the card unless the caller asks for the CPU, and raises when there
-    is no card rather than carrying on on the host.  Only a ``str`` or a
-    ``torch.device`` names a device; anything else is a placement pin."""
+    is no card rather than carrying on on the host.  A ``str`` or a
+    ``torch.device`` names the device, and pins the launch to it (the
+    reference's ``device=`` placement pin)."""
     if device is None:
         device = "cuda"
     if not isinstance(device, (str, torch.device)):
-        raise unported("device pin")
+        raise TypeError(
+            f"device must be None, a str or a torch.device, got {type(device).__name__}"
+        )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -293,10 +301,10 @@ def launch(
     Numpy arguments are copied to fresh tensors on the device; tensor
     arguments must already be there and are copied too, so the caller's
     inputs are never mutated."""
-    if mesh is not None:
-        raise unported("mesh")
     if donate:
         raise unported("donate")
+    if mesh is not None:
+        raise unported("mesh")
     dev = resolve_device(device)
     rl = resolve_launch(
         ck,

@@ -254,6 +254,28 @@ class BarrierLevel(enum.Enum):
         return self.rank >= other.rank
 
 
+class GraphRef:
+    """Symbolic handle to a captured launch's output, the currency of
+    stream capture (``graphs.py``).
+
+    While a stream is capturing, launch handles hand back ``GraphRef``
+    placeholders instead of tensors; passing one to a later captured
+    launch records a *data edge* in the captured DAG.  A ``GraphRef``
+    never holds data: consuming it outside its capture raises
+    :class:`CoxUnsupported` at enqueue."""
+
+    __slots__ = ("node", "name", "shape", "dtype")
+
+    def __init__(self, node, name: str, shape: tuple, dtype: DType):
+        self.node = node  # owning GraphNode (graphs.py)
+        self.name = name  # output (global param) name
+        self.shape = shape  # shape the consumer observes
+        self.dtype = dtype
+
+    def __repr__(self):
+        return f"GraphRef({self.node!r}.{self.name}, shape={self.shape}, {self.dtype.value})"
+
+
 @dataclasses.dataclass(frozen=True)
 class ArraySpec:
     """A kernel parameter backed by global memory."""

@@ -30,17 +30,28 @@ initialisation, so every token cross-attends to zeros (ROADMAP C.3).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --batch 4 --ctx 512 --requests 4 --tokens 16
 
+Per-request kernel work rides **cox streams** (``postproc``): each decode
+slot owns a stream, and a finished request's postprocess kernel (a token
+histogram, the stand-in for dedup/stats/safety passes) is enqueued on
+its slot's stream and left in flight while the server keeps decoding;
+one synchronize at the end collects everything.  ``graph`` captures the
+per-token statistics pipeline (three dependent COX kernels a decode
+step) once into a ``cox.Graph`` -- a ``torch.cuda.CUDAGraph`` on the
+card -- and replays it every step beside a shadow eager pipeline, whose
+statistics must be bitwise the replay's.  ``chaos`` is the
+fault-injection drill: the first postprocess launch is forced to fail,
+and the faulting slot must be isolated while every other slot completes.
+
 The server runs on the CUDA card unless it is given ``device="cpu"``
-(``--device cpu``), and raises where there is no card.  The reference's
-per-request postprocess kernels on cox streams (``postproc``), the
-captured token pipeline (``graph``), the fault drill (``chaos``) and
-``--autotune`` ride the runtime services, which are not ported yet
-(ROADMAP A.9): they raise ``CoxUnsupported``.
+(``--device cpu``), and raises where there is no card; the streams and
+graphs run where the server does.  ``--autotune`` is ROADMAP A.9.3: it
+raises ``CoxUnsupported``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Union
 
@@ -49,18 +60,200 @@ import torch
 
 from ..configs import registry
 from ..configs.base import ModelConfig, ShapeConfig
-from ..core.runtime import resolve_device
-from ..core.types import CoxUnsupported
+from ..core import cox
+from ..core.runtime import resolve_device, unported
 from ..models.params import init_params
 from ..parallel import steps as steps_mod
 from . import specs as S
 
 
-def _unported(what: str) -> CoxUnsupported:
-    return CoxUnsupported(
-        f"{what} is not ported to repro_torch yet: ROADMAP queue item A.9 "
-        "(runtime services: streams, graphs, faults, autotune)"
-    )
+@cox.kernel
+def _token_hist(c, hist: cox.Array(cox.i32), toks: cox.Array(cox.i32), n: cox.i32, nbins: cox.i32):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        c.atomic_add(hist, toks[i] % nbins, 1)
+
+
+# the per-token pipeline kernels (graph=True captures this 3-launch DAG
+# once and replays it every decode step): masked histogram accumulate ->
+# running total -> per-bin stats over the settled counts
+@cox.kernel
+def _tok_hist_add(c, hist: cox.Array(cox.i32), toks: cox.Array(cox.i32), n: cox.i32, nbins: cox.i32):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        if toks[i] >= 0:  # -1 marks an idle decode slot
+            c.atomic_add(hist, toks[i] % nbins, 1)
+
+
+@cox.kernel
+def _tok_hist_total(c, tot: cox.Array(cox.i32), hist: cox.Array(cox.i32), nbins: cox.i32):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < nbins:
+        c.atomic_add(tot, 0, hist[i])
+
+
+@cox.kernel
+def _tok_hist_stats(
+    c, sq: cox.Array(cox.i32), hist: cox.Array(cox.i32), tot: cox.Array(cox.i32), nbins: cox.i32
+):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < nbins:
+        sq[i] = hist[i] * hist[i] + tot[0]
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class TokenPipeline:
+    """Per-decode-step token statistics as a 3-kernel DAG on one cox
+    stream: histogram accumulate (carried across steps) -> total ->
+    per-bin stats.  ``graph=True`` captures the DAG once and replays it
+    every step, the step's tokens and the carried histogram rebound;
+    ``graph=False`` issues the three launches eagerly.  Both are bitwise
+    the same by the replay-equals-eager contract.
+
+    The stream has priority -1: the pipeline gates the decode loop's
+    cadence, so among ready launches it goes before the postprocess
+    pool's.  It takes the step's tokens as the host array the decode
+    step already made, so the only ordering it needs is its own
+    stream's.  Graph replays run on the current stream."""
+
+    def __init__(self, batch: int, nbins: int = 64, *, graph: bool = False, device=None):
+        self.batch = batch
+        self.nbins = nbins
+        self.use_graph = graph
+        self.device = resolve_device(device)
+        self.stream = cox.Stream(name="tok-pipeline", priority=-1, device=self.device)
+        self.hist = np.zeros(nbins, np.int32)
+        self.last: Dict[str, Any] = {}
+        self._graph: Optional[cox.Graph] = None
+        self.steps = 0
+
+    def _launch_dag(self, toks: np.ndarray):
+        """Issue the 3-kernel DAG on the stream (capturing or eager)."""
+        block = 64
+        s, nb = self.stream, self.nbins
+        h0 = s.launch(
+            _tok_hist_add,
+            grid=-(-self.batch // block),
+            block=block,
+            args=(self.hist, toks, self.batch, nb),
+        )
+        h1 = s.launch(
+            _tok_hist_total,
+            grid=-(-nb // block),
+            block=block,
+            args=(np.zeros(1, np.int32), h0.outputs["hist"], nb),
+        )
+        return s.launch(
+            _tok_hist_stats,
+            grid=-(-nb // block),
+            block=block,
+            args=(np.zeros(nb, np.int32), h1.outputs["hist"], h1.outputs["tot"], nb),
+        )
+
+    def step(self, tokens: np.ndarray, active: np.ndarray) -> None:
+        """Fold one decode step's tokens (idle slots masked to -1) into
+        the running statistics."""
+        toks = np.where(active, tokens, -1).astype(np.int32)
+        self.steps += 1
+        if self.use_graph:
+            if self._graph is None:  # capture once, replay every token
+                self._graph = cox.Graph(name="tok-pipeline")
+                with self._graph.capture(self.stream):
+                    self._launch_dag(toks)
+                res = self._graph.replay()
+            else:
+                res = self._graph.replay(toks=toks, hist=self.hist)
+            self.hist = res["hist"]  # carried through node 2's pass-through
+            self.last = {"tot": res["tot"], "sq": res["sq"]}
+            return
+        out = self._launch_dag(toks).arrays()  # no host block
+        self.hist = out["hist"]
+        self.last = {"tot": out["tot"], "sq": out["sq"]}
+
+    @property
+    def graph_exec(self):
+        """The pipeline's instantiated :class:`cox.GraphExec` (graph mode,
+        after the first step), else ``None``."""
+        return self._graph._exec if self._graph is not None else None
+
+    def collect(self) -> Dict[str, np.ndarray]:
+        """The final statistics on the host (one sync)."""
+        return {"hist": _host(self.hist), **{k: _host(v) for k, v in self.last.items()}}
+
+
+class RequestKernelPool:
+    """Per-request kernel postprocessing on per-slot cox streams.
+
+    ``submit`` enqueues the request's kernel on its slot's stream and
+    returns at once; the serving loop never blocks on postprocessing.
+    ``collect`` synchronizes every launch once, at the end.  A faulting
+    slot is **isolated**, not fatal: its typed error surfaces at that
+    handle's own sync, the failed request is retired, the slot's stream
+    is reset so it stays usable, and the other slots complete.  The
+    streams have priority 1 (bulk work, after the token pipeline).
+
+    The histogram launches pin the serial scan (``backend='scan'``,
+    ``warp_exec='serial'``).  At serving length a request's tokens fill
+    8 blocks, where the auto knobs pick the ``vmap`` backend, and its
+    degradation ladder would absorb the fault drill's one injected fault
+    (vmap -> scan, bitwise the same): the drill would then fail no slot.
+    Explicit knobs never degrade.  The reference's drill runs where auto
+    already picks scan."""
+
+    def __init__(self, n_slots: int, nbins: int = 64, *, device=None):
+        self.nbins = nbins
+        self.device = resolve_device(device)
+        self.streams = [
+            cox.Stream(name=f"req-slot{i}", priority=1, device=self.device)
+            for i in range(n_slots)
+        ]
+        self.handles: List[cox.LaunchHandle] = []
+        self._meta: List[tuple] = []  # (slot, n_tokens) per handle
+        self.ok_tokens = 0  # tokens binned by completed slots
+        self.health: Dict[str, Any] = {
+            "submitted": 0,
+            "completed": 0,
+            "failed": 0,
+            "failed_slots": [],
+            "errors": [],
+        }
+
+    def submit(self, slot: int, tokens: List[int]) -> None:
+        toks = np.asarray(tokens, np.int32)
+        n = int(toks.size)
+        if n == 0:
+            return
+        block = 64
+        h = self.streams[slot].launch(
+            _token_hist,
+            grid=-(-n // block),
+            block=block,
+            args=(np.zeros(self.nbins, np.int32), toks, n, self.nbins),
+            backend="scan",
+            warp_exec="serial",
+        )
+        self.handles.append(h)
+        self._meta.append((slot, n))
+        self.health["submitted"] += 1
+
+    def collect(self) -> List[np.ndarray]:
+        """Wait for every launch and return each completed request's
+        histogram (in completion order), isolating faulting slots."""
+        hists: List[np.ndarray] = []
+        for (slot, n), h in zip(self._meta, self.handles):
+            try:
+                hists.append(_host(h.result()["hist"]))
+                self.health["completed"] += 1
+                self.ok_tokens += n
+            except cox.CoxError as e:
+                self.health["failed"] += 1
+                self.health["failed_slots"].append(slot)
+                self.health["errors"].append(repr(e))
+                self.streams[slot].reset()
+        return hists
 
 
 class BatchedServer:
@@ -149,9 +342,15 @@ class BatchedServer:
                 self.pos[i] += 1
         return nxt
 
-    def decode(self, max_tokens: int, eos: Optional[int] = None):
+    def decode(
+        self,
+        max_tokens: int,
+        eos: Optional[int] = None,
+        pipelines: Optional[List[TokenPipeline]] = None,
+    ):
         for _ in range(max_tokens):
             nxt = self._step_all()
+            was_active = self.active.copy()
             for i in range(self.batch):
                 if not self.active[i]:
                     continue
@@ -162,6 +361,8 @@ class BatchedServer:
                     self.active[i] = False
                 if self.pos[i] >= self.ctx - 1:
                     self.active[i] = False
+            for p in pipelines or ():
+                p.step(nxt, was_active)
             if not self.active.any():
                 break
         return self.outputs
@@ -184,39 +385,105 @@ def serve_requests(
     tokens each, drawn from ``seed`` with numpy, as in the reference);
     ``arch`` as :class:`BatchedServer` takes it.
 
+    ``postproc=True`` issues every finished request's token histogram on
+    its slot's cox stream, collected with one sync at the end.
+    ``graph=True`` captures the per-token stats pipeline once and replays
+    it every decode step, beside a shadow eager pipeline whose statistics
+    must be bitwise the replay's.  ``chaos=True`` (which needs
+    ``postproc``) forces the first postprocess launch to fail: the
+    faulting slot is isolated and every other slot completes with its
+    totals intact.  The reference's asserts hold each of these.
+
     Returns the reference's counts (``completed``, ``tokens``, ``wall_s``,
-    ``tok_per_s``) and the server's ``init_s``, ``steps`` and ``step_s``."""
-    if postproc:
-        raise _unported("postproc (per-request kernels on cox streams)")
-    if graph:
-        raise _unported("graph (the captured token pipeline)")
-    if chaos:
-        raise _unported("chaos (the fault-injection drill)")
+    ``tok_per_s``, ``dispatch_health`` and the ``postproc`` and ``graph``
+    blocks) and the server's ``init_s``, ``steps`` and ``step_s``."""
+    if chaos and not postproc:
+        raise ValueError("chaos=True requires postproc=True (it faults the postprocess pool)")
     rng = np.random.default_rng(seed)
     server = BatchedServer(arch, batch=batch, ctx=ctx, seed=seed, device=device)
+    pool = RequestKernelPool(batch, device=server.device) if postproc else None
+    pipelines: List[TokenPipeline] = []
+    if graph:
+        pipelines = [
+            TokenPipeline(batch, graph=True, device=server.device),
+            TokenPipeline(batch, graph=False, device=server.device),
+        ]
     queue = [list(rng.integers(1, server.cfg.vocab, size=8)) for _ in range(n_requests)]
     done: List[List[int]] = []
     t0 = time.time()
-    while queue or server.active.any():
-        for slot in range(batch):
-            if not server.active[slot] and queue:
-                server.prefill_prompt(slot, queue.pop(0))
-        server.decode(max_tokens)
-        for slot in range(batch):
-            if not server.active[slot] and server.outputs[slot]:
-                done.append(server.outputs[slot])
-                server.outputs[slot] = []
+    with contextlib.ExitStack() as stack:
+        if chaos:
+            # deterministically fail the first postprocess dispatch
+            stack.enter_context(cox.faults.inject("_token_hist", site="dispatch", index=0, times=1))
+        while queue or server.active.any():
+            for slot in range(batch):
+                if not server.active[slot] and queue:
+                    server.prefill_prompt(slot, queue.pop(0))
+            server.decode(max_tokens, pipelines=pipelines)
+            for slot in range(batch):
+                if not server.active[slot] and server.outputs[slot]:
+                    done.append(server.outputs[slot])
+                    if pool is not None:
+                        pool.submit(slot, server.outputs[slot])
+                    server.outputs[slot] = []
+        out: Dict[str, Any] = {}
+        if pool is not None:
+            hists = pool.collect()  # one sync for all streams
+            out["postproc"] = {
+                "requests": len(hists),
+                "hist_tokens": int(sum(int(h.sum()) for h in hists)),
+                "failed": pool.health["failed"],
+                "health": dict(pool.health),
+            }
     dt = time.time() - t0
     total_tokens = sum(len(o) for o in done)
-    return {
-        "completed": len(done),
-        "tokens": total_tokens,
-        "wall_s": dt,
-        "tok_per_s": total_tokens / max(dt, 1e-9),
-        "init_s": server.init_s,
-        "steps": server.steps,
-        "step_s": list(server.step_s),
-    }
+    out.update(
+        {
+            "completed": len(done),
+            "tokens": total_tokens,
+            "wall_s": dt,
+            "tok_per_s": total_tokens / max(dt, 1e-9),
+            "init_s": server.init_s,
+            "steps": server.steps,
+            "step_s": list(server.step_s),
+        }
+    )
+    out["dispatch_health"] = cox.get_dispatcher().health()
+    if pool is not None:
+        # the completed histograms were binned from exactly the tokens
+        # their requests emitted: a faulted slot subtracts only its own
+        assert out["postproc"]["hist_tokens"] == pool.ok_tokens
+        if not chaos:
+            assert pool.health["failed"] == 0
+            assert out["postproc"]["hist_tokens"] == total_tokens
+            # a clean run never leans on the fault-tolerance machinery
+            dh = out["dispatch_health"]
+            assert dh["degradations"] == 0 and dh["sticky"] is None, dh
+        else:
+            # one injected fault; the faulting slot's stream is poisoned,
+            # so every request it had in flight fails as a dependency of
+            # it, and every other slot completes untouched
+            h = pool.health
+            assert h["failed"] >= 1 and set(h["failed_slots"]) == {0}, h
+            assert h["completed"] == h["submitted"] - h["failed"], h
+            roots = [e for e in h["errors"] if not e.startswith("CoxDependencyError")]
+            assert len(roots) == 1 and "injected" in roots[0], h
+            # ...and the per-device counters keep the fault on one device
+            dev_fail = [d for d, c in out["dispatch_health"]["devices"].items() if c.get("failures", 0)]
+            assert len(dev_fail) == 1, out["dispatch_health"]
+    if graph:
+        g_stats, e_stats = (p.collect() for p in pipelines)
+        for k in g_stats:  # replay == eager, bitwise
+            assert np.array_equal(g_stats[k], e_stats[k]), k
+        assert int(g_stats["hist"].sum()) == total_tokens
+        out["graph"] = {
+            "steps": pipelines[0].steps,
+            "hist_tokens": int(g_stats["hist"].sum()),
+            "replayed": pipelines[0]._graph is not None,
+            "cuda_graph": pipelines[0].graph_exec is not None
+            and pipelines[0].graph_exec.cuda_graph is not None,
+        }
+    return out
 
 
 def main(argv=None):
@@ -227,11 +494,27 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    for flag in ("--postproc", "--graph", "--chaos", "--autotune"):
-        ap.add_argument(flag, action="store_true", help="not ported yet (ROADMAP A.9)")
+    ap.add_argument(
+        "--postproc",
+        action="store_true",
+        help="per-request postprocess kernels on per-slot cox streams (one final sync)",
+    )
+    ap.add_argument(
+        "--graph",
+        action="store_true",
+        help="capture the per-token stats pipeline once as a cox.Graph and replay it "
+        "every decode step (held bitwise against eager launches)",
+    )
+    ap.add_argument(
+        "--chaos",
+        action="store_true",
+        help="fault-injection drill: force the first postprocess launch to fail and "
+        "check the other slots complete with correct totals (needs --postproc)",
+    )
+    ap.add_argument("--autotune", action="store_true", help="not ported yet (ROADMAP A.9.3)")
     args = ap.parse_args(argv)
     if args.autotune:
-        raise _unported("--autotune")
+        raise unported("autotune")
     out = serve_requests(
         args.arch,
         batch=args.batch,
@@ -243,10 +526,36 @@ def main(argv=None):
         chaos=args.chaos,
         device=args.device,
     )
-    print(
+    msg = (
         f"served {out['completed']} requests, {out['tokens']} tokens, "
         f"{out['tok_per_s']:.1f} tok/s on {args.device or 'cuda'}"
     )
+    if args.postproc:
+        pp = out["postproc"]
+        msg += (
+            f" (+{pp['requests']} postproc kernels, {pp['hist_tokens']} tokens binned, "
+            f"{pp['failed']} faulted)"
+        )
+    if args.graph:
+        g = out["graph"]
+        msg += (
+            f" (graph replay: {g['steps']} steps, {g['hist_tokens']} tokens binned, "
+            f"bitwise == eager, CUDA graph: {g['cuda_graph']})"
+        )
+    dh = out["dispatch_health"]
+    devs = dh.get("devices", {})
+    if devs:
+        cells = ", ".join(
+            f"{name}: {c['dispatches']}d/{c['failures']}f/{c['degradations']}g"
+            for name, c in sorted(devs.items())
+        )
+        msg += f" [devices: {cells}]"
+    msg += (
+        f" [dispatch health: {dh['failures']} failures, {dh['retries']} retries, "
+        f"{dh['degradations']} degradations, sticky {dh['sticky']}]"
+    )
+    print(msg)
+    return out
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ One card, no sharding: the reference's ``AxisRules``, shardings, ZeRO
 placement, donation and ``jax.jit`` have no counterpart here (ROADMAP
 A.10), and ``tp_pad`` stays 0, as the reference's ``_with_tp_pad`` leaves
 it on a mesh whose model axis is 1.  The steps run eagerly; CUDA-graph
-capture is ROADMAP A.9.
+capture of the decode step is ROADMAP A.9.1.
 """
 
 from __future__ import annotations

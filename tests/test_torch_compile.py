@@ -49,6 +49,7 @@ COPIED = [
     "flat",
     "errors",
     "oracle",
+    "faults",
 ]
 
 

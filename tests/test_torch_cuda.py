@@ -1369,3 +1369,156 @@ def test_encdec_decode_step_on_the_card_matches_the_cpu(cuda):
     _close_to_scale(got.cpu(), want, 1e-4, 1e-4, "logits")
     for leaf in ("k", "v"):
         _close_to_scale(card_cache[leaf].cpu(), cpu_cache[leaf], 1e-4, 1e-4, leaf)
+
+
+# ---------------------------------------------------------------------------
+# the runtime services on the card: streams, events, graphs
+# ---------------------------------------------------------------------------
+
+SLEEP_CYCLES = 200_000_000  # ~0.1 s of one SM's clock: the producer is late
+
+
+@cox.kernel
+def _svc_scale(c, out: cox.Array(cox.f32), x: cox.Array(cox.f32), n: cox.i32):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        out[i] = x[i] * 3.0 + 1.0
+
+
+@cox.kernel
+def _svc_tile_sum(c, out: cox.Array(cox.f32), x: cox.Array(cox.f32), n: cox.i32):
+    tile = c.shared((256,), cox.f32)
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    v = 0.0
+    if i < n:
+        v = x[i]
+    tile[c.thread_idx()] = v
+    c.syncthreads()
+    s = 0.0
+    for k in range(256):
+        s += tile[k]
+    out[c.block_idx()] = s
+
+
+def _svc_launch(stream, x, n=2048):
+    return stream.launch(_svc_scale, grid=n // 256, block=256, args=(torch.zeros_like(x), x, n))
+
+
+def _late(stream, dev):
+    """Queue a long sleep on the cox stream's torch stream: whatever it
+    launches next runs late, so a reader that is not made to wait reads
+    stale memory."""
+    with torch.cuda.stream(stream.torch_stream(dev)):
+        torch.cuda._sleep(SLEEP_CYCLES)
+
+
+@pytest.mark.parametrize("edge", ["event", "data"])
+def test_cross_stream_edges_are_device_waits(cuda, edge):
+    """A consumer on stream B of a late producer on stream A reads the
+    producer's output only after it is written: an event edge and a data
+    edge each become a wait of B on A's recorded event (the consumer gets
+    the output through a view for the event edge, so only the event
+    orders it)."""
+    d = cox.get_dispatcher()
+    a, b = cox.Stream("prod", d), cox.Stream("cons", d)
+    x = torch.randn(2048, device=cuda)
+    _late(a, cuda)
+    h1 = _svc_launch(a, x)
+    if edge == "event":
+        b.wait_event(a.record_event())
+        src = h1.outputs["out"].view(-1)  # a new tensor object: no data edge
+    else:
+        src = h1.outputs["out"]
+    h2 = _svc_launch(b, src)
+    assert (h1.request.seq in h2.request.deps) == (edge == "event")
+    assert (h1.request.seq in h2.request.data_deps) == (edge == "data"), (
+        h2.request.data_deps,
+        h1.request.done.query(),  # the producer is still late: an edge is needed
+    )
+    want = (x * 3.0 + 1.0) * 3.0 + 1.0
+    assert torch.equal(h2.result()["out"], want)
+
+
+def test_default_stream_legacy_sync_on_the_card(cuda):
+    """The legacy barrier in both directions: a default-stream launch
+    waits for every other stream's tail, and the next launch on another
+    stream waits for the default stream (here, late torch work on it)."""
+    d = cox.get_dispatcher()
+    s1, s2 = cox.Stream("one", d), cox.Stream("two", d)
+    x = torch.randn(2048, device=cuda)
+    _late(s1, cuda)
+    h1 = _svc_launch(s1, x)
+    alias = h1.outputs["out"].view(-1)  # no data edge: only the barrier orders it
+    hd = _svc_launch(d.default, alias)
+    assert h1.request.seq in hd.request.deps
+    torch.cuda._sleep(SLEEP_CYCLES)  # late work on the current stream
+    h2 = _svc_launch(s2, hd.outputs["out"].view(-1))
+    assert hd.request.seq in h2.request.deps
+    want = ((x * 3.0 + 1.0) * 3.0 + 1.0) * 3.0 + 1.0
+    assert torch.equal(h2.result()["out"], want)
+
+
+def test_record_stream_keeps_a_cross_stream_block(cuda):
+    """A producer's output, read late on another stream, is freed on the
+    host while that stream still has to read it; torch's caching
+    allocator must not hand its block to new work on the producer's
+    stream before then (``record_stream`` on the reading stream)."""
+    d = cox.get_dispatcher()
+    a, b = cox.Stream("alloc", d), cox.Stream("reader", d)
+    x = torch.randn(2048, device=cuda)
+    h1 = _svc_launch(a, x)
+    ev = a.record_event()
+    b.wait_event(ev)
+    _late(b, cuda)
+    h2 = _svc_launch(b, h1.outputs["out"].view(-1))
+    a.synchronize()
+    del h1, ev
+    d.flush()  # prunes the finished producer: its output is freed
+    with torch.cuda.stream(a.torch_stream(cuda)):
+        junk = [torch.full((2049,), 7.0, device=cuda) for _ in range(8)]
+    assert torch.equal(h2.result()["out"], (x * 3.0 + 1.0) * 3.0 + 1.0)
+    del junk
+
+
+def test_token_pipeline_replays_a_cuda_graph_with_cloned_outputs(cuda):
+    """The serving token pipeline captured once is a torch.cuda.CUDAGraph;
+    a replay hands back clones (an earlier step's histogram is not
+    overwritten by the next replay), and the statistics are bitwise the
+    eager pipeline's."""
+    from repro_torch.launch.serve import TokenPipeline
+
+    g, e = TokenPipeline(4, graph=True), TokenPipeline(4, graph=False)
+    gen = torch.Generator().manual_seed(3)
+    kept = []
+    for step in range(20):
+        toks = torch.randint(0, 152064, (4,), generator=gen).numpy()
+        active = (torch.rand(4, generator=gen) < 0.8).numpy()
+        g.step(toks, active)
+        e.step(toks, active)
+        kept.append((g.hist, g.hist.clone()))
+    assert isinstance(g.graph_exec.cuda_graph, torch.cuda.CUDAGraph)
+    for held, snapshot in kept:
+        assert torch.equal(held, snapshot)
+    got, want = g.collect(), e.collect()
+    for k in want:
+        assert (got[k] == want[k]).all(), k
+    assert g.hist.device.type == "cuda"
+
+
+def test_capture_of_a_host_reading_kernel_is_refused(cuda):
+    """A kernel whose launch reads flags back to the host (a 256-trip loop
+    past the unroll limit) cannot be captured: instantiate raises
+    CoxUnsupported naming it, and no replay -> eager rung is taken."""
+    d = cox.get_dispatcher()
+    s = cox.Stream("cap", d)
+    x = torch.randn(2048, device=cuda)
+    graph = cox.Graph()
+    with graph.capture(s):
+        s.launch(_svc_tile_sum, grid=8, block=256, args=(torch.zeros(8, device=cuda), x, 2048))
+    before = d.degradations
+    with pytest.raises(cox.CoxUnsupported, match="_svc_tile_sum.*host"):
+        graph.instantiate()
+    assert d.degradations == before
+    # eager issue of the same launch still runs
+    got = s.launch(_svc_tile_sum, grid=8, block=256, args=(torch.zeros(8, device=cuda), x, 2048))
+    assert got.result()["out"].shape == (8,)

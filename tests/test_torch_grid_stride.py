@@ -15,9 +15,12 @@ XLA contracts into a fused multiply-add while eager torch rounds twice
 The footprint verdict that picks the schedule for ``schedule='auto'``
 (``costmodel``), its budget override, the resolved knobs' provenance and
 the cooperative residency rules are pinned against the reference's.
+A grid-stride launch captured into a graph replays bitwise its eager
+launch, and the dispatcher's telemetry rows record the schedule and its
+provenance, as in the reference (the runtime services, ROADMAP A.9.2).
 The cases of ``tests/test_grid_stride.py`` and ``tests/test_grid_sync.py``
-that need a mesh, graphs, autotune or telemetry wait for ROADMAP A.9 and
-A.10.
+that need a mesh (the placed multi-device case) wait for ROADMAP A.10,
+and the autotune cases for A.9.3.
 """
 
 import numpy as np
@@ -28,7 +31,7 @@ from repro.core import runtime as rruntime
 from repro_torch.core import costmodel, oracle, runtime
 from repro_torch.core.backends.plan import DEFAULT_CHUNK, LaunchPlan
 from repro_torch.core.types import COOP_MAX_RESIDENT_BLOCKS, CoxUnsupported
-from torch_suite import annot, assert_same, both, define, pairs
+from torch_suite import annot, assert_same, both, define, on_both, pairs
 
 SUITE = pairs("port_kernels_suite_grid_stride")
 
@@ -371,3 +374,51 @@ def test_budget_env_validation(monkeypatch):
             costmodel.footprint_budget()
     monkeypatch.setenv(costmodel.ENV_BUDGET, "  ")
     assert costmodel.footprint_budget() == costmodel.FOOTPRINT_BUDGET
+
+
+def test_stride_graph_replay_bitwise_equals_eager():
+    """A captured grid-stride launch replays bitwise its eager launch, on
+    both packages, and the port's replay is the reference's (saxpy: rtol
+    = atol = 1e-5, the fused multiply-add)."""
+
+    def scenario(side):
+        d, s, _ = side.fresh()
+        args = _saxpy_args(10, 64, seed=4)
+        kw = dict(backend="vmap", schedule="grid_stride", n_resident=3)
+        want = np.asarray(s.launch(side.k(SAXPY), grid=10, block=64, args=args, **kw).result()["out"])
+        g = side.cox.Graph()
+        with g.capture(s):
+            s.launch(side.k(SAXPY), grid=10, block=64, args=args, **kw)
+        res = np.asarray(g.replay()["out"])
+        np.testing.assert_array_equal(res, want)
+        np.testing.assert_array_equal(np.asarray(g.replay()["out"]), res)
+        return res
+
+    ref, port = on_both(scenario)
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_telemetry_records_schedule_and_provenance():
+    """Telemetry rows carry each launch's schedule, wave width and
+    provenance; ``health`` counts the schedules; the same rows as the
+    reference's."""
+
+    def scenario(side):
+        d, s, _ = side.fresh()
+        args = _saxpy_args(10, 64, seed=8)
+        s.launch(side.k(SAXPY), grid=10, block=64, args=args, backend="vmap",
+                 schedule="grid_stride", n_resident=3).result()
+        s.launch(side.k(SAXPY), grid=10, block=64, args=args, backend="vmap").result()
+        by_sched = {r["schedule"]: r for r in d.telemetry() if r["kernel"] == "_saxpy"}
+        assert "grid_stride" in by_sched and "chunked" in by_sched
+        gs = by_sched["grid_stride"]
+        assert gs["n_resident"] == 3 and gs["schedule_source"] == "explicit"
+        assert by_sched["chunked"]["n_resident"] is None
+        health = d.health()
+        assert health["schedules"]["grid_stride"] >= 1 and health["schedules"]["chunked"] >= 1
+        keys = ("schedule", "n_resident", "schedule_source", "chunk", "chunk_source", "launches",
+                "op_estimate", "mem_estimate", "estimate_source")
+        return {k: {f: r[f] for f in keys} for k, r in by_sched.items()}, health["schedules"]
+
+    ref, port = on_both(scenario)
+    assert port == ref

@@ -316,19 +316,38 @@ def test_tensor_on_another_device_raises():
     "knobs,item",
     [
         ({"backend": "sharded"}, "A.10"),
-        ({"mesh": object()}, "A.10"),
-        ({"donate": True}, "A.9"),
-        ({"autotune": True}, "A.9"),
-        ({"stream": object()}, "A.9"),
-        ({"device": 0}, "A.9"),
+        ({"mesh": object(), "device": None}, "A.10"),  # device= and mesh= exclude
+        ({"donate": True}, "A.9.3"),
+        ({"autotune": True}, "A.9.3"),
+        ({"stream": "cox.Stream"}, None),
+        ({"device": torch.device("cpu")}, None),
     ],
     ids=["sharded", "mesh", "donate", "autotune", "stream", "pin"],
 )
 def test_unported_knobs_raise(knobs, item):
-    knobs = {"device": "cpu", **knobs}
-    args = (np.zeros(24, np.float32), np.zeros(24, np.float32), 24)
-    with pytest.raises(CoxUnsupported, match=item):
-        p_oob.launch(grid=1, block=32, args=args, **knobs)
+    """The knobs of paths not ported raise ``CoxUnsupported`` naming their
+    ROADMAP item.  The runtime services (A.9.2) lift two refusals: a
+    launch on a ``cox.Stream`` and one pinned to ``torch.device("cpu")``
+    run, bitwise the plain launch."""
+    from repro_torch.core.streams import Dispatcher
+
+    rng = np.random.default_rng(5)
+    args = (np.zeros(24, np.float32), rng.standard_normal(24).astype(np.float32), 24)
+    if item is not None:
+        with pytest.raises(CoxUnsupported, match=item):
+            p_oob.launch(grid=1, block=32, args=args, **{"device": "cpu", **knobs})
+        return
+    want = p_oob.launch(grid=1, block=32, args=args, device="cpu")
+    d = Dispatcher(devices=[torch.device("cpu")])
+    if "stream" in knobs:
+        got = p_oob.launch(grid=1, block=32, args=args, stream=pcox.Stream("s", d))
+    else:
+        pinned = pcox.Stream("pinned", d, device=knobs["device"])
+        got = p_oob.launch(grid=1, block=32, args=args, stream=pinned, **knobs)
+        assert pinned.device == knobs["device"]
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
 
 
 def test_auto_knobs_clamp_to_the_serial_path_and_say_so(pairs):

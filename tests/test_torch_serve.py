@@ -393,13 +393,102 @@ def test_unported_families_and_norms_raise(arch):
         assert str(t.dtype) == f"torch.{jnp.dtype(want[leaf].dtype)}", leaf
 
 
-@pytest.mark.parametrize("knob", ["postproc", "graph", "chaos"])
-def test_unported_serving_knobs_raise(knob):
-    with pytest.raises(CoxUnsupported, match="A.9"):
-        pserve.serve_requests(ARCH, batch=1, ctx=8, n_requests=1, max_tokens=1,
-                              device="cpu", **{knob: True})
-    with pytest.raises(CoxUnsupported, match="A.9"):
-        pserve.main(["--arch", ARCH, "--device", "cpu", f"--{knob}"])
+@pytest.mark.parametrize("knob", ["postproc", "graph", "chaos", "autotune"])
+def test_unported_serving_knobs_raise(knob, capsys):
+    """The runtime services (ROADMAP A.9.2) lift three refusals: the
+    ``postproc``, ``graph`` and ``chaos`` knobs run through
+    ``serve_requests`` and the CLI on the CPU.  ``--autotune`` is A.9.3
+    and still raises."""
+    argv = ["--arch", ARCH, "--batch", "1", "--ctx", "8", "--requests", "1", "--tokens", "1"]
+    if knob == "autotune":
+        with pytest.raises(CoxUnsupported, match="A.9.3"):
+            pserve.main(argv + ["--device", "cpu", "--autotune"])
+        return
+    knobs = {"postproc": True, knob: True}
+    out = pserve.serve_requests(ARCH, batch=1, ctx=8, n_requests=1, max_tokens=1, device="cpu", **knobs)
+    assert out["completed"] == 1 and "postproc" in out
+    flags = ["--postproc"] + ([f"--{knob}"] if knob != "postproc" else [])
+    cli = pserve.main(argv + ["--device", "cpu"] + flags)
+    assert cli["completed"] == 1
+    printed = capsys.readouterr().out
+    assert "postproc kernels" in printed and "dispatch health" in printed
+    if knob == "graph":
+        assert out["graph"]["replayed"] and "graph replay" in printed
+    if knob == "chaos":
+        assert out["postproc"]["failed"] == 1 and "1 faulted" in printed
+
+
+def _carried_serve_requests(monkeypatch, arch=ARCH, seed=10):
+    """Both packages' ``serve_requests`` build their servers on the same
+    carried weights (the reference's on the Auto-axes mesh)."""
+    cj, cp = configs(arch=arch)
+    tree = jax_weights(cj, seed=seed)
+    jcls, pcls = jserve.BatchedServer, pserve.BatchedServer
+    monkeypatch.setattr(
+        jserve, "BatchedServer", lambda a, **kw: jcls(a, params=as_jax(tree), mesh=auto_mesh(), **kw)
+    )
+    monkeypatch.setattr(
+        pserve,
+        "BatchedServer",
+        lambda a, **kw: pcls(a, params=carry.from_jax_params(cp, tree, "cpu"), **kw),
+    )
+
+
+SERVE_KW = dict(batch=2, ctx=24, n_requests=3, max_tokens=4, seed=0)
+
+
+def test_serve_requests_postproc_graph_matches_the_jax_server(monkeypatch):
+    """The per-slot postprocess kernels and the captured token pipeline:
+    the same tokens, histogram counts and graph statistics as the JAX
+    server, and a clean dispatcher (no degradation, no sticky error)."""
+    _carried_serve_requests(monkeypatch)
+    kw = dict(SERVE_KW, postproc=True, graph=True)
+    want = jserve.serve_requests(ARCH, **kw)
+    got = pserve.serve_requests(ARCH, device="cpu", **kw)
+    assert (got["completed"], got["tokens"]) == (want["completed"], want["tokens"])
+    for k in ("requests", "hist_tokens", "failed"):
+        assert got["postproc"][k] == want["postproc"][k], k
+    for k in ("steps", "hist_tokens", "replayed"):
+        assert got["graph"][k] == want["graph"][k], k
+    assert got["graph"]["cuda_graph"] is False  # the host runs the nodes
+    dh = got["dispatch_health"]
+    assert dh["degradations"] == 0 and dh["sticky"] is None
+
+
+def test_serve_requests_chaos_matches_the_jax_server(monkeypatch):
+    """The fault drill: slot 0's first postprocess launch fails, its
+    stream's later request fails as its dependency, the other slots
+    complete; the same counts and error kinds as the JAX server."""
+    _carried_serve_requests(monkeypatch)
+    kw = dict(SERVE_KW, postproc=True, chaos=True)
+    want = jserve.serve_requests(ARCH, **kw)
+    got = pserve.serve_requests(ARCH, device="cpu", **kw)
+    assert (got["completed"], got["tokens"]) == (want["completed"], want["tokens"])
+    gh, wh = got["postproc"]["health"], want["postproc"]["health"]
+    for k in ("submitted", "completed", "failed", "failed_slots"):
+        assert gh[k] == wh[k], k
+    assert [e.split("(")[0] for e in gh["errors"]] == [e.split("(")[0] for e in wh["errors"]]
+    assert got["postproc"]["hist_tokens"] == want["postproc"]["hist_tokens"]
+    with pytest.raises(ValueError, match="postproc"):
+        pserve.serve_requests(ARCH, device="cpu", **dict(SERVE_KW, chaos=True))
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["eager", "graph"])
+def test_token_pipeline_matches_the_reference(graph):
+    """The token pipeline's statistics after a run of steps with idle
+    slots: bitwise the reference pipeline's, eager and replayed."""
+    rng = np.random.default_rng(21)
+    steps = [(rng.integers(0, 512, size=3).astype(np.int32), rng.random(3) < 0.7) for _ in range(6)]
+    ref, port = jserve.TokenPipeline(3, graph=graph), pserve.TokenPipeline(3, graph=graph, device="cpu")
+    for toks, active in steps:
+        ref.step(toks, active)
+        port.step(toks, active)
+    want, got = ref.collect(), port.collect()
+    assert set(got) == set(want) == {"hist", "tot", "sq"}
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    assert int(got["hist"].sum()) == sum(int(a.sum()) for _, a in steps)
+    assert (port.graph_exec is not None) == graph
 
 
 def test_q_head_padding_raises():

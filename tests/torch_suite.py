@@ -92,3 +92,49 @@ def both(kernels, **kw):
     r, p = kernels
     want = as_numpy(r.launch(**kw))
     return as_numpy(p.launch(device="cpu", **kw)), want
+
+
+class Side:
+    """One package's runtime services (streams, events, graphs, faults),
+    so a scenario written once runs on the reference and on the port:
+    the port's dispatchers pool the CPU, and its plain launches pass
+    ``device="cpu"``."""
+
+    def __init__(self, port: bool):
+        import torch
+
+        from repro.core import streams as rstreams
+        from repro_torch.core import streams as pstreams
+
+        self.port = port
+        self.cox = pcox if port else rcox
+        self.faults = self.cox.faults
+        self.errors = self.cox.errors
+        self._streams = pstreams if port else rstreams
+        self.dev = {"device": "cpu"} if port else {}
+        self._cpu = torch.device("cpu")
+
+    def __repr__(self):
+        return "port" if self.port else "reference"
+
+    def dispatcher(self, **kw):
+        if self.port:
+            return self._streams.Dispatcher(devices=[self._cpu], **kw)
+        return self._streams.Dispatcher(**kw)
+
+    def fresh(self, **kw):
+        """A private dispatcher and two streams on it."""
+        d = self.dispatcher(**kw)
+        return d, self.cox.Stream("a", d), self.cox.Stream("b", d)
+
+    def k(self, kernels):
+        """This package's kernel of a :func:`define` pair."""
+        return kernels[1] if self.port else kernels[0]
+
+
+SIDES = (Side(False), Side(True))
+
+
+def on_both(scenario):
+    """``(reference result, port result)`` of ``scenario(side)``."""
+    return tuple(scenario(side) for side in SIDES)
