@@ -66,6 +66,17 @@ it:
   pipeline; ``serve_requests(postproc=True, graph=True)`` on qwen2.5-14b
   at full width and depth (rmsnorm and flash_decode), and
   ``serve_requests(postproc=True, chaos=True)`` on mamba2-130m (rmsnorm).
+- the measured autotuner, buffer donation and the counted cost model:
+  voteBallot (64 x 256) and warpReduce (128 x 256) tuned from a cold
+  cache (every cell's time, the winner, the tuned launch bitwise the scan
+  launch, then a memory hit and a disk hit that measure nothing), and
+  gridReduce keeping its cooperative chunk; vectorAdd on vmap over 2**22
+  f32 elements with and without ``donate=True`` (the peak device memory
+  falls by the donated bytes), a donating stream chain and the refusals;
+  the counted cost record of the five COX kernels beside the static one;
+  and ``launch.serve.main([... '--postproc', '--autotune'])`` on
+  mamba2-130m (rmsnorm), then the same command in a child process on the
+  same cache file, which measures nothing.
 
 Then it times the kernel wrappers' host cost, profiles a few decode steps
 and one train step of each model (device busy and idle time, kernels by
@@ -86,7 +97,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -2636,6 +2649,316 @@ def phase_services_chaos(cpu_tokens: int) -> dict:
     return rec
 
 
+# the tuner, donation and the counted cost model
+DONATE_N = 1 << 22  # f32 elements an array of the donate phase (16 MiB)
+AUTOTUNE_SERVE_ARGV = [
+    "--arch", SSM_ARCH, "--batch", "4", "--ctx", "512", "--requests", "4", "--postproc", "--autotune",
+]
+
+
+@contextlib.contextmanager
+def autotune_cache(path: str):
+    """``COX_AUTOTUNE_CACHE`` pointed at ``path`` (and ``COX_AUTOTUNE``
+    unset) for the block, the tuner's state cleared on both sides; the
+    environment as it was afterwards."""
+    from repro_torch.core import autotune
+
+    saved = {k: os.environ.get(k) for k in (autotune.ENV_CACHE, autotune.ENV_ENABLE)}
+    os.environ[autotune.ENV_CACHE] = path
+    os.environ.pop(autotune.ENV_ENABLE, None)
+    autotune.reset()
+    try:
+        yield autotune
+    finally:
+        autotune.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def same_outputs(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+
+AUTOTUNE_GRIDS = {"voteBallot": 64, "warpReduce": 128}  # phase_cox's grids
+
+
+def phase_autotune(rng: np.random.Generator) -> dict:
+    """The measured autotuner on the card, from a cold cache: voteBallot
+    at 64 x 256 and warpReduce at 128 x 256 (every candidate cell's time
+    and the winner), the tuned launch bitwise phase_cox's scan launch, a
+    warm memory hit and, after ``reset(memory_only=True)``, a disk hit,
+    neither measuring; gridReduce tuned keeps its cooperative chunk."""
+    tmp = tempfile.mkdtemp(prefix="cox-autotune-")
+    rec = {"phase": "autotune", "kernels": {}}
+    try:
+        with autotune_cache(os.path.join(tmp, "autotune.json")) as at:
+            for name, kern in (("voteBallot", voteBallot), ("warpReduce", warpReduce)):
+                grid = AUTOTUNE_GRIDS[name]
+                args, scan_out = COX_SCAN[name]
+                before = dict(at.stats())
+                t0 = time.perf_counter()
+                req = kern.make_request(grid=grid, block=256, args=args, autotune=True, device=DEVICE)
+                cold_s = time.perf_counter() - t0
+                cold = at.stats()
+                check(cold["misses"] == before["misses"] + 1, f"autotune {name}: {cold}")
+                check(cold["measurements"] > before["measurements"], f"autotune {name}: nothing measured")
+                (entry,) = [v for k, v in at.entries().items() if k.startswith(name + "|")]
+                out, wall, _ = timed_launch(kern, grid=grid, block=256, args=args, autotune=True)
+                check(same_outputs(out, scan_out), f"autotune {name}: tuned launch != scan launch")
+                warm = at.stats()
+                check(warm["hits"] == cold["hits"] + 1, f"autotune {name}: no memory hit {warm}")
+                check(warm["measurements"] == cold["measurements"], f"autotune {name}: warm run measured")
+                at.reset(memory_only=True)
+                kern.make_request(grid=grid, block=256, args=args, autotune=True, device=DEVICE)
+                disk = at.stats()
+                check(disk["disk_hits"] == warm["disk_hits"] + 1, f"autotune {name}: no disk hit {disk}")
+                check(disk["measurements"] == warm["measurements"], f"autotune {name}: disk hit measured")
+                rec["kernels"][name] = {
+                    "grid": grid,
+                    "block": 256,
+                    "cold_tune_s": cold_s,
+                    "measurement_launches": cold["measurements"] - before["measurements"],
+                    "cells_us": entry["times_us"],
+                    "winner": {k: entry[k] for k in ("backend", "warp_exec", "chunk", "schedule", "n_resident")},
+                    "chunk_source": req.rl.chunk_source,
+                    "tuned_wall_s": wall,
+                    "op_estimate": entry["op_estimate"],
+                    "mem_estimate": entry["mem_estimate"],
+                    "check": "tuned == scan bitwise; warm: memory hit, 0 measured; disk hit, 0 measured",
+                }
+            nb, n = 64, 8000
+            data = rng.integers(-8, 9, size=n).astype(np.float32)
+            args = (np.zeros(1, np.float32), np.zeros(nb, np.float32), data, n)
+            t0 = time.perf_counter()
+            req = gridReduce.make_request(grid=nb, block=128, args=args, autotune=True, device=DEVICE)
+            check(req.rl.chunk_source == "cooperative", f"autotune gridReduce: {req.rl}")
+            out, wall, _ = timed_launch(gridReduce, grid=nb, block=128, args=args, autotune=True)
+            check(float(out["total"][0]) == float(data.sum()), "autotune gridReduce total")
+            rec["gridReduce"] = {
+                "chunk_source": req.rl.chunk_source,
+                "chunk": req.rl.chunk,
+                "backend": req.rl.backend,
+                "tune_s": time.perf_counter() - t0 - wall,
+                "tuned_wall_s": wall,
+            }
+            rec["stats"] = at.stats()
+            rec["fingerprint"] = at.cpu_fingerprint(torch.device(DEVICE))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(rec)
+    return rec
+
+
+def phase_donate() -> dict:
+    """Buffer donation on the card: vectorAdd on vmap over 2**22 f32
+    elements (16 MiB an array) with and without donate=True, the peak
+    device memory of each launch; the consumed input refused by a second
+    launch; a stream relaunching over its own outputs with donation
+    (tests/test_streams.py's chain), bitwise the plain chain; and
+    donation refused in a graph capture."""
+    n = DONATE_N
+    block = 1024
+    a_host = torch.randn(n, generator=torch.Generator().manual_seed(1))
+    b_host = torch.randn(n, generator=torch.Generator().manual_seed(2))
+    want = a_host + b_host
+
+    def launch(donate):
+        a, b = a_host.to(DEVICE), b_host.to(DEVICE)
+        out = torch.zeros(n, device=DEVICE)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = vectorAdd.launch(
+            grid=n // block, block=block, args=(out, a, b, n), backend="vmap", donate=donate, device=DEVICE
+        )
+        sync()
+        wall = time.perf_counter() - t0
+        return got["out"], torch.cuda.max_memory_allocated() - base, wall, (out, a, b)
+
+    plain, plain_peak, plain_s, _ = launch(False)
+    got, donate_peak, donate_s, held = launch(True)
+    check(torch.equal(plain.cpu(), want) and torch.equal(got, plain), "donate: vectorAdd outputs")
+    donated = 3 * 4 * n
+    saved = plain_peak - donate_peak
+    check(all(t.numel() == 0 for t in held), "donate: the inputs were not consumed")
+    check(saved >= donated - (1 << 20), f"donate: peak fell by {saved} bytes, donated {donated}")
+    try:
+        vectorAdd.launch(
+            grid=n // block, block=block, args=(torch.zeros(n, device=DEVICE), held[1], held[2], n), device=DEVICE
+        )
+        refused = None
+    except cox.CoxUnsupported as e:
+        refused = str(e)
+    check(refused is not None and "donated" in refused, "donate: a consumed input was accepted")
+    del plain, got, held
+    torch.cuda.empty_cache()
+
+    # the chain: saxpy, then scale three times over its own output
+    m = 1024
+    x = torch.arange(m, dtype=torch.float32, device=DEVICE) / m
+
+    def chain(donate):
+        d = cox.get_dispatcher()
+        s = cox.Stream("donate-chain", d, device=DEVICE)
+        h = s.launch(svc_saxpy, grid=4, block=256, args=(torch.zeros(m, device=DEVICE), x, torch.zeros(m, device=DEVICE), m))
+        for _ in range(3):
+            h = s.launch(svc_scale, grid=4, block=256, args=(h.outputs["out"], h.outputs["out"], m), donate=donate)
+        return h.result()["out"]
+
+    chained, chained_plain = chain(True), chain(False)
+    ref_chain = 2.5 * (torch.arange(m, dtype=torch.float64) / m)
+    for _ in range(3):
+        ref_chain = ref_chain * 3.0 + 1.0
+    check(torch.equal(chained, chained_plain), "donate: the donating chain != the plain chain")
+    check(torch.allclose(chained.double().cpu(), ref_chain, rtol=1e-5), "donate: chain values")
+    g = cox.Graph()
+    s = cox.Stream("donate-capture", cox.get_dispatcher(), device=DEVICE)
+    with g.capture(s):
+        h1 = s.launch(svc_saxpy, grid=4, block=256, args=(np.zeros(m, np.float32), x.cpu().numpy(), np.zeros(m, np.float32), m))
+        try:
+            s.launch(svc_scale, grid=4, block=256, args=(np.zeros(m, np.float32), h1.outputs["out"], m), donate=True)
+            capture_refused = None
+        except cox.CoxUnsupported as e:
+            capture_refused = str(e)
+    check(capture_refused is not None and "not capturable" in capture_refused, "donate: a capture took donate=True")
+    rec = {
+        "phase": "donate",
+        "kernel": "vectorAdd",
+        "n": n,
+        "grid": n // block,
+        "block": block,
+        "backend": "vmap",
+        "donated_bytes": donated,
+        "peak_bytes_plain": plain_peak,
+        "peak_bytes_donate": donate_peak,
+        "peak_saved_bytes": saved,
+        "wall_s_plain": plain_s,
+        "wall_s_donate": donate_s,
+        "refused_reuse": refused,
+        "chain": {"n": m, "relaunches": 3, "check": "bitwise == plain chain; rtol 1e-5 vs float64"},
+        "capture_refused": capture_refused,
+    }
+    emit(rec)
+    return rec
+
+
+def phase_costmodel(rng: np.random.Generator) -> dict:
+    """The counted cost record (``costmodel.estimate(mode='xla')``: one
+    launch counted op by op) of the five COX kernels at the cox phase's
+    sizes, beside the static IR walk's, with the counted pass's seconds.
+    MatrixMulCUDA is counted on its whole-grid batched-plane cell (the
+    cox phase's fastest), the others on their auto knobs."""
+    from repro_torch.core import costmodel
+
+    n, v = MM_N, VEC_N
+    cases = [
+        ("vectorAdd", vectorAdd, dict(grid=-(-v // 256), block=256), (np.zeros(v, np.float32), rng.normal(size=v).astype(np.float32), rng.normal(size=v).astype(np.float32), v), {}),
+        (
+            "MatrixMulCUDA",
+            MatrixMulCUDA,
+            dict(grid=(n // 16, n // 16), block=(16, 16)),
+            (np.zeros((n, n), np.float32), rng.normal(size=(n, n)).astype(np.float32), rng.normal(size=(n, n)).astype(np.float32), n),
+            dict(collapse="hier", warp_exec="batched", chunk=(n // 16) ** 2),
+        ),
+        ("warpReduce", warpReduce, dict(grid=AUTOTUNE_GRIDS["warpReduce"], block=256), COX_SCAN["warpReduce"][0], {}),
+        ("voteBallot", voteBallot, dict(grid=AUTOTUNE_GRIDS["voteBallot"], block=256), COX_SCAN["voteBallot"][0], {}),
+        ("gridReduce", gridReduce, dict(grid=64, block=128), (np.zeros(1, np.float32), np.zeros(64, np.float32), rng.integers(-8, 9, size=8000).astype(np.float32), 8000), {}),
+    ]
+    rec = {"phase": "costmodel", "kernels": {}}
+    costmodel.clear_cache()
+    for name, kern, geo, args, kw in cases:
+        req = kern.make_request(args=args, device=DEVICE, **geo, **kw)
+        st = costmodel.estimate_request(req, mode="static")
+        sync()
+        t0 = time.perf_counter()
+        est = costmodel.estimate_request(req, mode="xla")
+        sync()
+        secs = time.perf_counter() - t0
+        check(est.source == "xla" and est.op_estimate > 0 and est.mem_estimate > 0, f"costmodel {name}: {est}")
+        rec["kernels"][name] = {
+            "backend": req.rl.backend,
+            "warp_exec": req.rl.warp_exec,
+            "chunk": req.rl.chunk,
+            "schedule": req.rl.schedule,
+            "counted_s": secs,
+            "ops_counted": est.op_estimate,
+            "ops_static": st.op_estimate,
+            "ops_ratio": est.op_estimate / st.op_estimate,
+            "bytes_counted": est.mem_estimate,
+            "bytes_static": st.mem_estimate,
+            "bytes_ratio": est.mem_estimate / st.mem_estimate,
+        }
+    emit(rec)
+    return rec
+
+
+AUTOTUNE_CELL = re.compile(r"\[autotune: (\d+)h/(\d+)dh/(\d+)m, (\d+) measured\]")
+
+
+def phase_autotune_serve(cpu_tokens: int) -> dict:
+    """``launch.serve.main([... '--postproc', '--autotune'])`` on
+    mamba2-130m at full width and depth on a fresh cache file: the
+    postprocess histograms tune (misses, measurements); then the same
+    command in a child process on the same file: disk hits and no
+    measurement.  Both serve the tokens of phase ssm_serve."""
+    tmp = tempfile.mkdtemp(prefix="cox-autotune-serve-")
+    path = os.path.join(tmp, "autotune.json")
+    try:
+        with autotune_cache(path):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                out = serve.main(AUTOTUNE_SERVE_ARGV)
+            first_s = time.perf_counter() - t0
+            os.environ.pop("COX_AUTOTUNE", None)
+        sync()
+        torch.cuda.empty_cache()
+        at1 = out["dispatch_health"]["autotune"]
+        check(out["tokens"] == cpu_tokens, f"autotune_serve: {out['tokens']} tokens, CPU {cpu_tokens}")
+        check(at1["misses"] > 0 and at1["measurements"] > 0, f"autotune_serve: cold run {at1}")
+        check(out["postproc"]["failed"] == 0, f"autotune_serve: {out['postproc']}")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), COX_AUTOTUNE_CACHE=path)
+        env.pop("COX_AUTOTUNE", None)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *AUTOTUNE_SERVE_ARGV],
+            capture_output=True,
+            text=True,
+            env=env,
+            timeout=600,
+        )
+        second_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"autotune_serve child: {child.returncode} {child.stderr[-2000:]}")
+        line = child.stdout.strip().splitlines()[-1]
+        cell = AUTOTUNE_CELL.search(line)
+        toks = re.search(r"served \d+ requests, (\d+) tokens", line)
+        check(cell is not None and toks is not None, f"autotune_serve child printed {line!r}")
+        hits, disk_hits, misses, measured = (int(x) for x in cell.groups())
+        check(disk_hits >= 1 and misses == 0 and measured == 0, f"autotune_serve warm child: {cell.group(0)}")
+        check(int(toks.group(1)) == cpu_tokens, f"autotune_serve child: {toks.group(1)} tokens")
+        with open(path) as f:
+            entries = json.load(f)["entries"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {
+        "phase": "autotune_serve",
+        "arch": SSM_ARCH,
+        "argv": AUTOTUNE_SERVE_ARGV,
+        "tokens": out["tokens"],
+        "cold": {k: at1[k] for k in ("hits", "disk_hits", "misses", "measurements", "tuned", "disk_writes")},
+        "cold_wall_s": first_s,
+        "warm_child": {"hits": hits, "disk_hits": disk_hits, "misses": misses, "measurements": measured},
+        "warm_child_wall_s": second_s,
+        "warm_child_line": line,
+        "winners": {" ".join(k.split("|")[i] for i in (0, 3, 7)): {f: v[f] for f in ("backend", "warp_exec", "chunk", "schedule", "best_us")} for k, v in entries.items()},
+    }
+    emit(rec)
+    return rec
+
+
 def _oracle_blocks(kern, bids, *, grid, block, args) -> dict:
     """Run chosen blocks of a launch through the numpy oracle (blocks that
     read only their own inputs; used where the whole grid would be slow)."""
@@ -2664,6 +2987,9 @@ def _oracle_blocks(kern, bids, *, grid, block, args) -> dict:
 
 
 SCAN = dict(backend="scan", warp_exec="serial")  # the serial loop, as before PR 21
+# phase_cox's arguments and scan outputs, which phase_autotune holds its
+# tuned launches against: kernel -> (args, outputs)
+COX_SCAN = {}
 
 
 def launch_knobs(kern, *, grid, block, args, collapse="hybrid", **kw) -> dict:
@@ -2770,6 +3096,7 @@ def phase_cox(rng: np.random.Generator) -> None:
     val = rng.integers(-8, 9, size=nb * 256).astype(np.float32)
     args = (np.zeros(nb, np.float32), val)
     out, rec = run("warpReduce", warpReduce, grid=nb, block=256, args=args, **SCAN)
+    COX_SCAN["warpReduce"] = (args, out)
     want = oracle.run_grid(warpReduce.ir, grid=nb, block=256, args=args)
     got = out["out"].cpu().numpy()
     check(np.array_equal(got, want["out"]), "warpReduce != oracle")
@@ -2784,6 +3111,7 @@ def phase_cox(rng: np.random.Generator) -> None:
     zeros = np.zeros(nb * 256, np.int32)
     args = (zeros, zeros, zeros.astype(np.uint32), inp)
     out, rec = run("voteBallot", voteBallot, grid=nb, block=256, args=args, **SCAN)
+    COX_SCAN["voteBallot"] = (args, out)
     want = oracle.run_grid(voteBallot.ir, grid=nb, block=256, args=args)
     for k in ("any_out", "all_out", "bits"):
         got = out[k].cpu().numpy()
@@ -2926,6 +3254,7 @@ PATH_KERNELS = {
     "ckpt_drill": ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd"),
     "services_serve": ("rmsnorm", "flash_decode"),
     "services_chaos": ("rmsnorm",),
+    "autotune_serve": ("rmsnorm",),
 }
 
 
@@ -3025,6 +3354,14 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_services_chaos(ssm_cpu_tokens)
     paths["services_chaos"] = ops.launch_counts()
+    # the measured tuner, buffer donation and the counted cost model, then
+    # the serving path that tunes its postprocess launches
+    phase_autotune(rng)
+    phase_donate()
+    phase_costmodel(rng)
+    ops.reset_launch_counts()
+    phase_autotune_serve(ssm_cpu_tokens)
+    paths["autotune_serve"] = ops.launch_counts()
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()

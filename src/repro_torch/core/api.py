@@ -24,9 +24,9 @@ into an interactive prompt or ``python -c``.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Dict, Optional, Sequence
 
+from . import autotune as _autotune
 from . import costmodel  # noqa: F401  (cox.costmodel: op/mem estimates)
 from . import errors  # noqa: F401  (cox.errors: typed error hierarchy)
 from . import faults  # noqa: F401  (cox.faults: fault injection)
@@ -35,7 +35,7 @@ from . import kernel_ir as K
 from . import placement  # noqa: F401  (cox.placement: device policies)
 from . import runtime as _runtime
 from . import streams as _streams
-from .backends.plan import hold_kernel_args
+from .backends.plan import check_donate_supported, hold_kernel_args
 from .errors import (  # noqa: F401
     CoxCompileError,
     CoxDependencyError,
@@ -73,16 +73,6 @@ bf16 = DType.bf16
 i32 = DType.i32
 u32 = DType.u32
 b1 = DType.b1
-
-# the reference's switch for tuning every all-auto launch (ROADMAP A.9.3)
-ENV_AUTOTUNE = "COX_AUTOTUNE"
-
-
-def _autotune_requested(autotune: Optional[bool]) -> bool:
-    if autotune is not None:
-        return bool(autotune)
-    return os.environ.get(ENV_AUTOTUNE, "").strip().lower() in ("1", "true", "on", "yes")
-
 
 @dataclasses.dataclass
 class KernelFn:
@@ -153,6 +143,7 @@ class KernelFn:
         donate: bool = False,
         device=None,
         autotune: Optional[bool] = None,
+        stream: Optional[Stream] = None,
     ) -> _streams.LaunchRequest:
         """Resolve the launch knobs and hold the arguments in a
         :class:`~streams.LaunchRequest`, the unit the dispatcher
@@ -160,25 +151,34 @@ class KernelFn:
         launch fails at its call; the arguments reach the device at
         dispatch, on the launch's stream.
 
-        ``device=`` pins the launch to a torch device (``'cpu'``, or a
-        card); left ``None`` the launch runs on its stream's device, by
-        default the current CUDA device.  The knobs of paths not ported
-        yet raise :class:`CoxUnsupported` naming the ROADMAP item:
-        ``mesh``/``backend='sharded'`` (A.10), ``donate``, ``autotune``
-        (and ``COX_AUTOTUNE``) and ``COX_COSTMODEL=xla`` (A.9.3)."""
+        ``chunk=`` takes an int (explicit, never overridden by the
+        autotuner), ``None`` (the heuristic default) or ``'auto'`` (tune
+        the chunk by measurement).  ``autotune=True`` measures every knob
+        left on auto (``autotune.py``: candidate cells pruned by the
+        cost model, winners kept in the on-disk cache), and
+        ``autotune=None`` defers to ``COX_AUTOTUNE`` (and to
+        ``chunk='auto'``, which always tunes).  Tuning measures on the
+        launch's device, or on ``stream``'s (the stream the request will
+        be enqueued on, which ``Stream.launch`` passes); a launch issued
+        while ``stream`` captures a graph is not tuned.
+
+        ``donate=True`` hands the launch the caller's flat device buffers:
+        each 1-D contiguous tensor argument already on the launch's
+        device in the kernel's storage dtype is consumed once the launch
+        holds its own copy (its storage is released, and a later launch
+        that binds it raises).  ``device=`` pins the launch to a torch
+        device (``'cpu'``, or a card); left ``None`` the launch runs on
+        its stream's device, by default the current CUDA device.
+        ``mesh``/``backend='sharded'`` raise :class:`CoxUnsupported`
+        naming ROADMAP A.10."""
         if device is not None and mesh is not None:
             raise CoxUnsupported(
                 f"kernel '{self.name}': device= and mesh= are mutually exclusive -- "
                 f"a sharded launch spans the mesh's own devices; placement applies "
                 f"to single-device launches"
             )
-        if donate:
-            raise _runtime.unported("donate")
         if mesh is not None:
             raise _runtime.unported("mesh")
-        if _autotune_requested(autotune):
-            raise _runtime.unported("autotune")
-        costmodel.telemetry_mode()  # COX_COSTMODEL=xla raises at the launch
         dev = None if device is None else _runtime.resolve_device(device)
         block3 = as_dim3(block, "block")
         token = self._compile_key(collapse=collapse, warp_size=warp_size, block=block3.total)
@@ -196,6 +196,28 @@ class KernelFn:
         )
         globals_, shapes, scalars = hold_kernel_args(ck, args)
         rl = _runtime.resolve_schedule(ck, rl, shapes)
+        tune = autotune if autotune is not None else (chunk == "auto" or _autotune.enabled())
+        if tune:
+            tune_dev = dev
+            if tune_dev is None and stream is not None:
+                tune_dev = stream.dispatcher._stream_device(stream)
+            rl = _autotune.tune(
+                ck,
+                token,
+                rl,
+                shapes=shapes,
+                scalars=scalars,
+                globals_=globals_,
+                simd=simd,
+                mesh=mesh,
+                req_backend=backend,
+                req_warp_exec=warp_exec,
+                device=tune_dev,
+                capturing=stream is not None and stream.capturing,
+            )
+        if donate:
+            # fail at the call, not at dispatch
+            check_donate_supported(rl.backend, ck.kernel.name)
         return _streams.LaunchRequest(
             ck=ck,
             token=token,
@@ -246,9 +268,10 @@ class KernelFn:
         ``warp_exec`` (``'serial'`` or the ``'batched'`` warp plane),
         ``chunk`` (blocks a ``vmap`` wave), ``schedule`` (``'chunked'``
         or ``'grid_stride'``) and ``n_resident`` (the grid-stride wave
-        width).  ``stream=`` enqueues on a :class:`Stream` instead of
-        the default one.  See :meth:`make_request` for the knobs that
-        raise."""
+        width).  ``autotune`` and ``donate`` are described at
+        :meth:`make_request`.  ``stream=`` enqueues on a :class:`Stream`
+        instead of the default one.  ``mesh``/``backend='sharded'``
+        raise :class:`CoxUnsupported` naming ROADMAP A.10."""
         return self.launch_async(
             grid=grid,
             block=block,

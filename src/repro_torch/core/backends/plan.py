@@ -32,11 +32,79 @@ from ..types import (
 
 DEFAULT_CHUNK = 8  # blocks run at once per wave of the vmap backend
 
+# the attribute that marks a tensor a donate=True launch consumed
+CONSUMED = "_cox_donated"
+
+
+def check_donate_supported(backend: str, kernel_name: str) -> None:
+    """Donation hands the launch each global's single device buffer; the
+    sharded backend (ROADMAP A.10) has none to take (globals enter it
+    replicated and leave through a cross-device merge).  One shared check
+    for the request and for the backend, as in the reference."""
+    if backend == "sharded":
+        raise CoxUnsupported(
+            f"kernel '{kernel_name}': donate=True is unsupported on the "
+            f"sharded backend -- replicated cross-device globals have no "
+            f"single buffer to reuse; drop donate= or launch without a mesh"
+        )
+
+
+def is_consumed(val) -> bool:
+    """True for a tensor a ``donate=True`` launch consumed."""
+    return getattr(val, CONSUMED, False)
+
+
+def _check_not_consumed(val, name: str) -> None:
+    if isinstance(val, torch.Tensor) and is_consumed(val):
+        raise CoxUnsupported(
+            f"argument '{name}' was donated to an earlier donate=True launch, "
+            f"which consumed its storage -- keep a copy (or the launch's "
+            f"outputs) before donating it"
+        )
+
+
+def donatable(val, dtype: DType, device) -> bool:
+    """Whether a held global is the buffer the reference's flat binding
+    would alias: a 1-D contiguous tensor already on the launch's device
+    in the kernel's storage dtype.  Numpy data, and a tensor that needed
+    a copy or a cast, is never consumed."""
+    return (
+        isinstance(val, torch.Tensor)
+        and val.dim() == 1
+        and val.is_contiguous()
+        and not val.requires_grad
+        and val.device == torch.device(device)
+        and val.dtype == dtype.compute
+        and not is_consumed(val)
+    )
+
+
+def consume_donated(ck: CompiledKernel, globals_: Dict[str, Any], device) -> int:
+    """Release the storage of every donatable held global, once the
+    launch holds its own copies (``materialize_args``): the tensor is
+    reset to an empty storage (``set_()``; freeing the storage under a
+    live tensor with ``untyped_storage().resize_(0)`` leaves it reading
+    freed memory) and marked consumed, so a later launch that binds it
+    raises.  On the card a tensor made on another stream must
+    have been ``record_stream``-ed on the launch's stream first, so the
+    caching allocator does not hand its block out while the launch's
+    copy still reads it.  Returns the bytes released."""
+    freed = 0
+    for spec in ck.array_params:
+        t = globals_.get(spec.name)
+        if not donatable(t, spec.dtype, device):
+            continue
+        freed += t.numel() * t.element_size()
+        t.set_()
+        setattr(t, CONSUMED, True)
+    return freed
+
 
 def _to_tensor(val, dtype: DType, device: torch.device, name: str) -> torch.Tensor:
     """One argument as a tensor of ``dtype``'s compute type on ``device``.
     Numpy data is copied to the device; a tensor must already be there."""
     if isinstance(val, torch.Tensor):
+        _check_not_consumed(val, name)
         check_arg_device(val, device, name)
         t = val.detach()
         if t.dtype == torch.uint32:  # torch has few uint32 kernels: reinterpret
@@ -103,6 +171,7 @@ def hold_kernel_args(
                 globals_[spec.name] = val
                 continue
             if isinstance(val, torch.Tensor):
+                _check_not_consumed(val, spec.name)
                 shapes[spec.name] = tuple(val.shape)
                 # a flat tensor is held as the very object passed: the
                 # dispatcher knows a launch's outputs by identity (the
@@ -142,25 +211,14 @@ def materialize_args(
     return g, s
 
 
-def bind_kernel_args(
-    ck: CompiledKernel, args: Sequence[Any], device
-) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple], Dict[str, torch.Tensor]]:
-    """Split positional args into (globals dict, shapes, scalar uniforms)
-    on ``device``: :func:`hold_kernel_args` then :func:`materialize_args`.
-    Arrays become fresh flat tensors with one sink slot appended, so the
-    launch updates its own copies and never the caller's; scalars become
-    0-d tensors."""
-    held, shapes, held_s = hold_kernel_args(ck, args)
-    globals_, scalars = materialize_args(ck, held, held_s, device)
-    return globals_, shapes, scalars
-
-
 def flat_outputs(ck: CompiledKernel, globals_: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Every array parameter's final value, flat: the sink slot stripped
     and u32 arrays back as ``torch.uint32`` (their low 32 bits)."""
     out = {}
     for spec in ck.array_params:
-        t = globals_[spec.name][:-1]
+        # detached: not an autograd view of the sink-extended buffer, so
+        # a donate=True launch that consumes the output frees the buffer
+        t = globals_[spec.name][:-1].detach()
         if spec.dtype is DType.u32:
             t = t.to(torch.int32).view(torch.uint32)
         out[spec.name] = t

@@ -15,15 +15,26 @@ them (an ``i64`` array counts 8 bytes though both packages store it in
 32 bits), so ``auto`` picks the reference's schedule.
 
 ``estimate`` is the per-launch cost record the dispatcher's telemetry
-keeps (tinygrad's ``op_estimate``/``mem_estimate`` idiom): the
-reference's ``static`` source, an IR walk -- arithmetic instructions x
-threads for operations, twice the bound global bytes for memory -- which
-gives the reference's numbers field by field.  The reference's second
-source, ``xla``, reads XLA's cost analysis of the compiled program;
-nothing in PyTorch counts a COX launch's operations and bytes without
-running it (``torch.utils.flop_counter`` sees matmul-class ops only), so
-``mode='xla'`` and ``COX_COSTMODEL=xla`` raise ``CoxUnsupported`` naming
-ROADMAP A.9.3, which brings the measured counterpart with the autotuner.
+keeps (tinygrad's ``op_estimate``/``mem_estimate`` idiom), from one of
+two sources:
+
+* ``static`` -- the reference's IR walk: arithmetic instructions x
+  threads for operations, twice the bound global bytes for memory,
+  which gives the reference's numbers field by field.  No launch.
+* ``xla`` -- the counterpart of the reference's compiled-program cost
+  analysis (``cost_analysis()``: flops and bytes accessed, summed per
+  HLO instruction over operands and outputs).  Nothing in PyTorch counts
+  a COX launch without running it (``torch.utils.flop_counter`` sees
+  matmul-class ops only), so the port runs the resolved launch once on
+  zero-filled globals of the launch's shapes under a
+  ``TorchDispatchMode`` and counts every aten op it issues, by the rules
+  of :data:`OP_RULES`: operations are an arithmetic op's output elements
+  (a reduction's input elements, 2 m n k for a product), bytes its
+  tensor operands plus its outputs.  One extra launch for each distinct
+  launch shape, on the launch's own device and stream;
+  ``COX_COSTMODEL=xla`` forces it on the dispatcher's telemetry too.
+  Where the counting pass raises ``CoxUnsupported`` the record degrades
+  to the static walk, with ``source='static'``.
 """
 
 from __future__ import annotations
@@ -34,6 +45,9 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+from torch.utils._pytree import tree_leaves
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import flat as _flat
 from . import kernel_ir as K
@@ -42,7 +56,7 @@ from .regions import warp_peel_count
 from .types import ArraySpec, CoxUnsupported, DType
 
 # estimate source for the dispatcher's always-on telemetry: 'static' (the
-# default, and the only one the port has)
+# default) never launches; 'xla' counts one launch of each distinct shape
 ENV_MODE = "COX_COSTMODEL"
 
 # residency budget for a chunked wave's schedule-dependent footprint
@@ -64,7 +78,7 @@ class CostEstimate:
     shared_footprint: int  # static shared-memory bytes per block
     peel_count: int  # warp-graph peel blocks (batched-exec cost)
     collective_density: float  # warp collectives per IR instruction
-    source: str  # 'static'
+    source: str  # 'xla' | 'static'
 
     def gflops(self, seconds: float) -> float:
         """Achieved GFLOPS for a measured wall time."""
@@ -84,21 +98,11 @@ _cache_lock = threading.Lock()
 _CACHE_MAX = 1024
 
 
-def _xla_unported() -> CoxUnsupported:
-    return CoxUnsupported(
-        "costmodel mode 'xla' (the compiled program's own cost analysis) is "
-        "not ported to repro_torch yet: ROADMAP queue item A.9.3 (autotune.py "
-        "and the measured cost model); use the 'static' estimate"
-    )
-
-
 def telemetry_mode() -> str:
-    """``COX_COSTMODEL``: 'static' (default; any unknown value reads as
-    'static', as in the reference), and 'xla' raises (ROADMAP A.9.3)."""
+    """``COX_COSTMODEL``: 'static' (the default; any unknown value reads
+    as 'static', as in the reference) or 'xla' (the counted launch)."""
     mode = os.environ.get(ENV_MODE, "static").strip().lower()
-    if mode == "xla":
-        raise _xla_unported()
-    return "static"
+    return mode if mode in ("static", "xla") else "static"
 
 
 def footprint_budget() -> int:
@@ -289,6 +293,116 @@ def _static_estimate(ck: CompiledKernel, rl, shapes: Dict[str, tuple]) -> CostEs
     )
 
 
+# how the counted pass ('xla') prices the operations of one aten op, by
+# its overload name (an in-place op by its out-of-place name):
+# ('product', i) is 2 m n k with k the last dimension of operand i;
+# ('input', i) the elements of operand i (a reduction, a scan, the source
+# of a scatter).  An op not named here counts its output elements when
+# torch tags it pointwise, its first operand's when it is a reduction, and
+# no operations otherwise (creation, copies, indexing, host reads).  Bytes
+# are every tensor operand plus every output, as XLA's "bytes accessed";
+# a view moves none.
+OP_RULES = {
+    "mm": ("product", 0),
+    "bmm": ("product", 0),
+    "matmul": ("product", 0),
+    "dot": ("product", 0),
+    "mv": ("product", 0),
+    "addmm": ("product", 1),
+    "addmv": ("product", 1),
+    "baddbmm": ("product", 1),
+    "addbmm": ("product", 1),
+    "cumsum": ("input", 0),
+    "cumprod": ("input", 0),
+    "scatter_add": ("input", 3),
+    "scatter_reduce": ("input", 3),
+    "index_add": ("input", 3),
+    "index_reduce": ("input", 3),
+}
+
+
+def count_op(func, args, kwargs, out) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one aten op by the rules of
+    :data:`OP_RULES`."""
+    if func.is_view:
+        return 0.0, 0.0
+    ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+    outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+    nbytes = float(sum(t.numel() * t.element_size() for t in ins + outs))
+    name = func.overloadpacket.__name__
+    rule = OP_RULES.get(name[:-1] if name.endswith("_") else name)
+    if rule is None:
+        if torch.Tag.pointwise in func.tags:
+            return float(sum(t.numel() for t in outs)), nbytes
+        if torch.Tag.reduction in func.tags and ins:
+            return float(ins[0].numel()), nbytes
+        return 0.0, nbytes
+    kind, i = rule
+    if kind == "product":
+        return 2.0 * sum(t.numel() for t in outs) * args[i].shape[-1], nbytes
+    return float(args[i].numel()), nbytes
+
+
+class OpCounter(TorchDispatchMode):
+    """Sums :func:`count_op` over every aten op run under it (``ops``,
+    ``bytes``, ``n_ops``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0.0
+        self.bytes = 0.0
+        self.n_ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        ops, nbytes = count_op(func, args, kwargs, out)
+        self.ops += ops
+        self.bytes += nbytes
+        self.n_ops += 1
+        return out
+
+
+def _counted_estimate(
+    ck: CompiledKernel, rl, shapes: Dict[str, tuple], *, simd: bool, scalars, device
+) -> CostEstimate:
+    """The 'xla' record: one launch of the resolved shape on zero-filled
+    globals (the tuner's ``_zero_globals``) and the given scalars (zeros
+    where none are given), on ``device`` and its current stream, counted
+    op by op.  A field the count leaves at 0 takes the static walk's
+    value, as the reference's falls back to its HLO parse."""
+    from . import runtime as _runtime
+    from .autotune import _zero_globals
+    from .backends.plan import materialize_args
+
+    device = _runtime.resolve_device(device)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise CoxUnsupported(
+            f"kernel '{ck.kernel.name}': the counted cost pass launches the "
+            f"kernel, and a CUDA graph capture is running on this stream"
+        )
+    held_s = {
+        spec.name: (scalars or {}).get(spec.name, np.zeros((), spec.dtype.np))
+        for spec in ck.kernel.params
+        if not isinstance(spec, ArraySpec)
+    }
+    _, run = _runtime.build_resolved(ck, rl, simd=simd)
+    g, s = materialize_args(ck, _zero_globals(ck, shapes, device), held_s, device)
+    counter = OpCounter()
+    with counter:
+        run(g, s, device)
+    st = _static_estimate(ck, rl, shapes)
+    return CostEstimate(
+        op_estimate=counter.ops if counter.ops > 0 else st.op_estimate,
+        mem_estimate=counter.bytes if counter.bytes > 0 else st.mem_estimate,
+        coll_estimate=0.0,
+        shared_footprint=st.shared_footprint,
+        peel_count=st.peel_count,
+        collective_density=st.collective_density,
+        source="xla",
+    )
+
+
 def estimate(
     ck: CompiledKernel,
     rl,
@@ -296,14 +410,18 @@ def estimate(
     *,
     simd: bool = True,
     mode: Optional[str] = None,
+    scalars: Optional[Dict[str, object]] = None,
+    device=None,
 ) -> CostEstimate:
     """The cost record of one resolved launch shape, cached per (kernel,
-    knobs, shapes).  ``mode=None`` follows ``COX_COSTMODEL``; 'xla'
-    raises ``CoxUnsupported`` (ROADMAP A.9.3) rather than hand back the
-    static record under another name."""
+    knobs, shapes), as the reference caches it.  ``mode=None`` follows
+    ``COX_COSTMODEL`` ('static' by default); 'xla' counts one launch on
+    ``device`` (by default the card) with ``scalars`` (zeros where none
+    are given; the first count of a shape is kept).  Never raises for a
+    launch the counting pass refuses (``CoxUnsupported``): the record
+    degrades to the static walk and says so in ``source``.  A CUDA error
+    is not caught."""
     mode = telemetry_mode() if mode is None else mode
-    if mode == "xla":
-        raise _xla_unported()
     key = (
         id(ck),
         rl.backend,
@@ -322,7 +440,13 @@ def estimate(
         hit = _cache.get(key)
         if hit is not None:
             return hit
-    est = _static_estimate(ck, rl, shapes)
+    if mode == "xla":
+        try:
+            est = _counted_estimate(ck, rl, shapes, simd=simd, scalars=scalars, device=device)
+        except CoxUnsupported:
+            est = _static_estimate(ck, rl, shapes)
+    else:
+        est = _static_estimate(ck, rl, shapes)
     with _cache_lock:
         _cache[key] = est
         while len(_cache) > _CACHE_MAX:
@@ -331,8 +455,17 @@ def estimate(
 
 
 def estimate_request(req, mode: Optional[str] = None) -> CostEstimate:
-    """:func:`estimate` keyed off a dispatcher ``LaunchRequest``."""
-    return estimate(req.ck, req.rl, req.shapes, simd=req.simd, mode=mode)
+    """:func:`estimate` keyed off a dispatcher ``LaunchRequest``: the
+    counted pass uses its scalars and runs on its device."""
+    return estimate(
+        req.ck,
+        req.rl,
+        req.shapes,
+        simd=req.simd,
+        mode=mode,
+        scalars=req.scalars,
+        device=req.target or req.device,
+    )
 
 
 def clear_cache() -> None:

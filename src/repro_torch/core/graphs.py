@@ -218,6 +218,14 @@ class Graph:
         while capturing).  Schedule edges: the stream's captured tail
         and pending captured event edges; data edges: every
         :class:`GraphRef` argument."""
+        if req.donate:
+            raise CoxUnsupported(
+                f"kernel '{req.ck.kernel.name}': donate=True is not "
+                f"capturable -- a replayed graph elides consumed "
+                f"intermediates entirely (the static buffers already give "
+                f"the reuse donation buys), and donating an external "
+                f"input would consume the caller's buffer on every replay"
+            )
         stream.dispatcher.resolve_target(req, stream)
         deps = []
         tail = self._tails.get(stream)

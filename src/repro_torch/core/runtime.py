@@ -22,9 +22,9 @@ stream of the dispatcher (``streams.py``), which stages the plan through
 its shared cache, orders it against the other streams and runs it.
 :func:`launch` stays the uncached entry point, as in the reference.
 
-Knobs the port does not run yet raise :class:`CoxUnsupported` naming the
-ROADMAP queue item that brings them (:data:`UNPORTED`); none is
-silently ignored.
+Knobs the port does not run yet (the multi-device ones) raise
+:class:`CoxUnsupported` naming the ROADMAP queue item that brings them
+(:data:`UNPORTED`); none is silently ignored.
 """
 
 from __future__ import annotations
@@ -36,7 +36,15 @@ import torch
 
 from . import backends as _backends
 from . import flat as _flat
-from .backends.plan import DEFAULT_CHUNK, LaunchPlan, bind_kernel_args, unbind_outputs
+from .backends.plan import (
+    DEFAULT_CHUNK,
+    LaunchPlan,
+    check_donate_supported,
+    consume_donated,
+    hold_kernel_args,
+    materialize_args,
+    unbind_outputs,
+)
 from .execute import CompiledKernel
 from .types import (
     COOP_MAX_RESIDENT_BLOCKS,
@@ -51,8 +59,6 @@ UNPORTED = {
     "backend='sharded'": "A.10 (multi-device)",
     "mesh": "A.10 (multi-device)",
     "multi-device pool": "A.10 (multi-device placement)",
-    "donate": "A.9.3 (runtime services: buffer donation)",
-    "autotune": "A.9.3 (runtime services: autotune.py)",
 }
 
 
@@ -300,9 +306,11 @@ def launch(
 
     Numpy arguments are copied to fresh tensors on the device; tensor
     arguments must already be there and are copied too, so the caller's
-    inputs are never mutated."""
-    if donate:
-        raise unported("donate")
+    inputs are never mutated.  ``donate=True`` consumes each 1-D
+    contiguous tensor argument already on the device in the kernel's
+    storage dtype once the launch holds its copy (its storage is
+    released; a later launch that binds it raises), as the reference's
+    donated buffers are deleted."""
     if mesh is not None:
         raise unported("mesh")
     dev = resolve_device(device)
@@ -317,7 +325,12 @@ def launch(
         schedule=schedule,
         n_resident=n_resident,
     )
-    globals_, shapes, scalars = bind_kernel_args(ck, args, dev)
+    held, shapes, held_s = hold_kernel_args(ck, args)
     rl = resolve_schedule(ck, rl, shapes)
+    if donate:
+        check_donate_supported(rl.backend, ck.kernel.name)
     _, run = build_resolved(ck, rl, simd=simd)
+    globals_, scalars = materialize_args(ck, held, held_s, dev)
+    if donate:
+        consume_donated(ck, held, dev)
     return unbind_outputs(ck, run(globals_, scalars, dev), shapes)

@@ -71,6 +71,19 @@ attempt's in-place writes.  A per-launch deadline (``launch_deadline_s``,
 through ``ft.watchdog.StepWatchdog``) turns a hung launch into
 :class:`~errors.CoxTimeoutError` at its sync.
 
+**Buffer donation** (``donate=True``): once an attempt holds its own
+device copies of the arguments, every held global the reference's flat
+binding would alias (a 1-D contiguous tensor on the launch's device in
+the kernel's storage dtype) is consumed: its storage goes back to the
+allocator, so the launch body runs without the caller's copy, and a
+later launch that binds it, or a handle whose output it was, raises
+``CoxUnsupported``.  A donating request never shares a staged entry
+with a non-donating one (``stage_key``), and a failed attempt that
+already consumed its inputs is neither retried nor degraded: as the
+reference's donated buffers, they are gone.  Readiness is an event per
+launch, so a consumed output leaves the in-flight pruning and the syncs
+untouched.
+
 **Placement**: the pool is the current CUDA device (resolved lazily,
 so building a dispatcher never touches CUDA; without a card it raises
 as ``runtime.resolve_device`` does), or the devices given.  One card
@@ -83,6 +96,7 @@ pins it; unpinned work runs on the pool's device (the legacy path,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 import itertools
@@ -99,7 +113,13 @@ from . import errors as _errors
 from . import faults as _faults
 from . import runtime as _runtime
 from ..ft.watchdog import StepWatchdog
-from .backends.plan import check_arg_device, flat_outputs, materialize_args
+from .backends.plan import (
+    check_arg_device,
+    consume_donated,
+    flat_outputs,
+    is_consumed,
+    materialize_args,
+)
 from .errors import CoxDependencyError, CoxTimeoutError
 from .types import CoxUnsupported, GraphRef
 
@@ -223,6 +243,9 @@ class LaunchRequest:
     surfaced: bool = False
     injected_hang: bool = False  # timeout-site fault: outputs never ready
     out_ids: List[int] = dataclasses.field(default_factory=list)
+    # bytes of held inputs a donate=True attempt consumed: once set, a
+    # failed attempt has no inputs left to retry or degrade with
+    consumed: int = 0
     # the torch device the launch runs on: its pin, or the pool's device
     target: Optional[torch.device] = None
     # on the card: the event recorded after the launch, and its stream
@@ -300,6 +323,14 @@ class LaunchHandle:
 
     def _reshaped(self) -> Dict[str, Any]:
         req = self._req
+        for k, v in req.outputs.items():
+            if is_consumed(v):
+                raise CoxUnsupported(
+                    f"launch output '{k}' was donated to a later donate=True "
+                    f"launch and its storage is gone -- materialize the handle "
+                    f"before donating its outputs, or keep the downstream "
+                    f"handle instead"
+                )
         return {k: v.reshape(req.shapes[k]) for k, v in req.outputs.items()}
 
     def arrays(self) -> Dict[str, Any]:
@@ -314,7 +345,8 @@ class LaunchHandle:
             if req.tstream != cur:
                 cur.wait_event(req.done)
                 for v in req.outputs.values():
-                    v.record_stream(cur)
+                    if not is_consumed(v):
+                        v.record_stream(cur)
         return self._reshaped()
 
     def result(self) -> Dict[str, Any]:
@@ -402,7 +434,7 @@ class Stream:
         goes straight through the dispatcher's flush.  While capturing,
         the request is recorded as a graph node instead, and the handle
         hands back :class:`~types.GraphRef` placeholders."""
-        req = kern.make_request(grid=grid, block=block, args=args, **knobs)
+        req = kern.make_request(grid=grid, block=block, args=args, stream=self, **knobs)
         if self._capture is not None:
             return self._capture.add_request(req, stream=self)
         handle = self._disp.enqueue(req, self)
@@ -1044,7 +1076,7 @@ class Dispatcher:
             try:
                 return self._attempt_with_retry(req, name)
             except Exception as e:
-                if _errors.is_sticky(e):
+                if _errors.is_sticky(e) or req.consumed:
                     raise
                 last = e
                 if i + 1 < len(rungs):
@@ -1070,6 +1102,7 @@ class Dispatcher:
             except Exception as e:
                 if (
                     _errors.is_sticky(e)
+                    or req.consumed
                     or not _errors.is_transient(e)
                     or attempt >= self.retry_limit
                 ):
@@ -1102,6 +1135,8 @@ class Dispatcher:
                 outputs = self._issue_cuda(req, run)
             else:
                 g, s = materialize_args(req.ck, req.globals_, req.scalars, req.target)
+                if req.donate:
+                    req.consumed = consume_donated(req.ck, req.globals_, req.target)
                 outputs = flat_outputs(req.ck, run(g, s, req.target))
             dispatch_s = time.perf_counter() - t0
         except Exception as e:
@@ -1139,6 +1174,11 @@ class Dispatcher:
             for v in _held_tensors(req):
                 v.record_stream(ts)
             g, s = materialize_args(req.ck, req.globals_, req.scalars, dev)
+            if req.donate:
+                # the launch holds its own copies: the donated buffers'
+                # blocks go back to the allocator (record_stream above
+                # keeps a cross-stream one until this stream is done)
+                req.consumed = consume_donated(req.ck, req.globals_, dev)
             outputs = flat_outputs(req.ck, run(g, s, dev))
             done = torch.cuda.Event()
             done.record(ts)
@@ -1480,14 +1520,15 @@ class Dispatcher:
         )
 
     def _note_telemetry(self, req: LaunchRequest, dispatch_s: float) -> None:
-        """Record one issued launch against its stage-key row, with the
-        static cost estimate (``costmodel.estimate``).  Never raises:
-        telemetry must not fail a launch (``COX_COSTMODEL=xla`` is
-        refused earlier, at the launch's call)."""
-        try:
-            est = _costmodel.estimate_request(req, mode="static")
-        except Exception:  # pragma: no cover - the static walk never raises
-            est = None
+        """Record one issued launch against its stage-key row, with its
+        cost estimate (``costmodel.estimate``, cached per launch shape:
+        'static' by default, ``COX_COSTMODEL=xla`` the counted launch,
+        run on the launch's own stream).  A launch the counting pass
+        refuses degrades to the static record; a CUDA error is not
+        caught."""
+        ctx = torch.cuda.stream(req.tstream) if req.tstream is not None else contextlib.nullcontext()
+        with ctx:
+            est = _costmodel.estimate_request(req)
         key = self._telemetry_key(req)
         with self._lock:
             rec = self._telemetry.get(key)
@@ -1511,12 +1552,11 @@ class Dispatcher:
                 self._telemetry.move_to_end(key)
             rec["launches"] += 1
             rec["dispatch_s"] += dispatch_s
-            if est is not None:
-                rec["op_estimate"] = est.op_estimate
-                rec["mem_estimate"] = est.mem_estimate
-                rec["estimate_source"] = est.source
-                rec["bytes"] += est.mem_estimate
-                rec["flops"] += est.op_estimate
+            rec["op_estimate"] = est.op_estimate
+            rec["mem_estimate"] = est.mem_estimate
+            rec["estimate_source"] = est.source
+            rec["bytes"] += est.mem_estimate
+            rec["flops"] += est.op_estimate
 
     def note_measurement(self, req: LaunchRequest, seconds: float, launches: int = 1) -> None:
         """Attach measured time to a request's stage-key row."""
@@ -1565,8 +1605,8 @@ class Dispatcher:
 
     def health(self) -> Dict[str, Any]:
         """Counters for monitoring a long-lived dispatcher: what the
-        serving layer prints and the chaos drill asserts on.  The knob
-        tuner's counters (``autotune``) are ROADMAP A.9.3: empty."""
+        serving layer prints and the chaos drill asserts on, with the
+        knob tuner's counters (``autotune``)."""
         with self._lock:
             first_sticky = repr(next(iter(self._sticky.values()))) if self._sticky else None
             schedules: Dict[str, int] = {}
@@ -1590,8 +1630,16 @@ class Dispatcher:
                 "schedules": schedules,
                 "dispatch_s": sum(r["dispatch_s"] for r in self._telemetry.values()),
                 "bytes": sum(r["bytes"] for r in self._telemetry.values()),
-                "autotune": {},
+                "autotune": _autotune_stats(),
             }
+
+
+def _autotune_stats() -> Dict[str, int]:
+    """The knob tuner's counters (a lazy import: health probes do not
+    pay for the tuner eagerly)."""
+    from . import autotune as _autotune
+
+    return _autotune.stats()
 
 
 # ---------------------------------------------------------------------------

@@ -44,14 +44,17 @@ and the faulting slot must be isolated while every other slot completes.
 
 The server runs on the CUDA card unless it is given ``device="cpu"``
 (``--device cpu``), and raises where there is no card; the streams and
-graphs run where the server does.  ``--autotune`` is ROADMAP A.9.3: it
-raises ``CoxUnsupported``.
+graphs run where the server does.  ``--autotune`` sets ``COX_AUTOTUNE=1``,
+so every all-auto COX launch (the postprocess histograms) takes its knobs
+from the measured winner cache (``core/autotune.py``), and the summary
+line gains the tuner's counters.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import time
 from typing import Any, Dict, List, Optional, Union
 
@@ -61,7 +64,7 @@ import torch
 from ..configs import registry
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core import cox
-from ..core.runtime import resolve_device, unported
+from ..core.runtime import resolve_device
 from ..models.params import init_params
 from ..parallel import steps as steps_mod
 from . import specs as S
@@ -195,17 +198,20 @@ class RequestKernelPool:
     is reset so it stays usable, and the other slots complete.  The
     streams have priority 1 (bulk work, after the token pipeline).
 
-    The histogram launches pin the serial scan (``backend='scan'``,
-    ``warp_exec='serial'``).  At serving length a request's tokens fill
-    8 blocks, where the auto knobs pick the ``vmap`` backend, and its
-    degradation ladder would absorb the fault drill's one injected fault
-    (vmap -> scan, bitwise the same): the drill would then fail no slot.
+    The histogram launches leave their knobs on auto, as the reference's
+    do, so ``COX_AUTOTUNE`` tunes them.  ``pin_scan=True`` (the fault
+    drill) pins the serial scan (``backend='scan'``,
+    ``warp_exec='serial'``): at serving length a request's tokens fill 8
+    blocks, where the auto knobs pick the ``vmap`` backend, and its
+    degradation ladder would absorb the drill's one injected fault (vmap
+    -> scan, bitwise the same), so the drill would fail no slot.
     Explicit knobs never degrade.  The reference's drill runs where auto
     already picks scan."""
 
-    def __init__(self, n_slots: int, nbins: int = 64, *, device=None):
+    def __init__(self, n_slots: int, nbins: int = 64, *, device=None, pin_scan: bool = False):
         self.nbins = nbins
         self.device = resolve_device(device)
+        self.knobs = {"backend": "scan", "warp_exec": "serial"} if pin_scan else {}
         self.streams = [
             cox.Stream(name=f"req-slot{i}", priority=1, device=self.device)
             for i in range(n_slots)
@@ -232,8 +238,7 @@ class RequestKernelPool:
             grid=-(-n // block),
             block=block,
             args=(np.zeros(self.nbins, np.int32), toks, n, self.nbins),
-            backend="scan",
-            warp_exec="serial",
+            **self.knobs,
         )
         self.handles.append(h)
         self._meta.append((slot, n))
@@ -401,7 +406,7 @@ def serve_requests(
         raise ValueError("chaos=True requires postproc=True (it faults the postprocess pool)")
     rng = np.random.default_rng(seed)
     server = BatchedServer(arch, batch=batch, ctx=ctx, seed=seed, device=device)
-    pool = RequestKernelPool(batch, device=server.device) if postproc else None
+    pool = RequestKernelPool(batch, device=server.device, pin_scan=chaos) if postproc else None
     pipelines: List[TokenPipeline] = []
     if graph:
         pipelines = [
@@ -511,10 +516,15 @@ def main(argv=None):
         help="fault-injection drill: force the first postprocess launch to fail and "
         "check the other slots complete with correct totals (needs --postproc)",
     )
-    ap.add_argument("--autotune", action="store_true", help="not ported yet (ROADMAP A.9.3)")
+    ap.add_argument(
+        "--autotune",
+        action="store_true",
+        help="measure knob candidates for every all-auto COX launch (winners kept in "
+        "the on-disk autotune cache; a warm cache issues zero measurement launches)",
+    )
     args = ap.parse_args(argv)
     if args.autotune:
-        raise unported("autotune")
+        os.environ.setdefault("COX_AUTOTUNE", "1")
     out = serve_requests(
         args.arch,
         batch=args.batch,
@@ -550,6 +560,14 @@ def main(argv=None):
             for name, c in sorted(devs.items())
         )
         msg += f" [devices: {cells}]"
+    # the tuner's cache: memory and disk hits against measured misses, and
+    # the measurement launches (zero on a warm cache)
+    at = dh.get("autotune", {})
+    if at:
+        msg += (
+            f" [autotune: {at.get('hits', 0)}h/{at.get('disk_hits', 0)}dh/"
+            f"{at.get('misses', 0)}m, {at.get('measurements', 0)} measured]"
+        )
     msg += (
         f" [dispatch health: {dh['failures']} failures, {dh['retries']} retries, "
         f"{dh['degradations']} degradations, sticky {dh['sticky']}]"

@@ -1522,3 +1522,81 @@ def test_capture_of_a_host_reading_kernel_is_refused(cuda):
     # eager issue of the same launch still runs
     got = s.launch(_svc_tile_sum, grid=8, block=256, args=(torch.zeros(8, device=cuda), x, 2048))
     assert got.result()["out"].shape == (8,)
+
+
+# ---------------------------------------------------------------------------
+# the tuner and buffer donation on the card
+# ---------------------------------------------------------------------------
+
+
+def test_donation_lowers_the_launch_peak_by_the_donated_bytes(cuda):
+    """A donating launch consumes the caller's 1-D device buffers once it
+    holds its own copies, so its peak device memory is lower than the
+    plain launch's by (about) their bytes; the outputs are the same and
+    the consumed input is refused by a later launch."""
+    n = 1 << 20
+
+    def peak(donate):
+        x = torch.arange(n, device=cuda, dtype=torch.float32)
+        out = torch.zeros(n, device=cuda)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = _svc_scale.launch(grid=n // 1024, block=1024, args=(out, x, n), backend="vmap", donate=donate)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, got["out"], x
+
+    plain, want, _ = peak(False)
+    donating, got, x = peak(True)
+    assert torch.equal(got, want)
+    assert plain - donating >= 2 * 4 * n - (1 << 20), (plain, donating)
+    assert x.numel() == 0
+    with pytest.raises(cox.CoxUnsupported, match="donated"):
+        _svc_scale.launch(grid=n // 1024, block=1024, args=(torch.zeros(n, device=cuda), x, n))
+
+
+def test_tuning_is_skipped_inside_a_cuda_graph_capture(cuda, tmp_path, monkeypatch):
+    """A request made while torch captures a CUDA graph keeps its
+    heuristic knobs and measures nothing (a synchronize in the capture
+    would raise); out of the capture the same request tunes."""
+    from repro_torch.core import autotune
+
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
+    autotune.reset()
+    x = torch.randn(2048, device=cuda)
+    args = (torch.zeros(8, device=cuda), x, 2048)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            y = x * 2.0
+            req = _svc_tile_sum.make_request(grid=8, block=256, args=args, autotune=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2.0)
+    assert req.rl.chunk_source == "heuristic" and autotune.stats()["misses"] == 0
+    tuned = _svc_tile_sum.make_request(grid=8, block=256, args=args, autotune=True)
+    assert autotune.stats()["misses"] == 1 and autotune.stats()["measurements"] > 0
+    assert tuned.rl.chunk_source == "autotuned"
+    autotune.reset()
+
+
+@pytest.mark.parametrize("name", ["warpPrefixStats", "histogram64", "saxpyHeavy", "transpose"])
+def test_tuned_launch_is_bitwise_the_scan_launch(cuda, name, tmp_path, monkeypatch):
+    """A tuned launch on the card (its winner measured there, keyed to
+    this card) is bitwise the serial scan launch."""
+    from repro_torch.core import autotune
+
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
+    autotune.reset()
+    sk = SUITE[name]
+    args = sk.make_args()
+    want = sk.kernel.launch(grid=sk.grid, block=sk.block, args=args, backend="scan", warp_exec="serial")
+    got = sk.kernel.launch(grid=sk.grid, block=sk.block, args=args, autotune=True)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    (rec,) = autotune.entries().values()
+    assert torch.cuda.get_device_name(0).replace(" ", "_") in rec["fingerprint"]
+    autotune.reset()

@@ -15,9 +15,10 @@ the captured nodes in order; the ``torch.cuda.CUDAGraph`` replay and
 the refusal of host-reading kernels are held on the card in
 ``tests/test_torch_cuda.py``.
 
-The sharded replay case waits for ROADMAP A.10, and donation (the
-reference's ``test_capture_rejects_donation``) is A.9.3: a capturing
-launch with ``donate=True`` raises ``CoxUnsupported`` naming it.
+The sharded replay case waits for ROADMAP A.10.  A capturing launch
+with ``donate=True`` is refused with the reference's reason, and one
+with ``autotune=True`` keeps its heuristic knobs (no measurement runs
+while a graph captures).
 """
 
 import numpy as np
@@ -367,17 +368,38 @@ def test_capture_rejects_synchronize():
 
 
 def test_capture_rejects_donation():
-    """Donation is ROADMAP A.9.3: a capturing launch with donate=True
-    raises, naming it (the reference refuses it as not capturable)."""
+    """A capturing launch with donate=True raises with the reference's
+    reason: donation is not capturable."""
     for side in SIDES:
         d, s, _ = side.fresh()
         o, x, y, n = _args()
         with side.cox.Graph().capture(s):
             h1 = s.launch(side.k(SAXPY), grid=8, block=256, args=(o, x, y, n))
-            with pytest.raises(side.cox.CoxUnsupported, match="A.9.3" if side.port else "donate"):
+            with pytest.raises(side.cox.CoxUnsupported, match="donate=True is not capturable"):
                 s.launch(
                     side.k(SCALE), grid=8, block=256, args=(np.zeros_like(o), h1.outputs["out"], n), donate=True
                 )
+
+
+def test_capture_does_not_tune(tmp_path, monkeypatch):
+    """A launch issued while a graph captures keeps its heuristic knobs:
+    the tuner measures nothing (a synchronize inside a CUDA graph
+    capture raises), and the replay is bitwise the eager launch."""
+    from repro_torch.core import autotune
+
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
+    autotune.reset()
+    side = SIDES[1]
+    d, s, _ = side.fresh()
+    o, x, y, n = _args()
+    g = side.cox.Graph()
+    with g.capture(s):
+        h = s.launch(side.k(TILE_SUM), grid=8, block=256, args=(o[:8], x, n), autotune=True)
+    assert h.request.rl.chunk_source == "heuristic"
+    assert autotune.stats()["measurements"] == 0 and autotune.stats()["misses"] == 0
+    want = side.k(TILE_SUM).launch(grid=8, block=256, args=(o[:8], x, n), device="cpu")
+    assert np.array_equal(np.asarray(g.replay()["out"]), np.asarray(want["out"]))
+    autotune.reset()
 
 
 def test_capture_rejects_event_query_and_sync():

@@ -317,20 +317,23 @@ def test_tensor_on_another_device_raises():
     [
         ({"backend": "sharded"}, "A.10"),
         ({"mesh": object(), "device": None}, "A.10"),  # device= and mesh= exclude
-        ({"donate": True}, "A.9.3"),
-        ({"autotune": True}, "A.9.3"),
+        ({"donate": True}, None),
+        ({"autotune": True}, None),
         ({"stream": "cox.Stream"}, None),
         ({"device": torch.device("cpu")}, None),
     ],
     ids=["sharded", "mesh", "donate", "autotune", "stream", "pin"],
 )
-def test_unported_knobs_raise(knobs, item):
-    """The knobs of paths not ported raise ``CoxUnsupported`` naming their
-    ROADMAP item.  The runtime services (A.9.2) lift two refusals: a
-    launch on a ``cox.Stream`` and one pinned to ``torch.device("cpu")``
-    run, bitwise the plain launch."""
+def test_unported_knobs_raise(knobs, item, tmp_path, monkeypatch):
+    """The knobs of paths not ported (the multi-device ones) raise
+    ``CoxUnsupported`` naming their ROADMAP item.  The runtime services
+    lift the others: a launch on a ``cox.Stream``, one pinned to
+    ``torch.device("cpu")`` (A.9.2), a donating launch and a tuned one
+    (A.9.3) run, bitwise the plain launch."""
+    from repro_torch.core import autotune
     from repro_torch.core.streams import Dispatcher
 
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
     rng = np.random.default_rng(5)
     args = (np.zeros(24, np.float32), rng.standard_normal(24).astype(np.float32), 24)
     if item is not None:
@@ -341,10 +344,15 @@ def test_unported_knobs_raise(knobs, item):
     d = Dispatcher(devices=[torch.device("cpu")])
     if "stream" in knobs:
         got = p_oob.launch(grid=1, block=32, args=args, stream=pcox.Stream("s", d))
-    else:
+    elif "device" in knobs:
         pinned = pcox.Stream("pinned", d, device=knobs["device"])
         got = p_oob.launch(grid=1, block=32, args=args, stream=pinned, **knobs)
         assert pinned.device == knobs["device"]
+    else:
+        held = tuple(torch.from_numpy(a.copy()) if isinstance(a, np.ndarray) else a for a in args)
+        got = p_oob.launch(grid=1, block=32, args=held, device="cpu", **knobs)
+        if "donate" in knobs:  # the 1-D f32 tensors were consumed
+            assert all(t.numel() == 0 for t in held[:2])
     assert set(got) == set(want)
     for k in want:
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k

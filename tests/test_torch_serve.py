@@ -394,15 +394,24 @@ def test_unported_families_and_norms_raise(arch):
 
 
 @pytest.mark.parametrize("knob", ["postproc", "graph", "chaos", "autotune"])
-def test_unported_serving_knobs_raise(knob, capsys):
-    """The runtime services (ROADMAP A.9.2) lift three refusals: the
-    ``postproc``, ``graph`` and ``chaos`` knobs run through
-    ``serve_requests`` and the CLI on the CPU.  ``--autotune`` is A.9.3
-    and still raises."""
+def test_unported_serving_knobs_raise(knob, capsys, tmp_path, monkeypatch):
+    """The runtime services lift every serving refusal: the
+    ``postproc``, ``graph`` and ``chaos`` knobs (ROADMAP A.9.2) and
+    ``--autotune`` (A.9.3) run through ``serve_requests`` and the CLI on
+    the CPU; ``--autotune`` tunes the postprocess launches and prints the
+    tuner's cell."""
+    from repro_torch.core import autotune
+
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
     argv = ["--arch", ARCH, "--batch", "1", "--ctx", "8", "--requests", "1", "--tokens", "1"]
     if knob == "autotune":
-        with pytest.raises(CoxUnsupported, match="A.9.3"):
-            pserve.main(argv + ["--device", "cpu", "--autotune"])
+        monkeypatch.setenv(autotune.ENV_ENABLE, "1")  # restored after the test
+        autotune.reset()
+        cli = pserve.main(argv + ["--device", "cpu", "--postproc", "--autotune"])
+        assert cli["completed"] == 1 and cli["postproc"]["failed"] == 0
+        assert cli["dispatch_health"]["autotune"]["misses"] == 1
+        assert "[autotune: 0h/0dh/1m," in capsys.readouterr().out
+        autotune.reset()
         return
     knobs = {"postproc": True, knob: True}
     out = pserve.serve_requests(ARCH, batch=1, ctx=8, n_requests=1, max_tokens=1, device="cpu", **knobs)
@@ -416,6 +425,26 @@ def test_unported_serving_knobs_raise(knob, capsys):
         assert out["graph"]["replayed"] and "graph replay" in printed
     if knob == "chaos":
         assert out["postproc"]["failed"] == 1 and "1 faulted" in printed
+
+
+@pytest.mark.parametrize("pin", [False, True], ids=["auto", "chaos"])
+def test_request_kernel_pool_knobs(pin):
+    """The postprocess pool leaves its launches on the auto knobs, as the
+    reference's does (so ``--autotune`` tunes them), and pins the serial
+    scan only for the fault drill, whose one fault the vmap -> scan
+    ladder would otherwise absorb; the histograms are the same."""
+    pool = pserve.RequestKernelPool(2, nbins=8, device="cpu", pin_scan=pin)
+    toks = [list(range(1, 400)), [4, 4, 4]]
+    for slot, t in enumerate(toks):
+        pool.submit(slot, t)
+    hists = pool.collect()
+    for h, t in zip(hists, toks):
+        np.testing.assert_array_equal(h, np.bincount(np.array(t) % 8, minlength=8))
+    reqs = [h.request for h in pool.handles]
+    want = ("scan", "serial") if pin else ("auto", "auto")
+    assert all((r.req_backend, r.req_warp_exec) == want for r in reqs)
+    if not pin:  # 399 tokens fill 7 blocks: auto picks the block-parallel backend
+        assert reqs[0].rl.backend == "vmap"
 
 
 def _carried_serve_requests(monkeypatch, arch=ARCH, seed=10):

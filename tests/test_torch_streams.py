@@ -10,9 +10,12 @@ multiply-add while eager torch rounds twice (rtol = atol = 1e-5, as
 ``FMA_KERNELS``).  Within the port, a stream schedule is bitwise the
 serial launches, across the 2 x 2 (backend, warp_exec) cells.
 
-Buffer donation is ROADMAP A.9.3: each donate case of the reference's
-file, and ``Stream.launch(..., donate=True)``, raises ``CoxUnsupported``
-naming it.  The card-side half (device waits, the legacy barrier,
+Buffer donation runs each donate case of the reference's file on both
+packages: a donated 1-D device tensor is consumed (a later launch over
+it raises), a chained relaunch over its own outputs and a consumed
+producer output keep the bookkeeping whole, a donating launch never
+shares a staged entry with a plain one, and the sharded refusal is the
+reference's.  The card-side half (device waits, the legacy barrier,
 ``record_stream``) is in ``tests/test_torch_cuda.py``.
 """
 
@@ -375,46 +378,147 @@ def test_dispatch_log_is_bounded_deque():
 
 
 # ---------------------------------------------------------------------------
-# donation: ROADMAP A.9.3
+# donation: the reference's cases, each run on both packages
 # ---------------------------------------------------------------------------
 
 
-def _donate_stream_launch():
-    d = Dispatcher(devices=[torch.device("cpu")])
-    s = pcox.Stream("don", d)
-    s.launch(SAXPY[1], grid=4, block=256, args=_args(1024), donate=True)
+def _arrays(side, *vals):
+    """Each value as the package's own 1-D device array: a jax array for
+    the reference, a CPU tensor for the port (what donation aliases)."""
+    if side.port:
+        return tuple(torch.from_numpy(np.array(v)) for v in vals)
+    import jax.numpy as jnp
 
-
-def _donate_chained():
-    d = Dispatcher(devices=[torch.device("cpu")])
-    s = pcox.Stream("chain", d)
-    h = s.launch(SAXPY[1], grid=4, block=256, args=_args(1024))
-    s.launch(SCALE[1], grid=4, block=256, args=(h.outputs["out"], h.outputs["out"], 1024), donate=True)
-
-
-def _donate_producer_output():
-    d = Dispatcher(devices=[torch.device("cpu")])
-    s1, s2 = pcox.Stream("p", d), pcox.Stream("c", d)
-    h1 = s1.launch(SCALE[1], grid=4, block=256, args=(np.zeros(1024, np.float32), _args(1024)[1], 1024))
-    s2.launch(SCALE[1], grid=4, block=256, args=(np.zeros(1024, np.float32), h1.outputs["out"], 1024), donate=True)
-
-
-def _donate_uncached_runtime():
-    ck = SAXPY[1].compiled(block=256)
-    pruntime.launch(ck, grid=2, block=256, args=_args(512), donate=True, device="cpu")
-
-
-def _donate_splits_cache():
-    SAXPY[1].launch(grid=2, block=128, args=_args(512), donate=True, device="cpu")
-
-
-def _donate_on_sharded():
-    SAXPY[1].launch(grid=2, block=128, args=_args(512), donate=True, mesh=object())
+    return tuple(jnp.asarray(v) for v in vals)
 
 
 def _donate_correct():
-    x = torch.arange(1024, dtype=torch.float32)
-    SAXPY[1].launch(grid=4, block=256, args=(torch.zeros(1024), x, torch.ones(1024), 1024), donate=True, device="cpu")
+    """Outputs stay correct, and a donated 1-D input is consumed:
+    launching over it again raises.  A numpy input, a tensor of another
+    dtype (which needed a cast) and a 2-D tensor are never consumed."""
+    n = 1024
+    x0 = np.arange(n, dtype=np.float32)
+
+    def scenario(side):
+        o, x, y = _arrays(side, np.zeros(n, np.float32), x0, np.ones(n, np.float32))
+        r = side.k(SAXPY).launch(grid=4, block=256, args=(o, x, y, n), donate=True, **side.dev)
+        with pytest.raises(Exception):
+            side.k(SAXPY).launch(grid=4, block=256, args=(np.zeros(n, np.float32), x, y, n), **side.dev)
+        return _np(r["out"]), x
+
+    (want, _), (got, x) = on_both(scenario)
+    assert_fma_close(got, want)
+    np.testing.assert_allclose(got, 2.5 * x0 + 1.0, rtol=1e-6)
+    assert x.numel() == 0
+    kept = (np.zeros(n, np.float32), torch.from_numpy(x0).double(), torch.ones(2, n // 2))
+    SAXPY[1].launch(grid=4, block=256, args=(*kept, n), donate=True, device="cpu")
+    assert kept[1].numel() == n and kept[2].numel() == n
+    with pytest.raises(CoxUnsupported, match="donated"):
+        SAXPY[1].launch(grid=4, block=256, args=(np.zeros(n, np.float32), x, x, n), device="cpu")
+
+
+def _donate_chained():
+    """The donation payoff: an in-order stream relaunching over its own
+    previous outputs, each step consuming the last step's buffer (the
+    reference's chain, and the port's with ``donate=True``)."""
+    n = 1024
+    x0 = np.arange(n, dtype=np.float32) / n
+
+    def scenario(side, donate):
+        d, s, _ = side.fresh()
+        cur, x, z = _arrays(side, np.zeros(n, np.float32), x0, np.zeros(n, np.float32))
+        h = s.launch(side.k(SAXPY), grid=4, block=256, args=(cur, x, z, n))
+        for _ in range(3):
+            h = s.launch(side.k(SCALE), grid=4, block=256, args=(h.outputs["out"], h.outputs["out"], n), donate=donate)
+        return _np(h.result()["out"])
+
+    want = scenario(SIDES[0], False)
+    for donate in (False, True):
+        got = scenario(SIDES[1], donate)
+        assert_fma_close(got, want)
+    ref = 2.5 * x0
+    for _ in range(3):
+        ref = ref * 3.0 + 1.0
+    np.testing.assert_allclose(want, ref, rtol=1e-5)
+
+
+def _donate_producer_output():
+    """A donating consumer consumes its producer's output; the in-flight
+    pruning and the syncs treat it as complete, and the producer's handle
+    says its output is gone."""
+    n = 1024
+    x0 = np.arange(n, dtype=np.float32) / n
+
+    def scenario(side):
+        d, s1, s2 = side.fresh()
+        (x,) = _arrays(side, x0)
+        h1 = s1.launch(side.k(SCALE), grid=4, block=256, args=(np.zeros(n, np.float32), x, n))
+        h2 = s2.launch(
+            side.k(SCALE), grid=4, block=256, args=(np.zeros(n, np.float32), h1.outputs["out"], n), donate=True
+        )
+        got = _np(h2.result()["out"])
+        d.sync_all()
+        s1.synchronize()
+        assert h1.done() and h2.done()
+        if side.port:
+            with pytest.raises(CoxUnsupported, match="donated"):
+                h1.result()
+        return got
+
+    want, got = on_both(scenario)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, (x0 * 3.0 + 1.0) * 3.0 + 1.0, rtol=1e-5)
+
+
+def _donate_uncached_runtime():
+    """``runtime.launch(donate=True)``: correct, and the donated input
+    consumed."""
+    n = 512
+    x0 = np.arange(n, dtype=np.float32)
+    ck = SAXPY[1].compiled(block=256)
+    x, y = torch.from_numpy(x0.copy()), torch.ones(n)
+    out = pruntime.launch(ck, grid=2, block=256, args=(torch.zeros(n), x, y, n), donate=True, device="cpu")
+    np.testing.assert_allclose(out["out"].numpy(), 2.5 * x0 + 1.0, rtol=1e-6)
+    assert x.numel() == 0 and y.numel() == 0
+    with pytest.raises(CoxUnsupported, match="donated"):
+        pruntime.launch(ck, grid=2, block=256, args=(torch.zeros(n), x, y, n), device="cpu")
+
+
+def _donate_splits_cache():
+    """A donating launch never shares a staged entry with a non-donating
+    one of the same geometry."""
+    for side in SIDES:
+        o, x, y, n = _args(512)
+        k = side.k(SAXPY)
+        k.launch(grid=2, block=128, args=(o, x, y, n), **side.dev)
+        n1 = len(k._launch_cache)
+        k.launch(grid=2, block=128, args=(o, x, y, n), donate=True, **side.dev)
+        assert len(k._launch_cache) == n1 + 1, side
+
+
+def _donate_on_sharded():
+    """Refused on the sharded backend; the port names the A.10 refusal
+    of the mesh first, and shares the reference's check."""
+    from repro_torch.core.backends.plan import check_donate_supported
+
+    with pytest.raises(CoxUnsupported, match="A.10"):
+        SAXPY[1].launch(grid=2, block=128, args=_args(512), donate=True, mesh=object())
+    with pytest.raises(CoxUnsupported, match="donate=True is unsupported on the sharded"):
+        check_donate_supported("sharded", "_saxpy")
+    check_donate_supported("vmap", "_saxpy")
+
+
+def _donate_stream_launch():
+    """``Stream.launch(..., donate=True)`` on a CPU-pooled dispatcher:
+    bitwise the plain launch, its tensor inputs consumed."""
+    d = Dispatcher(devices=[torch.device("cpu")])
+    s = pcox.Stream("don", d)
+    o, x, y, n = _args(1024)
+    want = SAXPY[1].launch(grid=4, block=256, args=(o, x, y, n), device="cpu")["out"]
+    held = (torch.from_numpy(o), torch.from_numpy(x.copy()), torch.from_numpy(y.copy()))
+    h = s.launch(SAXPY[1], grid=4, block=256, args=(*held, n), donate=True)
+    assert torch.equal(h.result()["out"], want)
+    assert all(t.numel() == 0 for t in held) and h.request.consumed == 3 * 4 * 1024
 
 
 DONATE_CASES = {
@@ -430,8 +534,40 @@ DONATE_CASES = {
 
 @pytest.mark.parametrize("case", sorted(DONATE_CASES))
 def test_donation_waits_for_a93(case):
-    with pytest.raises(CoxUnsupported, match="A.9.3"):
-        DONATE_CASES[case]()
+    """The reference's donation cases (named for the refusal they
+    replace)."""
+    DONATE_CASES[case]()
+
+
+def test_failed_donating_attempt_is_not_retried(monkeypatch):
+    """A donating attempt that fails after consuming its inputs takes no
+    retry and no ladder rung (its inputs are gone, as the reference's
+    donated buffers are); an injected dispatch fault fires before
+    anything is consumed, so the ladder still saves the launch."""
+    from repro_torch.core import errors
+
+    d = Dispatcher(devices=[torch.device("cpu")])
+    s = pcox.Stream("don", d)
+    o, x, y, n = _args(1024)
+    with pcox.faults.inject("_saxpy", site="dispatch", index=0, times=1, transient=True):
+        held = tuple(torch.from_numpy(a.copy()) for a in (o, x, y))
+        h = s.launch(SAXPY[1], grid=4, block=256, args=(*held, n), donate=True)
+        h.result()
+    assert d.retries == 1 and all(t.numel() == 0 for t in held)
+    calls = []
+    real = d._attempt
+
+    def flaky(req, name):
+        calls.append(req.consumed)
+        out = real(req, name)
+        raise errors.CoxLaunchError("lost after the run", transient=True)
+
+    monkeypatch.setattr(d, "_attempt", flaky)
+    held = tuple(torch.from_numpy(a.copy()) for a in (o, x, y))
+    h = s.launch(SAXPY[1], grid=4, block=256, args=(*held, n), donate=True)
+    with pytest.raises(errors.CoxLaunchError):
+        h.result()
+    assert calls == [0]
 
 
 def test_side_helper_pools_the_cpu():
