@@ -77,6 +77,16 @@ it:
   and ``launch.serve.main([... '--postproc', '--autotune'])`` on
   mamba2-130m (rmsnorm), then the same command in a child process on the
   same cache file, which measures nothing.
+- COX on a pool of devices: vec_madd, the histogram atomics, the
+  cooperative gridReduce and the grid-stride vec_madd sharded over a
+  one-rank NCCL mesh (each bitwise the scan launch and the oracle; one
+  launch captured and replayed as a CUDA graph), then over 8 and 4 gloo
+  ranks spawned as processes that share the card (every rank bitwise the
+  single-device launch, all ranks the same; a gloo capture refused), with
+  MatrixMulCUDA at n = 320 over 4 gloo ranks beside one NCCL rank; and
+  streams over a pool of 4 logical devices on the card (the round-robin
+  spread, a cross-device event and data edge, health-aware routing after
+  a sticky fault, a placed graph replayed as a CUDA graph).
 
 Then it times the kernel wrappers' host cost, profiles a few decode steps
 and one train step of each model (device busy and idle time, kernels by
@@ -114,6 +124,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import cox, execute, oracle, runtime  # noqa: E402
+from repro_torch.core.streams import Dispatcher  # noqa: E402
 from repro_torch.core.typeinfer import infer  # noqa: E402
 from repro_torch.core.types import ArraySpec  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
@@ -527,6 +538,23 @@ def svc_warpstage(c, out: cox.Array(cox.f32), a: cox.Array(cox.f32)):
     c.syncthreads()
     t = tile[tid % 4]
     out[c.block_idx() * c.block_dim() + tid] = v + t
+
+
+# the multi-device phase's kernels (tests/multidevice_kernels.py's bodies)
+@cox.kernel
+def vec_madd(
+    c, out: cox.Array(cox.f32), a: cox.Array(cox.f32), b: cox.Array(cox.f32), n: cox.i32
+):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        out[i] = a[i] * 2.0 + b[i]
+
+
+@cox.kernel
+def histogram(c, hist: cox.Array(cox.f32), data: cox.Array(cox.i32), n: cox.i32):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        c.atomic_add(hist, data[i], 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -3033,7 +3061,7 @@ def phase_cox(rng: np.random.Generator) -> None:
         out, rec = run(name, kern, grid=grid, block=block, args=args, **kw)
         check(same(out, scan_out), f"{name} {kw} != scan")
         emit({**rec, "check": "bitwise == scan"})
-        return out
+        return rec
 
     # vectorAdd: the SDK default size, whole grid against the oracle (one
     # f32 add per element on both sides: bitwise)
@@ -3077,19 +3105,22 @@ def phase_cox(rng: np.random.Generator) -> None:
     # the block-parallel variants at the same size, each against the scan
     # launch.  The default (hybrid) collapse compiles this warp-free kernel
     # flat, one 256-lane warp a block; the warp-plane variants collapse it
-    # hierarchically into 8 warps: serial warps, the batched warp plane,
-    # the batched plane with the whole grid in one wave; then grid-stride
-    # waves of 64 blocks and the default launch (auto knobs)
+    # hierarchically into 8 warps: serial warps with the whole grid in one
+    # wave (50 waves of 8 took 70-85 s of the script), the batched warp
+    # plane, the batched plane with the whole grid in one wave; then
+    # grid-stride waves of 64 blocks and the default launch (auto knobs),
+    # which the multidevice phase's sharded launches are timed beside
     for kw in (
-        dict(collapse="hier", warp_exec="serial"),
+        dict(collapse="hier", warp_exec="serial", chunk=(n // 16) ** 2),
         dict(collapse="hier", warp_exec="batched"),
         dict(collapse="hier", warp_exec="batched", chunk=(n // 16) ** 2),
         dict(schedule="grid_stride", n_resident=64),
         dict(),
     ):
-        vmap_against_scan(
+        rec = vmap_against_scan(
             "MatrixMulCUDA", MatrixMulCUDA, scan_out, grid=grid, block=block, args=args, **kw
         )
+    MM_REF.update(args=args, scan=scan_out, vmap_s=rec["wall_s"])
 
     # warp shuffle reduction: small integers, so every sum is exact
     nb = 128
@@ -3201,6 +3232,398 @@ def phase_three_way(gen: torch.Generator) -> None:
     )
 
 
+# ---------------------------------------------------------------------------
+# COX on a pool of devices: sharded launches over torch.distributed ranks,
+# and stream placement over a pool of logical devices
+# ---------------------------------------------------------------------------
+
+MD_RANKS = 8  # gloo ranks sharing the card: tests/test_multidevice.py's 8 devices
+MD_STRIDE_RANKS = 4  # tests/test_grid_stride.py's 4 devices (grid 10: 3/3/3/1)
+MD_TIMEOUT_S = 150  # a spawned world, and every collective
+MD_POOL = 4  # logical devices on the card
+MD_WORLDS = {MD_RANKS: ("vec_madd", "histogram", "gridReduce"), MD_STRIDE_RANKS: ("stride",)}
+# the cox phase's MatrixMulCUDA: its args, scan output and the wall
+# seconds of its single-device launch on the default knobs, which the
+# multidevice phase holds its sharded launches to and times them beside
+MM_REF = {}
+
+
+def md_case(name: str):
+    """``(kernel, grid, block, args, knobs)`` of a multi-device case, made
+    from fixed seeds so that every rank holds the same inputs."""
+    if name == "vec_madd":
+        a = np.arange(2048, dtype=np.float32)
+        return vec_madd, 8, 256, (np.zeros(2048, np.float32), a, np.ones(2048, np.float32), 2000), {}
+    if name == "histogram":
+        d = np.random.default_rng(0).integers(0, 16, 1024).astype(np.int32)
+        return histogram, 8, 128, (np.zeros(16, np.float32), d, 1024), {}
+    if name == "gridReduce":
+        d = np.random.default_rng(7).integers(-8, 9, size=1000).astype(np.float32)
+        return gridReduce, 8, 128, (np.zeros(1, np.float32), np.zeros(8, np.float32), d, 1000), {}
+    if name == "stride":
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=1280).astype(np.float32)
+        y = rng.normal(size=1280).astype(np.float32)
+        knobs = dict(schedule="grid_stride", n_resident=2)
+        return vec_madd, 10, 128, (np.zeros(1280, np.float32), x, y, 1280), knobs
+    raise KeyError(name)
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Time every cross-device gather of the sharded backend (synchronised
+    on both sides): ``{"s": seconds, "calls": n}``."""
+    from repro_torch.core.backends import sharded
+
+    gather = sharded.AxisGroup.gather
+    acc = {"s": 0.0, "calls": 0}
+
+    def timed(self, tensors):
+        sync()
+        t0 = time.perf_counter()
+        out = gather(self, tensors)
+        sync()
+        acc["s"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        return out
+
+    sharded.AxisGroup.gather = timed
+    try:
+        yield acc
+    finally:
+        sharded.AxisGroup.gather = gather
+
+
+def _digest(out: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(out):
+        h.update(k.encode())
+        h.update(out[k].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def md_sharded(mesh, kern, grid, block, args, knobs) -> tuple:
+    """One sharded launch on ``mesh``, the ranks started together:
+    ``(outputs, record)`` with its wall seconds, the gathers' share of
+    them, the resolved knobs and a digest of the outputs."""
+    torch.distributed.barrier()
+    with collective_clock() as coll:
+        sync()
+        t0 = time.perf_counter()
+        out = kern.launch(grid=grid, block=block, args=args, mesh=mesh, **knobs)
+        sync()
+        wall = time.perf_counter() - t0
+    check(all(t.device.type == DEVICE for t in out.values()), f"{kern.name}: outputs left the card")
+    resolved = launch_knobs(kern, grid=grid, block=block, args=args, mesh=mesh, **knobs)
+    rec = {
+        "kernel": kern.name,
+        "grid": list(grid) if isinstance(grid, tuple) else [grid],
+        "block": list(block) if isinstance(block, tuple) else [block],
+        **{k: resolved[k] for k in ("backend", "warp_exec", "chunk", "schedule", "n_resident")},
+        "wall_s": wall,
+        "collective_s": coll["s"],
+        "collective_share": coll["s"] / wall,
+        "gathers": coll["calls"],
+        "digest": _digest(out),
+    }
+    return out, rec
+
+
+def md_run(mesh, names) -> list:
+    """Each case on ``mesh`` (every rank makes the same launches): the
+    sharded launch bitwise the single-device scan and ``vmap`` launches,
+    timed beside the ``vmap`` launch."""
+    recs = []
+    for name in names:
+        kern, grid, block, args, knobs = md_case(name)
+        kern.launch(grid=grid, block=block, args=args, mesh=mesh, **knobs)  # compile, stage
+        scan, _, _ = timed_launch(kern, grid=grid, block=block, args=args, **SCAN)
+        vmap, vmap_s, _ = timed_launch(kern, grid=grid, block=block, args=args, backend="vmap", **knobs)
+        out, rec = md_sharded(mesh, kern, grid, block, args, knobs)
+        for want in (scan, vmap):
+            same = all(out[k].dtype == want[k].dtype and torch.equal(out[k], want[k]) for k in want)
+            check(same, f"{name}: the sharded launch over {mesh.size()} rank(s) != the single-device launch")
+        recs.append({**rec, "case": name, "vmap_wall_s": vmap_s, "check": "bitwise == scan and vmap"})
+    return recs
+
+
+def md_matmul(mesh, args) -> dict:
+    """MatrixMulCUDA at the cox phase's n on its default knobs sharded over
+    ``mesh``: compiled on one block first (every rank), then one timed
+    launch."""
+    n = args[3]
+    tile = (np.zeros((16, 16), np.float32), args[1][:16, :16].copy(), args[2][:16, :16].copy(), 16)
+    MatrixMulCUDA.launch(grid=(1, 1), block=(16, 16), args=tile, mesh=mesh)
+    return md_sharded(mesh, MatrixMulCUDA, (n // 16, n // 16), (16, 16), args, {})[1]
+
+
+def md_matmul_reference() -> dict:
+    """The cox phase's MatrixMulCUDA (``MM_REF``), or, where that phase did
+    not run, the same launch on ``vmap`` (the cox phase holds it to the
+    scan)."""
+    if not MM_REF:
+        rng = np.random.default_rng(0)
+        ma = rng.normal(size=(MM_N, MM_N)).astype(np.float32)
+        mb = rng.normal(size=(MM_N, MM_N)).astype(np.float32)
+        args = (np.zeros((MM_N, MM_N), np.float32), ma, mb, MM_N)
+        grid = (MM_N // 16, MM_N // 16)
+        out, wall, _ = timed_launch(MatrixMulCUDA, grid=grid, block=(16, 16), args=args, backend="vmap")
+        MM_REF.update(args=args, scan=out, vmap_s=wall)
+    return MM_REF
+
+
+def md_rank_main(rank: int, world: int, root: str) -> int:
+    """One gloo rank on the card (``chip_smoke.py --md-rank R --md-world
+    N --md-dir D [--md-device cpu]``): the cases of its world on a
+    ``DeviceMesh`` over the world, and MatrixMulCUDA where the parent
+    left its matrices (``D/mm.npz``), written to ``D/rank{R}.json``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    out = pathlib.Path(root) / f"rank{rank}.json"
+    rec = {"rank": rank, "world": world, "ok": False}
+    try:
+        dist.init_process_group(
+            "gloo",
+            init_method=f"file://{root}/store",
+            rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=MD_TIMEOUT_S),
+        )
+        try:
+            mesh = init_device_mesh(DEVICE, (world,), mesh_dim_names=("data",))
+            rec["launches"] = md_run(mesh, MD_WORLDS[world])
+            mm = pathlib.Path(root) / "mm.npz"
+            if mm.exists():
+                z = np.load(mm)
+                n = int(z["n"])
+                rec["matmul"] = md_matmul(mesh, (np.zeros((n, n), np.float32), z["a"], z["b"], n))
+            if rank == 0:
+                # a sharded launch on a gloo group is not capturable
+                s = cox.Stream("md_gloo_graph", dispatcher=Dispatcher(devices=[DEVICE]))
+                g = cox.Graph()
+                kern, grid, block, args, _ = md_case("vec_madd")
+                with g.capture(s):
+                    s.launch(kern, grid=grid, block=block, args=args, mesh=mesh)
+                try:
+                    g.instantiate()
+                    rec["gloo_capture"] = "captured"
+                except cox.CoxUnsupported as e:
+                    rec["gloo_capture"] = f"refused: {e}"[:160]
+            dist.barrier()
+            rec["ok"] = True
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        rec["error"] = traceback.format_exc()[-3000:]
+    out.write_text(json.dumps(rec))
+    return 0 if rec["ok"] else 1
+
+
+def md_spawn(world: int, matmul_args=None) -> list:
+    """Run ``world`` gloo ranks on the card as processes (with
+    MatrixMulCUDA's matrices, when given); every rank must exit 0 within
+    ``MD_TIMEOUT_S`` and all must agree on every output."""
+    with tempfile.TemporaryDirectory() as root:
+        if matmul_args is not None:
+            np.savez(pathlib.Path(root) / "mm.npz", a=matmul_args[1], b=matmul_args[2], n=matmul_args[3])
+        procs = []
+        for r in range(world):
+            with open(pathlib.Path(root) / f"rank{r}.log", "w") as log:
+                cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--md-rank", str(r)]
+                cmd += ["--md-world", str(world), "--md-dir", root, "--md-device", DEVICE]
+                procs.append(subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + MD_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        recs = []
+        for r, p in enumerate(procs):
+            path = pathlib.Path(root) / f"rank{r}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {"ok": False}
+            if p.returncode != 0 or not rec["ok"]:
+                log = (pathlib.Path(root) / f"rank{r}.log").read_text()[-2000:]
+                check(False, f"gloo rank {r}/{world} failed ({p.returncode}): {rec.get('error')} {log}")
+            recs.append(rec)
+    for i, case in enumerate(recs[0]["launches"]):
+        digests = {rec["launches"][i]["digest"] for rec in recs}
+        check(len(digests) == 1, f"{case['case']}: the {world} ranks disagree")
+    if matmul_args is not None:
+        check(len({rec["matmul"]["digest"] for rec in recs}) == 1, f"MatrixMulCUDA: the {world} ranks disagree")
+    return recs
+
+
+def md_pool() -> dict:
+    """Streams over ``device_pool(MD_POOL, logical=True)`` on the card: the
+    round-robin spread with every (backend, warp_exec) cell bitwise the
+    unplaced launch, a cross-device event and data edge, health-aware
+    routing after an injected sticky fault with ``device_reset(device=)``,
+    and a graph on a placed stream replayed as a CUDA graph."""
+    from repro_torch.launch.mesh import device_pool
+
+    grid, block = 8, 256
+    n = grid * block
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=n).astype(np.float32)
+    y = rng.normal(size=n).astype(np.float32)
+    o = np.zeros(n, np.float32)
+    args = (o, x, y, n)
+    want = vec_madd.launch(grid=grid, block=block, args=args, device=DEVICE)["out"]
+    want2 = vec_madd.launch(grid=grid, block=block, args=(o, want, y, n), device=DEVICE)["out"]
+    rec = {}
+    d = Dispatcher(devices=device_pool(MD_POOL, logical=True, device_type=DEVICE))
+    streams = [cox.Stream(f"md_s{i}", dispatcher=d) for i in range(MD_POOL)]
+    for backend, we in [("scan", "serial"), ("scan", "batched"), ("vmap", "serial"), ("vmap", "batched")]:
+        hs = [s.launch(vec_madd, grid=grid, block=block, args=args, backend=backend, warp_exec=we) for s in streams]
+        check(all(torch.equal(h.result()["out"], want) for h in hs), f"pool spread {backend}/{we} != unplaced")
+    devs = [s.device for s in streams]
+    check(len(set(devs)) == MD_POOL, f"round-robin placed {MD_POOL} streams on {devs}")
+    if DEVICE == "cuda":
+        tstreams = {id(s.torch_stream(dv)) for s, dv in zip(streams, devs)}
+        check(len(tstreams) == MD_POOL, "logical devices share a CUDA stream")
+    rec["dispatches"] = {k: v["dispatches"] for k, v in d.device_health().items()}
+    # a cross-device event and data edge
+    s0 = cox.Stream("md_prod", dispatcher=d, device=d.devices[0])
+    s1 = cox.Stream("md_cons", dispatcher=d, device=d.devices[1])
+    h0 = s0.launch(vec_madd, grid=grid, block=block, args=args)
+    s1.wait_event(s0.record_event())
+    h1 = s1.launch(vec_madd, grid=grid, block=block, args=(o, h0.outputs["out"], y, n))
+    check(torch.equal(h1.result()["out"], want2), "cross-device chain != the unplaced chain")
+    check(h0.request.seq in h1.request.deps, "the event edge is missing")
+    rec["edge"] = {"producer": str(h0.request.device), "consumer": str(h1.request.device), "data_edge": bool(h1.request.data_deps), "transfers": d.transfers}
+    # health-aware routing around a sticky fault, then the scoped reset
+    hd = Dispatcher(devices=device_pool(MD_POOL, logical=True, device_type=DEVICE), placement=cox.HealthAwarePlacement())
+    victim = cox.Stream("md_victim", dispatcher=hd)
+    with cox.faults.inject("vec_madd", site="sticky-device", times=1):
+        h = victim.launch(vec_madd, grid=grid, block=block, args=args)
+        try:
+            h.result()
+            check(False, "the injected sticky fault did not surface")
+        except cox.CoxDeviceError:
+            pass
+    bad = victim.device
+    check(list(hd.health()["sticky_devices"]) == [str(bad)], "the sticky fault is not scoped to its device")
+    others = [cox.Stream(f"md_n{i}", dispatcher=hd) for i in range(6)]
+    for h2 in [st.launch(vec_madd, grid=grid, block=block, args=args) for st in others]:
+        check(torch.equal(h2.result()["out"], want), "a re-routed launch != unplaced")
+    check(all(st.device != bad for st in others), "placement used the poisoned device")
+    victim.launch(vec_madd, grid=grid, block=block, args=args).result()
+    check(victim.device != bad, "the poisoned stream did not re-place")
+    hd.device_reset(device=bad)
+    check(hd.health()["sticky_devices"] == {}, "device_reset(device=) left the fault")
+    rec["health"] = {"poisoned": str(bad), "failures": hd.device_health()[str(bad)]["failures"]}
+    # a graph captured on a placed stream, replayed as a CUDA graph
+    gs = cox.Stream("md_gcap", dispatcher=d, device=d.devices[2])
+    g = cox.Graph(name="md-placed-chain")
+    with g.capture(gs):
+        h = gs.launch(vec_madd, grid=grid, block=block, args=args)
+        gs.launch(vec_madd, grid=grid, block=block, args=(o, h.outputs["out"], y, n))
+    exe = g.instantiate()
+    check(exe.device is d.devices[2], "the placed graph left its device")
+    check(DEVICE != "cuda" or exe.cuda_graph is not None, "the placed graph is not a CUDA graph")
+    check(torch.equal(exe.replay()["out"], want2), "placed graph replay != the eager chain")
+    rec["graph"] = {"device": str(exe.device), "cuda_graph": exe.cuda_graph is not None}
+    return rec
+
+
+def phase_multidevice() -> dict:
+    """COX on a pool of devices, on the card: (1) one NCCL rank, every case
+    on a one-rank mesh bitwise the scan launch, the vmap launch and the
+    oracle, one sharded launch captured and replayed as a CUDA graph,
+    and MatrixMulCUDA at n = 320 on the one-rank mesh bitwise the cox
+    phase's scan; (2) gloo ranks sharing the card, spawned as processes
+    (8 for vec_madd, histogram and gridReduce; 4 for the grid-stride
+    vec_madd and MatrixMulCUDA), every rank bitwise the single-device
+    launches and all ranks the same; (3) a pool of logical devices."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    ref = md_matmul_reference()
+    ref_digest = _digest(ref["scan"])
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host, no network
+    with tempfile.TemporaryDirectory() as root:
+        dist.init_process_group(
+            "nccl" if DEVICE == "cuda" else "gloo",
+            init_method=f"file://{root}/store",
+            rank=0,
+            world_size=1,
+            timeout=datetime.timedelta(seconds=MD_TIMEOUT_S),
+        )
+        try:
+            mesh = init_device_mesh(DEVICE, (1,), mesh_dim_names=("data",))
+            one = md_run(mesh, ("vec_madd", "histogram", "gridReduce", "stride"))
+            for r in one:
+                kern, grid, block, args, knobs = md_case(r["case"])
+                want = oracle.run_grid(kern.ir, grid=grid, block=block, args=args)
+                got = kern.launch(grid=grid, block=block, args=args, mesh=mesh, **knobs)
+                check(all(np.array_equal(got[k].cpu().numpy(), want[k]) for k in want), f"{r['case']} != oracle")
+                r["check"] += " and the oracle"
+            # one sharded launch captured as a CUDA graph (NCCL, one rank)
+            kern, grid, block, args, _ = md_case("vec_madd")
+            s = cox.Stream("md_nccl_graph", dispatcher=Dispatcher(devices=[DEVICE]))
+            eager = s.launch(kern, grid=grid, block=block, args=args, mesh=mesh).result()
+            g = cox.Graph()
+            with g.capture(s):
+                s.launch(kern, grid=grid, block=block, args=args, mesh=mesh)
+            exe = g.instantiate()
+            check(DEVICE != "cuda" or exe.cuda_graph is not None, "the NCCL sharded launch is not a CUDA graph")
+            replayed = exe.replay()
+            check(all(torch.equal(replayed[k], eager[k]) for k in replayed), "sharded graph replay != eager")
+            mm1 = md_matmul(mesh, ref["args"])
+            check(mm1["digest"] == ref_digest, "MatrixMulCUDA on one rank != the scan launch")
+        finally:
+            dist.destroy_process_group()
+    for r in one:
+        emit({"phase": "multidevice", "part": "nccl_1_rank", "ranks": 1, **r})
+    emit({"phase": "multidevice", "part": "nccl_1_rank", "ranks": 1, "kernel": "vec_madd", "graph": "cuda_graph replay bitwise == eager"})
+    worlds = {MD_RANKS: md_spawn(MD_RANKS), MD_STRIDE_RANKS: md_spawn(MD_STRIDE_RANKS, ref["args"])}
+    for w, recs in worlds.items():
+        for i, r in enumerate(recs[0]["launches"]):
+            walls = [rec["launches"][i]["wall_s"] for rec in recs]
+            emit({"phase": "multidevice", "part": f"gloo_{w}_ranks", "ranks": w, **r, "wall_s_max_rank": max(walls), "check": r["check"] + " on every rank; the ranks agree"})
+    emit({"phase": "multidevice", "part": "gloo_capture", "ranks": MD_RANKS, "result": worlds[MD_RANKS][0]["gloo_capture"]})
+    if DEVICE == "cuda":
+        check(worlds[MD_RANKS][0]["gloo_capture"].startswith("refused"), "a gloo sharded launch was captured")
+    mm4 = worlds[MD_STRIDE_RANKS][0]["matmul"]
+    check(mm4["digest"] == ref_digest, "MatrixMulCUDA over 4 gloo ranks != the scan launch")
+    emit(
+        {
+            "phase": "multidevice",
+            "part": "matmul",
+            "kernel": "MatrixMulCUDA",
+            "n": ref["args"][3],
+            "ranks_4_gloo_wall_s": mm4["wall_s"],
+            "wall_s_max_rank_4": max(rec["matmul"]["wall_s"] for rec in worlds[MD_STRIDE_RANKS]),
+            "rank_1_nccl_wall_s": mm1["wall_s"],
+            "single_device_vmap_wall_s": ref["vmap_s"],
+            "collective_share_4": mm4["collective_share"],
+            "collective_share_1": mm1["collective_share"],
+            "knobs": {k: mm4[k] for k in ("backend", "warp_exec", "chunk", "schedule")},
+            "check": "bitwise == the cox phase's scan on 1 and 4 ranks; the ranks agree",
+        }
+    )
+    pool = md_pool()
+    emit({"phase": "multidevice", "part": "pool", "devices": MD_POOL, **pool})
+    rec = {"phase": "multidevice", "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 KERNEL_META = {
     "softmax": ("src/repro_torch/csrc/softmax.cu", "src/repro/kernels/softmax.py:18"),
     "row_reduce": (
@@ -3267,6 +3690,11 @@ def cpu_token_count(arch: str = ARCH) -> int:
 
 
 def main() -> int:
+    if "--md-rank" in sys.argv:  # one gloo rank of the multidevice phase
+        a = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        global DEVICE
+        DEVICE = a["--md-device"]
+        return md_rank_main(int(a["--md-rank"]), int(a["--md-world"]), a["--md-dir"])
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
     t_start = time.perf_counter()
@@ -3362,6 +3790,9 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_autotune_serve(ssm_cpu_tokens)
     paths["autotune_serve"] = ops.launch_counts()
+    # COX on a pool of devices: sharded launches over NCCL and gloo ranks,
+    # and streams placed over logical devices (no hand-written kernel)
+    phase_multidevice()
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()

@@ -135,6 +135,7 @@ class KernelFn:
         simd: bool = True,
         warp_size: int = WARP_SIZE,
         mesh=None,
+        axis: str = "data",
         backend: str = "auto",
         chunk=None,
         warp_exec: str = "auto",
@@ -169,17 +170,15 @@ class KernelFn:
         that binds it raises).  ``device=`` pins the launch to a torch
         device (``'cpu'``, or a card); left ``None`` the launch runs on
         its stream's device, by default the current CUDA device.
-        ``mesh``/``backend='sharded'`` raise :class:`CoxUnsupported`
-        naming ROADMAP A.10."""
-        if device is not None and mesh is not None:
-            raise CoxUnsupported(
-                f"kernel '{self.name}': device= and mesh= are mutually exclusive -- "
-                f"a sharded launch spans the mesh's own devices; placement applies "
-                f"to single-device launches"
-            )
+
+        ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, mutually
+        exclusive with ``device=``) shards the grid over the mesh axis
+        ``axis`` on the ``sharded`` backend: every rank of the mesh makes
+        the same launch and gets the merged globals on its own device.
+        A sharded launch is never tuned, donated or placed."""
         if mesh is not None:
-            raise _runtime.unported("mesh")
-        dev = None if device is None else _runtime.resolve_device(device)
+            _runtime.launch_device(device, mesh, axis, self.name)
+        dev = None if device is None else _runtime.resolve_entry(device)
         block3 = as_dim3(block, "block")
         token = self._compile_key(collapse=collapse, warp_size=warp_size, block=block3.total)
         ck = self._compiled_for(token)
@@ -193,12 +192,13 @@ class KernelFn:
             chunk=chunk,
             schedule=schedule,
             n_resident=n_resident,
+            mesh=mesh,
         )
         globals_, shapes, scalars = hold_kernel_args(ck, args)
         rl = _runtime.resolve_schedule(ck, rl, shapes)
         tune = autotune if autotune is not None else (chunk == "auto" or _autotune.enabled())
         if tune:
-            tune_dev = dev
+            tune_dev = _runtime.physical(dev)
             if tune_dev is None and stream is not None:
                 tune_dev = stream.dispatcher._stream_device(stream)
             rl = _autotune.tune(
@@ -224,6 +224,8 @@ class KernelFn:
             rl=rl,
             simd=simd,
             chunk=rl.chunk,
+            mesh=mesh,
+            axis=axis,
             donate=donate,
             globals_=globals_,
             shapes=shapes,
@@ -244,6 +246,7 @@ class KernelFn:
         simd: bool = True,
         warp_size: int = WARP_SIZE,
         mesh=None,
+        axis: str = "data",
         backend: str = "auto",
         chunk=None,
         warp_exec: str = "auto",
@@ -268,10 +271,10 @@ class KernelFn:
         ``warp_exec`` (``'serial'`` or the ``'batched'`` warp plane),
         ``chunk`` (blocks a ``vmap`` wave), ``schedule`` (``'chunked'``
         or ``'grid_stride'``) and ``n_resident`` (the grid-stride wave
-        width).  ``autotune`` and ``donate`` are described at
-        :meth:`make_request`.  ``stream=`` enqueues on a :class:`Stream`
-        instead of the default one.  ``mesh``/``backend='sharded'``
-        raise :class:`CoxUnsupported` naming ROADMAP A.10."""
+        width).  ``mesh``/``axis`` (the ``'sharded'`` backend),
+        ``autotune`` and ``donate`` are described at :meth:`make_request`.
+        ``stream=`` enqueues on a :class:`Stream` instead of the default
+        one."""
         return self.launch_async(
             grid=grid,
             block=block,
@@ -281,6 +284,7 @@ class KernelFn:
             simd=simd,
             warp_size=warp_size,
             mesh=mesh,
+            axis=axis,
             backend=backend,
             chunk=chunk,
             warp_exec=warp_exec,

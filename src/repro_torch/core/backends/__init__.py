@@ -7,19 +7,21 @@ into ``run(globals_, scalars, device) -> globals_`` via ``build_fn``:
   place (minimal memory, the grid fully serialized);
 * ``vmap`` -- block-parallel: a wave of blocks runs at once as a leading
   copy axis of the executor's tensors, reconciled by the write-mask /
-  atomic-delta merge (``merge.py``).
+  atomic-delta merge (``merge.py``);
+* ``sharded`` -- the grid dealt over a ``DeviceMesh`` axis, the ``vmap``
+  executor within each rank, the devices' copies merged across the axis
+  (``merge.cross_device_merge``).
 
-The multi-device ``sharded`` backend is ROADMAP queue item A.10.
 ``flat.choose_backend`` is the 'auto' heuristic; ``get_backend``
 resolves a name to its module.
 """
 
 from __future__ import annotations
 
-from . import block_vmap, scan
+from . import block_vmap, scan, sharded
 from .plan import LaunchPlan  # noqa: F401
 
-BACKENDS = {scan.name: scan, block_vmap.name: block_vmap}
+BACKENDS = {scan.name: scan, block_vmap.name: block_vmap, sharded.name: sharded}
 
 
 def available_backends():

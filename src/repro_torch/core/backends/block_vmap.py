@@ -52,43 +52,92 @@ def _uniforms(plan: LaunchPlan, scalars, device):
     return plan.uniforms(torch.zeros((), dtype=torch.int32, device=device), scalars)
 
 
-def _merge_wave(block_fn, bids: torch.Tensor, g, u):
+def _merge_wave(block_fn, bids: torch.Tensor, g, u, *, fold_deltas: bool = True):
     """One wave over the block ids ``bids`` and the merge of its copies
     into ``g`` -- the body both schedules run, so they compute the same
-    thing over the same waves."""
+    thing over the same waves.  Returns ``(globals, wrote, deltas)``."""
     g2, m2, d2 = block_fn({**u, "bid": bids}, g)
-    g, _, _ = merge.merge_chunk(g, g2, m2, d2, fold_deltas=True)
-    return g
+    return merge.merge_chunk(g, g2, m2, d2, fold_deltas=fold_deltas)
 
 
-def run_chunked(plan: LaunchPlan, block_fn, bid_chunks: np.ndarray, globals_, scalars, device):
-    """The waves are the rows of ``bid_chunks`` (-1 marks pad slots)."""
+class _Tracker:
+    """The union of a device's write masks and the sum of its atomic
+    deltas over its waves, for the cross-device merge
+    (``fold_deltas=False``; the single-device path tracks nothing).  A
+    delta buffer starts at zero and adds each wave's sum, as the
+    reference's accumulator does."""
+
+    def __init__(self, fold_deltas: bool):
+        self.on = not fold_deltas
+        self.masks: Dict[str, torch.Tensor] = {}
+        self.deltas: Dict[str, torch.Tensor] = {}
+
+    def add(self, wrote, dsum) -> None:
+        if not self.on:
+            return
+        for k, m in wrote.items():
+            self.masks[k] = self.masks[k] | m if k in self.masks else m
+        for k, d in dsum.items():
+            acc = self.deltas.get(k)
+            if acc is None:
+                acc = torch.zeros_like(d)
+            self.deltas[k] = merge.wrap(acc + d)
+
+
+def run_chunked(
+    plan: LaunchPlan, block_fn, bid_chunks: np.ndarray, globals_, scalars, device, *, fold_deltas=True
+):
+    """The waves are the rows of ``bid_chunks`` (-1 marks pad slots; a
+    row of pads runs nothing).  Returns ``(globals, masks, deltas)``:
+    with ``fold_deltas=False`` the deltas stay out of ``globals``, so a
+    later wave does not see an earlier wave's atomic increments, and the
+    masks (OR-ed) and deltas (summed) over every wave are returned for
+    :func:`merge.cross_device_merge`; with ``True`` both are empty."""
     g, u = globals_, _uniforms(plan, scalars, device)
+    t = _Tracker(fold_deltas)
     for row in bid_chunks:
-        g = _merge_wave(block_fn, _wave_ids(row, device), g, u)
-    return g
+        if row[0] < 0:
+            continue
+        g, wrote, dsum = _merge_wave(block_fn, _wave_ids(row, device), g, u, fold_deltas=fold_deltas)
+        t.add(wrote, dsum)
+    return g, t.masks, t.deltas
 
 
-def run_strided(plan: LaunchPlan, block_fn, globals_, scalars, device):
+def run_strided(
+    plan: LaunchPlan, block_fn, globals_, scalars, device, *, fold_deltas=True, base=0, total=None
+):
     """Grid-stride waves: wave *i* is ``plan.stride_bids(i)``, the
-    contiguous ids ``[i*R, (i+1)*R)`` -- row *i* of the table a chunked
-    plan with ``chunk=R`` walks, so the two are bitwise equal."""
+    contiguous ids ``base + [i*R, (i+1)*R)`` -- row *i* of the table a
+    chunked plan with ``chunk=R`` walks, so the two are bitwise equal.
+    ``base``/``total`` scope the loop to one device's slice of the grid
+    (the defaults cover the whole grid).  Returns ``(globals, masks,
+    deltas)`` as :func:`run_chunked`."""
     g, u = globals_, _uniforms(plan, scalars, device)
-    for i in range(plan.n_stride_waves()):
-        g = _merge_wave(block_fn, _wave_ids(plan.stride_bids(i), device), g, u)
-    return g
+    t = _Tracker(fold_deltas)
+    total = plan.grid if total is None else int(total)
+    limit = min(base + total, plan.grid)
+    for i in range(plan.n_stride_waves(total)):
+        bids = plan.stride_bids(i, base=base, limit=limit)
+        if bids[0] < 0:
+            continue
+        g, wrote, dsum = _merge_wave(block_fn, _wave_ids(bids, device), g, u, fold_deltas=fold_deltas)
+        t.add(wrote, dsum)
+    return g, t.masks, t.deltas
 
 
-def run_phase_wave(fn, bids: torch.Tensor, globals_, u, state):
+def run_phase_wave(fn, bids: torch.Tensor, globals_, u, state, *, fold_deltas=True):
     """One cooperative phase over the wave ``bids``, with the blocks'
-    carried state on the wave axis.  Returns ``(globals, state)``."""
+    carried state on the wave axis.  Returns ``(globals, wrote, deltas,
+    state)``, the masks and deltas merged over the wave
+    (``fold_deltas=True`` applies the deltas to ``globals``)."""
     g2, m2, d2, st2 = fn({**u, "bid": bids}, globals_, state=state)
-    g, _, _ = merge.merge_chunk(globals_, g2, m2, d2, fold_deltas=True)
-    return g, st2
+    g, wrote, dsum = merge.merge_chunk(globals_, g2, m2, d2, fold_deltas=fold_deltas)
+    return g, wrote, dsum, st2
 
 
-def build_fn(plan: LaunchPlan):
-    """Return ``run(globals_, scalars, device) -> globals_`` for the plan."""
+def build_fn(plan: LaunchPlan, mesh=None, axis: str = "data"):
+    """Return ``run(globals_, scalars, device) -> globals_`` for the plan
+    (``mesh``/``axis`` are the sharded backend's, unused here)."""
     plan.check_mergeable(name)
     if plan.n_phases > 1:
         return _build_phased_fn(plan)
@@ -96,13 +145,13 @@ def build_fn(plan: LaunchPlan):
     if plan.schedule == "grid_stride":
 
         def run(globals_: Dict[str, torch.Tensor], scalars, device):
-            return run_strided(plan, block_fn, globals_, scalars, device)
+            return run_strided(plan, block_fn, globals_, scalars, device)[0]
 
         return run
     bid_chunks = plan.chunked_bids()
 
     def run(globals_: Dict[str, torch.Tensor], scalars, device):
-        return run_chunked(plan, block_fn, bid_chunks, globals_, scalars, device)
+        return run_chunked(plan, block_fn, bid_chunks, globals_, scalars, device)[0]
 
     return run
 
@@ -121,7 +170,7 @@ def _build_phased_fn(plan: LaunchPlan):
         state = plan.init_persist(device)
         g = globals_
         for fn in fns:
-            g, state = run_phase_wave(fn, bids, g, u, state)
+            g, _, _, state = run_phase_wave(fn, bids, g, u, state)
         return g
 
     return run
@@ -145,7 +194,7 @@ def _build_phased_strided_fn(plan: LaunchPlan):
                 bids = _wave_ids(plan.stride_bids(i), device)
                 lo, hi = i * plan.n_resident, i * plan.n_resident + len(bids)
                 window = {k: {n: v[lo:hi] for n, v in d.items()} for k, d in state.items()}
-                g, st2 = run_phase_wave(fn, bids, g, u, window)
+                g, _, _, st2 = run_phase_wave(fn, bids, g, u, window)
                 for k, d in st2.items():
                     for n, v in d.items():
                         state[k][n][lo:hi] = v

@@ -1,9 +1,10 @@
 """Write-mask / atomic-delta merge semantics.
 
 Every execution level that runs CUDA code on *copies* of memory -- a
-chunk of blocks (the ``vmap`` backend) or the per-warp copies of shared
-and global memory under the batched ``(n_warps, W)`` warp plane
-(``execute.py``) -- reconciles those copies here, under one contract:
+chunk of blocks (the ``vmap`` backend), one device's slice of the grid
+(the ``sharded`` backend) or the per-warp copies of shared and global
+memory under the batched ``(n_warps, W)`` warp plane (``execute.py``)
+-- reconciles those copies here, under one contract:
 
 * **plain stores** are single-writer: CUDA's race-freedom contract
   guarantees at most one copy stores to a given element between syncs,
@@ -11,7 +12,8 @@ and global memory under the batched ``(n_warps, W)`` warp plane
   (:func:`select_writer`: the payload bits travel through a masked
   integer sum whose other terms are zero);
 * **atomics** are order-free reductions: each copy accumulates its own
-  delta buffer and the deltas are summed over the copies;
+  delta buffer and the deltas are summed over the copies (and across
+  devices, :func:`cross_device_merge`);
 * elements nobody touched keep the carried-in value.
 
 Delta buffers live in the "numeric image" of the array dtype
@@ -148,3 +150,71 @@ def merge_chunk(
                 new = denum(wrap(num(new) + d), carry.dtype)
         out[k] = new
     return out, wrote, dsum
+
+
+def _ordered_sum(parts):
+    """The reference's ``psum`` over the mesh axis, term for term: one
+    device's value as it is; over several, ``0 + x_0 + x_1 + ...`` in
+    mesh order (XLA's host all-reduce starts from the identity, so a
+    lone ``-0.0`` comes back ``+0.0`` and float sums round in that
+    order)."""
+    if len(parts) == 1:
+        return parts[0]
+    acc = torch.zeros_like(parts[0])
+    for x in parts:
+        acc = acc + x
+    return acc
+
+
+def cross_device_merge(
+    g0: Dict[str, torch.Tensor],
+    g: Dict[str, torch.Tensor],
+    masks: Dict[str, torch.Tensor],
+    deltas: Dict[str, torch.Tensor],
+    axis,
+    *,
+    has_atomics: bool,
+) -> Dict[str, torch.Tensor]:
+    """Reconcile the devices' copies of global memory across the mesh
+    axis ``axis`` (a ``sharded.AxisGroup``).  ``g`` is this device's
+    copy, ``masks`` the elements its blocks stored (stored arrays only)
+    and ``deltas`` its summed atomic deltas (atomic targets only), both
+    over every wave it ran.
+
+    Stores land as the **numeric image** through the masked sum of
+    ``where(mask, num(g), 0)`` over the devices, with a count of writers
+    (``int32``); elements no device wrote keep ``g0``.  Atomic deltas
+    are summed across the devices.  Every sum runs in mesh order from
+    the devices' gathered copies (:func:`_ordered_sum`), so it is
+    bitwise the reference's ``psum``, float deltas included; u32 sums
+    wrap modulo 2**32.  As in the reference, a kernel with atomics adds
+    a (zero) delta sum to *every* array, which turns a ``-0.0`` into
+    ``+0.0``."""
+    keys = [k for k in g0 if k in masks or k in deltas]
+    payload = []
+    for k in keys:
+        if k in masks:
+            payload += [masks[k], g[k]]
+        if k in deltas:
+            payload.append(deltas[k])
+    gathered = axis.gather(payload) if payload else []
+    merged: Dict[str, torch.Tensor] = {}
+    i = 0
+    for k, carry in g0.items():
+        val = num(carry)
+        if k in masks:
+            ms = [parts[i] for parts in gathered]
+            vs = [num(parts[i + 1]) for parts in gathered]
+            i += 2
+            zero = torch.zeros((), dtype=vs[0].dtype, device=vs[0].device)
+            stored = wrap(_ordered_sum([torch.where(m, v, zero) for m, v in zip(ms, vs)]))
+            cnt = _ordered_sum([m.to(torch.int32) for m in ms])
+            val = torch.where(cnt > 0, stored, val)
+        if k in deltas:
+            val = wrap(val + _ordered_sum([parts[i] for parts in gathered]))
+            i += 1
+        elif has_atomics:
+            val = val + torch.zeros((), dtype=val.dtype, device=val.device)
+        merged[k] = denum(val, carry.dtype)
+    return merged
+

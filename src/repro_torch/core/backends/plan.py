@@ -38,7 +38,7 @@ CONSUMED = "_cox_donated"
 
 def check_donate_supported(backend: str, kernel_name: str) -> None:
     """Donation hands the launch each global's single device buffer; the
-    sharded backend (ROADMAP A.10) has none to take (globals enter it
+    sharded backend has none to take (globals enter it
     replicated and leave through a cross-device merge).  One shared check
     for the request and for the backend, as in the reference."""
     if backend == "sharded":
@@ -458,18 +458,22 @@ class LaunchPlan:
 
     # ---------------- waves ----------------
 
-    def n_stride_waves(self) -> int:
+    def n_stride_waves(self, total: Optional[int] = None) -> int:
         """How many resident waves a grid-stride launch runs:
-        ``ceil(grid / n_resident)``."""
-        return max(1, -(-self.grid // self.n_resident))
+        ``ceil(total / n_resident)`` (default: the whole grid; the
+        sharded backend passes its per-device block count)."""
+        n = self.grid if total is None else int(total)
+        return max(1, -(-n // self.n_resident))
 
-    def stride_bids(self, wave: int) -> np.ndarray:
-        """Block ids of one grid-stride wave: ``wave*R`` on, ``R =
-        n_resident`` of them, those past the grid as -1 -- row ``wave``
-        of the table the chunked schedule walks, made as it is needed
-        (the sharded backend's per-device offsets are ROADMAP A.10)."""
-        bids = wave * self.n_resident + np.arange(self.n_resident, dtype=np.int32)
-        return np.where(bids < self.grid, bids, -1).astype(np.int32)
+    def stride_bids(self, wave: int, *, base: int = 0, limit: Optional[int] = None) -> np.ndarray:
+        """Block ids of one grid-stride wave: ``base + wave*R`` on, ``R =
+        n_resident`` of them, those at or past ``limit`` (default: the
+        grid) as -1 -- row ``wave`` of the table the chunked schedule
+        walks, made as it is needed.  ``base``/``limit`` scope the waves
+        to one device's slice of the grid (the sharded backend)."""
+        limit = self.grid if limit is None else int(limit)
+        bids = base + wave * self.n_resident + np.arange(self.n_resident, dtype=np.int32)
+        return np.where(bids < limit, bids, -1).astype(np.int32)
 
     def chunked_bids(self) -> np.ndarray:
         """The whole grid's block ids as a ``(n_chunks, chunk)`` table,
@@ -479,3 +483,17 @@ class LaunchPlan:
         bids = np.full((n_chunks * self.chunk,), -1, np.int32)
         bids[:n] = np.arange(n, dtype=np.int32)
         return bids.reshape(n_chunks, self.chunk)
+
+    def device_bid_table(self, ndev: int) -> np.ndarray:
+        """Round-robin-contiguous block ids per device, shaped ``(ndev,
+        per_padded)`` with ``per_padded`` a multiple of ``chunk`` and -1
+        marking idle pad slots: device *d* owns the ids ``[d*per,
+        (d+1)*per)``, ``per = ceil(grid / ndev)``."""
+        per = -(-self.grid // ndev)
+        per_padded = -(-per // self.chunk) * self.chunk
+        table = np.full((ndev, per_padded), -1, np.int32)
+        flat = np.arange(self.grid, dtype=np.int32)
+        for d in range(ndev):
+            mine = flat[d * per : (d + 1) * per]
+            table[d, : len(mine)] = mine
+        return table

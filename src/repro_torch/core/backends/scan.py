@@ -30,8 +30,9 @@ from .plan import LaunchPlan
 name = "scan"
 
 
-def build_fn(plan: LaunchPlan):
-    """Return ``run(globals_, scalars, device) -> globals_`` for the plan."""
+def build_fn(plan: LaunchPlan, mesh=None, axis: str = "data"):
+    """Return ``run(globals_, scalars, device) -> globals_`` for the plan
+    (``mesh``/``axis`` are the sharded backend's, unused here)."""
     if plan.n_phases > 1:
         return _build_phased_fn(plan)
     (block_fn,) = plan.block_fns()

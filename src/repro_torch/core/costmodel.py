@@ -74,7 +74,7 @@ class CostEstimate:
 
     op_estimate: float  # arithmetic-op proxy per dispatch
     mem_estimate: float  # bytes touched per dispatch
-    coll_estimate: float  # collective bytes (sharded launches: A.10)
+    coll_estimate: float  # collective bytes (0 on the static walk; counted: A.10.3)
     shared_footprint: int  # static shared-memory bytes per block
     peel_count: int  # warp-graph peel blocks (batched-exec cost)
     collective_density: float  # warp collectives per IR instruction
@@ -375,6 +375,11 @@ def _counted_estimate(
     from .autotune import _zero_globals
     from .backends.plan import materialize_args
 
+    if rl.backend == "sharded":
+        raise CoxUnsupported(
+            f"kernel '{ck.kernel.name}': the counted cost pass of a sharded launch "
+            f"(its collectives) is ROADMAP A.10.3"
+        )
     device = _runtime.resolve_device(device)
     if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         raise CoxUnsupported(
@@ -412,15 +417,17 @@ def estimate(
     mode: Optional[str] = None,
     scalars: Optional[Dict[str, object]] = None,
     device=None,
+    mesh=None,
 ) -> CostEstimate:
     """The cost record of one resolved launch shape, cached per (kernel,
-    knobs, shapes), as the reference caches it.  ``mode=None`` follows
+    knobs, whether it has a mesh, shapes), as the reference caches it.  ``mode=None`` follows
     ``COX_COSTMODEL`` ('static' by default); 'xla' counts one launch on
     ``device`` (by default the card) with ``scalars`` (zeros where none
     are given; the first count of a shape is kept).  Never raises for a
     launch the counting pass refuses (``CoxUnsupported``): the record
-    degrades to the static walk and says so in ``source``.  A CUDA error
-    is not caught."""
+    degrades to the static walk and says so in ``source`` (a sharded
+    launch always does: its counted pass is ROADMAP A.10.3).  A CUDA
+    error is not caught."""
     mode = telemetry_mode() if mode is None else mode
     key = (
         id(ck),
@@ -433,6 +440,7 @@ def estimate(
         rl.schedule,
         rl.n_resident,
         simd,
+        mesh is not None,
         tuple(sorted(shapes.items())),
         mode,
     )
@@ -457,6 +465,8 @@ def estimate(
 def estimate_request(req, mode: Optional[str] = None) -> CostEstimate:
     """:func:`estimate` keyed off a dispatcher ``LaunchRequest``: the
     counted pass uses its scalars and runs on its device."""
+    from . import runtime as _runtime
+
     return estimate(
         req.ck,
         req.rl,
@@ -464,7 +474,8 @@ def estimate_request(req, mode: Optional[str] = None) -> CostEstimate:
         simd=req.simd,
         mode=mode,
         scalars=req.scalars,
-        device=req.target or req.device,
+        device=req.target if req.target is not None else _runtime.physical(req.device),
+        mesh=req.mesh,
     )
 
 

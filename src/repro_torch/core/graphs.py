@@ -254,8 +254,13 @@ class Graph:
         bound to the captured input values.  The staged executable is
         shared through the dispatcher's LRU (a second instantiation is a
         stage hit); each :class:`GraphExec` carries its own bindings.
-        ``device=``, when given, must be the device the nodes were
-        captured for."""
+        ``device=``, when given, must be (a pool entry of) the device the
+        nodes were captured for; left ``None`` the graph inherits the
+        pinned or placed device of a capturing stream, so it replays
+        where the stream's eager launches run (``GraphExec.device``).  A
+        sharded launch on a gloo group cannot be captured on the card
+        (its collective runs through the host): the instantiation raises
+        ``CoxUnsupported``."""
         if self._streams:
             raise CoxUnsupported(
                 f"{self!r} is still capturing on "
@@ -266,14 +271,23 @@ class Graph:
         from . import streams as _streams
 
         disp = dispatcher or self._disp or _streams.get_dispatcher()
+        from . import runtime as _runtime
+
+        if device is not None:
+            entry = device if isinstance(device, _runtime.LogicalDevice) else torch.device(device)
+        else:
+            entry = next((s._device for s in self._tails if s._device is not None), None)
         targets = {n.req.target for n in self.nodes}
-        if len(targets) != 1 or (device is not None and torch.device(device) not in targets):
+        if len(targets) != 1 or (entry is not None and _runtime.physical(entry) not in targets):
             raise CoxUnsupported(
                 f"{self!r}: its nodes run on {sorted(map(str, targets))}"
-                + (f", not {device}" if device is not None else "")
-                + " -- a graph replays on one device (multi-device graphs: ROADMAP A.10)"
+                + (f", not {entry}" if entry is not None else "")
+                + " -- a graph replays on one device, as a CUDA graph launches into "
+                "one stream; capture the streams of one device"
             )
         (target,) = targets
+        if target.type == "cuda":
+            _refuse_host_collectives(self.nodes)
         spec = _binding_spec(self.nodes)
         key = ("graph",) + tuple(_node_sig(n, spec) for n in self.nodes)
         nodes = self.nodes
@@ -283,7 +297,7 @@ class Graph:
 
         exe, raw_fn = disp.stage_graph(key, builder)
         self._frozen = True
-        return GraphExec(self, disp, exe, raw_fn, spec, device=target)
+        return GraphExec(self, disp, exe, raw_fn, spec, device=target, placed=entry)
 
     def replay(self, **bindings) -> Dict[str, Any]:
         """Instantiate lazily (once), then replay."""
@@ -446,6 +460,23 @@ def _build_graph(disp, nodes: List[GraphNode], spec: Dict[str, Any], device):
     return CudaGraphReplay(staged, nodes, spec, device, first), raw_fn
 
 
+def _refuse_host_collectives(nodes) -> None:
+    """Raise ``CoxUnsupported`` for a sharded node whose merge runs on a
+    gloo group: gloo moves a CUDA tensor through the host, which a CUDA
+    graph cannot capture.  A one-rank NCCL group captures."""
+    import torch.distributed as dist
+
+    for n in nodes:
+        mesh = n.req.mesh
+        if mesh is not None and dist.get_backend(mesh.get_group(n.req.axis)) == "gloo":
+            raise CoxUnsupported(
+                f"graph node {n.idx} (kernel '{n.label}') is a sharded launch on a "
+                f"gloo group, whose collective reduces CUDA tensors through the "
+                f"host; a CUDA graph cannot capture it -- launch it eagerly, or "
+                f"shard over an NCCL group"
+            )
+
+
 def _refuse_host_reads(nodes, reads, err=None) -> None:
     """Raise ``CoxUnsupported`` for the first node that read back to the
     host in a warm-up pass (``reads``: each node's count)."""
@@ -541,12 +572,15 @@ class GraphExec:
     executable.  Un-rebound inputs keep their values; rebindings persist
     across replays."""
 
-    def __init__(self, graph: Graph, disp, exe, raw_fn, spec: Dict[str, Any], *, device=None):
+    def __init__(
+        self, graph: Graph, disp, exe, raw_fn, spec: Dict[str, Any], *, device=None, placed=None
+    ):
         self._graph = graph
         self._disp = disp
         self._exe = exe
         self._raw_fn = raw_fn  # the eager walk (fallback rung)
         self._device = device
+        self._placed = placed  # the pool entry of a pinned or placed capture
         self._aliases = spec["aliases"]
         self._outputs = spec["outputs"]
         self._vals = {}
@@ -564,8 +598,9 @@ class GraphExec:
 
     @property
     def device(self):
-        """The device replays run on."""
-        return self._device
+        """The device replays run on: the pool entry of a pinned or placed
+        capturing stream, else the physical device."""
+        return self._placed if self._placed is not None else self._device
 
     @property
     def cuda_graph(self) -> Optional["torch.cuda.CUDAGraph"]:
@@ -610,6 +645,14 @@ class GraphExec:
                     f"inputs: {sorted(self._vals)}"
                 )
         gname = self._graph.name
+        placed = self._placed
+        if placed is not None:
+            # a graph placed on a pool entry replays there: a poisoned
+            # entry fails the replay with its sticky error
+            with self._disp._lock:
+                sticky = self._disp._sticky_for(placed)
+            if sticky is not None:
+                raise sticky
         fault = _faults.consume("dispatch", gname)
         try:
             if fault is not None:
@@ -634,7 +677,7 @@ class GraphExec:
                 disp.degradation_log.append(event)
             flat = self._raw_fn(dict(self._vals))
         with self._disp._lock:
-            self._disp._bump_dev(None, "dispatches")
+            self._disp._bump_dev(placed, "dispatches")
         return {c: v.reshape(self._out_shapes[c]) for c, v in flat.items()}
 
     __call__ = replay

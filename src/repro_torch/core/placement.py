@@ -1,20 +1,19 @@
 """Stream -> device placement policies (port of the reference's
 ``placement.py``).
 
-In the reference the dispatcher places each non-default stream on one
-device of its pool, the first time the stream's work is dispatched, and
-the stream keeps it (device affinity) until the device is poisoned by a
-sticky :class:`~errors.CoxDeviceError`; then the policy re-picks among
-the healthy devices.  The default stream (CUDA's current device) and a
-one-device pool keep ``device=None``: the legacy path, no placement.
+The dispatcher (``streams.Dispatcher(devices=..., placement=...)``)
+places each non-default stream on one device of its pool, the first
+time the stream's work is dispatched, and the stream keeps it (device
+affinity) until the device is poisoned by a sticky
+:class:`~errors.CoxDeviceError`; then the policy re-picks among the
+healthy devices.  The default stream (CUDA's current device), mesh
+(sharded) launches and a one-device pool keep ``device=None``: the
+legacy path, no placement.
 
-The port runs on one card, so only a one-device pool runs:
-``Dispatcher(devices=...)`` with more than one device raises
-``CoxUnsupported`` naming ROADMAP A.10, which brings the multi-card
-pool and wires these policies into the dispatcher.  They are ported
-whole now; their :meth:`pick` logic runs on any list of devices
-(``torch.device`` objects, or stand-ins in the tests) and a dispatcher's
-``device_health()`` counters.
+A pool's entries are torch devices or the logical devices of
+``launch.mesh.device_pool(n, logical=True)``, several to one card; a
+policy sees the pool entries and keys the health counters on them
+(``str(entry)``).
 
 Policies:
 
@@ -33,6 +32,8 @@ import itertools
 from typing import Any, List, Optional
 
 import torch
+
+from .runtime import physical
 
 
 def resident_device(val) -> Optional[Any]:
@@ -86,7 +87,8 @@ class RoundRobinPlacement(PlacementPolicy):
 class AffinityPlacement(PlacementPolicy):
     """Prefer the device where most of the request's input tensors
     already live, so a stream relaunching over a previous launch's
-    outputs lands where they are instead of paying a copy."""
+    outputs lands where they are instead of paying a copy (the first
+    pool entry on that physical device)."""
 
     name = "affinity"
 
@@ -102,7 +104,7 @@ class AffinityPlacement(PlacementPolicy):
         if votes:
             best = max(votes, key=votes.get)
             for d in devices:
-                if d == best:
+                if physical(d) == best:
                     return d
         return self._fallback.pick(req, devices, disp)
 

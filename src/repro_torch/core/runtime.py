@@ -1,7 +1,7 @@
 """COX runtime: grid launch (the paper section 4 host side).
 
-The paper forks one pthread per CUDA block.  Here the grid runs on one
-torch device through a pluggable backend (``backends``):
+The paper forks one pthread per CUDA block.  Here the grid runs through
+a pluggable backend (``backends``):
 
 * ``scan`` -- one block after another, carrying global memory in place
   (a legal schedule: CUDA guarantees nothing about cross-block ordering
@@ -9,7 +9,12 @@ torch device through a pluggable backend (``backends``):
 * ``vmap`` -- waves of blocks run at once as a leading copy axis of the
   executor's tensors; the blocks' copies of global memory are
   reconciled with single-writer write masks and summed atomic deltas
-  (``backends/merge.py``).
+  (``backends/merge.py``);
+* ``sharded`` -- the grid dealt over an axis of a ``torch.distributed``
+  ``DeviceMesh`` (``mesh=``, ``axis=``), each rank running its slice
+  with the ``vmap`` executor on its own device, the ranks' copies merged
+  across the axis.  Every rank makes the same launch and gets the merged
+  globals back.
 
 ``backend='auto'`` and ``warp_exec='auto'`` apply the reference's
 heuristics (``flat.choose_backend`` / ``choose_warp_exec``), and
@@ -22,7 +27,7 @@ stream of the dispatcher (``streams.py``), which stages the plan through
 its shared cache, orders it against the other streams and runs it.
 :func:`launch` stays the uncached entry point, as in the reference.
 
-Knobs the port does not run yet (the multi-device ones) raise
+Knobs the port does not run yet (the model stack on a mesh) raise
 :class:`CoxUnsupported` naming the ROADMAP queue item that brings them
 (:data:`UNPORTED`); none is silently ignored.
 """
@@ -56,9 +61,8 @@ from .types import (
 
 # knob -> the ROADMAP queue item that ports it
 UNPORTED = {
-    "backend='sharded'": "A.10 (multi-device)",
-    "mesh": "A.10 (multi-device)",
-    "multi-device pool": "A.10 (multi-device placement)",
+    "moe_apply over a mesh (expert parallelism)": "A.10 (multi-device: the model stack on a mesh)",
+    "tp_pad (q-head padding)": "A.10 (multi-device: the model stack on a mesh)",
 }
 
 
@@ -95,6 +99,51 @@ def resolve_device(device) -> torch.device:
 
 
 @dataclasses.dataclass(frozen=True)
+class LogicalDevice:
+    """A device of a pool that shares its physical ``device`` with the
+    pool's other logical devices (``launch.mesh.device_pool(n,
+    logical=True)``).  Placement, the per-device health counters, sticky
+    errors, ``device_reset(device=)`` and the staging-cache keys key on
+    it, not on ``device``; on the card each cox stream issues a logical
+    device's work on a CUDA stream of its own."""
+
+    id: int
+    device: torch.device
+
+    def __str__(self):
+        return f"{self.device}/logical{self.id}"
+
+
+def physical(entry) -> Optional[torch.device]:
+    """The torch device a pool entry runs on."""
+    return entry.device if isinstance(entry, LogicalDevice) else entry
+
+
+def resolve_entry(device):
+    """A pool entry as given (a :class:`LogicalDevice`), or a device
+    resolved by :func:`resolve_device`."""
+    return device if isinstance(device, LogicalDevice) else resolve_device(device)
+
+
+def launch_device(device, mesh, axis: str, kernel_name: str) -> torch.device:
+    """The device a launch runs on: ``device=`` (``resolve_device``), or
+    for a sharded launch the rank's own device of ``mesh``.  The two are
+    mutually exclusive, as in the reference."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None:
+        raise CoxUnsupported(
+            f"kernel '{kernel_name}': device= and mesh= are mutually exclusive -- "
+            f"a sharded launch spans the mesh's own devices; placement applies "
+            f"to single-device launches"
+        )
+    from .backends import sharded
+
+    sharded.check_mesh(mesh, axis)
+    return sharded.mesh_device(mesh)
+
+
+@dataclasses.dataclass(frozen=True)
 class ResolvedLaunch:
     """Launch knobs after dim3 normalization and 'auto' resolution.
 
@@ -111,7 +160,7 @@ class ResolvedLaunch:
 
     grid: Dim3
     block: Dim3
-    backend: str  # 'scan' | 'vmap'
+    backend: str  # 'scan' | 'vmap' | 'sharded'
     mode: str  # 'normal' | 'jit'
     warp_exec: str  # 'serial' | 'batched'
     n_warps: int
@@ -156,6 +205,7 @@ def resolve_launch(
     chunk=None,
     schedule: str = "auto",
     n_resident: Optional[int] = None,
+    mesh=None,
 ) -> ResolvedLaunch:
     """Normalize ``grid``/``block`` to dim3, enforce CUDA's launch
     limits and resolve the 'auto' knobs with the reference's rules.
@@ -167,8 +217,6 @@ def resolve_launch(
     grid3 = as_dim3(grid, "grid")
     block3 = as_dim3(block, "block")
     check_launch_geometry(grid3, block3)
-    if backend == "sharded":
-        raise unported("backend='sharded'")
     if schedule not in ("auto", "chunked", "grid_stride"):
         raise ValueError(
             f"schedule must be 'auto', 'chunked' or 'grid_stride', got {schedule!r}"
@@ -187,7 +235,7 @@ def resolve_launch(
     sched_src = "heuristic" if schedule == "auto" else "explicit"
     n_res = n_resident
     total = grid3.total
-    bname = _flat.choose_backend(ck.kernel, grid=total, requested=backend)
+    bname = _flat.choose_backend(ck.kernel, grid=total, mesh=mesh, requested=backend)
     n_warps = -(-block3.total // ck.warp_size)
     mode = _flat.choose_mode(ck.kernel, n_warps=n_warps, requested=mode)
     machines = ck.machine if not ck.phases else tuple(p.machine for p in ck.phases)
@@ -267,9 +315,12 @@ def resolve_schedule(
     return rl
 
 
-def build_resolved(ck: CompiledKernel, rl: ResolvedLaunch, *, simd: bool = True):
+def build_resolved(
+    ck: CompiledKernel, rl: ResolvedLaunch, *, simd: bool = True, mesh=None, axis: str = "data"
+):
     """Build the plan and the launcher for an already-resolved launch.
-    Returns ``(plan, run)`` with ``run(globals_, scalars, device)``."""
+    Returns ``(plan, run)`` with ``run(globals_, scalars, device)``;
+    ``mesh``/``axis`` reach the ``sharded`` backend."""
     plan = LaunchPlan.build(
         ck,
         grid=rl.grid,
@@ -281,7 +332,7 @@ def build_resolved(ck: CompiledKernel, rl: ResolvedLaunch, *, simd: bool = True)
         schedule=rl.schedule,
         n_resident=rl.n_resident,
     )
-    return plan, _backends.get_backend(rl.backend).build_fn(plan)
+    return plan, _backends.get_backend(rl.backend).build_fn(plan, mesh=mesh, axis=axis)
 
 
 def launch(
@@ -299,6 +350,7 @@ def launch(
     n_resident: Optional[int] = None,
     device=None,
     mesh=None,
+    axis: str = "data",
     donate: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Run ``kernel<<<grid, block>>>(*args)`` on ``device`` (default
@@ -310,10 +362,13 @@ def launch(
     contiguous tensor argument already on the device in the kernel's
     storage dtype once the launch holds its copy (its storage is
     released; a later launch that binds it raises), as the reference's
-    donated buffers are deleted."""
-    if mesh is not None:
-        raise unported("mesh")
-    dev = resolve_device(device)
+    donated buffers are deleted.
+
+    ``mesh=`` (a ``DeviceMesh``; exclusive with ``device=``) shards the
+    grid over its ``axis`` (backend ``'sharded'``): every rank calls
+    with the same arguments and gets the merged globals on its own
+    device."""
+    dev = launch_device(device, mesh, axis, ck.kernel.name)
     rl = resolve_launch(
         ck,
         grid=grid,
@@ -324,12 +379,13 @@ def launch(
         chunk=chunk,
         schedule=schedule,
         n_resident=n_resident,
+        mesh=mesh,
     )
     held, shapes, held_s = hold_kernel_args(ck, args)
     rl = resolve_schedule(ck, rl, shapes)
     if donate:
         check_donate_supported(rl.backend, ck.kernel.name)
-    _, run = build_resolved(ck, rl, simd=simd)
+    _, run = build_resolved(ck, rl, simd=simd, mesh=mesh, axis=axis)
     globals_, scalars = materialize_args(ck, held, held_s, dev)
     if donate:
         consume_donated(ck, held, dev)

@@ -86,12 +86,21 @@ untouched.
 
 **Placement**: the pool is the current CUDA device (resolved lazily,
 so building a dispatcher never touches CUDA; without a card it raises
-as ``runtime.resolve_device`` does), or the devices given.  One card
-runs here: a pool of more than one device raises ``CoxUnsupported``
-naming ROADMAP A.10, which brings the placement of streams over a pool
-by ``placement.py``'s policies.  ``device=`` on a launch or a stream
-pins it; unpinned work runs on the pool's device (the legacy path,
-``req.device`` None).
+as ``runtime.resolve_device`` does), or the devices given: torch
+devices, or the logical devices of ``launch.mesh.device_pool(n,
+logical=True)`` that share one physical device.  With more than one
+device in the pool, each non-default stream is *placed* on one at its
+first dispatch by a ``placement.py`` policy (round-robin by default)
+and keeps it until the device is poisoned by a sticky error; then the
+policy re-picks among the healthy devices.  ``device=`` on a launch or
+a stream pins it.  The default stream, mesh (sharded) launches and a
+one-device pool keep the legacy path (``req.device`` None).  Sticky
+errors, the per-device health counters, ``device_reset(device=)`` and
+the staging-cache keys key on the pool entry.  A data edge whose
+producer ran on another device is an explicit transfer: the consumer's
+stream waits on the producer's event, then copies the tensor onto its
+device (non-blocking; host data through pinned memory).  On one
+physical device the launch's own copy of its inputs is that transfer.
 """
 
 from __future__ import annotations
@@ -111,9 +120,11 @@ import torch
 from . import costmodel as _costmodel
 from . import errors as _errors
 from . import faults as _faults
+from . import placement as _placement
 from . import runtime as _runtime
 from ..ft.watchdog import StepWatchdog
 from .backends.plan import (
+    _host_to_device,
     check_arg_device,
     consume_donated,
     flat_outputs,
@@ -179,7 +190,7 @@ def classify(e: BaseException, *, site: str, what: str = "") -> BaseException:
 
 
 def _is_cuda(dev) -> bool:
-    return dev is not None and torch.device(dev).type == "cuda"
+    return dev is not None and torch.device(_runtime.physical(dev)).type == "cuda"
 
 
 def _outputs_ready(req: "LaunchRequest") -> bool:
@@ -196,9 +207,29 @@ def _block_outputs(req: "LaunchRequest") -> None:
 
 
 def _dev_id(dev) -> Optional[str]:
-    """A stable hashable stand-in for a device in cache keys and the
+    """A stable hashable stand-in for a pool entry in cache keys and the
     per-device sticky map (``None`` = unplaced / legacy path)."""
     return None if dev is None else str(dev)
+
+
+def _mesh_key(mesh, axis: str) -> Any:
+    """A hashable stand-in for a launch's mesh in staging-cache keys: its
+    device type, dimension names, shape and ranks, and the mesh object's
+    identity.  The staged runner holds the mesh (and through it the
+    process groups), so while an entry lives its ``id`` cannot be
+    reused: a group destroyed and made again comes with a new mesh and
+    never hits a runner bound to the old one."""
+    if mesh is None:
+        return None
+    return (
+        "mesh",
+        mesh.device_type,
+        tuple(mesh.mesh_dim_names or ()),
+        tuple(mesh.mesh.shape),
+        tuple(mesh.mesh.reshape(-1).tolist()),
+        axis,
+        id(mesh),
+    )
 
 
 def _held_tensors(req: "LaunchRequest"):
@@ -223,12 +254,16 @@ class LaunchRequest:
     globals_: Optional[Dict[str, Any]]  # held arrays; dropped after dispatch
     shapes: Dict[str, tuple]
     scalars: Optional[Dict[str, Any]]
+    # a sharded launch's DeviceMesh and axis (never placed)
+    mesh: Any = None
+    axis: str = "data"
     # the *requested* (pre-resolution) knobs: the degradation ladder only
     # falls back along rungs the caller left on 'auto'
     req_backend: str = "auto"
     req_warp_exec: str = "auto"
-    # an explicit device pin (the launch's or its stream's device=), else
-    # None: the legacy single-device path
+    # the pool entry the launch runs on: an explicit pin (the launch's or
+    # its stream's device=), or the placement policy's pick at dispatch;
+    # None on the legacy single-device path
     device: Any = None
     # dispatch priority, inherited from the stream at enqueue
     priority: int = 0
@@ -246,7 +281,7 @@ class LaunchRequest:
     # bytes of held inputs a donate=True attempt consumed: once set, a
     # failed attempt has no inputs left to retry or degrade with
     consumed: int = 0
-    # the torch device the launch runs on: its pin, or the pool's device
+    # the physical torch device the launch runs on
     target: Optional[torch.device] = None
     # on the card: the event recorded after the launch, and its stream
     done: Any = None
@@ -270,13 +305,14 @@ class LaunchRequest:
             rl.warp_exec,
             rl.schedule,
             rl.n_resident,
+            _mesh_key(self.mesh, self.axis),
             _dev_id(self.target),
         )
 
     def stage_key(self) -> tuple:
         """The staging-cache key without the kernel-identity element
         (the dispatcher prepends it): the compile token first, the phase
-        count second, ``donate`` and the pinned device last."""
+        count second, ``donate`` and the pool entry last."""
         return self.fn_key() + (self.donate, _dev_id(self.device))
 
 
@@ -385,14 +421,16 @@ class Stream:
         self._default = _default
         self.name = name or ("default" if _default else f"stream{next(self._names)}")
         self.priority = int(priority)
-        self._device = None if device is None else _runtime.resolve_device(device)
+        # a pin (device=), or the placement policy's pick once the stream
+        # first dispatches on a multi-device pool (kept until poisoned)
+        self._device = None if device is None else _runtime.resolve_entry(device)
         self._device_pinned = device is not None
         self._wait_deps: List[int] = []  # event edges for the next launch
         self._capture = None  # Graph while capturing, else None
         self._capture_deps: List[int] = []
         self._error: Optional[BaseException] = None
-        self._torch: Dict[torch.device, Any] = {}  # device -> torch.cuda.Stream
-        self._last_target: Optional[torch.device] = None
+        self._torch: Dict[Any, Any] = {}  # pool entry -> torch.cuda.Stream
+        self._last_target: Any = None  # the pool entry it last ran on
 
     def __repr__(self):
         return f"Stream({self.name!r})"
@@ -403,26 +441,29 @@ class Stream:
 
     @property
     def device(self) -> Any:
-        """The device this stream's launches are pinned to, or ``None``
-        (unplaced: the legacy single-device path)."""
+        """The device this stream's launches run on: its pin, the
+        placement policy's pick, or ``None`` (unplaced: the legacy
+        single-device path)."""
         return self._device
 
     @property
     def dispatcher(self) -> "Dispatcher":
         return self._disp
 
-    def torch_stream(self, device) -> "torch.cuda.Stream":
-        """The torch stream this cox stream issues on, on a CUDA device:
-        the current stream for the default cox stream, else a stream of
-        its own, made at first use with this stream's priority (torch
-        clamps it to the card's range; positive numbers are its lowest
-        priority, 0)."""
-        device = _runtime.resolve_device(device)
+    def torch_stream(self, entry) -> "torch.cuda.Stream":
+        """The torch stream this cox stream issues on, for a pool entry on
+        a CUDA device: the current stream for the default cox stream,
+        else a stream of its own per entry (so logical devices of one
+        card never share one), made at first use with this stream's
+        priority (torch clamps it to the card's range; positive numbers
+        are its lowest priority, 0)."""
+        entry = _runtime.resolve_entry(entry)
+        device = _runtime.physical(entry)
         if self._default:
             return torch.cuda.current_stream(device)
-        s = self._torch.get(device)
+        s = self._torch.get(entry)
         if s is None:
-            s = self._torch[device] = torch.cuda.Stream(
+            s = self._torch[entry] = torch.cuda.Stream(
                 device=device, priority=min(self.priority, 0)
             )
         return s
@@ -568,10 +609,14 @@ class Event:
         self._recorded = True
         if self._req is not None and not self._req.dispatched:
             self._disp.flush()
-        dev = self._req.target if self._req is not None else self._disp._stream_device(stream)
-        if _is_cuda(dev):
+        if self._req is not None and self._req.tstream is not None:
+            ts = self._req.tstream  # the torch stream the tail ran on
+        else:
+            entry = self._disp._stream_entry(stream)
+            ts = stream.torch_stream(entry) if _is_cuda(entry) else None
+        if ts is not None:
             self._cuda = torch.cuda.Event(enable_timing=True)
-            self._cuda.record(stream.torch_stream(dev))
+            self._cuda.record(ts)
         # recording on an idle stream completes at once (CUDA: an event
         # completes once all preceding stream work has)
         self._t_done = None if self._req is not None else time.perf_counter()
@@ -678,9 +723,8 @@ class Dispatcher:
         retry_limit: int = RETRY_LIMIT,
         retry_backoff_s: float = RETRY_BACKOFF_S,
         devices: Optional[Tuple[Any, ...]] = None,
+        placement: Optional[Any] = None,
     ):
-        if devices is not None and len(tuple(devices)) > 1:
-            raise _runtime.unported("multi-device pool")
         self._lock = threading.RLock()
         self._dispatch_lock = threading.Lock()
         self._stage_cache_size = stage_cache_size
@@ -704,15 +748,23 @@ class Dispatcher:
         # id(output tensor) -> (weakref, producer seq): the data edges
         # behind handle.outputs chaining
         self._out_producers: Dict[int, Tuple[Any, int]] = {}
-        # device-poisoning errors, keyed by the pinned device's id, or
-        # None for unplaced work (the process-wide CUDA behavior)
+        # device-poisoning errors, keyed by the failing request's pool
+        # entry, or None for unplaced work (the process-wide CUDA
+        # behavior); placement routes around a poisoned entry
         self._sticky: "OrderedDict[Optional[str], BaseException]" = OrderedDict()
         self._last_error: Optional[BaseException] = None
         # the device pool is lazy: this constructor runs at import (the
         # default dispatcher) and must not touch CUDA
         self._devices = (
-            tuple(_runtime.resolve_device(d) for d in devices) if devices is not None else None
+            tuple(_runtime.resolve_entry(d) for d in devices) if devices is not None else None
         )
+        if self._devices is not None and len(set(map(_dev_id, self._devices))) != len(self._devices):
+            raise ValueError(
+                f"the device pool names a device twice: {[str(d) for d in self._devices]} "
+                f"-- ask device_pool(n, logical=True) for logical devices that share one"
+            )
+        self.placement = placement  # policy; round-robin at the first placement
+        self.transfers = 0  # tensors copied onto another physical device
         self._dev_counters: Dict[str, Dict[str, int]] = {}
         self.launch_deadline_s = launch_deadline_s
         self.max_strikes = max_strikes
@@ -730,23 +782,23 @@ class Dispatcher:
     # ---------------- placement ----------------
 
     @property
-    def devices(self) -> Tuple[torch.device, ...]:
-        """The device pool: the devices given, else the current CUDA
-        device (resolved lazily; raises where there is no card, as a
-        launch with no device does)."""
+    def devices(self) -> Tuple[Any, ...]:
+        """The device pool: the entries given (torch devices or logical
+        devices), else the current CUDA device (resolved lazily; raises
+        where there is no card, as a launch with no device does)."""
         devs = self._devices
         if devs is None:
             devs = self._devices = (_runtime.resolve_device(None),)
         return devs
 
-    def _pool_if_known(self) -> Optional[Tuple[torch.device, ...]]:
+    def _pool_if_known(self) -> Optional[Tuple[Any, ...]]:
         """The pool, without raising where it cannot be resolved."""
         if self._devices is None and not torch.cuda.is_available():
             return None
         return self.devices
 
-    def _stream_device(self, stream: Stream) -> Optional[torch.device]:
-        """The device an idle stream would run on, if known."""
+    def _stream_entry(self, stream: Stream) -> Any:
+        """The pool entry an idle stream would run on, if known."""
         if stream._device is not None:
             return stream._device
         if stream._last_target is not None:
@@ -754,7 +806,11 @@ class Dispatcher:
         pool = self._pool_if_known()
         return pool[0] if pool else None
 
-    def _healthy_devices(self) -> List[torch.device]:
+    def _stream_device(self, stream: Stream) -> Optional[torch.device]:
+        """The physical device an idle stream would run on, if known."""
+        return _runtime.physical(self._stream_entry(stream))
+
+    def _healthy_devices(self) -> List[Any]:
         with self._lock:
             poisoned = set(self._sticky) - {None}
         return [d for d in (self._pool_if_known() or ()) if _dev_id(d) not in poisoned]
@@ -774,14 +830,45 @@ class Dispatcher:
             return None
 
     def _sticky_for(self, device) -> Optional[BaseException]:
-        """The sticky error covering a request bound for ``device``.
-        Caller holds ``_lock``."""
+        """The sticky error covering a request bound for ``device`` (a
+        pool entry): its own, or -- for unplaced work, which runs on the
+        pool's first device -- that device's.  Caller holds ``_lock``."""
         glob = self._sticky.get(None)
         if glob is not None:
             return glob
-        if not self._sticky or device is None:
+        if not self._sticky:
             return None
+        if device is None:
+            pool = self._pool_if_known()
+            if not pool:
+                return None
+            device = pool[0]
         return self._sticky.get(_dev_id(device))
+
+    def _place(self, req: LaunchRequest) -> None:
+        """Assign the request its pool entry (``req.device``) and its
+        physical device (``req.target``).  Pinned requests (their entry is
+        set at enqueue), mesh (sharded) launches, default-stream launches
+        and a one-device pool keep their path.  Raises the first sticky
+        error when no healthy device remains."""
+        if req.device is not None or req.mesh is not None:
+            return
+        s = req.stream
+        if s is None or s.is_default:
+            return  # CUDA: the default stream is the current device's
+        devices = self._pool_if_known()
+        if not devices or len(devices) <= 1:
+            return
+        healthy = self._healthy_devices()
+        if not healthy:
+            err = self._sticky_blocking()
+            if err is not None:
+                raise err
+            healthy = list(devices)  # a racing device_reset: the pool is back
+        if self.placement is None:
+            self.placement = _placement.RoundRobinPlacement()
+        req.device = self.placement.place(req, healthy, self)
+        req.target = _runtime.physical(req.device)
 
     @staticmethod
     def _dev_of(req: LaunchRequest):
@@ -807,13 +894,33 @@ class Dispatcher:
     # ---------------- enqueue ----------------
 
     def resolve_target(self, req: LaunchRequest, stream: Stream) -> None:
-        """Fill ``req.target``, the device the launch runs on: its pin,
-        its stream's, or the pool's (CUDA's current device), and refuse
-        a tensor argument held on another device."""
-        if req.device is None and stream._device_pinned:
-            req.device = stream._device
-        req.target = req.device or stream._device or self.devices[0]
+        """Fill ``req.target``, the physical device the launch runs on: the
+        mesh's for a sharded launch, else its pin's, its stream's or the
+        pool's first (a multi-device pool re-places it at dispatch).  On
+        the legacy path a tensor argument held on another device is
+        refused, and so is one of the caller's on a pinned launch; a data
+        edge from another device (a launch's output) is copied over at
+        dispatch (the transfer node), as is every input of a launch the
+        policy places."""
+        if req.mesh is not None:
+            from .backends import sharded
+
+            req.target = sharded.mesh_device(req.mesh)
+        else:
+            if req.device is None and stream._device_pinned:
+                req.device = stream._device
+            entry = req.device if req.device is not None else stream._device
+            if entry is None:
+                entry = self.devices[0]
+            req.target = _runtime.physical(entry)
+            pool = self._pool_if_known() or ()
+            if req.device is None and not stream.is_default and len(pool) > 1:
+                return  # placed at dispatch
         for name, val in list((req.globals_ or {}).items()) + list((req.scalars or {}).items()):
+            if req.device is not None and isinstance(val, torch.Tensor):
+                with self._lock:
+                    if self._producer_seq(val) is not None:
+                        continue  # a data edge: transferred at dispatch
             check_arg_device(val, req.target, name)
 
     def enqueue(self, req: LaunchRequest, stream: Stream) -> LaunchHandle:
@@ -913,7 +1020,9 @@ class Dispatcher:
                 self._staged_fns.move_to_end(key)
                 self.stage_fn_hits += 1
                 return hit
-        staged = _runtime.build_resolved(req.ck, req.rl, simd=req.simd)
+        staged = _runtime.build_resolved(
+            req.ck, req.rl, simd=req.simd, mesh=req.mesh, axis=req.axis
+        )
         with self._lock:
             self.stage_fn_misses += 1
             self._staged_fns[key] = staged
@@ -993,8 +1102,13 @@ class Dispatcher:
                 ),
             )
             return
+        try:
+            self._place(req)
+        except Exception as e:
+            self._fail_request(req, e)
+            return
         with self._lock:
-            sticky = self._sticky_for(req.device or req.target)
+            sticky = self._sticky_for(req.device)
         if sticky is not None:
             self._fail_request(req, sticky)
             return
@@ -1008,7 +1122,7 @@ class Dispatcher:
         req.globals_ = None  # release the held inputs
         req.scalars = None
         if req.stream is not None:
-            req.stream._last_target = req.target
+            req.stream._last_target = req.device if req.device is not None else req.target
         with self._lock:
             for o in outputs.values():
                 self._out_producers[id(o)] = (weakref.ref(o), req.seq)
@@ -1134,6 +1248,7 @@ class Dispatcher:
             if _is_cuda(req.target):
                 outputs = self._issue_cuda(req, run)
             else:
+                self._transfer(req)
                 g, s = materialize_args(req.ck, req.globals_, req.scalars, req.target)
                 if req.donate:
                     req.consumed = consume_donated(req.ck, req.globals_, req.target)
@@ -1149,7 +1264,7 @@ class Dispatcher:
     def _issue_cuda(self, req: LaunchRequest, run) -> Dict[str, Any]:
         """Issue one launch on its cox stream's torch stream."""
         dev = req.target
-        ts = req.stream.torch_stream(dev)
+        ts = req.stream.torch_stream(req.device if req.device is not None else dev)
         # host dispatch order is not GPU order: every edge to a launch
         # still running on another torch stream (event edges, data
         # edges, the default stream's legacy barrier on every other
@@ -1168,6 +1283,7 @@ class Dispatcher:
             # work the caller issued there)
             ts.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(ts):
+            self._transfer(req)
             # the caching allocator across streams: a held tensor made on
             # another stream is read here, so its block must not be
             # reused there before this stream is done with it
@@ -1185,6 +1301,29 @@ class Dispatcher:
         req.done = done
         req.tstream = ts
         return outputs
+
+    def _transfer(self, req: LaunchRequest) -> None:
+        """The explicit transfer node of a pinned or placed launch: a held
+        tensor on another physical device is copied onto the launch's, on
+        the launch's stream (its producer's event already waited on), and
+        written back onto the request so a retry or a rung reuses it.
+        Between logical devices of one card the launch's own copy of its
+        inputs (``materialize_args``) is the transfer."""
+        if req.device is None:
+            return
+        dev = req.target
+        for held in (req.globals_, req.scalars):
+            for k, v in list((held or {}).items()):
+                if not isinstance(v, torch.Tensor) or v.device == dev:
+                    continue
+                if dev.type == "cpu":
+                    held[k] = v.to(dev)
+                elif v.device.type == "cpu":
+                    held[k] = _host_to_device(v, dev)
+                else:
+                    held[k] = v.to(dev, non_blocking=True)
+                with self._lock:
+                    self.transfers += 1
 
     def flush(self) -> None:
         """Dispatch every pending request in topological order."""
@@ -1473,7 +1612,7 @@ class Dispatcher:
         Nothing here resets the device."""
         if device is not None:
             with self._lock:
-                self._sticky.pop(_dev_id(_runtime.resolve_device(device)), None)
+                self._sticky.pop(_dev_id(_runtime.resolve_entry(device)), None)
             return self
         with self._lock:
             self._sticky.clear()

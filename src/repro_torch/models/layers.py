@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.types import CoxUnsupported
+from ..core.runtime import unported
 from ..kernels import ops
 from ..kernels.ref import NEG_INF, compute_dtype
 from .params import ParamSpec
@@ -85,10 +85,7 @@ def attention_specs(cfg, d_model: Optional[int] = None) -> Dict[str, ParamSpec]:
     d = d_model or cfg.d_model
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.d_head
     if cfg.head_padding()[0] != H:
-        raise CoxUnsupported(
-            f"tp_pad={cfg.tp_pad} (q-head padding) is not ported to repro_torch "
-            "yet: ROADMAP queue item A.10 (multi-device)"
-        )
+        raise unported("tp_pad (q-head padding)")
     dt = cfg.param_dtype
     sp = {
         "wq": ParamSpec((d, H, Dh), dt),
@@ -292,10 +289,7 @@ def moe_apply(p, x, *, cfg, mesh=None):
     reference's expert-parallel ``shard_map`` path is not ported: a
     ``mesh`` raises ``CoxUnsupported``."""
     if mesh is not None:
-        raise CoxUnsupported(
-            "moe_apply over a mesh (expert parallelism) is not ported to "
-            "repro_torch yet: ROADMAP queue item A.10 (multi-device)"
-        )
+        raise unported("moe_apply over a mesh (expert parallelism)")
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     C = moe_capacity(cfg, B * S)

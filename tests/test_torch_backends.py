@@ -457,7 +457,9 @@ def test_choose_backend_heuristic():
 
 
 def test_backend_registry():
-    assert set(available_backends()) == {"scan", "vmap"}
+    from repro.core.backends import available_backends as ref_backends
+
+    assert set(available_backends()) == set(ref_backends()) == {"scan", "vmap", "sharded"}
     with pytest.raises(ValueError):
         get_backend("pthread")
 

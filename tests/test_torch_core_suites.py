@@ -18,7 +18,7 @@ that launches on the auto knobs also launches once with
 heuristic launch.  The property cases keep the reference's hypothesis
 settings (the ``ci`` profile of ``tests/conftest.py``; ``test_dim3``'s
 own ``max_examples`` and deadlines).  The one-device-mesh case of
-``test_dim3`` holds the port's refusal of a mesh (ROADMAP A.10).
+``test_dim3`` runs on a one-rank gloo mesh (``torch_suite.one_rank_mesh``).
 """
 
 import numpy as np
@@ -40,7 +40,7 @@ from repro_torch.core import passes as ppasses
 from repro_torch.core import regions as pregions
 from repro_torch.core import types as ptypes
 from repro_torch.core.cfg import Br as PBr
-from torch_suite import pairs
+from torch_suite import one_rank_mesh, pairs
 
 SUITE = pairs("port_kernels_suite_core_suites")
 PKGS = ("reference", "port")
@@ -710,17 +710,26 @@ def test_dim3_kernels_all_cells_bitwise_and_oracle(name):
 
 @pytest.mark.parametrize("name", _DIM3_PICKS)
 def test_dim3_kernels_sharded_one_device_mesh(name):
-    """The reference's one-device mesh; a mesh is ROADMAP A.10 in the
-    port, refused by name, and the reference's own case holds."""
+    """The reference's one-device mesh against the port's one-rank gloo
+    mesh: each sharded launch is bitwise its package's scan launch, and
+    the port's is the reference's (MatrixMulCUDA within the FMA
+    tolerance: XLA contracts its multiply-adds)."""
     import jax
 
     r, p, args = SUITE[name]
     mesh = jax.make_mesh((1,), ("data",))
     want = _np(r.kernel.launch(grid=r.grid, block=r.block, args=args, backend="scan"))
-    got = _np(r.kernel.launch(grid=r.grid, block=r.block, args=args, mesh=mesh, chunk=3))
-    assert_bitwise(got, want)
-    with pytest.raises(pcox.CoxUnsupported, match="A.10"):
-        p.kernel.launch(grid=p.grid, block=p.block, args=args, mesh=object(), chunk=3)
+    ref = _np(r.kernel.launch(grid=r.grid, block=r.block, args=args, mesh=mesh, chunk=3))
+    assert_bitwise(ref, want)
+    base = _np(p.kernel.launch(grid=p.grid, block=p.block, args=args, backend="scan", device="cpu"))
+    with one_rank_mesh() as pmesh:
+        got = _np(p.kernel.launch(grid=p.grid, block=p.block, args=args, mesh=pmesh, chunk=3))
+    assert_bitwise(got, base)
+    if name == "MatrixMulCUDA":
+        for k in ref:
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=1e-5)
+    else:
+        assert_bitwise(got, ref)
 
 
 def test_natural_2d_matmul_equals_hand_flattened_1d():

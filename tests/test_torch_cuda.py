@@ -1600,3 +1600,52 @@ def test_tuned_launch_is_bitwise_the_scan_launch(cuda, name, tmp_path, monkeypat
     (rec,) = autotune.entries().values()
     assert torch.cuda.get_device_name(0).replace(" ", "_") in rec["fingerprint"]
     autotune.reset()
+
+
+@cox.kernel
+def _md_vec_madd(c, out: cox.Array(cox.f32), a: cox.Array(cox.f32), b: cox.Array(cox.f32), n: cox.i32):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        out[i] = a[i] * 2.0 + b[i]
+
+
+@cox.kernel
+def _md_histogram(c, hist: cox.Array(cox.f32), data: cox.Array(cox.i32), n: cox.i32):
+    i = c.block_idx() * c.block_dim() + c.thread_idx()
+    if i < n:
+        c.atomic_add(hist, data[i], 1.0)
+
+
+def test_nccl_one_rank_sharded_launch_is_the_scan_launch(cuda, tmp_path, monkeypatch):
+    """A world-size-1 NCCL group (a file store, no network): vec_madd and
+    the histogram atomics sharded over its one-rank mesh are bitwise the
+    scan launch, on the card; the group is destroyed afterwards."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(2048, generator=gen)
+    cases = [
+        (_md_vec_madd, 8, 256, (torch.zeros(2048), a, torch.ones(2048), 2000)),
+        (_md_histogram, 8, 128, (torch.zeros(16), torch.randint(0, 16, (1024,), generator=gen, dtype=torch.int32), 1024)),
+    ]
+    dist.init_process_group(
+        "nccl",
+        init_method=f"file://{tmp_path}/store",
+        rank=0,
+        world_size=1,
+        timeout=datetime.timedelta(seconds=60),
+    )
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        for kern, grid, block, args in cases:
+            on_card = tuple(x.to(cuda) if isinstance(x, torch.Tensor) else x for x in args)
+            want = kern.launch(grid=grid, block=block, args=on_card, backend="scan")
+            got = kern.launch(grid=grid, block=block, args=on_card, mesh=mesh)
+            for k in want:
+                assert got[k].device.type == "cuda" and torch.equal(got[k], want[k]), (kern.name, k)
+    finally:
+        dist.destroy_process_group()

@@ -15,7 +15,8 @@ the captured nodes in order; the ``torch.cuda.CUDAGraph`` replay and
 the refusal of host-reading kernels are held on the card in
 ``tests/test_torch_cuda.py``.
 
-The sharded replay case waits for ROADMAP A.10.  A capturing launch
+The sharded replay case runs on a one-rank gloo mesh in
+``tests/test_torch_multidevice.py``.  A capturing launch
 with ``donate=True`` is refused with the reference's reason, and one
 with ``autotune=True`` keeps its heuristic knobs (no measurement runs
 while a graph captures).

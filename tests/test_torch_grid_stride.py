@@ -19,7 +19,8 @@ A grid-stride launch captured into a graph replays bitwise its eager
 launch, and the dispatcher's telemetry rows record the schedule and its
 provenance, as in the reference (the runtime services, ROADMAP A.9.2).
 The cases of ``tests/test_grid_stride.py`` and ``tests/test_grid_sync.py``
-that need a mesh (the placed multi-device case) wait for ROADMAP A.10;
+that need a mesh (the placed multi-device case over 4 ranks, the
+one-device-mesh ``gridReduce``) run in ``tests/test_torch_multidevice.py``;
 the two autotune cases run in ``tests/test_torch_autotune.py``.
 """
 

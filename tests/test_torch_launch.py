@@ -315,8 +315,8 @@ def test_tensor_on_another_device_raises():
 @pytest.mark.parametrize(
     "knobs,item",
     [
-        ({"backend": "sharded"}, "A.10"),
-        ({"mesh": object(), "device": None}, "A.10"),  # device= and mesh= exclude
+        ({"backend": "sharded"}, (ValueError, "backend='sharded' needs a mesh")),
+        ({"mesh": object()}, (CoxUnsupported, "mutually exclusive")),  # with device=
         ({"donate": True}, None),
         ({"autotune": True}, None),
         ({"stream": "cox.Stream"}, None),
@@ -325,9 +325,10 @@ def test_tensor_on_another_device_raises():
     ids=["sharded", "mesh", "donate", "autotune", "stream", "pin"],
 )
 def test_unported_knobs_raise(knobs, item, tmp_path, monkeypatch):
-    """The knobs of paths not ported (the multi-device ones) raise
-    ``CoxUnsupported`` naming their ROADMAP item.  The runtime services
-    lift the others: a launch on a ``cox.Stream``, one pinned to
+    """Every launch knob of the reference is ported: ``backend='sharded'``
+    without a mesh raises the reference's ``ValueError``, and ``mesh=``
+    beside ``device=`` its "mutually exclusive" (both packages, same
+    text).  A launch on a ``cox.Stream``, one pinned to
     ``torch.device("cpu")`` (A.9.2), a donating launch and a tuned one
     (A.9.3) run, bitwise the plain launch."""
     from repro_torch.core import autotune
@@ -337,8 +338,16 @@ def test_unported_knobs_raise(knobs, item, tmp_path, monkeypatch):
     rng = np.random.default_rng(5)
     args = (np.zeros(24, np.float32), rng.standard_normal(24).astype(np.float32), 24)
     if item is not None:
-        with pytest.raises(CoxUnsupported, match=item):
+        exc, text = item
+        with pytest.raises(exc, match=text):
             p_oob.launch(grid=1, block=32, args=args, **{"device": "cpu", **knobs})
+        import jax
+
+        ref_exc = rcox.CoxUnsupported if exc is CoxUnsupported else exc
+        ref_knobs = dict(knobs, mesh=jax.make_mesh((1,), ("data",))) if "mesh" in knobs else knobs
+        ref_dev = {"device": jax.devices()[0]} if "mesh" in knobs else {}
+        with pytest.raises(ref_exc, match=text):
+            r_oob.launch(grid=1, block=32, args=args, **ref_dev, **ref_knobs)
         return
     want = p_oob.launch(grid=1, block=32, args=args, device="cpu")
     d = Dispatcher(devices=[torch.device("cpu")])

@@ -1,16 +1,15 @@
 """The port's stream placement against the JAX package's.
 
-The card is one H100, and CPU torch has one device, so only a one-device
-pool runs: the six one-device cases of ``tests/test_placement.py``
+The six one-device cases of ``tests/test_placement.py``
 (priorities ordering the ready set, program order beating priority, the
 legacy path of a one-device pool, the explicit pin, ``device=`` against
 ``mesh=``, the per-device sticky error and its scoped reset) run on
 both packages with the same dispatch orders and counters.  The three
 policies are ported whole: their ``pick`` runs on device stand-ins and
 a stub dispatcher's health counters, next to the reference's policies on
-the same stand-ins.  A pool of more than one device raises
-``CoxUnsupported`` naming ROADMAP A.10, where the four multi-device
-cases of the reference's file wait.
+the same stand-ins.  The four multi-device cases of the reference's
+file run over four logical devices on the host in
+``tests/test_torch_multidevice.py``.
 """
 
 import dataclasses
@@ -23,7 +22,6 @@ from repro.core import placement as rplacement
 from repro_torch.core import cox as pcox
 from repro_torch.core import placement
 from repro_torch.core.streams import Dispatcher
-from repro_torch.core.types import CoxUnsupported
 from torch_suite import SIDES, annot, define, on_both
 
 
@@ -230,6 +228,22 @@ def test_affinity_placement_follows_the_tensors():
 
 
 def test_multi_device_pool_waits_for_a10():
-    with pytest.raises(CoxUnsupported, match="A.10"):
-        Dispatcher(devices=[CPU, torch.device("meta")])
+    """A pool is explicit: ``device_pool(n)`` is the first ``n`` real
+    devices and raises beyond them, unless logical devices sharing them
+    are asked for by name; a pool naming one device twice is refused."""
+    from repro_torch.core.runtime import LogicalDevice
+    from repro_torch.launch.mesh import device_pool
+
+    assert device_pool(1, device_type="cpu") == (CPU,)
+    with pytest.raises(ValueError, match="logical=True"):
+        device_pool(4, device_type="cpu")
+    pool = device_pool(4, logical=True, device_type="cpu")
+    assert pool == tuple(LogicalDevice(i, CPU) for i in range(4))
+    assert len({str(d) for d in pool}) == 4
+    assert Dispatcher(devices=pool).devices == pool
     assert Dispatcher(devices=[CPU]).devices == (CPU,)
+    with pytest.raises(ValueError, match="twice"):
+        Dispatcher(devices=[CPU, CPU])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            device_pool(1)

@@ -29,7 +29,7 @@ from repro_torch.core import cox as pcox
 from repro_torch.core import runtime as pruntime
 from repro_torch.core.streams import Dispatcher
 from repro_torch.core.types import CoxUnsupported
-from torch_suite import SIDES, Side, annot, define, on_both
+from torch_suite import SIDES, Side, annot, define, on_both, one_rank_mesh
 
 
 def _saxpy(c, out, x, y, n):
@@ -497,14 +497,19 @@ def _donate_splits_cache():
 
 
 def _donate_on_sharded():
-    """Refused on the sharded backend; the port names the A.10 refusal
-    of the mesh first, and shares the reference's check."""
+    """Refused on the sharded backend: a donating launch on a one-rank
+    mesh reaches the shared ``check_donate_supported``, in both
+    packages."""
+    import jax
+
+    from repro.core.types import CoxUnsupported as RefUnsupported
     from repro_torch.core.backends.plan import check_donate_supported
 
-    with pytest.raises(CoxUnsupported, match="A.10"):
-        SAXPY[1].launch(grid=2, block=128, args=_args(512), donate=True, mesh=object())
-    with pytest.raises(CoxUnsupported, match="donate=True is unsupported on the sharded"):
-        check_donate_supported("sharded", "_saxpy")
+    with pytest.raises(RefUnsupported, match="donate=True is unsupported on the sharded"):
+        SAXPY[0].launch(grid=2, block=128, args=_args(512), donate=True, mesh=jax.make_mesh((1,), ("data",)))
+    with one_rank_mesh() as mesh:
+        with pytest.raises(CoxUnsupported, match="donate=True is unsupported on the sharded"):
+            SAXPY[1].launch(grid=2, block=128, args=_args(512), donate=True, mesh=mesh)
     check_donate_supported("vmap", "_saxpy")
 
 

@@ -7,6 +7,8 @@ its ``cox`` import pointed at ``repro_torch.core``; the kernels keep
 their parsed source, so the copy is gone once it has run.
 """
 
+import contextlib
+import datetime
 import importlib.util
 import pathlib
 import sys
@@ -138,3 +140,27 @@ SIDES = (Side(False), Side(True))
 def on_both(scenario):
     """``(reference result, port result)`` of ``scenario(side)``."""
     return tuple(scenario(side) for side in SIDES)
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A gloo world of one rank (a file store) and its one-axis ("data")
+    CPU ``DeviceMesh``: the port's counterpart of the reference's
+    ``jax.make_mesh((1,), ("data",))``.  The group is destroyed on exit,
+    so the pytest worker that opened it holds none afterwards."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "gloo",
+            init_method=f"file://{tmp}/store",
+            rank=0,
+            world_size=1,
+            timeout=datetime.timedelta(seconds=60),
+        )
+        try:
+            yield init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        finally:
+            dist.destroy_process_group()
+
