@@ -21,9 +21,14 @@ directory written by either package restores in the other.
 * every leaf is checked on load against its manifest shape and against
   the shape and dtype of ``like``.
 
-The reference's restore takes shardings for elastic re-placement; on one
-card ``restore`` takes a device (sharding is ROADMAP A.10).  ``log``
-records each save's and restore's bytes and seconds.
+On a mesh a tree's DTensor leaves are saved in the logical, unsharded
+layout (each leaf's ``full_tensor()``, a collective every rank joins): rank
+0 writes, synchronously, and every rank waits at a barrier.  ``restore``
+takes ``shardings`` for elastic re-placement, as the reference's does: a
+tree of ``spmd.Sharding`` (None for a plain leaf) onto which every rank
+places its slices of the full arrays, on any mesh whatever the mesh that
+saved them.  ``log`` records each save's and restore's bytes and
+seconds.
 """
 
 from __future__ import annotations
@@ -60,6 +65,12 @@ def _rebuild(like, vals: dict, path: Tuple = ()) -> Any:
     return vals[path]
 
 
+def _is_dt(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _to_numpy(x: torch.Tensor) -> Tuple[np.ndarray, str]:
     """An owned host copy of ``x`` and its dtype's name; bf16 as its
     ``uint16`` bits."""
@@ -91,7 +102,25 @@ class CheckpointManager:
         unless blocking.  ``tree`` may be changed as soon as this
         returns."""
         t0 = time.perf_counter()
-        snap = [(_leaf_path(p), _to_numpy(x)) for p, x in _flatten(tree)]
+        pairs = _flatten(tree)
+        if any(_is_dt(x) for _, x in pairs):
+            import torch.distributed as dist
+
+            # every rank joins each leaf's gather; rank 0 alone keeps a copy
+            rank0 = dist.get_rank() == 0
+            snap = []
+            for p, x in pairs:
+                full = x.full_tensor() if _is_dt(x) else x
+                if rank0:
+                    snap.append((_leaf_path(p), _to_numpy(full)))
+                del full
+            self.wait()
+            if rank0:
+                self._write(step, snap, {"op": "save", "step": step})
+            dist.barrier()
+            blocking = None
+        else:
+            snap = [(_leaf_path(p), _to_numpy(x)) for p, x in pairs]
         rec = {
             "op": "save",
             "step": step,
@@ -100,7 +129,9 @@ class CheckpointManager:
         }
         self.wait()
         self.log.append(rec)
-        if blocking:
+        if blocking is None:  # written above, on rank 0
+            rec["write_s"] = time.perf_counter() - t0 - rec["snapshot_s"]
+        elif blocking:
             self._write(step, snap, rec)
         else:
             self._thread = threading.Thread(
@@ -160,10 +191,20 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None, shardings=None) -> Any:
         """Restore into the structure of ``like``, nested dicts whose leaves
         have a ``shape`` and a ``dtype`` (tensors or ``ParamSpec``), on
-        ``device`` (the card unless told otherwise)."""
+        ``device`` (the card unless told otherwise).  With ``shardings`` (a
+        tree like ``like`` of ``spmd.Sharding``, None for a plain leaf)
+        every leaf is placed as a DTensor on its mesh, on this rank's
+        device of the mesh."""
+        if shardings is not None:
+            from ..models.params import shard_full
+            from ..parallel.spmd import mesh_device
+
+            meshes = [s.mesh for _, s in _flatten(shardings) if s is not None]
+            device = mesh_device(meshes[0]) if meshes else device
+            sh = dict(_flatten(shardings))
         device = resolve_device(device)
         t0 = time.perf_counter()
         name = f"step_{step:08d}"
@@ -191,7 +232,10 @@ class CheckpointManager:
                     f"{str(x.dtype).removeprefix('torch.')}"
                 )
             nbytes += arr.nbytes
-            vals[path] = val.to(device)
+            val = val.to(device)
+            if shardings is not None and sh.get(path) is not None:
+                val = shard_full(val, sh[path].mesh, sh[path].placements)
+            vals[path] = val
         self.log.append(
             {"op": "restore", "step": step, "bytes": nbytes, "s": time.perf_counter() - t0}
         )

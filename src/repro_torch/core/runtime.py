@@ -60,9 +60,12 @@ from .types import (
 )
 
 # knob -> the ROADMAP queue item that ports it
+_A104 = "A.10.4 (tensor parallelism for the SSM, hybrid and encoder-decoder families)"
 UNPORTED = {
-    "moe_apply over a mesh (expert parallelism)": "A.10 (multi-device: the model stack on a mesh)",
-    "tp_pad (q-head padding)": "A.10 (multi-device: the model stack on a mesh)",
+    "the Mamba2 block over a tensor-parallel model axis": _A104,
+    "the ssm family over a tensor-parallel model axis": _A104,
+    "the hybrid family over a tensor-parallel model axis": _A104,
+    "the encoder-decoder family over a tensor-parallel model axis": _A104,
 }
 
 

@@ -6,6 +6,9 @@
 // are masked with -1e30 and tiles wholly past kv_len are skipped (kv_len > S
 // means every position is valid), a head with no valid position keeps
 // lsum == 0 -> 1 and returns zeros, and the output is in q's dtype.
+// On request (a non-null lse) it also writes each head's log-sum-exp of
+// its scaled scores, f32 (B, H): m + log(sum), -inf for a head with no
+// valid position; the mesh decode combines sequence slabs by it.
 //
 // Layout: q (B, H, D) and out (B, H, D) contiguous; the caches are read in
 // place in their (B, S, Hkv, D) layout through their strides (D
@@ -77,6 +80,12 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// the natural log-sum-exp of a head from its max m (log2 units) and its
+// sum: -inf when no position was valid
+__device__ __forceinline__ float log_sum(float m, float lsum) {
+  return lsum == 0.0f ? -INFINITY : m * 0.6931471805599453f + logf(lsum);
+}
+
 // 2^x: the scores are kept in log2 units (q is scaled by 1/sqrt(D), then
 // by log2 e), so each exponential is one MUFU.EX2
 __device__ __forceinline__ float exp2_(float x) {
@@ -101,8 +110,9 @@ template <typename T, int D, int G>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ kv_len,
-                        T* __restrict__ out, float* __restrict__ part_ml,
-                        float* __restrict__ part_acc, int H, int Hkv, long long S,
+                        T* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ part_ml, float* __restrict__ part_acc, int H,
+                        int Hkv, long long S,
                         long long ksb, long long kss, long long ksh, long long vsb,
                         long long vss, long long vsh, float scale) {
   using Ge = Geo<T, D>;
@@ -284,6 +294,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (nsplit == 1) {
       out[(static_cast<long long>(b) * H + h0 + h) * D + d] =
           from_f32<T>(a / (lsum == 0.0f ? 1.0f : lsum));
+      if (lse != nullptr && d == 0) lse[static_cast<long long>(b) * H + h0 + h] = log_sum(mb, lsum);
     } else {
       part_acc[(slot * g + hg) * D + d] = a;
       if (d == 0) {
@@ -302,7 +313,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                   T* __restrict__ out, int H, int Hkv, int D, int nsplit, long long total) {
+                   T* __restrict__ out, float* __restrict__ lse, int H, int Hkv, int D,
+                   int nsplit, long long total) {
   const long long o = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (o >= total) return;
   const int g = H / Hkv;
@@ -321,11 +333,12 @@ __global__ void __launch_bounds__(THREADS)
     acc += acc_in[static_cast<long long>(s) * g * D] * w;
   }
   out[o] = from_f32<T>(acc / (lsum == 0.0f ? 1.0f : lsum));
+  if (lse != nullptr && d == 0) lse[row] = log_sum(m, lsum);
 }
 
 template <typename T, int D, int G>
 int launch(const void* q, const void* k, const void* v, const int* kv_len, void* out,
-           float* part, int nsplit, int B, int H, int Hkv, long long S,
+           float* lse, float* part, int nsplit, int B, int H, int Hkv, long long S,
            const long long* ks, const long long* vs, cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const int g = H / Hkv;
@@ -336,7 +349,7 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
   float* part_acc = part + static_cast<long long>(B) * Hkv * nsplit * 2 * g;
   flash_decode_kernel<T, D, G><<<grid, THREADS, SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
-      static_cast<T*>(out), part_ml, part_acc, H, Hkv, S, ks[0], ks[1], ks[2], vs[0],
+      static_cast<T*>(out), lse, part_ml, part_acc, H, Hkv, S, ks[0], ks[1], ks[2], vs[0],
       vs[1], vs[2], scale);
   if (nsplit > 1) {
     const cudaError_t err = cudaGetLastError();
@@ -344,17 +357,17 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
     const long long total = static_cast<long long>(B) * H * D;
     const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
     combine_kernel<T><<<blocks, THREADS, 0, stream>>>(
-        part_ml, part_acc, static_cast<T*>(out), H, Hkv, D, nsplit, total);
+        part_ml, part_acc, static_cast<T*>(out), lse, H, Hkv, D, nsplit, total);
   }
   return 0;
 }
 
 template <typename T, int D>
 int launch_g(int group, const void* q, const void* k, const void* v, const int* kv_len,
-             void* out, float* part, int nsplit, int B, int H, int Hkv, long long S,
+             void* out, float* lse, float* part, int nsplit, int B, int H, int Hkv, long long S,
              const long long* ks, const long long* vs, cudaStream_t stream) {
 #define COX_DECODE_GROUP(G) \
-  case G: return launch<T, D, G>(q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs, stream);
+  case G: return launch<T, D, G>(q, k, v, kv_len, out, lse, part, nsplit, B, H, Hkv, S, ks, vs, stream);
   switch (group) {
     COX_DECODE_GROUP(1)
     COX_DECODE_GROUP(2)
@@ -371,14 +384,15 @@ int launch_g(int group, const void* q, const void* k, const void* v, const int* 
 
 template <typename T>
 int launch_d(int D, int group, const void* q, const void* k, const void* v,
-             const int* kv_len, void* out, float* part, int nsplit, int B, int H, int Hkv,
-             long long S, const long long* ks, const long long* vs, cudaStream_t stream) {
+             const int* kv_len, void* out, float* lse, float* part, int nsplit, int B, int H,
+             int Hkv, long long S, const long long* ks, const long long* vs,
+             cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch_g<T, 64>(group, q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs,
+      return launch_g<T, 64>(group, q, k, v, kv_len, out, lse, part, nsplit, B, H, Hkv, S, ks, vs,
                              stream);
     case 128:
-      return launch_g<T, 128>(group, q, k, v, kv_len, out, part, nsplit, B, H, Hkv, S, ks, vs,
+      return launch_g<T, 128>(group, q, k, v, kv_len, out, lse, part, nsplit, B, H, Hkv, S, ks, vs,
                               stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -390,9 +404,11 @@ int launch_d(int D, int group, const void* q, const void* k, const void* v,
 // cudaErrorInvalidValue for an argument the kernel does not take.  group
 // is the query heads a block serves (it divides H / Hkv, at most 8).
 // part is f32 scratch of B * Hkv * nsplit * (H / Hkv) * (D + 2) values
-// when nsplit > 1 (unused when nsplit == 1).
+// when nsplit > 1 (unused when nsplit == 1).  lse is null, or f32 (B, H)
+// for each head's log-sum-exp.
 extern "C" int cox_flash_decode(const void* q, const void* k, const void* v,
-                                const void* kv_len, void* out, void* part, int nsplit,
+                                const void* kv_len, void* out, void* lse, void* part,
+                                int nsplit,
                                 int group, int B, int H, int Hkv, long long S, int D,
                                 long long ksb, long long kss, long long ksh, long long vsb,
                                 long long vss, long long vsh, int dtype, void* stream) {
@@ -402,6 +418,7 @@ extern "C" int cox_flash_decode(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* scratch = static_cast<float*>(part);
+  float* lse_out = static_cast<float*>(lse);
   const long long ks[3] = {ksb, kss, ksh};
   const long long vs[3] = {vsb, vss, vsh};
   const int* len = static_cast<const int*>(kv_len);
@@ -409,11 +426,11 @@ extern "C" int cox_flash_decode(const void* q, const void* k, const void* v,
   int err;
   switch (dtype) {
     case COX_F32:
-      err = launch_d<float>(D, group, q, k, v, len, out, scratch, nsplit, B, H, Hkv, S, ks, vs, s);
+      err = launch_d<float>(D, group, q, k, v, len, out, lse_out, scratch, nsplit, B, H, Hkv, S, ks, vs, s);
       break;
     case COX_BF16:
-      err = launch_d<__nv_bfloat16>(D, group, q, k, v, len, out, scratch, nsplit, B, H, Hkv, S,
-                                    ks, vs, s);
+      err = launch_d<__nv_bfloat16>(D, group, q, k, v, len, out, lse_out, scratch, nsplit, B, H,
+                                    Hkv, S, ks, vs, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

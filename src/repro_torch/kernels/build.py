@@ -61,10 +61,11 @@ SIGNATURES = {
         # x, w, dy, dx, dw, db, partial dw/db scratch, then cox_rmsnorm_bwd's
         "cox_layernorm_bwd": [_VP] * 7 + [_LL, _LL, _F32] + [_INT] * 5 + [_LL, _INT, _INT, _VP],
     },
-    # q, k, v, kv_len, out, split scratch, nsplit, head group, B, H, Hkv,
-    # S, D, k strides (b, s, h), v strides (b, s, h), dtype, stream
+    # q, k, v, kv_len, out, lse (or null), split scratch, nsplit, head
+    # group, B, H, Hkv, S, D, k strides (b, s, h), v strides (b, s, h),
+    # dtype, stream
     "flash_decode": {
-        "cox_flash_decode": [_VP] * 6 + [_INT] * 5 + [_LL, _INT] + [_LL] * 6 + [_INT, _VP],
+        "cox_flash_decode": [_VP] * 7 + [_INT] * 5 + [_LL, _INT] + [_LL] * 6 + [_INT, _VP],
     },
     "flash_attention": {
         # q, k, v, o, lse, B, H, Hkv, S, D, q/k/v strides (b, s, h),

@@ -84,15 +84,18 @@ def flash_decode(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     kv_len: torch.Tensor,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """q: (B, H, D); caches: (B, S, Hkv, D); kv_len: (B,) int32 -> (B, H, D).
 
     Query head h attends to kv head ``h // (H // Hkv)`` over the positions
     ``< kv_len`` (all of them when ``kv_len > S``; zeros out when
-    ``kv_len == 0``), with scale ``1/sqrt(D)``."""
+    ``kv_len == 0``), with scale ``1/sqrt(D)``.  With ``return_lse`` it
+    returns ``(out, lse)``, lse the f32 (B, H) log-sum-exp of each head's
+    scaled scores (-inf where no position is valid)."""
     if q.device.type == "cpu":
-        return ref.decode_attention(q, k_cache, v_cache, kv_len)
-    return flash_decode_cuda(q, k_cache, v_cache, kv_len)
+        return ref.decode_attention(q, k_cache, v_cache, kv_len, return_lse=return_lse)
+    return flash_decode_cuda(q, k_cache, v_cache, kv_len, return_lse=return_lse)
 
 
 def _check_cache(c: torch.Tensor, what: str, q: torch.Tensor) -> None:
@@ -113,7 +116,8 @@ def flash_decode_cuda(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     kv_len: torch.Tensor,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     global decode_launches
     check_cuda_input(q, "flash_decode q", DTYPES)
     if q.dim() != 3:
@@ -132,6 +136,7 @@ def flash_decode_cuda(
     if kv_len.shape != (B,) or kv_len.device != q.device:
         raise ValueError(f"flash_decode kv_len: expected ({B},) on {q.device}")
     out = torch.empty_like(q)
+    lse = torch.empty(B, H, device=q.device) if return_lse else None
     heads = head_group(H // Hkv)
     nsplit = num_splits(B, Hkv, H // Hkv, S, q.device)
     # per split: (max, sum) and acc for every query head, f32
@@ -144,6 +149,7 @@ def flash_decode_cuda(
             v_cache.data_ptr(),
             kv_len.data_ptr(),
             out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             part.data_ptr() if nsplit > 1 else None,
             nsplit,
             heads,
@@ -159,7 +165,7 @@ def flash_decode_cuda(
         )
     build.check(err, "cox_flash_decode")
     decode_launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 # ---------------------------------------------------------------------------

@@ -60,12 +60,18 @@ def attention(
 
 
 def decode_attention(
-    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, kv_len: torch.Tensor
-) -> torch.Tensor:
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,
+    return_lse: bool = False,
+):
     """Batched: q (B, H, D), caches (B, S, Hkv, D), kv_len (B,) int32.  The
     reference's ``ops.decode_attention`` takes one sequence and is vmapped
-    over the batch (``layers.attention_decode``)."""
-    return _fa.flash_decode(q, k_cache, v_cache, kv_len)
+    over the batch (``layers.attention_decode``).  ``return_lse`` adds each
+    head's f32 log-sum-exp (B, H): ``(out, lse)``, for combining slabs of
+    a sequence-sharded cache."""
+    return _fa.flash_decode(q, k_cache, v_cache, kv_len, return_lse=return_lse)
 
 
 def ssd_scan(

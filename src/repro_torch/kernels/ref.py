@@ -158,14 +158,17 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     kv_len: torch.Tensor,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """One query token per head against a KV cache, batched.
 
     q: (B, H, D); caches: (B, S, Hkv, D); kv_len: (B,) int.  Query head h
     reads kv head ``h // (H // Hkv)``.  Positions ``>= kv_len`` are masked
     (``kv_len > S`` means all of them are valid) and a row with no valid
     position returns zeros.  The scale is ``1/sqrt(D)``; f32 inside,
-    ``q.dtype`` out."""
+    ``q.dtype`` out.  With ``return_lse`` it returns ``(out, lse)``: lse
+    (B, H) f32, each head's ``max + log(sum)`` of its scaled scores, -inf
+    for a row with no valid position (the kernel's optional output)."""
     B, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = H // Hkv
@@ -181,7 +184,12 @@ def decode_attention(
     lsum = p.sum(dim=-1, keepdim=True)
     lsum = torch.where(lsum == 0.0, 1.0, lsum)
     out = torch.einsum("bkgs,bskd->bkgd", p, v32) / lsum
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    empty = p.sum(dim=-1) == 0.0
+    lse = torch.where(empty, -math.inf, m[..., 0] + torch.log(lsum[..., 0]))
+    return out, lse.reshape(B, H).to(torch.float32)
 
 
 def _batched(x, a, b, c):

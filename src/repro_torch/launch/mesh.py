@@ -6,8 +6,9 @@ device or a process group.  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
 initialized world (one rank a device): the caller starts the group
 (``torch.distributed.init_process_group``) on every rank first.  The
-model stack on a mesh is ROADMAP A.10.2; COX launches take a mesh now
-(``KernelFn.launch(mesh=, axis=)``).
+meshes serve COX launches (``KernelFn.launch(mesh=, axis=)``) and the
+model stack: ``make_host_mesh``'s ("data", "model") mesh under
+``BatchedServer(mesh=)`` and ``train(mesh=)``.
 """
 
 from __future__ import annotations

@@ -65,6 +65,7 @@ from ..configs import registry
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core import cox
 from ..core.runtime import resolve_device
+from ..models import carry
 from ..models.params import init_params
 from ..parallel import steps as steps_mod
 from . import specs as S
@@ -282,15 +283,27 @@ class BatchedServer:
         seed: int = 0,
         params=None,
         device=None,
+        mesh=None,
+        strategy: str = "tp",
     ):
-        self.device = resolve_device(device)
         self.cfg = registry.get(arch) if isinstance(arch, str) else arch
         self.shape = ShapeConfig(f"serve_{ctx}", ctx, batch, "decode")
-        self.step_fn, self.specs = steps_mod.make_serve_step(self.cfg)
+        self.mesh, self.rules = mesh, None
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.step_fn, self.specs = steps_mod.make_serve_step(self.cfg)
+        else:
+            from ..parallel.spmd import mesh_device
+
+            self.device = mesh_device(mesh)
+            self.step_fn, bundle = steps_mod.make_serve_step(self.cfg, mesh=mesh, strategy=strategy)
+            self.cfg, self.specs, self.rules = bundle["cfg"], bundle["specs"], bundle["rules"]
         t0 = time.perf_counter()
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(self.specs, gen, self.device)
+            params = init_params(self.specs, gen, self.device, rules=self.rules)
+        elif mesh is not None:
+            params = carry.shard_params(params, bundle)
         self.params = params
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -302,7 +315,8 @@ class BatchedServer:
         self.reset()
 
     def reset(self):
-        self.cache = init_params(S.cache_spec_tree(self.cfg, self.shape), None, self.device)
+        tree = S.cache_spec_tree(self.cfg, self.shape)
+        self.cache = init_params(tree, None, self.device, rules=self.rules)
         self.pos = np.zeros((self.batch,), np.int32)
         self.tokens = np.zeros((self.batch,), np.int32)
         self.active = np.zeros((self.batch,), bool)

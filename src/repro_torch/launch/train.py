@@ -20,6 +20,13 @@ carries its ``frontend`` embeddings (``data/pipeline.py``).  With
 ``ckpt_dir=`` the parameters and the optimizer state go to
 ``checkpoint/ckpt.py``'s ``CheckpointManager``, and ``retry_loop``
 restarts a failed run from the latest checkpoint.
+
+With ``mesh=`` (a ``DeviceMesh`` over "data" and "model", every rank
+calling ``train`` alike) the run is the reference's sharded trainer:
+parameters, ZeRO-1 moments and batches are DTensors at the placements of
+``strategy`` (``"tp"`` or ``"fsdp"``), every rank builds the same global
+batch and keeps its slice, and a restart restores the latest checkpoint
+onto the mesh's shardings.
 """
 
 from __future__ import annotations
@@ -36,18 +43,23 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..core.runtime import resolve_device
 from ..data.pipeline import DataConfig, TokenSource
 from ..ft.watchdog import FailureInjector, StepWatchdog, retry_loop
-from ..models.params import ParamSpec, init_params, tree_map
+from ..models import carry
+from ..models.params import init_params, shard_full, tree_map
 from ..optim import adamw
 from ..parallel import steps as steps_mod
 
 
-def _opt_like(specs, opt_cfg: adamw.AdamWConfig):
-    """The optimizer state's layout for a restore: f32 moments shaped like
-    the parameters, and the int32 step."""
-    mom = tree_map(lambda s: ParamSpec(s.shape, torch.float32), specs)
-    out = {"m": mom, "v": mom, "step": ParamSpec((), torch.int32)}
-    if opt_cfg.grad_compress:
-        out["err"] = mom
+def place_batch(batch, shardings, device):
+    """A batch of ``TokenSource.batch_at`` on ``device``: plain tensors, or,
+    given each leaf's ``spmd.Sharding``, DTensors of which every rank keeps
+    its slice (every rank builds the same global batch from the seed;
+    nothing is scattered from one rank)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v).to(device)
+        if shardings is not None:
+            t = shard_full(t, shardings[k].mesh, shardings[k].placements)
+        out[k] = t
     return out
 
 
@@ -67,6 +79,8 @@ def train(
     opt_cfg: Optional[adamw.AdamWConfig] = None,
     params=None,
     device=None,
+    mesh=None,
+    strategy: str = "tp",
 ) -> Dict[str, Any]:
     """Train ``arch`` for ``steps`` steps of ``batch`` sequences of ``seq``
     tokens from the deterministic token source; weights are drawn from
@@ -85,11 +99,19 @@ def train(
     ``init_s`` (seconds to draw the weights and the optimizer state the
     first time) and ``ckpt_log`` (each save's and restore's bytes and
     seconds)."""
-    device = resolve_device(device)
     cfg = registry.get(arch) if isinstance(arch, str) else arch
     shape = ShapeConfig(f"train_{seq}", seq, batch, "train")
     opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=steps)
-    step_fn, specs = steps_mod.make_train_step(cfg, opt_cfg)
+    rules = bundle = None
+    if mesh is None:
+        device = resolve_device(device)
+        step_fn, specs = steps_mod.make_train_step(cfg, opt_cfg)
+    else:
+        from ..parallel.spmd import mesh_device
+
+        device = mesh_device(mesh)
+        step_fn, bundle, _ = steps_mod.jit_train_step(cfg, mesh, shape, opt_cfg, strategy=strategy)
+        cfg, specs, rules = bundle["cfg"], bundle["specs"], bundle["rules"]
     source = TokenSource(cfg, shape, data_cfg or DataConfig(seed=seed))
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
@@ -102,10 +124,12 @@ def train(
         t0 = time.perf_counter()
         if params is None:  # train()'s argument: draw the weights from the seed
             gen = torch.Generator(device=device).manual_seed(seed)
-            weights = init_params(specs, gen, device)
+            weights = init_params(specs, gen, device, rules=rules)
         else:
             weights = tree_map(lambda t: t.to(device, copy=True), params)
-        opt = adamw.init_state(weights, opt_cfg)
+            if bundle is not None:
+                weights = carry.shard_params(weights, bundle)
+        opt = adamw.init_state(weights, opt_cfg, bundle and bundle["opt_sh"]["m"])
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         state.setdefault("init_s", time.perf_counter() - t0)
@@ -115,8 +139,9 @@ def train(
         params = opt = None
         if start_step > 0 and mgr is not None and mgr.latest_step() is not None:
             ck = mgr.latest_step()
-            like = {"params": specs, "opt": _opt_like(specs, opt_cfg)}
-            blob = mgr.restore(ck, like, device)
+            like = {"params": specs, "opt": steps_mod.opt_like(specs, opt_cfg)}
+            sh = bundle and {"params": bundle["param_sh"], "opt": bundle["opt_sh"]}
+            blob = mgr.restore(ck, like, device, shardings=sh)
             params, opt = blob["params"], blob["opt"]
             start_step = ck + 1
         if params is None:
@@ -127,9 +152,7 @@ def train(
         for step in range(start_step, steps):
             if injector is not None:
                 injector.maybe_fail(step)
-            batch_dev = {
-                k: torch.from_numpy(v).to(device) for k, v in source.batch_at(step).items()
-            }
+            batch_dev = place_batch(source.batch_at(step), bundle and bundle["batch_sh"], device)
             wd.start(step)
             t0 = time.perf_counter()
             params, opt, metrics = step_fn(params, opt, batch_dev)

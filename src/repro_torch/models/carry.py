@@ -78,3 +78,21 @@ def cache_from_numpy(cfg, tree, device) -> Any:
     else:
         specs = lm.cache_specs(cfg, batch, seq_len)
     return _carry(specs, tree, torch.device(device))
+
+
+def shard_params(tree, bundle) -> Any:
+    """Place carried weights (full tensors, the same on every rank) on the
+    mesh of a step bundle: each leaf a DTensor at ``bundle["param_sh"]``'s
+    placements, of which this rank keeps its slice.  A padded config
+    (``tp_pad``) takes the reference's padded leaves as they are."""
+    from ..models.params import shard_full, tree_map
+
+    return tree_map(lambda t, sh: shard_full(t, sh.mesh, sh.placements), tree, bundle["param_sh"])
+
+
+def gather_params(tree) -> Any:
+    """The inverse of :func:`shard_params`: every DTensor leaf's full
+    tensor (a collective: every rank calls it)."""
+    from ..models.params import tree_map
+
+    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t, tree)

@@ -15,6 +15,11 @@ scans a stack, the port loops over it, as ``lm.py`` does.  On a card the
 encoder's attention and the cross-attention launch ``flash_attention``
 non-causal, the decoder's self-attention causal, and in decoding
 ``flash_decode`` runs over the self cache and over the cross memory.
+
+On a mesh (``rules=``) the family is data-parallel: every rank runs the
+whole model on its batch rows with the weights gathered, and the loss
+divides by the global count of labels.  It does no tensor-parallel work,
+so under ``"tp"`` a "model" axis above 1 raises (ROADMAP A.10.4).
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..parallel import spmd
 from . import layers as L
 from .lm import _layer, _norm_pair, _stack, _unstack
-from .params import ParamSpec
+from .params import ParamSpec, tree_map
 
 
 def cross_attention_specs(cfg) -> Dict[str, ParamSpec]:
@@ -113,10 +119,30 @@ def _dec_layer_apply(cfg, lp, h, positions, mem):
     return h + L.mlp_apply(lp["mlp"], hn, cfg=cfg)
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, rules=None):
     """Training forward.  batch: ``frontend`` (B, Se, d) frame embeddings
     (cast to the parameters' dtype), ``tokens`` and ``labels`` (B, S) int
     tensors.  Returns ``(loss, logits (B, S, Vpad) f32)``."""
+    if rules is not None:
+        logits = _data_parallel(cfg, params, batch, rules, lambda w, b: _logits(cfg, w, b))
+        return L.cross_entropy(logits, batch["labels"], cfg.vocab, rules=rules), logits
+    logits = _logits(cfg, params, batch)
+    return L.cross_entropy(logits, batch["labels"], cfg.vocab), logits
+
+
+def _data_parallel(cfg, params, inputs, rules, fn):
+    """``fn(weights, inputs)`` on this rank's batch rows with every weight
+    gathered; the result is sharded on the batch as the tokens are."""
+    L.refuse_model_axis(rules, "the encoder-decoder family")
+    w = tree_map(spmd.replicate, params)
+    mesh = inputs["tokens"].device_mesh
+    pl = tuple(inputs["tokens"].placements)
+    return spmd.local_call(
+        fn, mesh, [w, inputs], [L._placements(w), L._placements(inputs)], pl
+    )
+
+
+def _logits(cfg, params, batch):
     mem = encode(cfg, params, batch["frontend"].to(cfg.param_dtype))
     x = L.embed_apply(params["embed"], batch["tokens"])
     B, S, _ = x.shape
@@ -124,9 +150,7 @@ def forward(cfg, params, batch):
     for lp in _unstack(params["dec_layers"], cfg.n_layers):
         x = _remat(cfg, functools.partial(_dec_layer_apply, cfg, lp), x, positions, mem)
     x = L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"))
-    logits = L.unembed_apply(params["embed"], x, cfg)
-    loss = L.cross_entropy(logits, batch["labels"], cfg.vocab)
-    return loss, logits
+    return L.unembed_apply(params["embed"], x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -139,18 +163,31 @@ def cache_specs(cfg, batch: int, seq_len: int, enc_len: int) -> Dict[str, Any]:
     cross K/V of the encoder memory, (n_layers, B, enc_len, Hkv, Dh), in
     the parameter dtype, zero-initialised."""
     Lc, Hkv, Dh, dt = cfg.n_layers, cfg.n_kv, cfg.d_head, cfg.param_dtype
-    kv = ParamSpec((Lc, batch, seq_len, Hkv, Dh), dt, init="zeros")
-    xkv = ParamSpec((Lc, batch, enc_len, Hkv, Dh), dt, init="zeros")
+    axes = (None, "batch", "seq_kv", "kv_heads", None)
+    kv = ParamSpec((Lc, batch, seq_len, Hkv, Dh), dt, axes, init="zeros")
+    xkv = ParamSpec((Lc, batch, enc_len, Hkv, Dh), dt, axes, init="zeros")
     return {"k": kv, "v": kv, "xk": xkv, "xv": xkv}
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor):
+def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor, rules=None):
     """One decoder token for every sequence, over the cross K/V in the
     cache.  tokens: (B,) int; pos: (B,) int32 current lengths.  Returns
     ``(logits (B, Vpad) f32, cache)``; each layer writes the token's self
     K/V into the cache in place at ``pos`` and attends to all ``enc_len``
-    rows of its cross memory."""
+    rows of its cross memory.  On a mesh each rank steps its batch rows of
+    the cache in place (a data-only mesh: the cache must not be split on
+    its sequence)."""
+    if rules is not None:
+        mesh = cache["k"].device_mesh
+        if any(p.is_shard() and p.dim == 2 and mesh.size(i) > 1 for i, p in enumerate(cache["k"].placements)):
+            raise ValueError("the encoder-decoder decode step takes no sequence-sharded cache")
+        inputs = {"tokens": tokens, "pos": pos, "cache": cache}
+        logits = _data_parallel(
+            cfg, params, inputs, rules,
+            lambda w, b: decode_step(cfg, w, b["cache"], b["tokens"], b["pos"])[0],
+        )
+        return logits, cache
     h = L.embed_apply(params["embed"], tokens)  # (B, d)
     B, enc_len = h.shape[0], cache["xk"].shape[2]
     kv_len = torch.full((B,), enc_len, dtype=torch.int32, device=h.device)
@@ -166,7 +203,7 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor):
         att = ops.decode_attention(q, cache["xk"][i], cache["xv"][i], kv_len)
         h = h + att.reshape(B, -1) @ xp["wo"].reshape(-1, h.shape[1])
         hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"))
-        h = h + L.mlp_apply(lp["mlp"], hn[:, None], cfg=cfg)[:, 0]
+        h = h + L.mlp_apply(lp["mlp"], hn.unsqueeze(1), cfg=cfg).squeeze(1)
     h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"))
     logits = L.unembed_apply(params["embed"], h, cfg)
     return logits, cache

@@ -9,9 +9,20 @@ CUDA kernels for CUDA tensors and runs their plain versions for CPU
 tensors; the norms, the training attention and the SSD scan are
 differentiable on both.  Matrix products, the MoE router and expert
 products, the Mamba2 projections and its depthwise convolution are plain
-torch, as the reference leaves them to XLA.  There is no sharding
-(ROADMAP A.10): the reference's ``constrain`` is the identity on one
-device and is not ported.
+torch, as the reference leaves them to XLA.
+
+On a mesh (``rules=``, an ``AxisRules`` over a ``DeviceMesh``) the
+activations and weights are DTensors, and each layer runs its local
+arithmetic on this rank's shards inside ``spmd.local_call``, the port's
+``shard_map``, with every change of layout an explicit redistribute
+(``spmd.constrain``, the reference's ``constrain``): tensor-parallel
+attention (q heads, with padded heads masked, and kv heads or the
+row-parallel ``kv_embed`` fallback), column- then row-parallel MLPs,
+expert-parallel MoE, a vocab-parallel embedding, unembedding,
+cross-entropy and argmax, and the decode attention over a
+sequence-sharded cache combined by log-sum-exp.  Every apply function
+returns its output at its input's placements.  The Mamba2 block runs on
+a mesh whose "model" axis does no tensor-parallel work (ROADMAP A.10.4).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import torch.nn.functional as F
 from ..core.runtime import unported
 from ..kernels import ops
 from ..kernels.ref import NEG_INF, compute_dtype
+from ..parallel import spmd
 from .params import ParamSpec
 
 
@@ -65,15 +77,70 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0):
 
 
 def norm_spec(cfg) -> ParamSpec:
-    return ParamSpec((cfg.d_model,), torch.float32, init="ones")
+    return ParamSpec((cfg.d_model,), torch.float32, ("embed",), init="ones")
 
 
-def apply_norm(w, x, kind: str = "rms", b=None):
+def apply_norm(w, x, kind: str = "rms", b=None, rules=None):
     """``kind="rms"``: rmsnorm; anything else: layernorm with bias ``b``
-    (zeros when None), as the reference.  Both with eps 1e-6."""
+    (zeros when None), as the reference.  Both with eps 1e-6.  On a mesh
+    the kernel runs on this rank's rows (any row sharding of ``x``)."""
+    if rules is not None:
+        ws = weights(rules, {"w": w} if b is None else {"w": w, "b": b})
+        h = spmd.rows(x)
+        out = spmd.local_call(
+            lambda x, ws: apply_norm(ws["w"], x, kind, ws.get("b")),
+            x.device_mesh,
+            [h, ws],
+            [h.placements, _placements(ws)],
+            h.placements,
+        )
+        return spmd.to(out, x.placements)
     if kind == "rms":
         return ops.rmsnorm(x, w)
     return ops.layernorm(x, w, b if b is not None else torch.zeros_like(w))
+
+
+# ---------------------------------------------------------------------------
+# weights on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _placements(tree):
+    if isinstance(tree, dict):
+        return {k: _placements(v) for k, v in tree.items()}
+    return tuple(tree.placements)
+
+
+def weights(rules, tree):
+    """The weights of ``tree`` at the placements a layer computes with:
+    under ``"tp"`` as they are stored, under ``"fsdp"`` gathered (the
+    experts, kept sharded over "model", are placed by ``moe_apply``)."""
+    if rules.strategy == "tp":
+        return tree
+    return {k: spmd.replicate(w) for k, w in tree.items()}
+
+
+def _model_dim(t) -> Optional[int]:
+    """The tensor dimension that a DTensor shards over the "model" axis
+    (None when it is replicated there, or partial)."""
+    i = spmd.dim_index(t.device_mesh, "model")
+    if i is None:
+        return None
+    p = t.placements[i]
+    return p.dim if p.is_shard() else None
+
+
+def _partial_over_model(placements, mesh):
+    from torch.distributed.tensor import Partial
+
+    return spmd.with_axis(placements, mesh, "model", Partial())
+
+
+def refuse_model_axis(rules, what: str) -> None:
+    """A.10.4: the SSM, hybrid and encoder-decoder families do no
+    tensor-parallel work; under ``"tp"`` a "model" axis above 1 raises."""
+    if rules is not None and rules.strategy == "tp" and rules.shape.get("model", 1) > 1:
+        raise unported(f"{what} over a tensor-parallel model axis")
 
 
 # ---------------------------------------------------------------------------
@@ -82,21 +149,27 @@ def apply_norm(w, x, kind: str = "rms", b=None):
 
 
 def attention_specs(cfg, d_model: Optional[int] = None) -> Dict[str, ParamSpec]:
+    """The attention weights, with the reference's logical axes.  With
+    ``cfg.tp_pad`` the q heads are padded inside each kv group to Hp
+    (``cfg.head_padding``), so that they divide the tensor-parallel
+    degree; the KV projections are column-parallel over kv heads when
+    Hkv divides it, else row-parallel over d_model (``kv_embed``)."""
     d = d_model or cfg.d_model
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.d_head
-    if cfg.head_padding()[0] != H:
-        raise unported("tp_pad (q-head padding)")
+    Hp, _, _ = cfg.head_padding()
+    Hkv, Dh = cfg.n_kv, cfg.d_head
     dt = cfg.param_dtype
+    kv_col = (not cfg.tp_pad) or (Hkv % cfg.tp_pad == 0)
+    kv_axes = ("embed", "kv_heads", None) if kv_col else ("kv_embed", None, None)
     sp = {
-        "wq": ParamSpec((d, H, Dh), dt),
-        "wk": ParamSpec((d, Hkv, Dh), dt),
-        "wv": ParamSpec((d, Hkv, Dh), dt),
-        "wo": ParamSpec((H, Dh, d), dt),
+        "wq": ParamSpec((d, Hp, Dh), dt, ("embed", "heads", None)),
+        "wk": ParamSpec((d, Hkv, Dh), dt, kv_axes),
+        "wv": ParamSpec((d, Hkv, Dh), dt, kv_axes),
+        "wo": ParamSpec((Hp, Dh, d), dt, ("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        sp["bq"] = ParamSpec((H, Dh), dt, init="zeros")
-        sp["bk"] = ParamSpec((Hkv, Dh), dt, init="zeros")
-        sp["bv"] = ParamSpec((Hkv, Dh), dt, init="zeros")
+        sp["bq"] = ParamSpec((Hp, Dh), dt, ("heads", None), init="zeros")
+        sp["bk"] = ParamSpec((Hkv, Dh), dt, ("kv_heads", None), init="zeros")
+        sp["bv"] = ParamSpec((Hkv, Dh), dt, ("kv_heads", None), init="zeros")
     return sp
 
 
@@ -106,34 +179,158 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, H * K)).reshape(*x.shape[:-1], H, K)
 
 
-def attention_apply(p, x, positions, *, cfg, causal=True, window: int = 0):
-    """x: (B, S, d) -> (B, S, d); positions: (B, S) int32 (for RoPE).
+def _head_mask(cfg, lo: int, n: int, device):
+    """(n,) validity of the q heads ``[lo, lo + n)`` of the padded layout
+    (the reference's ``_head_mask``): a padded slot of a kv group
+    contributes zero before the output projection, so padded execution
+    equals the true architecture.  None when nothing is padded."""
+    Hp, gp, g = cfg.head_padding()
+    if Hp == cfg.n_heads:
+        return None
+    return (torch.arange(lo, lo + n, device=device) % gp) < g
 
-    The reference's activation sharding constraints are the identity on
-    one card, and its padded-head mask is None there, so neither is
-    ported."""
+
+def _apply_mask(att: torch.Tensor, mask, head_dim: int) -> torch.Tensor:
+    if mask is None:
+        return att
+    shape = [1] * att.dim()
+    shape[head_dim] = mask.shape[0]
+    return att * mask.reshape(shape).to(att.dtype)
+
+
+def _kv_for_heads(k, v, cfg, h_lo: int, n: int, kv_lo: int):
+    """The K and V that the q heads ``[h_lo, h_lo + n)`` read, given the kv
+    heads ``[kv_lo, kv_lo + k.shape[-2])``: as they are when those heads
+    form whole groups of their own, else one kv head per q head (q head h
+    reads kv head ``h // gp``)."""
+    _, gp, _ = cfg.head_padding()
+    nkv = k.shape[-2]
+    if h_lo % gp == 0 and n == gp * nkv and h_lo // gp == kv_lo:
+        return k, v
+    idx = torch.div(torch.arange(h_lo, h_lo + n, device=k.device), gp, rounding_mode="floor") - kv_lo
+    return k.index_select(-2, idx), v.index_select(-2, idx)
+
+
+class _Heads:
+    """Which heads this rank holds on a mesh: ``n`` q heads from ``lo``
+    (all Hp when the q heads are not sharded), and the kv layout: ``"col"``
+    (kv heads sharded with them, ``kv_n`` from ``kv_lo``), ``"row"``
+    (``kv_embed``: K and V come out partial over "model" and are reduced)
+    or ``"full"``."""
+
+    def __init__(self, cfg, w, mesh):
+        Hp, _, _ = cfg.head_padding()
+        tp, r = spmd.axis_size(mesh, "model"), spmd.axis_rank(mesh, "model")
+        sharded = _model_dim(w["wq"]) == 1
+        self.n = Hp // tp if sharded else Hp
+        self.lo = r * self.n if sharded else 0
+        kd = _model_dim(w["wk"])
+        self.kv = {1: "col", 0: "row", None: "full"}[kd]
+        self.kv_n = cfg.n_kv // tp if self.kv == "col" else cfg.n_kv
+        self.kv_lo = r * self.kv_n if self.kv == "col" else 0
+        d = w["wk"].shape[0]
+        self.d_lo, self.d_n = (r * (d // tp), d // tp) if self.kv == "row" else (0, d)
+        self.sharded = sharded
+
+
+def _kv_local(x, wk, wv, d_lo: int, d_n: int):
+    """K and V from x's columns ``[d_lo, d_lo + d_n)`` (all of them unless
+    the KV projections are row-parallel, when they are partial sums)."""
+    xs = x if d_n == x.shape[-1] else x[..., d_lo : d_lo + d_n]
+    return _project(xs, wk), _project(xs, wv)
+
+
+def _attention_core(p, x, positions, cfg, causal, window, lo=0, kv_lo=0, k=None, v=None):
+    """The attention of the q heads ``p["wq"]`` holds (from global head
+    ``lo``) and its output projection; K and V are projected here unless
+    given (reduced from a row-parallel projection, biases not yet
+    added)."""
     q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    if k is None:
+        k = _project(x, p["wk"])
+        v = _project(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
     q = rope(q, positions)
     k = rope(k, positions)
+    H = q.shape[-2]
+    k, v = _kv_for_heads(k, v, cfg, lo, H, kv_lo)
     att = ops.attention(q, k, v, causal=causal, window=window)  # (B, S, H, Dh)
-    B, S, H, Dh = att.shape
+    att = _apply_mask(att, _head_mask(cfg, lo, H, att.device), 2)
+    B, S, _, Dh = att.shape
     return att.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, -1)
 
 
-def attention_decode(p, x, cache, pos, *, slot=None, kv_len=None):
+def attention_apply(p, x, positions, *, cfg, rules=None, causal=True, window: int = 0):
+    """x: (B, S, d) -> (B, S, d); positions: (B, S) int32 (for RoPE), or
+    (1, S) when every row takes the same.  Padded q heads (``cfg.tp_pad``)
+    are masked before ``wo``.
+
+    On a mesh the input is gathered to ``("batch", None, "embed")``, every
+    rank runs ``flash_attention`` on its q heads over the whole sequence,
+    and ``wo``'s output (partial over "model" when the heads are sharded)
+    goes back to ``x``'s placements: a reduce-scatter onto the sequence
+    slabs of the residual stream."""
+    if rules is None:
+        return _attention_core(p, x, positions, cfg, causal, window)
+    mesh = x.device_mesh
+    h = spmd.constrain(x, rules, ("batch", None, None))
+    w = weights(rules, p)
+    hd = _Heads(cfg, w, mesh)
+    k = v = None
+    if hd.kv == "row":
+        kv_pl = _partial_over_model(h.placements, mesh)
+        k, v = spmd.local_call(
+            lambda x, wk, wv: _kv_local(x, wk, wv, hd.d_lo, hd.d_n),
+            mesh,
+            [h, w["wk"], w["wv"]],
+            [h.placements, w["wk"].placements, w["wv"].placements],
+            (kv_pl, kv_pl),
+        )
+        full = spmd.with_axis(h.placements, mesh, "model", _replicate())
+        k, v = spmd.to(k, full), spmd.to(v, full)
+    core = {n: w[n] for n in ("wq", "wo", "bq", "bk", "bv") if n in w}
+    if k is None:
+        core.update(wk=w["wk"], wv=w["wv"])
+    out_pl = _partial_over_model(h.placements, mesh) if hd.sharded else h.placements
+    out = spmd.local_call(
+        lambda x, ws, k, v: _attention_core(ws, x, positions, cfg, causal, window, hd.lo, hd.kv_lo, k, v),
+        mesh,
+        [h, core, k, v],
+        [h.placements, _placements(core), None if k is None else k.placements, None if v is None else v.placements],
+        out_pl,
+    )
+    return spmd.to(out, x.placements)
+
+
+def _replicate():
+    from torch.distributed.tensor import Replicate
+
+    return Replicate()
+
+
+def attention_decode(p, x, cache, pos, *, cfg=None, rules=None, slot=None, kv_len=None):
     """One-token decode.  x: (B, d); cache: {k: (B, S, Hkv, Dh), v: ...};
     pos: (B,) int32 absolute positions (for RoPE); slot: (B,) cache write
     slots (defaults to pos); kv_len: (B,) valid cache length (defaults to
-    pos + 1).
+    pos + 1).  ``cfg`` masks padded q heads (none without it).
 
     Writes the token's K/V into ``cache`` in place (the reference returns
-    a new cache) and returns ``(y, cache)``."""
+    a new cache) and returns ``(y, cache)``.
+
+    On a mesh the cache is sharded on its sequence over "model" (the
+    reference's ``seq_kv``): every model rank holds a slab of ``S / tp``
+    rows of all kv heads.  The new token's q, K and V are gathered over
+    "model", the rank whose slab holds the (clamped) slot writes K and V,
+    ``flash_decode`` runs over each slab with its share of ``kv_len`` and
+    returns its log-sum-exp, and the slabs' outputs are combined by it in
+    rank order (a slab with no visible row weighs 0; a row with
+    ``kv_len = 0`` gives zeros).  ``wo`` is row-parallel over the q heads
+    and its output is reduced over "model"."""
+    if rules is not None:
+        return _attention_decode_mesh(p, x, cache, pos, cfg, rules, slot, kv_len)
     B, d = x.shape
     slot = pos if slot is None else slot
     kv_len = pos + 1 if kv_len is None else kv_len
@@ -142,15 +339,132 @@ def attention_decode(p, x, cache, pos, *, slot=None, kv_len=None):
     v = _project(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    # rope wants (..., S, H, D): add a singleton S axis
-    qr = rope(q[:, None], pos[:, None])[:, 0]
-    kr = rope(k[:, None], pos[:, None])[:, 0]
-    _scatter_token(cache["k"], kr, slot)
-    _scatter_token(cache["v"], v, slot)
-    out = ops.decode_attention(qr, cache["k"], cache["v"], kv_len.to(torch.int32))
+    out = _decode_whole(q, k, v, pos, slot, kv_len, cache["k"], cache["v"])
     H, Dh = out.shape[1], out.shape[2]
+    if cfg is not None:
+        out = _apply_mask(out, _head_mask(cfg, 0, H, out.device), 1)
     y = out.reshape(B, H * Dh) @ p["wo"].reshape(H * Dh, d)
     return y, cache
+
+
+def _rope_token(q, k, pos):
+    """RoPE on one token's (B, H, D) q and K; rope wants (..., S, H, D),
+    so a singleton S axis is added and dropped."""
+    return rope(q[:, None], pos[:, None])[:, 0], rope(k[:, None], pos[:, None])[:, 0]
+
+
+def _decode_whole(q, k, v, pos, slot, kv_len, kc, vc):
+    """RoPE, the token's K and V written at ``slot``, and ``flash_decode``
+    over the whole cache (no mesh, or a cache not split on its sequence)."""
+    qr, kr = _rope_token(q, k, pos)
+    _scatter_token(kc, kr, slot)
+    _scatter_token(vc, v, slot)
+    return ops.decode_attention(qr, kc, vc, kv_len.to(torch.int32))
+
+
+def combine_slabs(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The attention over a whole cache from its slabs' (n, B, H, D)
+    outputs and (n, B, H) f32 log-sum-exps, summed in slab order in f32:
+    each slab weighs ``exp(lse - max lse)``; a slab with no visible row
+    (lse = -inf) weighs 0, and a row whose slabs are all empty gives
+    zeros."""
+    m = lses.amax(dim=0)
+    m = torch.where(torch.isinf(m), 0.0, m)
+    w = torch.where(torch.isinf(lses), 0.0, torch.exp(lses - m))
+    num = (w[..., None] * outs.to(torch.float32)).sum(dim=0)
+    den = w.sum(dim=0)[..., None]
+    return (num / torch.where(den == 0.0, 1.0, den)).to(outs.dtype)
+
+
+def _slab_decode(q, k, v, b, pos, slot, kv_len, kc, vc, r: int, n_slabs: int, S: int):
+    """One rank's part of the mesh decode: the K and V biases of a
+    row-parallel projection (``b``, added after its reduction), RoPE, the
+    write into its slab ``r`` of ``n_slabs`` (rows ``[r * Sl, (r + 1) *
+    Sl)`` of S), and ``flash_decode`` over the slab; ``(out, lse)`` with a
+    leading slab axis when the cache is split, else the output alone."""
+    if b:
+        k, v = k + b["bk"], v + b["bv"]
+    if n_slabs == 1:
+        return _decode_whole(q, k, v, pos, slot, kv_len, kc, vc)
+    qr, kr = _rope_token(q, k, pos)
+    Sl = kc.shape[1]
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    loc = slot.to(torch.int64).clamp(0, S - 1) - r * Sl  # past the context: row S-1
+    mine = ((loc >= 0) & (loc < Sl))[:, None, None]
+    idx = loc.clamp(0, Sl - 1)
+    kc[rows, idx] = torch.where(mine, kr.to(kc.dtype), kc[rows, idx])
+    vc[rows, idx] = torch.where(mine, v.to(vc.dtype), vc[rows, idx])
+    n = (kv_len.to(torch.int64) - r * Sl).clamp(0, Sl).to(torch.int32)
+    out, lse = ops.decode_attention(qr, kc, vc, n, return_lse=True)
+    return out[None], lse[None]
+
+
+def _attention_decode_mesh(p, x, cache, pos, cfg, rules, slot, kv_len):
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    slot = pos if slot is None else slot
+    kv_len = pos + 1 if kv_len is None else kv_len
+    w = weights(rules, p)
+    hd = _Heads(cfg, w, mesh)
+    x_pl = tuple(x.placements)
+    x = spmd.rows(x)
+    xp = tuple(x.placements)
+    q_pl = spmd.with_axis(xp, mesh, "model", Shard(1)) if hd.sharded else xp
+    kv_pl = {"col": spmd.with_axis(xp, mesh, "model", Shard(1)), "row": _partial_over_model(xp, mesh), "full": xp}[hd.kv]
+    ws = {n: w[n] for n in ("wq", "wk", "wv", "bq", "bk", "bv") if n in w}
+    b = {}
+    if hd.kv == "row" and "bk" in ws:  # added once K and V are reduced
+        b = {n: spmd.replicate(ws.pop(n)) for n in ("bk", "bv")}
+
+    def project(x, ws):
+        q = _project(x, ws["wq"])
+        k, v = _kv_local(x, ws["wk"], ws["wv"], hd.d_lo, hd.d_n)
+        if "bq" in ws:  # the biases sharded as their heads are
+            q = q + ws["bq"]
+        if "bk" in ws:
+            k, v = k + ws["bk"], v + ws["bv"]
+        return q, k, v
+
+    q, k, v = spmd.local_call(project, mesh, [x, ws], [xp, _placements(ws)], (q_pl, kv_pl, kv_pl))
+    B, Hp, Dh = q.shape
+    tgt = spmd.act_placements(rules, (B, Hp, Dh), ("batch", None, None))
+    q, k, v = spmd.to(q, tgt), spmd.to(k, tgt), spmd.to(v, tgt)
+    kc, vc = cache["k"], cache["v"]
+    S = kc.shape[1]
+    n_slabs = mesh.size(spmd.dim_index(mesh, "model")) if _model_dim(kc) == 1 else 1
+    r = spmd.axis_rank(mesh, "model") if n_slabs > 1 else 0
+    bpl = spmd.act_placements(rules, (B,), ("batch",))
+    if n_slabs == 1:
+        out_pl = tgt
+    else:
+        lse_pl = spmd.act_placements(rules, (B, Hp), ("batch", None))
+        out_pl = tuple(spmd.with_axis(spmd.shift(pl), mesh, "model", Shard(0)) for pl in (tgt, lse_pl))
+    res = spmd.local_call(
+        lambda q, k, v, b, pos, slot, kv_len, kc, vc: _slab_decode(q, k, v, b, pos, slot, kv_len, kc, vc, r, n_slabs, S),
+        mesh,
+        [q, k, v, b, pos, slot, kv_len, kc, vc],
+        [tgt, tgt, tgt, _placements(b), bpl, bpl, bpl, tuple(kc.placements), tuple(vc.placements)],
+        out_pl,
+    )
+    wo_pl = _partial_over_model(xp, mesh) if hd.sharded else xp
+
+    def finish(att, lses, wo):
+        if lses is not None:
+            att = combine_slabs(att, lses)
+        att = _apply_mask(att, _head_mask(cfg, 0, Hp, att.device), 1)
+        if hd.sharded:
+            att = att[:, hd.lo : hd.lo + hd.n]
+        return att.reshape(att.shape[0], hd.n * Dh) @ wo.reshape(hd.n * Dh, -1)
+
+    if n_slabs == 1:
+        att, lses = res, None
+        args, exp = [att, None, w["wo"]], [tgt, None, tuple(w["wo"].placements)]
+    else:
+        att, lses = (spmd.to(t, spmd.with_axis(t.placements, mesh, "model", _replicate())) for t in res)
+        args, exp = [att, lses, w["wo"]], [tuple(att.placements), tuple(lses.placements), tuple(w["wo"].placements)]
+    y = spmd.local_call(finish, mesh, args, exp, wo_pl)
+    return spmd.to(y, x_pl), cache
 
 
 def _scatter_token(cache: torch.Tensor, token: torch.Tensor, pos: torch.Tensor) -> None:
@@ -174,19 +488,39 @@ def mlp_specs(cfg) -> Dict[str, ParamSpec]:
     dt = cfg.param_dtype
     if cfg.act == "swiglu":
         return {
-            "w_gate": ParamSpec((d, f), dt),
-            "w_up": ParamSpec((d, f), dt),
-            "w_down": ParamSpec((f, d), dt),
+            "w_gate": ParamSpec((d, f), dt, ("embed", "mlp")),
+            "w_up": ParamSpec((d, f), dt, ("embed", "mlp")),
+            "w_down": ParamSpec((f, d), dt, ("mlp", "embed")),
         }
-    return {"w_in": ParamSpec((d, f), dt), "w_out": ParamSpec((f, d), dt)}
+    return {
+        "w_in": ParamSpec((d, f), dt, ("embed", "mlp")),
+        "w_out": ParamSpec((f, d), dt, ("mlp", "embed")),
+    }
 
 
-def mlp_apply(p, x, *, cfg):
+def _mlp_local(p, x, cfg):
     if cfg.act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
         return h @ p["w_down"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_out"]
+
+
+def mlp_apply(p, x, *, cfg, rules=None):
+    """On a mesh: column-parallel in, row-parallel out over "model" (the
+    hidden width sharded), the input gathered to ``("batch", None,
+    "embed")`` and the partial output sent back to ``x``'s placements."""
+    if rules is None:
+        return _mlp_local(p, x, cfg)
+    mesh = x.device_mesh
+    h = spmd.constrain(x, rules, ("batch",) + (None,) * (x.dim() - 1))
+    w = weights(rules, p)
+    first = w["w_gate"] if cfg.act == "swiglu" else w["w_in"]
+    out_pl = _partial_over_model(h.placements, mesh) if _model_dim(first) == 1 else h.placements
+    out = spmd.local_call(
+        lambda x, w: _mlp_local(w, x, cfg), mesh, [h, w], [h.placements, _placements(w)], out_pl
+    )
+    return spmd.to(out, x.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -199,18 +533,18 @@ def moe_specs(cfg) -> Dict[str, ParamSpec]:
     E = cfg.n_experts
     dt = cfg.param_dtype
     sp = {
-        "router": ParamSpec((d, E), torch.float32),
-        "w_gate": ParamSpec((E, d, fe), dt),
-        "w_up": ParamSpec((E, d, fe), dt),
-        "w_down": ParamSpec((E, fe, d), dt),
+        "router": ParamSpec((d, E), torch.float32, ("embed", None)),
+        "w_gate": ParamSpec((E, d, fe), dt, ("experts", "embed", None)),
+        "w_up": ParamSpec((E, d, fe), dt, ("experts", "embed", None)),
+        "w_down": ParamSpec((E, fe, d), dt, ("experts", None, "embed")),
     }
     if cfg.n_shared:
         fs = fe * cfg.n_shared
         sp.update(
             {
-                "s_gate": ParamSpec((d, fs), dt),
-                "s_up": ParamSpec((d, fs), dt),
-                "s_down": ParamSpec((fs, d), dt),
+                "s_gate": ParamSpec((d, fs), dt, ("embed", "mlp")),
+                "s_up": ParamSpec((d, fs), dt, ("embed", "mlp")),
+                "s_down": ParamSpec((fs, d), dt, ("mlp", "embed")),
             }
         )
     return sp
@@ -281,15 +615,77 @@ def _shared_experts(p, xt):
     return (F.silu(xt @ p["s_gate"]) * (xt @ p["s_up"])) @ p["s_down"]
 
 
-def moe_apply(p, x, *, cfg, mesh=None):
-    """Capacity-based token-choice top-k MoE: x (B, S, d) -> (B, S, d),
-    the reference's single-device path (all experts local, capacity from
-    the B x S tokens).  The k contributions are summed in f32 in choice
-    order, cast to x's dtype, then the shared experts are added.  The
-    reference's expert-parallel ``shard_map`` path is not ported: a
-    ``mesh`` raises ``CoxUnsupported``."""
-    if mesh is not None:
-        raise unported("moe_apply over a mesh (expert parallelism)")
+def moe_apply(p, x, *, cfg, rules=None):
+    """Capacity-based token-choice top-k MoE: x (B, S, d) -> (B, S, d).
+    Without rules, the reference's single-device path: all experts local,
+    capacity from the B x S tokens; the k contributions are summed in f32
+    in choice order, cast to x's dtype, then the shared experts are added.
+
+    With rules on a mesh that has a "model" axis (even of size 1), the
+    reference's expert-parallel path: the tokens stay sharded over the
+    batch axes when B divides them (else every rank takes them all), every
+    model rank runs its slice of ``E / tp`` experts on its token slab with
+    the capacity of that slab (so a mesh can drop tokens that one device
+    keeps), and the partial outputs are summed over "model" in f32, then
+    cast; the shared experts run outside, column- then row-parallel."""
+    if rules is None or "model" not in rules.shape:
+        if rules is not None:
+            raise ValueError("moe_apply on a mesh needs a 'model' axis")
+        return _moe_apply_local(p, x, cfg)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E = cfg.n_experts
+    tp, r = spmd.axis_size(mesh, "model"), spmd.axis_rank(mesh, "model")
+    assert E % tp == 0, "experts must divide the model axis"
+    E_loc = E // tp
+    names = mesh.mesh_dim_names
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= spmd.axis_size(mesh, a)
+    xpl = tuple(
+        Shard(0) if n in ("pod", "data") and B % dp == 0 else Replicate() for n in names
+    )
+    xl = spmd.to(x, xpl)
+    ew = tuple(Shard(0) if n == "model" else Replicate() for n in names)
+    ws = {n: spmd.to(p[n], ew) for n in ("w_gate", "w_up", "w_down")}
+    ws["router"] = spmd.replicate(p["router"])
+
+    sw = {}
+    if cfg.n_shared:
+        sw = weights(rules, {n: p[n] for n in ("s_gate", "s_up", "s_down")})
+    # shared experts sharded over "model" ("tp") run in the routed experts'
+    # local function, so the input's gradient sums its uses in the
+    # one-device order; gathered ("fsdp"), every model rank computes them
+    # whole, apart (their gradient is not partial over "model")
+    together = bool(sw) and _model_dim(sw["s_gate"]) == 1
+    part = _partial_over_model(xpl, mesh)
+
+    def local(xb, ws, sw):
+        Bl, Sl, _ = xb.shape
+        xt = xb.reshape(Bl * Sl, d)
+        C = moe_capacity(cfg, Bl * Sl)
+        y = _moe_local(ws, xt, cfg=cfg, C=C, e_lo=r * E_loc, E_loc=E_loc).reshape(Bl, Sl, d)
+        return (y, _shared_experts(sw, xt).reshape(Bl, Sl, d)) if sw else (y,)
+
+    def shared(xb, sw):
+        Bl, Sl, _ = xb.shape
+        return _shared_experts(sw, xb.reshape(Bl * Sl, d)).reshape(Bl, Sl, d)
+
+    inner = sw if together else {}
+    outs = spmd.local_call(
+        local, mesh, [xl, ws, inner], [xpl, _placements(ws), _placements(inner)], (part, part)[: 1 + together]
+    )
+    out = spmd.to(outs[0], xpl).to(x.dtype)
+    if together:
+        out = out + spmd.to(outs[1], xpl)
+    elif sw:
+        out = out + spmd.local_call(shared, mesh, [xl, sw], [xpl, _placements(sw)], xpl)
+    return spmd.to(out, x.placements)
+
+
+def _moe_apply_local(p, x, cfg):
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     C = moe_capacity(cfg, B * S)
@@ -330,13 +726,13 @@ def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
     dt = cfg.param_dtype
     return {
         # in_proj -> [z (gate), x, B, C, dt]
-        "w_in": ParamSpec((d, 2 * di + 2 * N + H), dt),
-        "conv": ParamSpec((cfg.conv_k, di + 2 * N), dt),
-        "A_log": ParamSpec((H,), torch.float32, init="zeros"),
-        "D": ParamSpec((H,), torch.float32, init="ones"),
-        "dt_bias": ParamSpec((H,), torch.float32, init="zeros"),
-        "norm": ParamSpec((di,), torch.float32, init="ones"),
-        "w_out": ParamSpec((di, d), dt),
+        "w_in": ParamSpec((d, 2 * di + 2 * N + H), dt, ("embed", "ssm_inner")),
+        "conv": ParamSpec((cfg.conv_k, di + 2 * N), dt, (None, "ssm_inner")),
+        "A_log": ParamSpec((H,), torch.float32, (None,), init="zeros"),
+        "D": ParamSpec((H,), torch.float32, (None,), init="ones"),
+        "dt_bias": ParamSpec((H,), torch.float32, (None,), init="zeros"),
+        "norm": ParamSpec((di,), torch.float32, ("ssm_inner",), init="ones"),
+        "w_out": ParamSpec((di, d), dt, ("ssm_inner", "embed")),
     }
 
 
@@ -384,8 +780,14 @@ def _ssm_inputs(p, xBC, dtp, cfg):
     return xh, a, Bm, Cm
 
 
-def mamba2_apply(p, x, *, cfg):
-    """x: (B, S, d) -> (B, S, d)."""
+def mamba2_apply(p, x, *, cfg, rules=None):
+    """x: (B, S, d) -> (B, S, d).  On a mesh, each rank runs the block on
+    its batch rows with the weights gathered: the block does no
+    tensor-parallel work (ROADMAP A.10.4), so a "model" axis above 1 under
+    ``"tp"`` raises."""
+    if rules is not None:
+        refuse_model_axis(rules, "the Mamba2 block")
+        return _data_parallel(lambda w, x: mamba2_apply(w, x, cfg=cfg), p, x, rules)
     B, S, _ = x.shape
     proj = x @ p["w_in"]
     z, xBC, dtp = _mamba_split(cfg, proj)
@@ -397,6 +799,16 @@ def mamba2_apply(p, x, *, cfg):
     y = y * F.silu(z)
     y = ops.rmsnorm(y, p["norm"])
     return y @ p["w_out"]
+
+
+def _data_parallel(fn, p, x, rules):
+    """``fn(weights, x)`` on this rank's batch rows, with the weights
+    gathered to every rank (``x`` at ``("batch", None, "embed")``), back at
+    ``x``'s placements."""
+    h = spmd.constrain(x, rules, ("batch",) + (None,) * (x.dim() - 1))
+    w = {k: spmd.replicate(v) for k, v in p.items()}
+    out = spmd.local_call(fn, x.device_mesh, [w, h], [_placements(w), h.placements], h.placements)
+    return spmd.to(out, x.placements)
 
 
 def mamba2_decode(p, x, state, *, cfg):
@@ -425,27 +837,74 @@ def mamba2_decode(p, x, state, *, cfg):
 
 def embed_specs(cfg) -> Dict[str, ParamSpec]:
     vpad = round_up(cfg.vocab, 256)
-    sp = {"tok": ParamSpec((vpad, cfg.d_model), cfg.param_dtype, scale=1.0)}
+    sp = {"tok": ParamSpec((vpad, cfg.d_model), cfg.param_dtype, ("vocab", "embed"), scale=1.0)}
     if not cfg.tie_embeddings:
-        sp["unembed"] = ParamSpec((cfg.d_model, vpad), cfg.param_dtype)
+        sp["unembed"] = ParamSpec((cfg.d_model, vpad), cfg.param_dtype, ("embed", "vocab"))
     return sp
 
 
-def embed_apply(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+def embed_apply(p, tokens: torch.Tensor, rules=None) -> torch.Tensor:
+    """The rows of the table for ``tokens``.  On a mesh with the table
+    sharded on its vocabulary over "model" (vocab-parallel), a rank looks
+    up the ids in its range, zeros the rest, and the result is partial
+    over "model" (the caller's redistribute sums it); a gathered table
+    (``"fsdp"``) is looked up whole."""
+    if rules is None:
+        return p["tok"][tokens]
+    from torch.distributed.tensor import Replicate
+
+    mesh = tokens.device_mesh
+    tok = weights(rules, {"tok": p["tok"]})["tok"]
+    vd = _model_dim(tok)
+    tpl = tuple(tokens.placements)
+    if vd is None:
+        tok = spmd.to(tok, tuple(Replicate() for _ in tpl))
+        return spmd.local_call(lambda t, w: w[t], mesh, [tokens, tok], [tpl, tuple(tok.placements)], tpl)
+    n = tok.shape[0] // spmd.axis_size(mesh, "model")
+    lo = spmd.axis_rank(mesh, "model") * n
+
+    def local(t, w):
+        rel = t.to(torch.int64) - lo
+        mine = (rel >= 0) & (rel < n)
+        rows = w[rel.clamp(0, n - 1)]
+        return torch.where(mine[..., None], rows, rows.new_zeros(()))
+
+    return spmd.local_call(
+        local, mesh, [tokens, tok], [tpl, tuple(tok.placements)], _partial_over_model(tpl, mesh)
+    )
 
 
-def unembed_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+def unembed_apply(p, x: torch.Tensor, cfg, rules=None) -> torch.Tensor:
+    """Logits in f32 (f64 for f64 activations).  On a mesh the input is
+    gathered to ``("batch", ..., "embed")`` and the logits come out sharded
+    on the vocabulary over "model" when the table is (``"tp"``)."""
     w = p.get("unembed")
-    if w is None:
-        w = p["tok"].t()
-    return (x @ w).to(compute_dtype(x))
+    tied = w is None
+    if rules is None:
+        if tied:
+            w = p["tok"].t()
+        return (x @ w).to(compute_dtype(x))
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    h = spmd.constrain(x, rules, ("batch",) + (None,) * (x.dim() - 1))
+    name = "tok" if tied else "unembed"
+    w = weights(rules, {name: p[name]})[name]
+    vdim = 0 if tied else 1
+    out_pl = h.placements
+    if _model_dim(w) == vdim:
+        out_pl = spmd.with_axis(h.placements, mesh, "model", Shard(x.dim() - 1))
+
+    def local(x, w):
+        return (x @ (w.t() if tied else w)).to(compute_dtype(x))
+
+    return spmd.local_call(local, mesh, [h, w], [h.placements, tuple(w.placements)], out_pl)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
-    """logits: (B, S, Vpad) f32; labels: (B, S) int; the mean negative
-    log-likelihood over the labels in ``[0, vocab)``, with the padded
-    vocabulary columns masked to -1e30."""
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
+    """``(nll, valid)`` per token: the negative log-likelihood of each label
+    in ``[0, vocab)`` (0 elsewhere), with the padded vocabulary columns
+    masked to -1e30, and which labels count."""
     vpad = logits.shape[-1]
     mask = torch.arange(vpad, device=logits.device) < vocab
     logits = torch.where(mask, logits, NEG_INF)
@@ -454,4 +913,101 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> tor
     idx = torch.where(valid, labels, 0).to(torch.int64)
     ll = torch.gather(logits, -1, idx[..., None])[..., 0]
     nll = torch.where(valid, lse - ll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll, valid
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token NLL over logits sharded on the vocabulary: this rank holds
+    the columns ``[lo, lo + n)``; the max, the sum of exponentials and the
+    label's logit are reduced over ``group``.  Columns ``>= vocab`` are
+    masked on the rank that holds them."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, vocab: int, group):
+        import torch.distributed as dist
+
+        n = logits.shape[-1]
+        cols = torch.arange(lo, lo + n, device=logits.device)
+        z = torch.where(cols < vocab, logits, NEG_INF)
+        m = z.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        se = torch.exp(z - m[..., None]).sum(dim=-1)
+        dist.all_reduce(se, group=group)
+        lse = m + torch.log(se)
+        valid = (labels >= 0) & (labels < vocab)
+        rel = labels.to(torch.int64) - lo
+        mine = valid & (rel >= 0) & (rel < n)
+        idx = rel.clamp(0, n - 1)
+        ll = torch.where(mine, torch.gather(z, -1, idx[..., None])[..., 0], 0.0)
+        dist.all_reduce(ll, group=group)
+        ctx.save_for_backward(z, lse, idx, mine, valid)
+        return torch.where(valid, lse - ll, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, lse, idx, mine, valid = ctx.saved_tensors
+        grad = torch.exp(z - lse[..., None])
+        grad = grad.scatter_add(-1, idx[..., None], -mine[..., None].to(grad.dtype))
+        return grad * torch.where(valid, g, 0.0)[..., None], None, None, None, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int, rules=None) -> torch.Tensor:
+    """logits: (B, S, Vpad) f32; labels: (B, S) int; the mean negative
+    log-likelihood over the labels in ``[0, vocab)``, with the padded
+    vocabulary columns masked to -1e30.
+
+    On a mesh (logits and labels DTensors) each rank takes its tokens'
+    NLL, over logits sharded on the vocabulary across "model" when they
+    are, and the mean divides the sum over every data rank by the global
+    count of valid labels; the loss is a replicated DTensor."""
+    if rules is None:
+        nll, valid = token_nll(logits, labels, vocab)
+        return nll.sum() / valid.sum().clamp(min=1)
+    mesh = logits.device_mesh
+    lpl = tuple(labels.placements)
+    if _model_dim(logits) != logits.dim() - 1 or spmd.axis_size(mesh, "model") == 1:
+        def local(z, t):
+            return token_nll(z, t, vocab)[0]
+    else:
+        n = logits.shape[-1] // spmd.axis_size(mesh, "model")
+        lo = spmd.axis_rank(mesh, "model") * n
+        group = mesh.get_group("model")
+
+        def local(z, t):
+            return _VocabParallelNLL.apply(z, t, lo, vocab, group)
+
+    nll = spmd.local_call(local, mesh, [logits, labels], [tuple(logits.placements), lpl], lpl)
+    valid = (labels >= 0) & (labels < vocab)
+    return spmd.replicate(nll.sum()) / spmd.replicate(valid.sum()).clamp(min=1)
+
+
+def argmax(logits: torch.Tensor, rules=None) -> torch.Tensor:
+    """The greedy next tokens (B,) int32 of (B, Vpad) logits: the first
+    maximum, as ``jnp.argmax``.  On a mesh with vocab-sharded logits every
+    rank takes its columns' first maximum, the ranks' (max, index) pairs
+    are gathered over "model", and the lowest global index among the equal
+    maxima wins; the tokens come back as a plain tensor, the same on every
+    rank."""
+    if rules is None:
+        return logits.argmax(dim=-1).to(torch.int32)
+    from torch.distributed.tensor import Shard
+
+    mesh = logits.device_mesh
+    pl = tuple(logits.placements)
+    bpl = tuple(_replicate() if p.is_shard() and p.dim == 1 else p for p in pl)
+    if _model_dim(logits) != 1 or spmd.axis_size(mesh, "model") == 1:
+        tok = spmd.local_call(lambda z: z.argmax(dim=-1).to(torch.int32), mesh, [logits], [pl], bpl)
+        return spmd.replicate(tok).to_local()
+    n = logits.shape[-1] // spmd.axis_size(mesh, "model")
+    lo = spmd.axis_rank(mesh, "model") * n
+
+    def local(z):
+        v, i = z.max(dim=-1)
+        return v[None], (i + lo)[None]
+
+    gpl = spmd.with_axis(spmd.shift(bpl), mesh, "model", Shard(0))
+    vals, idx = spmd.local_call(local, mesh, [logits], [pl], (gpl, gpl))
+    vals, idx = spmd.replicate(vals).to_local(), spmd.replicate(idx).to_local()
+    best = vals.amax(dim=0)
+    first = torch.where(vals == best, idx, torch.iinfo(idx.dtype).max).amin(dim=0)
+    return first.to(torch.int32)

@@ -12,6 +12,14 @@ may be short), and its cache one K/V ring of ``min(S, window)`` rows for
 each application: ``k``/``v`` of shape ``(n_applications, B, W, Hkv,
 Dh)``.  Where the reference scans the stack, the port loops over it and
 takes layer ``i`` of each leaf (a view, no copy).
+
+Given ``rules`` (an ``AxisRules`` over a ``DeviceMesh``), the parameters,
+batch and cache are DTensors and every layer runs sharded
+(``layers.py``): between layers the residual stream is sharded on the
+sequence over "model" (the reference's ``seq_act``), gathered before
+attention and the MLP and reduce-scattered out of ``wo`` and ``w_down``,
+so remat keeps only the slab.  The SSM and hybrid families run on a mesh
+whose "model" axis does no tensor-parallel work (ROADMAP A.10.4).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import spmd
 from . import layers as L
 from .params import ParamSpec, tree_map
 
@@ -45,7 +54,9 @@ def check_family(cfg) -> None:
 
 def _stack(spec_tree, n: int):
     return tree_map(
-        lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
+        lambda s: dataclasses.replace(
+            s, shape=(n,) + s.shape, axes=(None,) + tuple(s.axes or (None,) * len(s.shape))
+        ),
         spec_tree,
     )
 
@@ -103,33 +114,44 @@ def _groups(cfg) -> List[Tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(cfg, lp, h):
+def _ffn(cfg, lp, h, rules=None):
     """A dense layer's feed-forward part: the MoE block for the MoE
     family, else the MLP."""
     if cfg.family == "moe":
-        return L.moe_apply(lp["moe"], h, cfg=cfg)
-    return L.mlp_apply(lp["mlp"], h, cfg=cfg)
+        return L.moe_apply(lp["moe"], h, cfg=cfg, rules=rules)
+    return L.mlp_apply(lp["mlp"], h, cfg=cfg, rules=rules)
 
 
-def _dense_layer_apply(cfg, lp, x, positions):
-    h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"))
-    h = L.attention_apply(lp["attn"], h, positions, cfg=cfg, causal=True, window=cfg.window)
+def _dense_layer_apply(cfg, lp, x, positions, rules=None):
+    h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"), rules=rules)
+    h = L.attention_apply(
+        lp["attn"], h, positions, cfg=cfg, rules=rules, causal=True, window=cfg.window
+    )
     x = x + h
-    h = L.apply_norm(lp["ln2"], x, cfg.norm, lp.get("ln2_b"))
-    return x + _ffn(cfg, lp, h)
+    h = L.apply_norm(lp["ln2"], x, cfg.norm, lp.get("ln2_b"), rules=rules)
+    return x + _ffn(cfg, lp, h, rules)
 
 
-def _ssm_layer_apply(cfg, lp, x, positions):
+def _ssm_layer_apply(cfg, lp, x, positions, rules=None):
     """A Mamba2 layer; ``positions`` is unused (no rotary embedding), kept
     so both kinds of layer take the same arguments."""
-    h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"))
-    return x + L.mamba2_apply(lp["mamba"], h, cfg=cfg)
+    h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"), rules=rules)
+    return x + L.mamba2_apply(lp["mamba"], h, cfg=cfg, rules=rules)
 
 
-def _shared_attn_apply(cfg, sp, x, positions):
+def _shared_attn_apply(cfg, sp, x, positions, rules=None):
     """The hybrid family's shared block: attention over the config's
     window, then the MLP, with the same weights at every application."""
-    return _dense_layer_apply(cfg, sp, x, positions)
+    return _dense_layer_apply(cfg, sp, x, positions, rules)
+
+
+def check_mesh(cfg, rules) -> None:
+    """A.10.4: the SSM and hybrid families do no tensor-parallel work."""
+    if cfg.family in ("ssm", "hybrid"):
+        L.refuse_model_axis(rules, f"the {cfg.family} family")
+
+
+SEQ_ACT = ("batch", "seq_act", "embed")
 
 
 def _unstack(tree, n: int):
@@ -141,7 +163,7 @@ def _unstack(tree, n: int):
     return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
-def hidden_states(cfg, params, x, positions):
+def hidden_states(cfg, params, x, positions, rules=None):
     """Run the layer stack on embedded inputs x: (B, S, d), then the final
     norm.  With ``cfg.remat == "full"`` each stacked layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
@@ -151,12 +173,14 @@ def hidden_states(cfg, params, x, positions):
     checkpointed here either; its gradient is the sum over its
     applications."""
     check_family(cfg)
+    check_mesh(cfg, rules)
     ssm = cfg.family in ("ssm", "hybrid")
     layer = _ssm_layer_apply if ssm else _dense_layer_apply
     layers = _unstack(params["layers"], cfg.n_layers)
+    x = spmd.constrain(x, rules, SEQ_ACT)
 
     def run(lp, x):
-        fn = functools.partial(layer, cfg, lp)
+        fn = functools.partial(layer, cfg, lp, rules=rules)
         if cfg.remat == "full":
             return checkpoint(fn, x, positions, use_reentrant=False)
         return fn(x, positions)
@@ -165,32 +189,39 @@ def hidden_states(cfg, params, x, positions):
         for start, width in _groups(cfg):
             for lp in layers[start : start + width]:
                 x = run(lp, x)
-            x = _shared_attn_apply(cfg, params["shared_attn"], x, positions)
+            x = _shared_attn_apply(cfg, params["shared_attn"], x, positions, rules)
     else:
         for lp in layers:
             x = run(lp, x)
-    return L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"))
+    return L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"), rules=rules)
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, rules=None):
     """Training forward.  batch: ``tokens`` (B, S_text) and ``labels`` (B,
     S_text), int tensors, and for a model with ``n_frontend_tokens`` (the
     VLM family) ``frontend`` (B, Nf, d), precomputed embeddings cast to
     the activations' dtype and put before the tokens; positions run over
     the whole sequence, and the frontend rows are cut before the
-    unembedding.  Returns ``(loss, logits (B, S_text, Vpad) f32)``."""
+    unembedding.  Returns ``(loss, logits (B, S_text, Vpad) f32)``.
+
+    With ``rules`` the batch leaves are DTensors sharded on the batch (the
+    frontend rows too), the loss is a replicated DTensor and the logits
+    are sharded on the vocabulary over "model" (``"tp"``)."""
     check_family(cfg)
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    check_mesh(cfg, rules)
+    x = L.embed_apply(params["embed"], batch["tokens"], rules=rules)
+    x = spmd.constrain(x, rules, ("batch", None, "embed"))
     nf = cfg.n_frontend_tokens
     if nf:
         x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    h = hidden_states(cfg, params, x, positions)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    positions = positions[None] if rules is not None else positions.expand(B, S)
+    h = hidden_states(cfg, params, x, positions, rules=rules)
     if nf:
-        h = h[:, nf:]
-    logits = L.unembed_apply(params["embed"], h, cfg)
-    loss = L.cross_entropy(logits, batch["labels"], cfg.vocab)
+        h = spmd.constrain(h, rules, ("batch", None, "embed"))[:, nf:]
+    logits = L.unembed_apply(params["embed"], h, cfg, rules=rules)
+    loss = L.cross_entropy(logits, batch["labels"], cfg.vocab, rules=rules)
     return loss, logits
 
 
@@ -210,79 +241,123 @@ def cache_specs(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
     check_family(cfg)
     Lc, dt = cfg.n_layers, cfg.param_dtype
     Hkv, Dh = cfg.n_kv, cfg.d_head
+    kv_axes = (None, "batch", "seq_kv", "kv_heads", None)
     if cfg.family not in ("ssm", "hybrid"):
-        kv = ParamSpec((Lc, batch, seq_len, Hkv, Dh), dt, init="zeros")
+        kv = ParamSpec((Lc, batch, seq_len, Hkv, Dh), dt, kv_axes, init="zeros")
         return {"k": kv, "v": kv}
     H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
     ssm = {
-        "h": ParamSpec((Lc, batch, H, N, P), torch.float32, init="zeros"),
+        "h": ParamSpec(
+            (Lc, batch, H, N, P), torch.float32, (None, "batch", "ssm_inner", None, None), init="zeros"
+        ),
         "conv": ParamSpec(
-            (Lc, batch, cfg.conv_k - 1, cfg.ssm_inner + 2 * N), dt, init="zeros"
+            (Lc, batch, cfg.conv_k - 1, cfg.ssm_inner + 2 * N),
+            dt,
+            (None, "batch", None, "ssm_inner"),
+            init="zeros",
         ),
     }
     if cfg.family == "ssm":
         return ssm
     W = min(seq_len, cfg.window) if cfg.window else seq_len
-    kv = ParamSpec((len(_groups(cfg)), batch, W, Hkv, Dh), dt, init="zeros")
+    kv = ParamSpec((len(_groups(cfg)), batch, W, Hkv, Dh), dt, kv_axes, init="zeros")
     return {**ssm, "k": kv, "v": kv}
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views)."""
-    return tree_map(lambda a: a[i], tree)
+    """Layer ``i`` of a stacked parameter tree (views; on a mesh, DTensors
+    over views of the local shards, so a write reaches the stack)."""
+
+    def one(a):
+        if spmd.is_dtensor(a):
+            from torch.distributed.tensor import DTensor
+
+            pl = tuple(a.placements)
+            if any(p.is_shard() and p.dim == 0 for p in pl):
+                raise ValueError("the layer axis of a stacked leaf is sharded")
+            return DTensor.from_local(a.to_local()[i], a.device_mesh, spmd.shift(pl, -1), run_check=False)
+        return a[i]
+
+    return tree_map(one, tree)
 
 
-def _ssm_layer_decode(cfg, lp, cache, i: int, h):
+def _ssm_layer_decode(cfg, lp, cache, i: int, h, rules=None):
     """Mamba2 layer ``i``'s step; its ``h`` and ``conv`` state in
-    ``cache`` are overwritten in place."""
-    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
-    state = {"h": cache["h"][i], "conv": cache["conv"][i]}
-    y, new = L.mamba2_decode(lp["mamba"], hn, state, cfg=cfg)
-    state["h"].copy_(new["h"])
-    state["conv"].copy_(new["conv"])
+    ``cache`` are overwritten in place (on a mesh, in this rank's batch
+    rows, with the weights gathered)."""
+    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+    state = _layer({"h": cache["h"], "conv": cache["conv"]}, i)
+
+    def step(w, x, st):
+        y, new = L.mamba2_decode(w, x, st, cfg=cfg)
+        st["h"].copy_(new["h"])
+        st["conv"].copy_(new["conv"])
+        return y
+
+    if rules is None:
+        return h + step(lp["mamba"], hn, state)
+    w = {k: spmd.replicate(v) for k, v in lp["mamba"].items()}
+    y = spmd.local_call(
+        step,
+        h.device_mesh,
+        [w, hn, state],
+        [L._placements(w), tuple(hn.placements), L._placements(state)],
+        tuple(hn.placements),
+    )
     return h + y
 
 
-def _dense_layer_decode(cfg, lp, kv, h, pos, slot=None, kv_len=None):
+def _dense_layer_decode(cfg, lp, kv, h, pos, slot=None, kv_len=None, rules=None):
     """A dense (or MoE, or shared) layer's step; the token's K/V is written
     into ``kv`` in place, at ``slot`` (``pos`` by default).  The MoE block
     takes the step's B tokens as (B, 1, d), so its capacity is
-    ``moe_capacity(cfg, B)``."""
-    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
-    y, _ = L.attention_decode(lp["attn"], hn, kv, pos, slot=slot, kv_len=kv_len)
+    ``moe_capacity(cfg, B)`` (per data slab on a mesh)."""
+    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+    y, _ = L.attention_decode(
+        lp["attn"], hn, kv, pos, cfg=cfg, rules=rules, slot=slot, kv_len=kv_len
+    )
     h = h + y
-    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"))
-    return h + _ffn(cfg, lp, hn[:, None])[:, 0]
+    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules)
+    return h + _ffn(cfg, lp, hn.unsqueeze(1), rules).squeeze(1)
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor):
+def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor, rules=None):
     """One token for every sequence.  tokens: (B,) int; pos: (B,) int32
     current lengths.  Returns ``(logits (B, Vpad) f32, cache)``; the cache
     is updated in place: each attention layer writes the token's K/V at
     ``pos``, each SSM layer overwrites its ``h`` and ``conv`` state (which
     ``pos`` does not enter).  The hybrid family's shared block writes its
     ring of W rows at ``pos % W`` and attends to ``min(pos + 1, W)`` rows,
-    with RoPE at the absolute ``pos``."""
+    with RoPE at the absolute ``pos``.
+
+    With ``rules`` tokens and pos are DTensors sharded on the batch, the
+    cache's K/V are sharded on the sequence over "model" (each rank's slab
+    is written in place) and the logits come back sharded on the
+    vocabulary."""
     check_family(cfg)
-    h = L.embed_apply(params["embed"], tokens)  # (B, d)
+    check_mesh(cfg, rules)
+    h = L.embed_apply(params["embed"], tokens, rules=rules)  # (B, d)
+    h = spmd.constrain(h, rules, ("batch", "embed"))
+
+    def kv_of(i):
+        return _layer({"k": cache["k"], "v": cache["v"]}, i)
+
     if cfg.family == "hybrid":
         W = cache["k"].shape[2]
         slot, kv_len = pos % W, torch.clamp(pos + 1, max=W)
         sp = params["shared_attn"]
         for app, (start, width) in enumerate(_groups(cfg)):
             for i in range(start, start + width):
-                h = _ssm_layer_decode(cfg, _layer(params["layers"], i), cache, i, h)
-            kv = {"k": cache["k"][app], "v": cache["v"][app]}
-            h = _dense_layer_decode(cfg, sp, kv, h, pos, slot=slot, kv_len=kv_len)
+                h = _ssm_layer_decode(cfg, _layer(params["layers"], i), cache, i, h, rules)
+            h = _dense_layer_decode(cfg, sp, kv_of(app), h, pos, slot, kv_len, rules)
     else:
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             if cfg.family == "ssm":
-                h = _ssm_layer_decode(cfg, lp, cache, i, h)
+                h = _ssm_layer_decode(cfg, lp, cache, i, h, rules)
             else:
-                kv = {"k": cache["k"][i], "v": cache["v"][i]}
-                h = _dense_layer_decode(cfg, lp, kv, h, pos)
-    h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"))
-    logits = L.unembed_apply(params["embed"], h, cfg)
+                h = _dense_layer_decode(cfg, lp, kv_of(i), h, pos, rules=rules)
+    h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"), rules=rules)
+    logits = L.unembed_apply(params["embed"], h, cfg, rules=rules)
     return logits, cache

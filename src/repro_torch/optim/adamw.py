@@ -46,14 +46,26 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def init_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
+def init_state(params, cfg: AdamWConfig, shardings=None) -> Dict[str, Any]:
     """Zero f32 moments shaped like ``params``, and step 0 (int32), on the
-    parameters' device."""
+    parameters' device; on a mesh, at ``shardings`` (a tree like the
+    parameters of ``spmd.Sharding``: the ZeRO-1 placements)."""
+    leaf0 = tree_leaves(params)[0]
+    device = leaf0.to_local().device if _is_dt(leaf0) else leaf0.device
 
-    def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros32(p, sh=None):
+        if sh is None:
+            return torch.zeros(p.shape, dtype=torch.float32, device=device)
+        from torch.distributed.tensor import zeros
 
-    device = tree_leaves(params)[0].device
+        return zeros(p.shape, dtype=torch.float32, device_mesh=sh.mesh, placements=sh.placements)
+
+    if shardings is not None:
+        mom = lambda: tree_map(zeros32, params, shardings)  # noqa: E731
+        st = {"m": mom(), "v": mom(), "step": torch.zeros((), dtype=torch.int32, device=device)}
+        if cfg.grad_compress:
+            st["err"] = mom()
+        return st
     st = {
         "m": tree_map(zeros32, params),
         "v": tree_map(zeros32, params),
@@ -64,15 +76,35 @@ def init_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
     return st
 
 
+def _is_dt(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A reduction of a DTensor leaf, reduced over every rank that holds a
+    part of it (a plain tensor, the same on every rank); ``x`` itself
+    otherwise."""
+    if not _is_dt(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
 def _quantize_int8(g: torch.Tensor) -> torch.Tensor:
-    """Symmetric per-tensor int8 round-trip (the wire format)."""
-    scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+    """Symmetric per-tensor int8 round-trip (the wire format); the scale
+    is the max over the whole leaf."""
+    scale = torch.clamp(_whole(g.abs().max()), min=1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127)
     return q * scale
 
 
 def _global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)))
+    return torch.sqrt(
+        sum(_whole(torch.sum(torch.square(x.to(torch.float32)))) for x in tree_leaves(tree))
+    )
 
 
 @torch.no_grad()
@@ -108,8 +140,14 @@ def update(grads, state, params, cfg: AdamWConfig):
         mhat = mm / b1c
         vhat = vv / b2c
         p32 = p.to(torch.float32)
+        zero1 = _is_dt(p) and tuple(p.placements) != tuple(mm.placements)
+        if zero1:  # the moments' slice of the parameter: no communication
+            p32 = p32.redistribute(mm.device_mesh, mm.placements)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
-        p.copy_((p32 - lr * delta).to(p.dtype))
+        new = (p32 - lr * delta).to(p.dtype)
+        if zero1:  # ZeRO-1's all-gather of the updated parameter
+            new = new.redistribute(p.device_mesh, p.placements)
+        p.copy_(new)
 
     tree_map(upd, params, state["m"], state["v"], g32)
     new_state = {"m": state["m"], "v": state["v"], "step": step}

@@ -594,6 +594,27 @@ def test_flash_decode_takes_any_split_count(cuda, monkeypatch, nsplit, dtype):
     assert torch.equal(got, pfa.flash_decode_cuda(q, k, v, lens))
 
 
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_log_sum_exp_matches_plain(cuda, monkeypatch, nsplit, dtype):
+    """``return_lse``: each head's log-sum-exp against the plain twin (f32
+    within 1e-5, bf16 one step), -inf exactly where ``kv_len = 0``, over one
+    split and over the split path, with ``kv_len > S``; the output is
+    bitwise the call without it."""
+    monkeypatch.setattr(pfa, "num_splits", lambda *a: nsplit)
+    B, S, H, Hkv, D = 4, 512, 40, 8, 128
+    q, k, v = _decode_inputs(cuda, B, S, H, Hkv, D, dtype)
+    lens = torch.tensor([0, 1, 300, S + 9], dtype=torch.int32, device=cuda)
+    plain = pfa.flash_decode_cuda(q, k, v, lens)
+    got, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    assert torch.equal(got, plain)
+    want_out, want = ref.decode_attention(q, k, v, lens, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.isinf(lse[0]).all() and (lse[0] < 0).all() and torch.isfinite(lse[1:]).all()
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(lse[1:], want[1:], rtol=tol, atol=tol)
+
+
 def test_flash_decode_reads_a_layer_of_the_stacked_cache_in_place(cuda):
     """A layer of (L, B, S, Hkv, D), and a batch-strided view: strides, no
     copy, the same answer as the contiguous cache."""

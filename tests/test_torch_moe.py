@@ -213,11 +213,25 @@ def test_moe_gradients_match_jax(arch, cf):
 
 
 def test_moe_apply_refuses_a_mesh():
+    """The expert-parallel path on a 1 x 1 ("data", "model") mesh (the
+    refusal it replaces was lifted by ROADMAP A.10.2): bitwise the local
+    path, since one rank holds every expert and the whole token slab."""
+    from torch.distributed.tensor import DTensor
+
+    from torch_suite import one_rank_mesh
+
     cj, cp = configs(DEEPSEEK)
     pp = pparams.tree_map(torch.from_numpy, moe_params(cj, seed=8))
-    x = torch.zeros(1, 2, cp.d_model)
-    with pytest.raises(CoxUnsupported, match="A.10"):
-        pL.moe_apply(pp, x, cfg=cp, mesh=object())
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(2, 8, cp.d_model)).astype(np.float32))
+    want = pL.moe_apply(pp, x, cfg=cp)
+    with one_rank_mesh(("data", "model")) as mesh:
+        rules = pparams.default_rules(mesh)
+        specs = pL.moe_specs(cp)
+        pd = pparams.tree_map(lambda t, s: pparams.shard_full(t, mesh, rules.placements(s)), pp, specs)
+        xd = pparams.shard_full(x, mesh, rules.placements_for(x.shape, ("batch", None, "embed")))
+        got = pL.moe_apply(pd, xd, cfg=cp, rules=rules)
+        assert isinstance(got, DTensor)
+        assert torch.equal(got.full_tensor(), want)
 
 
 @pytest.mark.parametrize("smoke", [True, False])

@@ -521,9 +521,41 @@ def test_token_pipeline_matches_the_reference(graph):
 
 
 def test_q_head_padding_raises():
-    """``tp_pad`` pads q heads for tensor parallelism, which the port does
-    not run; its specs refuse it rather than build unmasked padded heads."""
-    cp = dataclasses.replace(configs()[1], tp_pad=3)
-    assert cp.head_padding()[0] != cp.n_heads
-    with pytest.raises(CoxUnsupported, match="A.10"):
-        plm.lm_specs(cp)
+    """``tp_pad`` pads q heads inside each kv group (the refusal it
+    replaces was lifted by ROADMAP A.10.2): a padded layer, whose padded
+    heads are masked before ``wo``, equals the unpadded one in training
+    and in decode when the true heads' weights are carried over."""
+    base = dataclasses.replace(configs()[1], n_heads=6, n_kv=2, d_head=16, param_dtype=torch.float32)
+    padded = dataclasses.replace(base, tp_pad=4)
+    Hp, gp, g = padded.head_padding()
+    assert (Hp, gp, g) == (8, 4, 3)
+    rng = np.random.default_rng(31)
+    d, Dh = base.d_model, base.d_head
+
+    def draw(shape):
+        return torch.from_numpy((rng.normal(size=shape) / np.sqrt(d)).astype(np.float32))
+
+    pb = {n: draw(s.shape) for n, s in pL.attention_specs(base).items()}
+    pp = {n: draw(s.shape) for n, s in pL.attention_specs(padded).items()}
+    wq = pp["wq"].reshape(d, 2, gp, Dh).clone()
+    wq[:, :, :g] = pb["wq"].reshape(d, 2, g, Dh)
+    wo = pp["wo"].reshape(2, gp, Dh, d).clone()
+    wo[:, :g] = pb["wo"].reshape(2, g, Dh, d)
+    pp.update(wq=wq.reshape(d, Hp, Dh), wo=wo.reshape(Hp, Dh, d), wk=pb["wk"], wv=pb["wv"])
+    if "bq" in pb:
+        bq = pp["bq"].reshape(2, gp, Dh).clone()
+        bq[:, :g] = pb["bq"].reshape(2, g, Dh)
+        pp.update(bq=bq.reshape(Hp, Dh), bk=pb["bk"], bv=pb["bv"])
+    x = torch.from_numpy(rng.normal(size=(2, 16, d)).astype(np.float32))
+    pos = torch.arange(16, dtype=torch.int32).expand(2, 16)
+    got = pL.attention_apply(pp, x, pos, cfg=padded)
+    want = pL.attention_apply(pb, x, pos, cfg=base)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    cache = lambda: {k: torch.from_numpy(rng.normal(size=(2, 12, 2, Dh)).astype(np.float32)) for k in "kv"}  # noqa: E731
+    cb = cache()
+    cpad = {k: v.clone() for k, v in cb.items()}
+    step = torch.tensor([3, 11], dtype=torch.int32)
+    yb, _ = pL.attention_decode(pb, x[:, 0], cb, step, cfg=base)
+    yp, _ = pL.attention_decode(pp, x[:, 0], cpad, step, cfg=padded)
+    torch.testing.assert_close(yp, yb, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(cb[k], cpad[k]) for k in cb)

@@ -143,11 +143,12 @@ def on_both(scenario):
 
 
 @contextlib.contextmanager
-def one_rank_mesh():
-    """A gloo world of one rank (a file store) and its one-axis ("data")
-    CPU ``DeviceMesh``: the port's counterpart of the reference's
-    ``jax.make_mesh((1,), ("data",))``.  The group is destroyed on exit,
-    so the pytest worker that opened it holds none afterwards."""
+def one_rank_mesh(names=("data",)):
+    """A gloo world of one rank (a file store) and its CPU ``DeviceMesh``
+    with one axis of size 1 a name (one "data" axis by default): the
+    port's counterpart of the reference's ``jax.make_mesh((1,),
+    ("data",))``.  The group is destroyed on exit, so the pytest worker
+    that opened it holds none afterwards."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -160,7 +161,7 @@ def one_rank_mesh():
             timeout=datetime.timedelta(seconds=60),
         )
         try:
-            yield init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+            yield init_device_mesh("cpu", (1,) * len(names), mesh_dim_names=tuple(names))
         finally:
             dist.destroy_process_group()
 
