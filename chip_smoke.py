@@ -114,6 +114,7 @@ nor the JAX package.  The COX kernels are defined in this file because
 the frontend parses kernel source with ``inspect.getsource``.
 """
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -3687,9 +3688,21 @@ MESH_ZERO = dict(n_layers=1, batch=2, seq=256)
 MESH_MOE = dict(n_layers=2, batch=1, seq=256)
 MESH_RTOL = 1e-3  # logits, caches and gradients, relative to their largest magnitude
 MESH_LOSS_RTOL = 1e-4
+# a gloo gradient case farther than this from the one-device gradient also
+# measures both against the step in f64 (``grads_from_f64``)
+MESH_GRAD_ANCHOR = 1e-4
 # a MoE gradient sums each token's routed experts, split 32 and 32 over two
 # ranks and summed over "model" after, in another order: twice MESH_RTOL
 MESH_MOE_RTOL = 2e-3
+# tensor parallelism for the SSM, hybrid and encoder-decoder families: the
+# gloo ranks' f32 decode steps and gradients at 1 layer (seamless 1 + 1;
+# zamba2's one layer is followed by its shared block), full width
+TP_DECODE = [(SSM_ARCH, (1, 2)), (SSM_ARCH, (1, 4)), (HYBRID_ARCH, (1, 2)), (ENCDEC_ARCH, (1, 2))]
+TP_GRADS = (SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)  # on (1, 2)
+TP_TRAIN = dict(n_layers=1, batch=1, seq=256)
+TP_NCCL_TRAIN = dict(n_layers=2, batch=1, seq=256)  # zamba2 and seamless (2 + 2) on 1 x 1, bf16
+DRYRUN_CELL = (SSM_ARCH, "train_4k")  # on a fake 16 x 16 world, in a child process
+DRYRUN_TIMEOUT_S = 240
 
 
 def mesh_prompts(cfg) -> list:
@@ -3741,6 +3754,18 @@ def _f32(arch, **cuts):
     return dataclasses.replace(registry.get(arch), param_dtype=torch.float32, **cuts)
 
 
+def _depth(arch: str, n: int) -> dict:
+    """The cut to ``n`` layers (an encoder-decoder model's both stacks)."""
+    cut = dict(n_layers=n)
+    if registry.get(arch).family == "encdec":
+        cut["enc_layers"] = n
+    return cut
+
+
+def _decode_fn(cfg):
+    return encdec.decode_step if cfg.family == "encdec" else lm.decode_step
+
+
 def _batch(cfg, run: dict, seed: int = 0) -> dict:
     from repro_torch.data.pipeline import DataConfig, TokenSource
 
@@ -3748,18 +3773,20 @@ def _batch(cfg, run: dict, seed: int = 0) -> dict:
     return TokenSource(cfg, shape, DataConfig(seed=seed)).batch_at(0)
 
 
-def mesh_case_decode(mesh, rank, root, shape=(1, 2), ctx=MESH_DECODE["ctx"]):
+def mesh_case_decode(mesh, rank, root, shape=(1, 2), ctx=MESH_DECODE["ctx"], arch=ARCH, n_layers=MESH_DECODE["n_layers"]):
     """An f32 decode step on a mesh against the step without one, on a
-    stale random cache: logits and caches.  On (1, 3) the 40 q heads pad
-    to 48 and the 8 kv heads take the row-parallel path; the unpadded
-    weights are carried into the padded layout (zero padded heads)."""
+    stale random cache: logits and caches (the SSM state and conv tail, a
+    hybrid's K/V ring, an encoder-decoder model's self cache and cross
+    memory).  On (1, 3) qwen's 40 q heads pad to 48 and the 8 kv heads
+    take the row-parallel path; the unpadded weights are carried into the
+    padded layout (zero padded heads)."""
     from repro_torch.models import carry
     from repro_torch.models.params import shard_full
 
     m = mesh(shape)
     if m is None:
         return None
-    cfg = _f32(ARCH, n_layers=MESH_DECODE["n_layers"])
+    cfg = _f32(arch, **_depth(arch, n_layers))
     step_fn, bundle = steps.make_serve_step(cfg, mesh=m)
     gen = torch.Generator(device="cuda").manual_seed(0)
     w = init_params(steps.model_specs(cfg), gen, "cuda")
@@ -3779,37 +3806,42 @@ def mesh_case_decode(mesh, rank, root, shape=(1, 2), ctx=MESH_DECODE["ctx"]):
             attn[name] = t.reshape(bundle["specs"]["layers"]["attn"][name].shape)
     params = carry.shard_params(w, bundle)
     B = MESH_DECODE["batch"]
-    cache_tree = lm.cache_specs(pcfg, B, ctx)
+    cache_tree = launch_specs.cache_spec_tree(pcfg, ShapeConfig("mesh", ctx, B, "decode"))
     cgen = torch.Generator(device="cuda").manual_seed(1)
     full_cache = {k: 0.5 * torch.randn(s.shape, generator=cgen, device="cuda") for k, s in cache_tree.items()}
     cache = {k: shard_full(v.clone(), m, bundle["rules"].placements(cache_tree[k])) for k, v in full_cache.items()}
-    toks = torch.tensor([5, 17, 911, 151000], dtype=torch.int32, device="cuda")
+    toks = torch.tensor([5, 17, 911, min(151000, cfg.vocab - 1)], dtype=torch.int32, device="cuda")
     pos = torch.tensor([min(p, ctx - 1) for p in MESH_DECODE["pos"]], dtype=torch.int32, device="cuda")
     rules = bundle["rules"]
     bpl = rules.placements_for((B,), ("batch",))
     t_d, p_d = shard_full(toks, m, bpl), shard_full(pos, m, bpl)
 
     def run():
-        return lm.decode_step(pcfg, params, cache, t_d, p_d, rules=rules)
+        return _decode_fn(pcfg)(pcfg, params, cache, t_d, p_d, rules=rules)
 
     (logits, cache), counts = comm_counts(run)
     logits = logits.full_tensor()
-    t0 = time.perf_counter()  # the same step again (it rewrites the same rows), timed
+    got_cache = {k: v.full_tensor() for k, v in cache.items()}
+    # the same step again, timed (a K/V write lands on the same rows; an
+    # SSM state steps once more, after its copy above)
+    t0 = time.perf_counter()
     run()[0].full_tensor()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    got_cache = {k: v.full_tensor() for k, v in cache.items()}
     rec = {"ms": ms, "collectives": counts, "launches": mesh_launches()}
     if rank == 0:
         cfg_plain = cfg  # the unpadded model
         w0 = init_params(steps.model_specs(cfg_plain), torch.Generator(device="cuda").manual_seed(0), "cuda")
-        want, want_cache = lm.decode_step(cfg_plain, w0, {k: v.clone() for k, v in full_cache.items()}, toks, pos)
+        want, want_cache = _decode_fn(cfg_plain)(cfg_plain, w0, {k: v.clone() for k, v in full_cache.items()}, toks, pos)
         rec["logits_rel_err"] = rel_err(logits, want)
-        rec["cache_rel_err"] = max(rel_err(got_cache[k], want_cache[k]) for k in want_cache)
+        rec["cache_rel_err_by_leaf"] = {k: rel_err(got_cache[k], want_cache[k]) for k in want_cache}
+        rec["cache_rel_err"] = max(rec["cache_rel_err_by_leaf"].values())
         rec["same_next_tokens"] = bool(torch.equal(logits.argmax(-1), want.argmax(-1)))
-        check(rec["logits_rel_err"] <= MESH_RTOL, f"mesh decode {shape}: logits err {rec['logits_rel_err']}")
-        check(rec["cache_rel_err"] <= MESH_RTOL, f"mesh decode {shape}: cache err {rec['cache_rel_err']}")
-    rec.update(shape=list(shape), ctx=ctx, heads=[cfg.n_heads, Hp], kv=bundle["rules"].placements(bundle["specs"]["layers"]["attn"]["wk"]).__repr__())
+        check(rec["logits_rel_err"] <= MESH_RTOL, f"mesh decode {arch} {shape}: logits err {rec['logits_rel_err']}")
+        check(rec["cache_rel_err"] <= MESH_RTOL, f"mesh decode {arch} {shape}: cache err {rec['cache_rel_err_by_leaf']}")
+    rec.update(shape=list(shape), ctx=ctx, arch=cfg.name, layers=n_layers)
+    if "attn" in bundle["specs"].get("layers", {}):
+        rec.update(heads=[cfg.n_heads, Hp], kv=repr(bundle["rules"].placements(bundle["specs"]["layers"]["attn"]["wk"])))
     return rec
 
 
@@ -3824,10 +3856,13 @@ def mesh_case_grads(mesh, rank, root, arch=ARCH, run=MESH_TRAIN, shape=(1, 2)):
     m = mesh(shape)
     if m is None:
         return None
-    cfg = _f32(arch, n_layers=run["n_layers"])
+    cfg = _f32(arch, **_depth(arch, run["n_layers"]))
     _, bundle, _ = steps.jit_train_step(cfg, m, ShapeConfig("mesh", run["seq"], run["batch"], "train"))
     b = _batch(bundle["cfg"], run)
     params = init_params(bundle["specs"], torch.Generator(device="cuda").manual_seed(0), "cuda", rules=bundle["rules"])
+    if cfg.family == "encdec":  # its phases' attention init (at_model_fan_in)
+        with torch.no_grad():
+            at_model_fan_in(params)
     free_cuda()  # the full leaves drawn: the ranks share the card
     moe = cfg.family == "moe"
     batch = place_batch(b, bundle["batch_sh"], "cuda")
@@ -3846,12 +3881,16 @@ def mesh_case_grads(mesh, rank, root, arch=ARCH, run=MESH_TRAIN, shape=(1, 2)):
     del params
     if rank == 0:
         w0 = init_params(bundle["specs"], torch.Generator(device="cuda").manual_seed(0), "cuda")
+        if cfg.family == "encdec":
+            at_model_fan_in(w0)
         with router_logits() as seen0:
             loss0, g0 = steps.loss_and_grads(bundle["cfg"], w0, place_batch(b, None, "cuda"))
         rec["loss_rel_err"] = abs(float(loss) - float(loss0)) / abs(float(loss0))
         errs = {"/".join(p): rel_err(a, c) for (p, a), (_, c) in zip(_paths(grads), _paths(g0))}
         rec["grad_rel_err_max"] = max(errs.values())
         rec["grad_rel_err_leaf"] = max(errs, key=errs.get)
+        if not moe and rec["grad_rel_err_max"] > MESH_GRAD_ANCHOR:
+            rec["grad_from_f64"] = grads_from_f64(bundle["cfg"], w0, b, grads, g0, errs)
         check(rec["loss_rel_err"] <= MESH_LOSS_RTOL, f"mesh {arch} loss err {rec['loss_rel_err']}")
         if moe:
             flips = [routing_flips(a, c, cfg.top_k) for a, c in zip(seen, seen0)]
@@ -3863,6 +3902,23 @@ def mesh_case_grads(mesh, rank, root, arch=ARCH, run=MESH_TRAIN, shape=(1, 2)):
             check(rec["grad_rel_err_max"] <= tol, f"mesh {arch} grad err {errs}")
     rec.update(shape=list(shape), arch=cfg.name, layers=run["n_layers"], tokens=[run["batch"], run["seq"]])
     return rec
+
+
+def grads_from_f64(cfg, w0, b, grads, g0, errs, n: int = 3) -> dict:
+    """The ``n`` leaves farthest from the one-device gradient, each with
+    the mesh's and the one-device step's distance from the same step in
+    f64 on the host's CPU (the plain versions; the f32 weights widened):
+    ``{leaf: [mesh, one_device]}``, each over the f64 leaf's largest
+    magnitude.  Two distances alike say the gap is f32 rounding of a leaf
+    whose terms cancel, not the mesh's split."""
+    from repro_torch.launch.train import place_batch
+
+    cfg64 = dataclasses.replace(cfg, param_dtype=torch.float64)
+    b64 = {k: v.double() if v.is_floating_point() else v for k, v in place_batch(b, None, "cpu").items()}
+    _, g64 = steps.loss_and_grads(cfg64, tree_map(lambda t: t.to("cpu", torch.float64), w0), b64)
+    mesh_d, one_d, want = (dict(("/".join(p), t) for p, t in _paths(tree)) for tree in (grads, g0, g64))
+    worst = sorted(errs, key=errs.get, reverse=True)[:n]
+    return {leaf: [rel_err(mesh_d[leaf].cpu(), want[leaf]), rel_err(one_d[leaf].cpu(), want[leaf])] for leaf in worst}
 
 
 def _paths(tree, path=()):
@@ -3999,6 +4055,15 @@ MESH_CASES = [
     ("gloo_moe_train_1x2", lambda mesh, rank, root: mesh_case_grads(mesh, rank, root, MOE_ARCH, MESH_MOE)),
     ("gloo_zero_2x2", mesh_case_zero),
     ("gloo_serve_1x2_bf16", mesh_case_serve),
+    *(
+        (f"gloo_tp_decode_{PHASE_PREFIX[a] or 'qwen_'}{s[0]}x{s[1]}",
+         lambda mesh, rank, root, a=a, s=s: mesh_case_decode(mesh, rank, root, s, MESH_DECODE["ctx"], a, TP_TRAIN["n_layers"]))
+        for a, s in TP_DECODE
+    ),
+    *(
+        (f"gloo_tp_train_{PHASE_PREFIX[a]}1x2", lambda mesh, rank, root, a=a: mesh_case_grads(mesh, rank, root, a, TP_TRAIN))
+        for a in TP_GRADS
+    ),
 ]
 
 
@@ -4087,18 +4152,25 @@ def mesh_nccl_serve(mesh, root: str, parts: dict) -> tuple:
 
 def mesh_nccl_moe(mesh, parts: dict, launches: dict) -> None:
     """deepseek-moe-16b's train step at 2 layers in bf16 on the 1 x 1 NCCL
-    mesh, on the expert-parallel path, against the one-device step: the
-    loss, every gradient and every updated parameter bitwise.  The mesh
-    runs' launches are added to ``launches``."""
+    mesh, on the expert-parallel path, against the one-device step (see
+    :func:`mesh_nccl_train`)."""
+    mesh_nccl_train(mesh, parts, launches, MOE_ARCH, MESH_MOE, "nccl_moe_train_1x1")
+
+
+def mesh_nccl_train(mesh, parts: dict, launches: dict, arch: str, run: dict, part: str) -> None:
+    """``arch``'s train step at ``run``'s depth in bf16 on the 1 x 1 NCCL
+    mesh under "tp" against the one-device step: the loss, every gradient
+    and every updated parameter bitwise.  The mesh runs' launches are
+    added to ``launches``."""
     from repro_torch.launch.train import place_batch
     from repro_torch.models import carry
 
     torch.cuda.reset_peak_memory_stats()
-    mcfg = dataclasses.replace(registry.get(MOE_ARCH), n_layers=MESH_MOE["n_layers"])
-    sh = ShapeConfig("mesh", MESH_MOE["seq"], MESH_MOE["batch"], "train")
+    mcfg = dataclasses.replace(registry.get(arch), **_depth(arch, run["n_layers"]))
+    sh = ShapeConfig("mesh", run["seq"], run["batch"], "train")
     opt_cfg = adamw.AdamWConfig()
     step, bundle, _ = steps.jit_train_step(mcfg, mesh, sh, opt_cfg)
-    b = _batch(mcfg, MESH_MOE)
+    b = _batch(mcfg, run)
     w = init_params(bundle["specs"], torch.Generator(device="cuda").manual_seed(0), "cuda")
     w0 = tree_map(lambda t: t.clone(), w)
     params = carry.shard_params(w, bundle)
@@ -4126,15 +4198,77 @@ def mesh_nccl_moe(mesh, parts: dict, launches: dict) -> None:
     w0, _, m0 = step0(w0, adamw.init_state(w0, opt_cfg), place_batch(b, None, "cuda"))
     same = all(same_bits(a.to_local(), c) for (_, a), (_, c) in zip(_paths(params), _paths(w0)))
     same_loss = same_bits(metrics["loss"], m0["loss"]) and same_bits(loss_m, loss_0)
-    parts["nccl_moe_train_1x1"] = emit(
-        {"phase": "mesh_models", "part": "nccl_moe_train_1x1", "arch": mcfg.name, "backend": "nccl", "ranks": 1,
-         "n_layers": mcfg.n_layers, "dtype": "bfloat16", "tokens": [MESH_MOE["batch"], MESH_MOE["seq"]],
+    parts[part] = emit(
+        {"phase": "mesh_models", "part": part, "arch": mcfg.name, "backend": "nccl", "ranks": 1,
+         "n_layers": mcfg.n_layers, "dtype": "bfloat16", "tokens": [run["batch"], run["seq"]],
          "loss": float(metrics["loss"]), "bitwise_loss": same_loss, "bitwise_params": same,
          "grad_leaves_not_bitwise": len(grad_diff), "grad_leaves": len(_paths(w0)),
          "grad_rel_err_by_leaf": grad_diff, "ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
-    check(same_loss, "deepseek's 1 x 1 expert-parallel loss is not bitwise the one-device loss")
-    check(not grad_diff, f"deepseek's 1 x 1 gradients are not bitwise the one-device ones: {grad_diff}")
-    check(same, "deepseek's 1 x 1 updated parameters are not bitwise the one-device ones")
+    check(same_loss, f"{mcfg.name}'s 1 x 1 loss is not bitwise the one-device loss")
+    check(not grad_diff, f"{mcfg.name}'s 1 x 1 gradients are not bitwise the one-device ones: {grad_diff}")
+    check(same, f"{mcfg.name}'s 1 x 1 updated parameters are not bitwise the one-device ones")
+
+
+def mesh_nccl_tp_serve(mesh, parts: dict, launches: dict) -> bool:
+    """mamba2-130m served at full depth in bf16 through
+    ``BatchedServer(mesh=)`` on the 1 x 1 NCCL mesh under "tp" (the
+    Mamba2 block on its head layout: the projection gathered, the state
+    on its heads, the conv tail on its channels) against the one-device
+    server on the same weights; the mesh run's launches are added to
+    ``launches``.  Whether the tokens are bitwise."""
+    cfg = registry.get(SSM_ARCH)
+    prompts = mesh_prompts(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    plain = serve.BatchedServer(cfg, batch=MESH_SERVE["batch"], ctx=MESH_SERVE["ctx"], seed=0)
+    want, plain_ms = mesh_serve(plain, prompts)
+    meshed = serve.BatchedServer(cfg, batch=MESH_SERVE["batch"], ctx=MESH_SERVE["ctx"], params=plain.params, mesh=mesh)
+    del plain
+    ops.reset_launch_counts()
+    got, mesh_ms = mesh_serve(meshed, prompts)
+    for k, n in ops.launch_counts().items():
+        launches[k] += n
+    torch.cuda.synchronize()
+    same = got == want
+    parts["nccl_tp_serve_1x1"] = emit(
+        {"phase": "mesh_models", "part": "nccl_tp_serve_1x1", "arch": cfg.name, "backend": "nccl", "ranks": 1,
+         "dtype": "bfloat16", "n_layers": cfg.n_layers, **MESH_SERVE, "tokens": len(sum(got, [])),
+         "bitwise": same, "agree_to_first_divergence": first_divergence(got, want),
+         "step_ms_median": statistics.median(mesh_ms), "plain_step_ms_median": statistics.median(plain_ms),
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return same
+
+
+def dryrun_start(root: str) -> subprocess.Popen:
+    """One dry-run cell (DRYRUN_CELL at full size on a fake 16 x 16 world,
+    ``python -m repro_torch.launch.dryrun``) in a child process on the
+    host's CPU, the card hidden from it; it runs while the card works."""
+    arch, shape = DRYRUN_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--out", str(pathlib.Path(root) / "dryrun.json")]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"))
+    log = open(pathlib.Path(root) / "dryrun.log", "w")
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
+def phase_dryrun(proc: subprocess.Popen, root: str, t_start: float) -> dict:
+    """The dry-run cell's record: the child must exit 0 within
+    DRYRUN_TIMEOUT_S of its start with the cell ``ok``.  The counts are
+    rank 0's of 256 fake ranks, counted on the host, not device times."""
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    out = pathlib.Path(root) / "dryrun.json"
+    cells = json.loads(out.read_text()) if out.exists() else []
+    cell = cells[0] if cells else {"status": "missing"}
+    keep = ("arch", "shape", "mesh", "status", "error", "flops", "argument_size", "output_size", "temp_size_counted",
+            "coll_bytes", "collectives", "build_s", "run_s")
+    rec = emit({"phase": "dryrun", "rc": rc, "torch": torch.__version__, **{k: cell[k] for k in keep if k in cell},
+                "log_tail": (pathlib.Path(root) / "dryrun.log").read_text()[-600:] if rc != 0 else ""})
+    check(rc == 0 and cell["status"] == "ok", f"the dry-run cell failed: {rec}")
+    return rec
 
 
 def phase_mesh_models() -> dict:
@@ -4165,6 +4299,12 @@ def phase_mesh_models() -> dict:
             launches, same_tokens = mesh_nccl_serve(mesh, root, parts)
             free_cuda()
             mesh_nccl_moe(mesh, parts, launches)
+            free_cuda()
+            tp_launches = {k: 0 for k in launches}
+            tp_same_tokens = mesh_nccl_tp_serve(mesh, parts, tp_launches)
+            for arch in (HYBRID_ARCH, ENCDEC_ARCH):
+                free_cuda()
+                mesh_nccl_train(mesh, parts, tp_launches, arch, TP_NCCL_TRAIN, f"nccl_tp_train_{PHASE_PREFIX[arch]}1x1")
         finally:
             dist.destroy_process_group()
         # the gloo ranks share the card with this process
@@ -4178,12 +4318,17 @@ def phase_mesh_models() -> dict:
               "peak_gb_by_rank": [r["cases"][name]["peak_gb"] for r in recs],
               "device_free_gb_by_rank": [r["cases"][name]["device_free_gb_at_start"] for r in recs]})
     # the kernels the gloo ranks launched, over every rank and case
+    # (the SSM, hybrid and encoder-decoder families' tensor-parallel cases
+    # apart)
     gloo = {k: 0 for k in ops.launch_counts()}
+    gloo_tp = dict(gloo)
     for r in recs:
-        for case in r["cases"].values():
+        for name, case in r["cases"].items():
             for k, n in case.get("launches", {}).items():
-                gloo[k] += n
+                (gloo_tp if name.startswith("gloo_tp_") else gloo)[k] += n
+    tp_seconds = sum(p.get("wall_s", 0.0) for n, p in parts.items() if n.startswith("gloo_tp_"))
     rec = {"phase": "mesh_models", "seconds": time.perf_counter() - t0, "launches": launches, "gloo_launches": gloo,
+           "tp_launches": tp_launches, "gloo_tp_launches": gloo_tp, "gloo_tp_seconds": tp_seconds,
            "device_free_gb_at_spawn": free_gb, "parent_reserved_gb_at_spawn": parent_gb}
     emit(rec)
     # the cases' results again, short, for the end of the output
@@ -4194,13 +4339,14 @@ def phase_mesh_models() -> dict:
         "parts": {name: {k: v for k, v in r.items() if k in MESH_SUMMARY_KEYS} for name, r in parts.items()},
     }
     check(same_tokens, "the 1 x 1 NCCL server's tokens differ from the one-device server's")
+    check(tp_same_tokens, "mamba2's 1 x 1 NCCL server's tokens differ from the one-device server's")
     return rec
 
 
 # the numbers of each mesh_models case that its summary line repeats
 MESH_SUMMARY_KEYS = (
     "bitwise", "bitwise_loss", "bitwise_params", "grad_leaves_not_bitwise", "logits_rel_err", "cache_rel_err",
-    "loss_rel_err", "grad_rel_err_max", "update_rel_err_max", "routing_flips", "restore_12_bitwise",
+    "loss_rel_err", "grad_rel_err_max", "grad_rel_err_leaf", "grad_from_f64", "update_rel_err_max", "routing_flips", "restore_12_bitwise",
     "restore_1_bitwise", "first_step_logits_rel_err", "agree_to_first_divergence", "agree_by_request", "ms",
     "ms_with_comm_debug", "step_ms_median", "plain_step_ms_median", "save_s", "wall_s", "staged_collectives",
     "peak_gb", "peak_gb_by_rank", "device_free_gb_by_rank",
@@ -4279,6 +4425,10 @@ KERNEL_META = {
     "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:28"),
 }
 GRADIENTS = ("flash_attention_bwd", "rmsnorm_bwd", "layernorm_bwd", "ssd_scan_bwd")
+TP_TRAIN_KERNELS = (
+    "ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd", "layernorm", "layernorm_bwd", "flash_attention",
+    "flash_attention_bwd",
+)
 # the kernels each main path must launch
 PATH_KERNELS = {
     "cox_serve": ("softmax", "row_reduce", "rmsnorm", "flash_decode"),
@@ -4308,6 +4458,11 @@ PATH_KERNELS = {
     "autotune_serve": ("rmsnorm",),
     "mesh_models": ("rmsnorm", "rmsnorm_bwd", "flash_decode", "flash_attention", "flash_attention_bwd"),
     "mesh_models_gloo_ranks": ("rmsnorm", "rmsnorm_bwd", "flash_decode", "flash_attention", "flash_attention_bwd"),
+    # the SSM, hybrid and encoder-decoder families under "tp": mamba2's
+    # server and the zamba2 and seamless steps on one NCCL rank, then the
+    # gloo ranks' decode steps and gradients
+    "mesh_models_tp": TP_TRAIN_KERNELS,
+    "mesh_models_tp_gloo_ranks": TP_TRAIN_KERNELS + ("flash_decode",),
 }
 
 
@@ -4346,6 +4501,13 @@ def main() -> int:
     new_cpu_tokens = {
         a: cpu_token_count(a) for a in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH, ENCDEC_ARCH)
     }
+
+    # one dry-run cell on a fake world of 256 ranks, on the host's CPU
+    # meanwhile (the card hidden from it)
+    dry_root = tempfile.TemporaryDirectory()
+    dry_t0 = time.perf_counter()
+    dry_proc = dryrun_start(dry_root.name)
+    atexit.register(lambda: dry_proc.poll() is None and (dry_proc.kill(), dry_proc.wait()))
 
     # the main paths, each counted alone: COX launches, the three-way
     # checks and the serve phase; the train phase; the SSM serve phase;
@@ -4431,6 +4593,10 @@ def main() -> int:
     mesh_rec = phase_mesh_models()
     paths["mesh_models"] = mesh_rec["launches"]
     paths["mesh_models_gloo_ranks"] = mesh_rec["gloo_launches"]
+    paths["mesh_models_tp"] = mesh_rec["tp_launches"]
+    paths["mesh_models_tp_gloo_ranks"] = mesh_rec["gloo_tp_launches"]
+    # the dry run's cell, started at the beginning on the host's CPU
+    dry_rec = phase_dryrun(dry_proc, dry_root.name, dry_t0)
 
     phase_wrapper_host(gen, serve_rec)
     phase_serve_profile()
@@ -4457,6 +4623,8 @@ def main() -> int:
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     emit(mesh_rec["summary"])
+    emit({"phase": "dryrun_summary", **{k: dry_rec.get(k) for k in ("arch", "shape", "mesh", "status", "run_s", "torch")}})
+    dry_root.cleanup()
     kernels = []
     for name, rec in headline.items():
         source, replaces = KERNEL_META[name]

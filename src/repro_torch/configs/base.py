@@ -130,6 +130,19 @@ class ModelConfig:
         emb = V * d * (1 if self.tie_embeddings else 2)
         return body + emb + d
 
+    def active_param_count(self) -> int:
+        """Activated parameters (MoE: top-k + shared only), as the
+        reference counts them."""
+        if self.family != "moe":
+            return self.param_count()
+        d, V = self.d_model, self.vocab
+        H, Hkv, Dh = self.n_heads, self.n_kv, self.d_head
+        fe = self.d_expert or self.d_ff
+        attn = d * (H + 2 * Hkv) * Dh + H * Dh * d
+        act_moe = (self.top_k + self.n_shared) * 3 * d * fe + d * self.n_experts
+        body = self.n_layers * (attn + act_moe + 2 * d)
+        return body + V * d + d
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -145,6 +158,9 @@ SHAPES: Dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+# architectures for which long_500k is runnable (sub-quadratic decode)
+LONG_CONTEXT_OK = {"mamba2-130m", "zamba2-1.2b"}
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

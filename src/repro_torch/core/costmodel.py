@@ -51,6 +51,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import flat as _flat
 from . import kernel_ir as K
+from .dist_ops import collective_kind, result_bytes
 from .execute import CompiledKernel, walk_instrs
 from .regions import warp_peel_count
 from .types import ArraySpec, CoxUnsupported, DType
@@ -74,7 +75,7 @@ class CostEstimate:
 
     op_estimate: float  # arithmetic-op proxy per dispatch
     mem_estimate: float  # bytes touched per dispatch
-    coll_estimate: float  # collective bytes (0 on the static walk; counted: A.10.3)
+    coll_estimate: float  # collective bytes (0 on the static walk; counted on a sharded launch)
     shared_footprint: int  # static shared-memory bytes per block
     peel_count: int  # warp-graph peel blocks (batched-exec cost)
     collective_density: float  # warp collectives per IR instruction
@@ -345,17 +346,23 @@ def count_op(func, args, kwargs, out) -> Tuple[float, float]:
 
 class OpCounter(TorchDispatchMode):
     """Sums :func:`count_op` over every aten op run under it (``ops``,
-    ``bytes``, ``n_ops``)."""
+    ``bytes``, ``n_ops``), and the result bytes of every collective
+    (``coll``: a sharded launch's merges, one ``all_gather`` each)."""
 
     def __init__(self):
         super().__init__()
         self.ops = 0.0
         self.bytes = 0.0
+        self.coll = 0.0
         self.n_ops = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if collective_kind(func):
+            self.coll += result_bytes(func, args, out)
+            self.n_ops += 1
+            return out
         ops, nbytes = count_op(func, args, kwargs, out)
         self.ops += ops
         self.bytes += nbytes
@@ -364,22 +371,30 @@ class OpCounter(TorchDispatchMode):
 
 
 def _counted_estimate(
-    ck: CompiledKernel, rl, shapes: Dict[str, tuple], *, simd: bool, scalars, device
+    ck: CompiledKernel, rl, shapes: Dict[str, tuple], *, simd: bool, scalars, device, mesh=None, axis="data"
 ) -> CostEstimate:
     """The 'xla' record: one launch of the resolved shape on zero-filled
     globals (the tuner's ``_zero_globals``) and the given scalars (zeros
     where none are given), on ``device`` and its current stream, counted
     op by op.  A field the count leaves at 0 takes the static walk's
-    value, as the reference's falls back to its HLO parse."""
+    value, as the reference's falls back to its HLO parse.
+
+    A sharded launch is counted on its mesh (every rank of it estimates
+    alike, as every rank launches): ``coll_estimate`` is the result bytes
+    of its merges' ``all_gather`` (``AxisGroup.gather``: every rank's
+    packed copy).  The reference's merge is a ``psum``, whose all-reduce
+    result is one copy, so its count differs from the port's by design."""
     from . import runtime as _runtime
     from .autotune import _zero_globals
     from .backends.plan import materialize_args
 
-    if rl.backend == "sharded":
-        raise CoxUnsupported(
-            f"kernel '{ck.kernel.name}': the counted cost pass of a sharded launch "
-            f"(its collectives) is ROADMAP A.10.3"
-        )
+    sharded = rl.backend == "sharded"
+    if sharded:
+        if mesh is None:
+            raise CoxUnsupported(f"kernel '{ck.kernel.name}': a sharded launch is counted on its mesh")
+        from .backends.sharded import mesh_device
+
+        device = mesh_device(mesh)  # this rank's device of the mesh
     device = _runtime.resolve_device(device)
     if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         raise CoxUnsupported(
@@ -391,7 +406,7 @@ def _counted_estimate(
         for spec in ck.kernel.params
         if not isinstance(spec, ArraySpec)
     }
-    _, run = _runtime.build_resolved(ck, rl, simd=simd)
+    _, run = _runtime.build_resolved(ck, rl, simd=simd, mesh=mesh if sharded else None, axis=axis)
     g, s = materialize_args(ck, _zero_globals(ck, shapes, device), held_s, device)
     counter = OpCounter()
     with counter:
@@ -400,7 +415,7 @@ def _counted_estimate(
     return CostEstimate(
         op_estimate=counter.ops if counter.ops > 0 else st.op_estimate,
         mem_estimate=counter.bytes if counter.bytes > 0 else st.mem_estimate,
-        coll_estimate=0.0,
+        coll_estimate=counter.coll,
         shared_footprint=st.shared_footprint,
         peel_count=st.peel_count,
         collective_density=st.collective_density,
@@ -418,15 +433,16 @@ def estimate(
     scalars: Optional[Dict[str, object]] = None,
     device=None,
     mesh=None,
+    axis: str = "data",
 ) -> CostEstimate:
     """The cost record of one resolved launch shape, cached per (kernel,
-    knobs, whether it has a mesh, shapes), as the reference caches it.  ``mode=None`` follows
+    knobs, the mesh's shape, shapes), as the reference caches it.  ``mode=None`` follows
     ``COX_COSTMODEL`` ('static' by default); 'xla' counts one launch on
     ``device`` (by default the card) with ``scalars`` (zeros where none
-    are given; the first count of a shape is kept).  Never raises for a
+    are given; the first count of a shape is kept), a sharded one on
+    ``mesh`` over ``axis``, with its collective bytes.  Never raises for a
     launch the counting pass refuses (``CoxUnsupported``): the record
-    degrades to the static walk and says so in ``source`` (a sharded
-    launch always does: its counted pass is ROADMAP A.10.3).  A CUDA
+    degrades to the static walk and says so in ``source``.  A CUDA
     error is not caught."""
     mode = telemetry_mode() if mode is None else mode
     key = (
@@ -440,7 +456,7 @@ def estimate(
         rl.schedule,
         rl.n_resident,
         simd,
-        mesh is not None,
+        None if mesh is None else (tuple(mesh.shape), axis),
         tuple(sorted(shapes.items())),
         mode,
     )
@@ -450,7 +466,7 @@ def estimate(
             return hit
     if mode == "xla":
         try:
-            est = _counted_estimate(ck, rl, shapes, simd=simd, scalars=scalars, device=device)
+            est = _counted_estimate(ck, rl, shapes, simd=simd, scalars=scalars, device=device, mesh=mesh, axis=axis)
         except CoxUnsupported:
             est = _static_estimate(ck, rl, shapes)
     else:
@@ -476,6 +492,7 @@ def estimate_request(req, mode: Optional[str] = None) -> CostEstimate:
         scalars=req.scalars,
         device=req.target if req.target is not None else _runtime.physical(req.device),
         mesh=req.mesh,
+        axis=req.axis,
     )
 
 

@@ -26,10 +26,6 @@ request (``api.KernelFn.make_request``) and issues it on the default
 stream of the dispatcher (``streams.py``), which stages the plan through
 its shared cache, orders it against the other streams and runs it.
 :func:`launch` stays the uncached entry point, as in the reference.
-
-Knobs the port does not run yet (the model stack on a mesh) raise
-:class:`CoxUnsupported` naming the ROADMAP queue item that brings them
-(:data:`UNPORTED`); none is silently ignored.
 """
 
 from __future__ import annotations
@@ -58,23 +54,6 @@ from .types import (
     as_dim3,
     check_launch_geometry,
 )
-
-# knob -> the ROADMAP queue item that ports it
-_A104 = "A.10.4 (tensor parallelism for the SSM, hybrid and encoder-decoder families)"
-UNPORTED = {
-    "the Mamba2 block over a tensor-parallel model axis": _A104,
-    "the ssm family over a tensor-parallel model axis": _A104,
-    "the hybrid family over a tensor-parallel model axis": _A104,
-    "the encoder-decoder family over a tensor-parallel model axis": _A104,
-}
-
-
-def unported(knob: str) -> CoxUnsupported:
-    return CoxUnsupported(
-        f"{knob} is not ported to repro_torch yet: ROADMAP queue item "
-        f"{UNPORTED[knob]}"
-    )
-
 
 def resolve_device(device) -> torch.device:
     """The launch's torch device.  ``None`` means CUDA: a launch runs on

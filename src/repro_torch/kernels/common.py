@@ -4,6 +4,16 @@ from __future__ import annotations
 
 import torch
 
+# Devices whose tensors take a kernel's plain version: the CPU, where it
+# computes, and ``meta``, where it computes nothing and gives the shapes
+# alone (the dry run, ``launch/dryrun.py``).  A CUDA tensor never does.
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain_route(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the plain version (a CPU or meta tensor)."""
+    return x.device.type in PLAIN_DEVICES
+
 
 def check_cuda_input(x: torch.Tensor, what: str, dtypes) -> None:
     """Raise on a tensor the CUDA kernel does not take."""

@@ -33,7 +33,7 @@ import functools
 import torch
 
 from . import build, ref
-from .common import check_cuda_input, sm_count, stream_of
+from .common import check_cuda_input, plain_route, sm_count, stream_of
 
 decode_launches = fwd_launches = bwd_launches = 0
 
@@ -93,7 +93,7 @@ def flash_decode(
     ``kv_len == 0``), with scale ``1/sqrt(D)``.  With ``return_lse`` it
     returns ``(out, lse)``, lse the f32 (B, H) log-sum-exp of each head's
     scaled scores (-inf where no position is valid)."""
-    if q.device.type == "cpu":
+    if plain_route(q):
         return ref.decode_attention(q, k_cache, v_cache, kv_len, return_lse=return_lse)
     return flash_decode_cuda(q, k_cache, v_cache, kv_len, return_lse=return_lse)
 
@@ -208,7 +208,7 @@ def flash_attention(
     (with ``causal`` only) keys ``window`` or more before it.  On a CUDA
     tensor it launches the kernels in both directions; on a CPU tensor it
     is ``ref.attention``, differentiated by autograd."""
-    if q.device.type == "cpu":
+    if plain_route(q):
         return ref.attention(q, k, v, causal=causal, window=window)
     return FlashAttentionFn.apply(q, k, v, causal, window)
 

@@ -20,7 +20,7 @@ import functools
 import torch
 
 from . import build, ref
-from .common import check_cuda_input, sm_count, stream_of
+from .common import check_cuda_input, plain_route, sm_count, stream_of
 
 launches = bwd_launches = ln_launches = ln_bwd_launches = 0
 
@@ -53,7 +53,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     leading shape), in f32, returned in ``x.dtype``.  ``w`` has the width
     of that axis and may have a dtype of its own (f32 beside a bf16 ``x``
     on the serving path)."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return ref.rmsnorm(x, w, eps)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RMSNormFn.apply(x, w, eps)
@@ -87,7 +87,7 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e
     (any leading shape), in f32, returned in ``x.dtype``.  ``w`` and ``b``
     have the width of that axis and share a dtype, which may differ from
     x's (f32 beside a bf16 ``x`` on the serving and training paths)."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return ref.layernorm(x, w, b, eps)
     needs_grad = x.requires_grad or w.requires_grad or b.requires_grad
     if torch.is_grad_enabled() and needs_grad:

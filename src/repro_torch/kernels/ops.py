@@ -3,7 +3,9 @@ PyTorch version for a CPU tensor.
 
 The route follows the tensor's device and nothing else: there is no
 override that sends a CUDA tensor to the plain path, and no interpret
-mode (a CUDA kernel has none).  Ported: ``softmax``, ``row_reduce``,
+mode (a CUDA kernel has none).  A ``meta`` tensor (the dry run's) takes
+the plain version too, for its shapes alone: it computes nothing, as the
+reference's dry run lowers ``backend="xla"``.  Ported: ``softmax``, ``row_reduce``,
 ``rmsnorm``, ``layernorm``, ``attention``, ``decode_attention`` and
 ``ssd_scan``: every kernel of the reference.  ``rmsnorm``, ``layernorm``,
 ``attention`` and ``ssd_scan`` are differentiable, with hand-written
@@ -25,13 +27,13 @@ from . import warp_reduce as _wr
 
 
 def resolve(x: torch.Tensor) -> str:
-    """The route a tensor takes: ``"cuda"`` (the kernel) or ``"torch"``
-    (the plain version on the CPU)."""
-    if x.device.type == "cuda":
-        return "cuda"
-    if x.device.type == "cpu":
-        return "torch"
-    raise ValueError(f"no kernel route for device {x.device}")
+    """The route a tensor takes: ``"cuda"`` (the kernel), ``"torch"``
+    (the plain version on the CPU) or ``"meta"`` (the plain version, for
+    shapes only)."""
+    route = {"cuda": "cuda", "cpu": "torch", "meta": "meta"}.get(x.device.type)
+    if route is None:
+        raise ValueError(f"no kernel route for device {x.device}")
+    return route
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,7 @@ from typing import Callable
 import torch
 
 from . import build, ref
-from .common import check_cuda_input, sm_count, stream_of
+from .common import check_cuda_input, plain_route, sm_count, stream_of
 
 launches = 0
 
@@ -84,7 +84,7 @@ class SoftmaxPlan:
 def softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis of ``x`` (any leading shape), computed
     in f32 and returned in ``x.dtype``."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return ref.softmax(x)
     return softmax_cuda(x)
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .common import check_cuda_input, stream_of
+from .common import check_cuda_input, plain_route, stream_of
 
 launches = bwd_launches = 0
 
@@ -46,7 +46,7 @@ def ssd_scan(
     CPU the result is the plain chunked form at that chunk; the kernels'
     tile is their own (the dual form is exact for any tile: the result
     differs only by rounding)."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return ref.ssd_scan_chunked(x, a, b, c, chunk=chunk)
     S = x.shape[1]
     if S % min(chunk, S):

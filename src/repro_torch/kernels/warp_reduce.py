@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .common import check_cuda_input, stream_of
+from .common import check_cuda_input, plain_route, stream_of
 
 OPS = {"sum": 0, "max": 1, "absmax": 2}
 
@@ -22,7 +22,7 @@ def row_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     f32, ``max`` and ``absmax`` return ``x.dtype``."""
     if op not in OPS:
         raise ValueError(f"row_reduce: unknown op {op!r}; expected one of {list(OPS)}")
-    if x.device.type == "cpu":
+    if plain_route(x):
         return ref.row_reduce(x, op)
     return row_reduce_cuda(x, op)
 

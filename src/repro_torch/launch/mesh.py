@@ -8,7 +8,9 @@ initialized world (one rank a device): the caller starts the group
 (``torch.distributed.init_process_group``) on every rank first.  The
 meshes serve COX launches (``KernelFn.launch(mesh=, axis=)``) and the
 model stack: ``make_host_mesh``'s ("data", "model") mesh under
-``BatchedServer(mesh=)`` and ``train(mesh=)``.
+``BatchedServer(mesh=)`` and ``train(mesh=)``.  :func:`fake_world` starts
+a world of fake ranks in one process, for the dry run
+(``launch/dryrun.py``): ``make_production_mesh(fake=True)``.
 """
 
 from __future__ import annotations
@@ -33,17 +35,47 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+def fake_world(world_size: int) -> None:
+    """Make this process rank 0 of a world of ``world_size`` fake ranks:
+    torch's fake process group, whose collectives return at once and move
+    nothing (with ``meta`` tensors, nothing computes either).  A
+    process group already running is ended first, unless it is a fake
+    world of that size.  The fake group lives in a private torch module
+    (``torch.testing._internal.distributed.fake_pg``); where this torch
+    has none, this raises a ``RuntimeError`` that says so."""
+    import torch.distributed as dist
+
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:  # the module is private: it may move
+        raise RuntimeError(
+            f"torch {torch.__version__} has no fake process group "
+            "(torch.testing._internal.distributed.fake_pg): the dry run needs one"
+        ) from e
+    if dist.is_initialized():
+        if dist.get_backend() == "fake" and dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", rank=0, world_size=world_size, store=FakeStore())
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda", fake: bool = False):
     """The reference's production shapes: 16 x 16 ("data", "model"), or
     2 x 16 x 16 with a leading "pod" axis.  Raises unless the world has
-    exactly that many ranks."""
+    exactly that many ranks.  ``fake=True`` first makes this process rank
+    0 of a :func:`fake_world` of that size, on a ``cpu``-typed mesh (the
+    dry run's tensors are ``meta``; DTensor's sharding propagation needs
+    a real device type)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, names = PRODUCTION[multi_pod]
-    n = _world()
     want = 1
     for s in shape:
         want *= s
+    if fake:
+        fake_world(want)
+        device_type = "cpu"
+    n = _world()
     if n != want:
         raise ValueError(f"the production mesh {shape} needs {want} ranks; the world has {n}")
     return init_device_mesh(device_type, shape, mesh_dim_names=names)

@@ -272,7 +272,14 @@ class BatchedServer:
     seconds that drawing (or placing) the weights took; ``steps`` counts
     decode steps run (prefill included) and ``step_s`` holds the host-clock
     seconds of each ``decode`` step, each ending when its next tokens
-    reach the host."""
+    reach the host.
+
+    With ``mesh=`` (a ``DeviceMesh`` over "data" and "model", every rank
+    constructing and stepping the server alike) every family serves under
+    ``strategy``: the weights and the cache (K/V on sequence slabs, the
+    SSM state on its heads, the conv tail on its channels, the cross
+    memory on slabs) are DTensors at the reference's placements, and each
+    step, prefill included, writes each rank's shards in place."""
 
     def __init__(
         self,
@@ -399,6 +406,7 @@ def serve_requests(
     graph: bool = False,
     chaos: bool = False,
     device=None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Continuous batching over a queue of synthetic prompt requests (8
     tokens each, drawn from ``seed`` with numpy, as in the reference);
@@ -412,6 +420,8 @@ def serve_requests(
     ``postproc``) forces the first postprocess launch to fail: the
     faulting slot is isolated and every other slot completes with its
     totals intact.  The reference's asserts hold each of these.
+    ``mesh=`` (every rank calling alike) serves from
+    ``BatchedServer(mesh=)`` under its default "tp".
 
     Returns the reference's counts (``completed``, ``tokens``, ``wall_s``,
     ``tok_per_s``, ``dispatch_health`` and the ``postproc`` and ``graph``
@@ -419,7 +429,7 @@ def serve_requests(
     if chaos and not postproc:
         raise ValueError("chaos=True requires postproc=True (it faults the postprocess pool)")
     rng = np.random.default_rng(seed)
-    server = BatchedServer(arch, batch=batch, ctx=ctx, seed=seed, device=device)
+    server = BatchedServer(arch, batch=batch, ctx=ctx, seed=seed, device=device, mesh=mesh)
     pool = RequestKernelPool(batch, device=server.device, pin_scan=chaos) if postproc else None
     pipelines: List[TokenPipeline] = []
     if graph:

@@ -16,10 +16,14 @@ encoder's attention and the cross-attention launch ``flash_attention``
 non-causal, the decoder's self-attention causal, and in decoding
 ``flash_decode`` runs over the self cache and over the cross memory.
 
-On a mesh (``rules=``) the family is data-parallel: every rank runs the
-whole model on its batch rows with the weights gathered, and the loss
-divides by the global count of labels.  It does no tensor-parallel work,
-so under ``"tp"`` a "model" axis above 1 raises (ROADMAP A.10.4).
+On a mesh (``rules=``) both stacks take the dense layers' sharded paths
+(``layers.py``): the residual streams on sequence slabs over "model",
+tensor-parallel attention (the encoder's non-causal) and MLPs, the
+cross-attention on q heads sharded over "model" over the whole memory,
+and the vocab-parallel unembedding and cross-entropy of the tied
+vocabulary.  In decoding, the self cache and the cross memory ``xk``/``xv``
+are sharded on their rows over "model" (``seq_kv``), and each is read by
+``flash_decode`` slab by slab, the slabs combined by log-sum-exp.
 """
 
 from __future__ import annotations
@@ -30,11 +34,10 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels import ops
 from ..parallel import spmd
 from . import layers as L
-from .lm import _layer, _norm_pair, _stack, _unstack
-from .params import ParamSpec, tree_map
+from .lm import SEQ_ACT, _layer, _norm_pair, _stack, _unstack
+from .params import ParamSpec
 
 
 def cross_attention_specs(cfg) -> Dict[str, ParamSpec]:
@@ -66,17 +69,6 @@ def encdec_specs(cfg) -> Dict[str, Any]:
     return specs
 
 
-def _cross_attend(p, x, mem_k, mem_v):
-    """x: (B, S, d) queries; mem_k/v: (B, Se, Hkv, Dh) precomputed.  No
-    rotary embedding and no bias, as in the reference.  On a card the
-    kernel takes Se == S only (the training batch's frames are as long as
-    its text); another length raises there."""
-    q = L._project(x, p["wq"])
-    att = ops.attention(q, mem_k, mem_v, causal=False)
-    B, S, H, Dh = att.shape
-    return att.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, -1)
-
-
 def _remat(cfg, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` with ``cfg.remat ==
     "full"`` (the reference's ``jax.checkpoint`` of the scanned layer)."""
@@ -85,72 +77,73 @@ def _remat(cfg, fn, *args):
     return fn(*args)
 
 
-def _enc_layer_apply(cfg, lp, h, positions):
-    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
-    hn = L.attention_apply(lp["attn"], hn, positions, cfg=cfg, causal=False)
-    h = h + hn
-    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"))
-    return h + L.mlp_apply(lp["mlp"], hn, cfg=cfg)
-
-
-def encode(cfg, params, frames):
-    """frames: (B, Se, d) precomputed frontend embeddings in the
-    parameters' dtype; returns the memory (B, Se, d) after ``enc_norm``."""
-    B, Se, _ = frames.shape
-    positions = torch.arange(Se, dtype=torch.int32, device=frames.device).expand(B, Se)
-    x = frames
-    for lp in _unstack(params["enc_layers"], cfg.enc_layers):
-        x = _remat(cfg, functools.partial(_enc_layer_apply, cfg, lp), x, positions)
-    return L.apply_norm(params["enc_norm"], x, cfg.norm, params.get("enc_norm_b"))
-
-
 def _mem_kv(p, mem):
+    """A decoder layer's cross keys and values projected from the memory
+    (the decode cache's ``xk``/``xv``)."""
     return L._project(mem, p["wk"]), L._project(mem, p["wv"])
 
 
-def _dec_layer_apply(cfg, lp, h, positions, mem):
-    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
-    hn = L.attention_apply(lp["attn"], hn, positions, cfg=cfg, causal=True)
+def _positions(n: int, B: int, device, rules):
+    """Positions 0..n-1 for RoPE: (B, n), or (1, n) on a mesh (every rank
+    broadcasts them over its batch rows)."""
+    pos = torch.arange(n, dtype=torch.int32, device=device)
+    return pos[None] if rules is not None else pos.expand(B, n)
+
+
+def _enc_layer_apply(cfg, lp, h, positions, rules=None):
+    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+    hn = L.attention_apply(lp["attn"], hn, positions, cfg=cfg, rules=rules, causal=False)
     h = h + hn
-    hn = L.apply_norm(lp["lnx"], h, cfg.norm, lp.get("lnx_b"))
-    mk, mv = _mem_kv(lp["xattn"], mem)
-    h = h + _cross_attend(lp["xattn"], hn, mk, mv)
-    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"))
-    return h + L.mlp_apply(lp["mlp"], hn, cfg=cfg)
+    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules)
+    return h + L.mlp_apply(lp["mlp"], hn, cfg=cfg, rules=rules)
+
+
+def encode(cfg, params, frames, rules=None):
+    """frames: (B, Se, d) precomputed frontend embeddings in the
+    parameters' dtype; returns the memory (B, Se, d) after ``enc_norm``
+    (on a mesh, on its sequence slabs)."""
+    B, Se, _ = frames.shape
+    positions = _positions(Se, B, frames.device, rules)
+    x = spmd.constrain(frames, rules, SEQ_ACT)
+    for lp in _unstack(params["enc_layers"], cfg.enc_layers):
+        x = _remat(cfg, functools.partial(_enc_layer_apply, cfg, lp, rules=rules), x, positions)
+    return L.apply_norm(params["enc_norm"], x, cfg.norm, params.get("enc_norm_b"), rules=rules)
+
+
+def _dec_layer_apply(cfg, lp, h, positions, mem, rules=None):
+    if rules is None:
+        # the layer reads the memory through a node of its own, so that the
+        # memory's gradient sums each layer's K and V contributions before
+        # it sums the layers, as on a mesh (whose per-layer gather is that
+        # node): a 1 x 1 mesh is then bitwise this path
+        mem = mem.view_as(mem)
+    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+    hn = L.attention_apply(lp["attn"], hn, positions, cfg=cfg, rules=rules, causal=True)
+    h = h + hn
+    hn = L.apply_norm(lp["lnx"], h, cfg.norm, lp.get("lnx_b"), rules=rules)
+    h = h + L.cross_attention_apply(lp["xattn"], hn, mem, cfg=cfg, rules=rules)
+    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules)
+    return h + L.mlp_apply(lp["mlp"], hn, cfg=cfg, rules=rules)
 
 
 def forward(cfg, params, batch, rules=None):
     """Training forward.  batch: ``frontend`` (B, Se, d) frame embeddings
     (cast to the parameters' dtype), ``tokens`` and ``labels`` (B, S) int
-    tensors.  Returns ``(loss, logits (B, S, Vpad) f32)``."""
-    if rules is not None:
-        logits = _data_parallel(cfg, params, batch, rules, lambda w, b: _logits(cfg, w, b))
-        return L.cross_entropy(logits, batch["labels"], cfg.vocab, rules=rules), logits
-    logits = _logits(cfg, params, batch)
-    return L.cross_entropy(logits, batch["labels"], cfg.vocab), logits
-
-
-def _data_parallel(cfg, params, inputs, rules, fn):
-    """``fn(weights, inputs)`` on this rank's batch rows with every weight
-    gathered; the result is sharded on the batch as the tokens are."""
-    L.refuse_model_axis(rules, "the encoder-decoder family")
-    w = tree_map(spmd.replicate, params)
-    mesh = inputs["tokens"].device_mesh
-    pl = tuple(inputs["tokens"].placements)
-    return spmd.local_call(
-        fn, mesh, [w, inputs], [L._placements(w), L._placements(inputs)], pl
-    )
-
-
-def _logits(cfg, params, batch):
-    mem = encode(cfg, params, batch["frontend"].to(cfg.param_dtype))
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    tensors.  Returns ``(loss, logits (B, S, Vpad) f32)``; with ``rules``
+    the batch leaves are DTensors sharded on the batch, the loss is a
+    replicated DTensor and the logits are sharded on the vocabulary over
+    "model" (``"tp"``)."""
+    mem = encode(cfg, params, batch["frontend"].to(cfg.param_dtype), rules=rules)
+    x = L.embed_apply(params["embed"], batch["tokens"], rules=rules)
+    x = spmd.constrain(x, rules, ("batch", None, "embed"))
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    positions = _positions(S, B, x.device, rules)
+    x = spmd.constrain(x, rules, SEQ_ACT)
     for lp in _unstack(params["dec_layers"], cfg.n_layers):
-        x = _remat(cfg, functools.partial(_dec_layer_apply, cfg, lp), x, positions, mem)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"))
-    return L.unembed_apply(params["embed"], x, cfg)
+        x = _remat(cfg, functools.partial(_dec_layer_apply, cfg, lp, rules=rules), x, positions, mem)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"), rules=rules)
+    logits = L.unembed_apply(params["embed"], x, cfg, rules=rules)
+    return L.cross_entropy(logits, batch["labels"], cfg.vocab, rules=rules), logits
 
 
 # ---------------------------------------------------------------------------
@@ -175,35 +168,22 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor, rul
     cache.  tokens: (B,) int; pos: (B,) int32 current lengths.  Returns
     ``(logits (B, Vpad) f32, cache)``; each layer writes the token's self
     K/V into the cache in place at ``pos`` and attends to all ``enc_len``
-    rows of its cross memory.  On a mesh each rank steps its batch rows of
-    the cache in place (a data-only mesh: the cache must not be split on
-    its sequence)."""
-    if rules is not None:
-        mesh = cache["k"].device_mesh
-        if any(p.is_shard() and p.dim == 2 and mesh.size(i) > 1 for i, p in enumerate(cache["k"].placements)):
-            raise ValueError("the encoder-decoder decode step takes no sequence-sharded cache")
-        inputs = {"tokens": tokens, "pos": pos, "cache": cache}
-        logits = _data_parallel(
-            cfg, params, inputs, rules,
-            lambda w, b: decode_step(cfg, w, b["cache"], b["tokens"], b["pos"])[0],
-        )
-        return logits, cache
-    h = L.embed_apply(params["embed"], tokens)  # (B, d)
-    B, enc_len = h.shape[0], cache["xk"].shape[2]
-    kv_len = torch.full((B,), enc_len, dtype=torch.int32, device=h.device)
+    rows of its cross memory.  With ``rules`` tokens and pos are DTensors
+    sharded on the batch, each rank's slabs of the self cache are written
+    in place, and the logits come back sharded on the vocabulary."""
+    h = L.embed_apply(params["embed"], tokens, rules=rules)  # (B, d)
+    h = spmd.constrain(h, rules, ("batch", "embed"))
+    kv_len = torch.full_like(pos, cache["xk"].shape[2], dtype=torch.int32)  # every memory row
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], i)
-        hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"))
-        kv = {"k": cache["k"][i], "v": cache["v"][i]}
-        y, _ = L.attention_decode(lp["attn"], hn, kv, pos)
+        hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+        y, _ = L.attention_decode(lp["attn"], hn, _layer({"k": cache["k"], "v": cache["v"]}, i), pos, cfg=cfg, rules=rules)
         h = h + y
-        hn = L.apply_norm(lp["lnx"], h, cfg.norm, lp.get("lnx_b"))
-        xp = lp["xattn"]
-        q = L._project(hn, xp["wq"])  # (B, H, Dh)
-        att = ops.decode_attention(q, cache["xk"][i], cache["xv"][i], kv_len)
-        h = h + att.reshape(B, -1) @ xp["wo"].reshape(-1, h.shape[1])
-        hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"))
-        h = h + L.mlp_apply(lp["mlp"], hn.unsqueeze(1), cfg=cfg).squeeze(1)
-    h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"))
-    logits = L.unembed_apply(params["embed"], h, cfg)
+        hn = L.apply_norm(lp["lnx"], h, cfg.norm, lp.get("lnx_b"), rules=rules)
+        mem = _layer({"k": cache["xk"], "v": cache["xv"]}, i)
+        h = h + L.cross_decode(lp["xattn"], hn, mem, kv_len, cfg=cfg, rules=rules)
+        hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules)
+        h = h + L.mlp_apply(lp["mlp"], hn.unsqueeze(1), cfg=cfg, rules=rules).squeeze(1)
+    h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"), rules=rules)
+    logits = L.unembed_apply(params["embed"], h, cfg, rules=rules)
     return logits, cache

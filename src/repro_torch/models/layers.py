@@ -20,9 +20,10 @@ attention (q heads, with padded heads masked, and kv heads or the
 row-parallel ``kv_embed`` fallback), column- then row-parallel MLPs,
 expert-parallel MoE, a vocab-parallel embedding, unembedding,
 cross-entropy and argmax, and the decode attention over a
-sequence-sharded cache combined by log-sum-exp.  Every apply function
-returns its output at its input's placements.  The Mamba2 block runs on
-a mesh whose "model" axis does no tensor-parallel work (ROADMAP A.10.4).
+sequence-sharded cache combined by log-sum-exp, and the Mamba2 block on
+its SSM heads (its own compute layout, the parameters and caches kept at
+the reference's placements).  Every apply function returns its output at
+its input's placements.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.runtime import unported
 from ..kernels import ops
 from ..kernels.ref import NEG_INF, compute_dtype
 from ..parallel import spmd
@@ -134,13 +134,6 @@ def _partial_over_model(placements, mesh):
     from torch.distributed.tensor import Partial
 
     return spmd.with_axis(placements, mesh, "model", Partial())
-
-
-def refuse_model_axis(rules, what: str) -> None:
-    """A.10.4: the SSM, hybrid and encoder-decoder families do no
-    tensor-parallel work; under ``"tp"`` a "model" axis above 1 raises."""
-    if rules is not None and rules.strategy == "tp" and rules.shape.get("model", 1) > 1:
-        raise unported(f"{what} over a tensor-parallel model axis")
 
 
 # ---------------------------------------------------------------------------
@@ -427,44 +420,168 @@ def _attention_decode_mesh(p, x, cache, pos, cfg, rules, slot, kv_len):
         return q, k, v
 
     q, k, v = spmd.local_call(project, mesh, [x, ws], [xp, _placements(ws)], (q_pl, kv_pl, kv_pl))
-    B, Hp, Dh = q.shape
-    tgt = spmd.act_placements(rules, (B, Hp, Dh), ("batch", None, None))
+    B = q.shape[0]
+    tgt = spmd.act_placements(rules, tuple(q.shape), ("batch", None, None))
     q, k, v = spmd.to(q, tgt), spmd.to(k, tgt), spmd.to(v, tgt)
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[1]
-    n_slabs = mesh.size(spmd.dim_index(mesh, "model")) if _model_dim(kc) == 1 else 1
-    r = spmd.axis_rank(mesh, "model") if n_slabs > 1 else 0
+    n_slabs, r = _slabs(mesh, kc)
     bpl = spmd.act_placements(rules, (B,), ("batch",))
-    if n_slabs == 1:
-        out_pl = tgt
-    else:
-        lse_pl = spmd.act_placements(rules, (B, Hp), ("batch", None))
-        out_pl = tuple(spmd.with_axis(spmd.shift(pl), mesh, "model", Shard(0)) for pl in (tgt, lse_pl))
     res = spmd.local_call(
         lambda q, k, v, b, pos, slot, kv_len, kc, vc: _slab_decode(q, k, v, b, pos, slot, kv_len, kc, vc, r, n_slabs, S),
         mesh,
         [q, k, v, b, pos, slot, kv_len, kc, vc],
         [tgt, tgt, tgt, _placements(b), bpl, bpl, bpl, tuple(kc.placements), tuple(vc.placements)],
-        out_pl,
+        _slab_out_placements(mesh, tgt, n_slabs),
     )
+    y = _combine_and_project(res, n_slabs, w["wo"], hd, mesh, xp, cfg)
+    return spmd.to(y, x_pl), cache
+
+
+def _slabs(mesh, kc):
+    """``(n_slabs, r)``: how many sequence slabs over "model" a decode
+    cache ``kc`` (B, S, Hkv, Dh) is cut into, and this rank's."""
+    if _model_dim(kc) != 1:
+        return 1, 0
+    n = spmd.axis_size(mesh, "model")
+    return n, (spmd.axis_rank(mesh, "model") if n > 1 else 0)
+
+
+def _slab_out_placements(mesh, tgt, n_slabs: int):
+    """The placements of a slab decode's output (``tgt``), or of its
+    ``(out, lse)`` with a leading slab axis sharded over "model"."""
+    from torch.distributed.tensor import Shard
+
+    if n_slabs == 1:
+        return tgt
+    # the (B, Hp) lse is sharded on its batch as the (B, Hp, Dh) output is
+    pl = spmd.with_axis(spmd.shift(tgt), mesh, "model", Shard(0))
+    return pl, pl
+
+
+def _combine_and_project(res, n_slabs: int, wo, hd, mesh, xp, cfg, mask: bool = True):
+    """The slabs' outputs combined by their log-sum-exps (gathered over
+    "model"), the padded q heads masked (``mask``), and ``wo``
+    row-parallel over the q heads (partial over "model" when they are
+    sharded)."""
     wo_pl = _partial_over_model(xp, mesh) if hd.sharded else xp
+    Dh = wo.shape[1]
 
     def finish(att, lses, wo):
         if lses is not None:
             att = combine_slabs(att, lses)
-        att = _apply_mask(att, _head_mask(cfg, 0, Hp, att.device), 1)
+        if mask:
+            att = _apply_mask(att, _head_mask(cfg, 0, att.shape[1], att.device), 1)
         if hd.sharded:
             att = att[:, hd.lo : hd.lo + hd.n]
         return att.reshape(att.shape[0], hd.n * Dh) @ wo.reshape(hd.n * Dh, -1)
 
     if n_slabs == 1:
-        att, lses = res, None
-        args, exp = [att, None, w["wo"]], [tgt, None, tuple(w["wo"].placements)]
+        args, exp = [res, None, wo], [tuple(res.placements), None, tuple(wo.placements)]
     else:
         att, lses = (spmd.to(t, spmd.with_axis(t.placements, mesh, "model", _replicate())) for t in res)
-        args, exp = [att, lses, w["wo"]], [tuple(att.placements), tuple(lses.placements), tuple(w["wo"].placements)]
-    y = spmd.local_call(finish, mesh, args, exp, wo_pl)
-    return spmd.to(y, x_pl), cache
+        args, exp = [att, lses, wo], [tuple(att.placements), tuple(lses.placements), tuple(wo.placements)]
+    return spmd.local_call(finish, mesh, args, exp, wo_pl)
+
+
+def cross_decode(p, x, mem, kv_len, *, cfg=None, rules=None):
+    """One token's cross-attention over precomputed memory keys and values
+    ``mem = {"k", "v"}`` (B, Se, Hkv, Dh), every row visible: no rotary
+    embedding, bias or head mask, as the reference's encoder-decoder
+    decode.  kv_len: (B,) int32, the memory's rows (``enc_len``), built
+    once a step by the caller.  On a mesh the memory is a cache leaf
+    sharded on its rows over "model" (``seq_kv``) and kv_len is sharded on
+    the batch as ``pos`` is: the token's q is gathered over its heads,
+    ``flash_decode`` runs over each rank's slab with its log-sum-exp, and
+    the slabs are combined and ``wo`` applied as in
+    :func:`attention_decode`."""
+    B = x.shape[0]
+    if rules is None:
+        q = _project(x, p["wq"])
+        att = ops.decode_attention(q, mem["k"], mem["v"], kv_len)
+        return att.reshape(B, -1) @ p["wo"].reshape(-1, x.shape[1])
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    w = weights(rules, {"wq": p["wq"], "wo": p["wo"]})
+    hd = _Heads(cfg, {**w, "wk": p["wk"]}, mesh)
+    x_pl = tuple(x.placements)
+    x = spmd.rows(x)
+    xp = tuple(x.placements)
+    q_pl = spmd.with_axis(xp, mesh, "model", Shard(1)) if hd.sharded else xp
+    q = spmd.local_call(_project, mesh, [x, w["wq"]], [xp, tuple(w["wq"].placements)], q_pl)
+    tgt = spmd.act_placements(rules, tuple(q.shape), ("batch", None, None))
+    q = spmd.to(q, tgt)
+    kc, vc = mem["k"], mem["v"]
+    n_slabs, r = _slabs(mesh, kc)
+    bpl = spmd.act_placements(rules, (B,), ("batch",))
+
+    def read(q, kv_len, kc, vc):
+        if n_slabs == 1:
+            return ops.decode_attention(q, kc, vc, kv_len)
+        Sl = kc.shape[1]
+        n = (kv_len.to(torch.int64) - r * Sl).clamp(0, Sl).to(torch.int32)
+        out, lse = ops.decode_attention(q, kc, vc, n, return_lse=True)
+        return out[None], lse[None]
+
+    res = spmd.local_call(
+        read, mesh, [q, kv_len, kc, vc], [tgt, bpl, tuple(kc.placements), tuple(vc.placements)],
+        _slab_out_placements(mesh, tgt, n_slabs),
+    )
+    y = _combine_and_project(res, n_slabs, w["wo"], hd, mesh, xp, cfg, mask=False)
+    return spmd.to(y, x_pl)
+
+
+def cross_attention_apply(p, x, mem, *, cfg, rules=None):
+    """Cross-attention of the queries x (B, S, d) over the memory rows mem
+    (B, Se, d): K and V projected from the memory, non-causal, with no
+    rotary embedding, bias or head mask, as the reference's
+    ``_cross_attend``.  On a mesh both are gathered to ``("batch", None,
+    "embed")`` and every model rank attends with its q heads over the
+    whole memory, its K and V projected as :func:`attention_apply` does
+    (column-parallel over kv heads, or row-parallel and reduced); ``wo``'s
+    partial output goes back to ``x``'s placements."""
+
+    def core(ws, x, mem, k, v, lo=0, kv_lo=0):
+        q = _project(x, ws["wq"])
+        if k is None:
+            k, v = _project(mem, ws["wk"]), _project(mem, ws["wv"])
+        k, v = _kv_for_heads(k, v, cfg, lo, q.shape[-2], kv_lo)
+        att = ops.attention(q, k, v, causal=False)
+        B, S, H, Dh = att.shape
+        return att.reshape(B, S, H * Dh) @ ws["wo"].reshape(H * Dh, -1)
+
+    if rules is None:
+        return core(p, x, mem, None, None)
+    mesh = x.device_mesh
+    h = spmd.constrain(x, rules, ("batch", None, None))
+    m = spmd.constrain(mem, rules, ("batch", None, None))
+    w = weights(rules, {n: p[n] for n in ("wq", "wk", "wv", "wo")})
+    hd = _Heads(cfg, w, mesh)
+    k = v = None
+    core_w = {n: w[n] for n in ("wq", "wo")}
+    if hd.kv == "row":
+        kv_pl = _partial_over_model(m.placements, mesh)
+        k, v = spmd.local_call(
+            lambda x, wk, wv: _kv_local(x, wk, wv, hd.d_lo, hd.d_n),
+            mesh,
+            [m, w["wk"], w["wv"]],
+            [m.placements, w["wk"].placements, w["wv"].placements],
+            (kv_pl, kv_pl),
+        )
+        full = spmd.with_axis(m.placements, mesh, "model", _replicate())
+        k, v = spmd.to(k, full), spmd.to(v, full)
+    else:
+        core_w.update(wk=w["wk"], wv=w["wv"])
+    out_pl = _partial_over_model(h.placements, mesh) if hd.sharded else h.placements
+    out = spmd.local_call(
+        lambda x, mem, ws, k, v: core(ws, x, mem, k, v, hd.lo, hd.kv_lo),
+        mesh,
+        [h, m, core_w, k, v],
+        [h.placements, m.placements, _placements(core_w), None if k is None else k.placements, None if v is None else v.placements],
+        out_pl,
+    )
+    return spmd.to(out, x.placements)
 
 
 def _scatter_token(cache: torch.Tensor, token: torch.Tensor, pos: torch.Tensor) -> None:
@@ -627,7 +744,12 @@ def moe_apply(p, x, *, cfg, rules=None):
     model rank runs its slice of ``E / tp`` experts on its token slab with
     the capacity of that slab (so a mesh can drop tokens that one device
     keeps), and the partial outputs are summed over "model" in f32, then
-    cast; the shared experts run outside, column- then row-parallel."""
+    cast; the shared experts run outside, column- then row-parallel.
+    Where the experts do not divide "model", the rules replicate them and
+    every model rank runs all of them on its slab (data-parallel over
+    "model", the Mamba2 block's rule); the reference asserts there.  No
+    published configuration takes that branch (their expert counts divide
+    16); the 4-expert smoke configurations on a 16 x 16 dry run do."""
     if rules is None or "model" not in rules.shape:
         if rules is not None:
             raise ValueError("moe_apply on a mesh needs a 'model' axis")
@@ -638,8 +760,8 @@ def moe_apply(p, x, *, cfg, rules=None):
     B, S, d = x.shape
     E = cfg.n_experts
     tp, r = spmd.axis_size(mesh, "model"), spmd.axis_rank(mesh, "model")
-    assert E % tp == 0, "experts must divide the model axis"
-    E_loc = E // tp
+    ep = E % tp == 0  # the rules shard the experts over "model"
+    E_loc = E // tp if ep else E
     names = mesh.mesh_dim_names
     dp = 1
     for a in ("pod", "data"):
@@ -648,7 +770,7 @@ def moe_apply(p, x, *, cfg, rules=None):
         Shard(0) if n in ("pod", "data") and B % dp == 0 else Replicate() for n in names
     )
     xl = spmd.to(x, xpl)
-    ew = tuple(Shard(0) if n == "model" else Replicate() for n in names)
+    ew = tuple(Shard(0) if n == "model" and ep else Replicate() for n in names)
     ws = {n: spmd.to(p[n], ew) for n in ("w_gate", "w_up", "w_down")}
     ws["router"] = spmd.replicate(p["router"])
 
@@ -659,14 +781,17 @@ def moe_apply(p, x, *, cfg, rules=None):
     # local function, so the input's gradient sums its uses in the
     # one-device order; gathered ("fsdp"), every model rank computes them
     # whole, apart (their gradient is not partial over "model")
-    together = bool(sw) and _model_dim(sw["s_gate"]) == 1
+    # (with the experts replicated, the routed products' gradients are
+    # whole on every model rank, so the sharded shared experts run apart)
+    sw_split = bool(sw) and _model_dim(sw["s_gate"]) == 1
+    together = sw_split and ep
     part = _partial_over_model(xpl, mesh)
 
     def local(xb, ws, sw):
         Bl, Sl, _ = xb.shape
         xt = xb.reshape(Bl * Sl, d)
         C = moe_capacity(cfg, Bl * Sl)
-        y = _moe_local(ws, xt, cfg=cfg, C=C, e_lo=r * E_loc, E_loc=E_loc).reshape(Bl, Sl, d)
+        y = _moe_local(ws, xt, cfg=cfg, C=C, e_lo=r * E_loc if ep else 0, E_loc=E_loc).reshape(Bl, Sl, d)
         return (y, _shared_experts(sw, xt).reshape(Bl, Sl, d)) if sw else (y,)
 
     def shared(xb, sw):
@@ -675,13 +800,14 @@ def moe_apply(p, x, *, cfg, rules=None):
 
     inner = sw if together else {}
     outs = spmd.local_call(
-        local, mesh, [xl, ws, inner], [xpl, _placements(ws), _placements(inner)], (part, part)[: 1 + together]
+        local, mesh, [xl, ws, inner], [xpl, _placements(ws), _placements(inner)],
+        (part if ep else xpl, part)[: 1 + together],
     )
     out = spmd.to(outs[0], xpl).to(x.dtype)
     if together:
         out = out + spmd.to(outs[1], xpl)
     elif sw:
-        out = out + spmd.local_call(shared, mesh, [xl, sw], [xpl, _placements(sw)], xpl)
+        out = out + spmd.to(spmd.local_call(shared, mesh, [xl, sw], [xpl, _placements(sw)], part if sw_split else xpl), xpl)
     return spmd.to(out, x.placements)
 
 
@@ -736,12 +862,11 @@ def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
     }
 
 
-def _mamba_split(cfg, proj):
-    di, N = cfg.ssm_inner, cfg.ssm_state
-    z = proj[..., :di]
-    xBC = proj[..., di : di + di + 2 * N]
-    dt = proj[..., di + di + 2 * N :]
-    return z, xBC, dt
+def _mamba_split(proj, n: int, P: int, N: int):
+    """``(z, xBC, dt)`` of a projection laid out for ``n`` heads of width
+    P: ``z (nP) | x (nP) | B | C (2N) | dt (n)``."""
+    di = n * P
+    return proj[..., :di], proj[..., di : 2 * di + 2 * N], proj[..., 2 * di + 2 * N :]
 
 
 def _causal_conv(xBC, conv, state=None):
@@ -766,68 +891,227 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
-def _ssm_inputs(p, xBC, dtp, cfg):
-    """The scan's inputs from the conv output and the dt projection, in
-    f32, as the reference builds them: ``(xh, a, Bm, Cm)``, xh the
-    dt-scaled heads and a the log-decay."""
-    di, N = cfg.ssm_inner, cfg.ssm_state
+def _ssm_inputs(hp, xBC, dtp, n: int, P: int, N: int):
+    """The scan's inputs for ``n`` heads from the conv output and the dt
+    projection, in f32, as the reference builds them: ``(xh, a, Bm,
+    Cm)``, xh the dt-scaled heads and a the log-decay; ``hp`` holds those
+    heads' ``A_log`` and ``dt_bias``."""
+    di = n * P
     xs = xBC[..., :di]
     Bm = xBC[..., di : di + N].to(torch.float32)
     Cm = xBC[..., di + N :].to(torch.float32)
-    dt = _softplus(dtp.to(torch.float32) + p["dt_bias"])
-    a = -torch.exp(p["A_log"]) * dt  # <= 0
-    xh = xs.unflatten(-1, (cfg.ssm_heads, cfg.ssm_head_dim)).to(torch.float32) * dt[..., None]
+    dt = _softplus(dtp.to(torch.float32) + hp["dt_bias"])
+    a = -torch.exp(hp["A_log"]) * dt  # <= 0
+    xh = xs.unflatten(-1, (n, P)).to(torch.float32) * dt[..., None]
     return xh, a, Bm, Cm
 
 
-def mamba2_apply(p, x, *, cfg, rules=None):
-    """x: (B, S, d) -> (B, S, d).  On a mesh, each rank runs the block on
-    its batch rows with the weights gathered: the block does no
-    tensor-parallel work (ROADMAP A.10.4), so a "model" axis above 1 under
-    ``"tp"`` raises."""
-    if rules is not None:
-        refuse_model_axis(rules, "the Mamba2 block")
-        return _data_parallel(lambda w, x: mamba2_apply(w, x, cfg=cfg), p, x, rules)
-    B, S, _ = x.shape
-    proj = x @ p["w_in"]
-    z, xBC, dtp = _mamba_split(cfg, proj)
-    xBC, _ = _causal_conv(xBC, p["conv"])
-    xh, a, Bm, Cm = _ssm_inputs(p, xBC, dtp, cfg)
+def _spans_take(t: torch.Tensor, spans, dim: int) -> torch.Tensor:
+    """The ``[lo, hi)`` spans of ``t`` along ``dim``, concatenated (``t``
+    itself when they cover it in order)."""
+    merged = []
+    for lo, hi in spans:
+        if merged and merged[-1][1] == lo:
+            merged[-1] = (merged[-1][0], hi)
+        else:
+            merged.append((lo, hi))
+    if merged == [(0, t.shape[dim])]:
+        return t
+    return torch.cat([t.narrow(dim, lo, hi - lo) for lo, hi in merged], dim=dim)
+
+
+def _head_spans(cfg, lo: int, n: int, with_z: bool):
+    """The columns that heads ``[lo, lo + n)`` read: of ``w_in`` (``z | x |
+    B | C | dt``: their z, x and dt columns and all of B and C) with
+    ``with_z``, else of ``conv`` and the conv tail (``x | B | C``)."""
+    di, N, P = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim
+    a, b = lo * P, (lo + n) * P
+    if not with_z:
+        return [(a, b), (di, di + 2 * N)]
+    dt0 = 2 * di + 2 * N
+    return [(a, b), (di + a, di + b), (2 * di, dt0), (dt0 + lo, dt0 + lo + n)]
+
+
+def _mamba_gated(hp, proj, conv, cfg, dtype):
+    """The block from its projection (laid out for the heads of ``hp``:
+    ``A_log``, ``D`` and ``dt_bias``, and of ``conv``) to the gated
+    output (B, S, nP) in ``dtype``, before the norm."""
+    n, P, N = hp["D"].shape[0], cfg.ssm_head_dim, cfg.ssm_state
+    z, xBC, dtp = _mamba_split(proj, n, P, N)
+    xBC, _ = _causal_conv(xBC, conv)
+    xh, a, Bm, Cm = _ssm_inputs(hp, xBC, dtp, n, P, N)
+    B, S = proj.shape[0], proj.shape[1]
     y = ops.ssd_scan(xh, a, Bm, Cm, chunk=min(cfg.ssd_chunk, S))
-    y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(B, S, cfg.ssm_inner).to(x.dtype)
-    y = y * F.silu(z)
+    y = y + xh * hp["D"][None, None, :, None]
+    y = y.reshape(B, S, n * P).to(dtype)
+    return y * F.silu(z)
+
+
+def mamba2_apply(p, x, *, cfg, rules=None):
+    """x: (B, S, d) -> (B, S, d).
+
+    On a mesh the parameters stay at the reference's placements (``w_in``
+    and ``conv`` on ``ssm_inner`` over their concatenated columns, which a
+    shard cuts across the parts) and the block computes in its own layout:
+    under ``"tp"`` with the SSM heads dividing the "model" axis, each
+    model rank runs ``ssd_scan`` on its H/tp heads over the whole
+    sequence, from ``w_in`` and ``conv`` gathered and cut to its heads'
+    columns (z, x and dt by heads, B and C whole); the gated output is
+    gathered to whole rows for the norm, and ``w_out`` is row-parallel,
+    its partial output reduce-scattered onto ``x``'s sequence slabs.
+    (Gathering the weight, not the projection: a layer's ``w_in`` is
+    smaller than its B x S x (2di + 2N + H) projection at training
+    lengths.)"""
+    if rules is not None:
+        return _mamba2_mesh(p, x, cfg, rules)
+    proj = x @ p["w_in"]
+    y = _mamba_gated(p, proj, p["conv"], cfg, x.dtype)
     y = ops.rmsnorm(y, p["norm"])
     return y @ p["w_out"]
 
 
-def _data_parallel(fn, p, x, rules):
-    """``fn(weights, x)`` on this rank's batch rows, with the weights
-    gathered to every rank (``x`` at ``("batch", None, "embed")``), back at
-    ``x``'s placements."""
+def _ssm_heads(cfg, rules, mesh):
+    """``(lo, n)``: the SSM heads this rank computes.  Where the rules put
+    the heads on "model" (``"tp"``, H divisible by the axis: the state
+    ``h`` is sharded there) each model rank takes its H/tp.  Elsewhere the
+    reference's divisible-or-replicate rule replicates ``h``, and every
+    model rank computes all H heads on gathered weights: the block is
+    data-parallel over "model" by the reference's own placement, not as a
+    fallback."""
+    H, tp = cfg.ssm_heads, spmd.axis_size(mesh, "model")
+    names = tuple(a for a in rules.rules.get("ssm_inner", ()) if a in rules.shape)
+    if names == ("model",) and H % tp == 0:
+        return spmd.axis_rank(mesh, "model") * (H // tp), H // tp
+    return 0, H
+
+
+def _heads_of(w, lo: int, n: int):
+    return {k: w[k][lo : lo + n] for k in ("A_log", "D", "dt_bias")}
+
+
+def _mamba_out(y, rules, p):
+    """The gated output ``y`` (sharded on its heads' columns over "model",
+    or whole) through the norm over whole rows and ``w_out``: row-parallel
+    when ``w_out`` is sharded on ``di`` (partial over "model"), else
+    whole."""
+    mesh = y.device_mesh
+    y = spmd.rows(y)
+    w = weights(rules, {"w_out": p["w_out"]})
+    w["norm"] = spmd.replicate(p["norm"])
+    rows_split = _model_dim(w["w_out"]) == 0
+    k = w["w_out"].shape[0] // spmd.axis_size(mesh, "model") if rows_split else 0
+    lo = spmd.axis_rank(mesh, "model") * k
+
+    def out(y, w):
+        y = ops.rmsnorm(y, w["norm"])
+        if rows_split and k < y.shape[-1]:
+            y = y[..., lo : lo + k]
+        return y @ w["w_out"]
+
+    pl = tuple(y.placements)
+    out_pl = _partial_over_model(pl, mesh) if rows_split else pl
+    return spmd.local_call(out, mesh, [y, w], [pl, _placements(w)], out_pl)
+
+
+def _mamba2_mesh(p, x, cfg, rules):
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    lo, n = _ssm_heads(cfg, rules, mesh)
+    tp = n < cfg.ssm_heads
     h = spmd.constrain(x, rules, ("batch",) + (None,) * (x.dim() - 1))
-    w = {k: spmd.replicate(v) for k, v in p.items()}
-    out = spmd.local_call(fn, x.device_mesh, [w, h], [_placements(w), h.placements], h.placements)
-    return spmd.to(out, x.placements)
+    w = {k: spmd.replicate(p[k]) for k in ("w_in", "conv", "A_log", "D", "dt_bias")}
+    in_spans, conv_spans = _head_spans(cfg, lo, n, True), _head_spans(cfg, lo, n, False)
+
+    def gated(x, w):
+        w_in = _spans_take(w["w_in"], in_spans, 1)
+        conv = _spans_take(w["conv"], conv_spans, 1)
+        return _mamba_gated(_heads_of(w, lo, n), x @ w_in, conv, cfg, x.dtype)
+
+    hp = tuple(h.placements)
+    y_pl = spmd.with_axis(hp, mesh, "model", Shard(2)) if tp else hp
+    y = spmd.local_call(gated, mesh, [h, w], [hp, _placements(w)], y_pl, split=("model",) if tp else ())
+    return spmd.to(_mamba_out(y, rules, p), x.placements)
 
 
-def mamba2_decode(p, x, state, *, cfg):
+def _mamba_step(hp, proj, tail, conv, h, cfg, lo: int, n: int, dtype):
+    """One token of the heads ``[lo, lo + n)`` (``hp``, their state ``h``
+    (B, n, N, P)) from the whole projection ``proj`` (B, 2di + 2N + H) and
+    conv tail (B, K-1, di + 2N): ``(y (B, nP) gated, new h, new whole
+    tail)``.  The conv runs on every channel (a token's worth)."""
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    z, xBC, dtp = _mamba_split(proj[:, None], H, P, N)
+    xBC, new_tail = _causal_conv(xBC, conv, tail)
+    z, xBC, dtp = z[:, 0], xBC[:, 0], dtp[:, 0]
+    if n < H:
+        z = z[:, lo * P : (lo + n) * P]
+        xBC = _spans_take(xBC, _head_spans(cfg, lo, n, False), 1)
+        dtp = dtp[:, lo : lo + n]
+    xh, a, Bm, Cm = _ssm_inputs(hp, xBC, dtp, n, P, N)
+    decay = torch.exp(a)  # (B, n)
+    h = h * decay[..., None, None] + torch.einsum("bn,bhp->bhnp", Bm, xh)
+    y = torch.einsum("bn,bhnp->bhp", Cm, h) + xh * hp["D"][None, :, None]
+    y = y.reshape(y.shape[0], n * P).to(dtype) * F.silu(z)
+    return y, h, new_tail
+
+
+def mamba2_decode(p, x, state, *, cfg, rules=None):
     """One-token recurrent step.  x: (B, d); state: ``{"h": (B, H, N, P)
     f32, "conv": (B, K-1, C)}``.  Returns ``(y, new state)``; the state
     tensors given are not written (the caller copies the new state into
-    its cache)."""
-    B, _ = x.shape
-    proj = x @ p["w_in"]
-    z, xBC, dtp = _mamba_split(cfg, proj[:, None])
-    xBC, conv_state = _causal_conv(xBC, p["conv"], state["conv"])
-    z, xBC, dtp = z[:, 0], xBC[:, 0], dtp[:, 0]
-    xh, a, Bm, Cm = _ssm_inputs(p, xBC, dtp, cfg)
-    decay = torch.exp(a)  # (B, H)
-    h = state["h"] * decay[..., None, None] + torch.einsum("bn,bhp->bhnp", Bm, xh)
-    y = torch.einsum("bn,bhnp->bhp", Cm, h) + xh * p["D"][None, :, None]
-    y = y.reshape(B, cfg.ssm_inner).to(x.dtype) * F.silu(z)
+    its cache).
+
+    On a mesh the state is the cache's, at its placements (``h`` on its
+    heads, the conv tail on its concatenated channels over "model", as
+    ``w_in`` and ``conv`` are), and is written in place: the token's
+    projection is gathered whole (a few KB) and so is the tail, every rank
+    runs the conv on all channels and the recurrence on its heads (all of
+    them where ``h`` is replicated, see :func:`_ssm_heads`), writes its
+    slice of the new tail, and the gated output goes through
+    :func:`_mamba_out`.  Returns ``(y, state)``."""
+    if rules is not None:
+        return _mamba2_decode_mesh(p, x, state, cfg, rules), state
+    H = cfg.ssm_heads
+    y, h, tail = _mamba_step(p, x @ p["w_in"], state["conv"], p["conv"], state["h"], cfg, 0, H, x.dtype)
     y = ops.rmsnorm(y, p["norm"])
-    return y @ p["w_out"], {"h": h, "conv": conv_state}
+    return y @ p["w_out"], {"h": h, "conv": tail}
+
+
+def _mamba2_decode_mesh(p, x, state, cfg, rules):
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    lo, n = _ssm_heads(cfg, rules, mesh)
+    x_pl = tuple(x.placements)
+    x = spmd.rows(x)
+    xp = tuple(x.placements)
+    w_in = weights(rules, {"w_in": p["w_in"]})["w_in"]
+    proj_pl = spmd.with_axis(xp, mesh, "model", Shard(1)) if _model_dim(w_in) == 1 else xp
+    proj = spmd.local_call(lambda x, w: x @ w, mesh, [x, w_in], [xp, tuple(w_in.placements)], proj_pl)
+    proj = spmd.rows(proj)
+    conv_st = state["conv"]
+    tail = spmd.rows(conv_st)
+    C = conv_st.shape[-1]
+    c_n = C // spmd.axis_size(mesh, "model") if _model_dim(conv_st) == 2 else C
+    c_lo = spmd.axis_rank(mesh, "model") * c_n if c_n < C else 0
+    w = {k: spmd.replicate(p[k]) for k in ("conv", "A_log", "D", "dt_bias")}
+
+    def step(proj, tail, w, h_loc, conv_loc):
+        y, h, new_tail = _mamba_step(_heads_of(w, lo, n), proj, tail, w["conv"], h_loc, cfg, lo, n, x.dtype)
+        h_loc.copy_(h)
+        conv_loc.copy_(new_tail[..., c_lo : c_lo + c_n])
+        return y
+
+    pp = tuple(proj.placements)
+    y_pl = spmd.with_axis(pp, mesh, "model", Shard(1)) if n < cfg.ssm_heads else pp
+    y = spmd.local_call(
+        step,
+        mesh,
+        [proj, tail, w, state["h"], conv_st],
+        [pp, tuple(tail.placements), _placements(w), tuple(state["h"].placements), tuple(conv_st.placements)],
+        y_pl,
+    )
+    return spmd.to(_mamba_out(y, rules, p), x_pl)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,9 @@ batch and cache are DTensors and every layer runs sharded
 (``layers.py``): between layers the residual stream is sharded on the
 sequence over "model" (the reference's ``seq_act``), gathered before
 attention and the MLP and reduce-scattered out of ``wo`` and ``w_down``,
-so remat keeps only the slab.  The SSM and hybrid families run on a mesh
-whose "model" axis does no tensor-parallel work (ROADMAP A.10.4).
+so remat keeps only the slab.  The Mamba2 layers of the SSM and hybrid
+families run on their SSM heads over "model" (``layers.mamba2_apply``),
+and the hybrid family's shared block takes the dense layer's path.
 """
 
 from __future__ import annotations
@@ -145,12 +146,6 @@ def _shared_attn_apply(cfg, sp, x, positions, rules=None):
     return _dense_layer_apply(cfg, sp, x, positions, rules)
 
 
-def check_mesh(cfg, rules) -> None:
-    """A.10.4: the SSM and hybrid families do no tensor-parallel work."""
-    if cfg.family in ("ssm", "hybrid"):
-        L.refuse_model_axis(rules, f"the {cfg.family} family")
-
-
 SEQ_ACT = ("batch", "seq_act", "embed")
 
 
@@ -173,7 +168,6 @@ def hidden_states(cfg, params, x, positions, rules=None):
     checkpointed here either; its gradient is the sum over its
     applications."""
     check_family(cfg)
-    check_mesh(cfg, rules)
     ssm = cfg.family in ("ssm", "hybrid")
     layer = _ssm_layer_apply if ssm else _dense_layer_apply
     layers = _unstack(params["layers"], cfg.n_layers)
@@ -208,7 +202,6 @@ def forward(cfg, params, batch, rules=None):
     frontend rows too), the loss is a replicated DTensor and the logits
     are sharded on the vocabulary over "model" (``"tp"``)."""
     check_family(cfg)
-    check_mesh(cfg, rules)
     x = L.embed_apply(params["embed"], batch["tokens"], rules=rules)
     x = spmd.constrain(x, rules, ("batch", None, "embed"))
     nf = cfg.n_frontend_tokens
@@ -283,27 +276,14 @@ def _layer(tree, i: int):
 
 def _ssm_layer_decode(cfg, lp, cache, i: int, h, rules=None):
     """Mamba2 layer ``i``'s step; its ``h`` and ``conv`` state in
-    ``cache`` are overwritten in place (on a mesh, in this rank's batch
-    rows, with the weights gathered)."""
+    ``cache`` are overwritten in place (on a mesh, each rank's shards of
+    them, by ``layers.mamba2_decode``)."""
     hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
     state = _layer({"h": cache["h"], "conv": cache["conv"]}, i)
-
-    def step(w, x, st):
-        y, new = L.mamba2_decode(w, x, st, cfg=cfg)
-        st["h"].copy_(new["h"])
-        st["conv"].copy_(new["conv"])
-        return y
-
+    y, new = L.mamba2_decode(lp["mamba"], hn, state, cfg=cfg, rules=rules)
     if rules is None:
-        return h + step(lp["mamba"], hn, state)
-    w = {k: spmd.replicate(v) for k, v in lp["mamba"].items()}
-    y = spmd.local_call(
-        step,
-        h.device_mesh,
-        [w, hn, state],
-        [L._placements(w), tuple(hn.placements), L._placements(state)],
-        tuple(hn.placements),
-    )
+        state["h"].copy_(new["h"])
+        state["conv"].copy_(new["conv"])
     return h + y
 
 
@@ -336,7 +316,6 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor, rul
     is written in place) and the logits come back sharded on the
     vocabulary."""
     check_family(cfg)
-    check_mesh(cfg, rules)
     h = L.embed_apply(params["embed"], tokens, rules=rules)  # (B, d)
     h = spmd.constrain(h, rules, ("batch", "embed"))
 

@@ -115,19 +115,19 @@ def replicate(x):
     return to(x, (Replicate(),) * x.device_mesh.ndim)
 
 
-def _grad_placements(mine: tuple, others: Sequence[tuple]) -> tuple:
+def _grad_placements(mine: tuple, others: Sequence[tuple], split: Sequence[int] = ()) -> tuple:
     from torch.distributed.tensor import Partial
 
     out = []
     for i, p in enumerate(mine):
-        if p.is_replicate() and any(o[i].is_shard() for o in others):
+        if p.is_replicate() and (i in split or any(o[i].is_shard() for o in others)):
             out.append(Partial())
         else:
             out.append(p)
     return tuple(out)
 
 
-def local_call(fn: Callable, mesh, args: Sequence, expect: Sequence, out) -> Any:
+def local_call(fn: Callable, mesh, args: Sequence, expect: Sequence, out, split: Sequence[str] = ()) -> Any:
     """Run ``fn`` on this rank's shards: the port's ``shard_map``.
 
     ``args`` are DTensors, nested dicts of them, or plain values passed
@@ -135,8 +135,14 @@ def local_call(fn: Callable, mesh, args: Sequence, expect: Sequence, out) -> Any
     of them for a dict argument; None for a plain value).  An argument at
     other placements raises: the caller redistributes first.  ``out``
     gives the placements of ``fn``'s result (a tuple of them for a tuple
-    of results); the results are wrapped with ``DTensor.from_local``."""
+    of results); the results are wrapped with ``DTensor.from_local``.
+    ``split`` names the mesh axes over which ``fn`` computes only its
+    rank's part of the work from replicated inputs (say, its share of the
+    heads): every input replicated there gets a ``Partial`` gradient on
+    them, even when no input is sharded there."""
     from torch.distributed.tensor import DTensor
+
+    split_dims = [i for i in (dim_index(mesh, a) for a in split) if i is not None]
 
     flat = []  # (placements) of every DTensor input, for the gradient rule
 
@@ -164,7 +170,7 @@ def local_call(fn: Callable, mesh, args: Sequence, expect: Sequence, out) -> Any
             mine = tuple(a.placements)
             others = list(flat)
             others.remove(mine)
-            return a.to_local(grad_placements=_grad_placements(mine, others))
+            return a.to_local(grad_placements=_grad_placements(mine, others, split_dims))
         return a
 
     result = fn(*[localize(a) for a in args])

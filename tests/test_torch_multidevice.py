@@ -230,6 +230,27 @@ def test_cross_device_merge_numerics(worlds, case):
         assert same_bits(got["acc"], (total % 2**32).astype(np.uint32))
 
 
+def test_counted_cost_of_a_sharded_launch(worlds):
+    """``costmodel.estimate(mode="xla")`` of vec_madd's sharded launch on
+    4 gloo ranks no longer falls back to the static walk: it is counted
+    (``source == "xla"``), and ``coll_estimate`` is the result bytes of
+    the launch's one merge, the ``all_gather`` of every rank's packed
+    copy (41,024 bytes: 4 ranks x 10,256), the same on every rank and
+    what the launch itself gathers.  The reference's record of the same
+    launch on 4 XLA host devices says 0: its merge is a ``psum``, and its
+    record takes ``coll_estimate`` from the HLO parse only where XLA's
+    cost analysis comes back empty, which it does not here.  The two
+    differ by design (ROADMAP C.3)."""
+    d, failures = worlds[4]
+    assert not failures, "\n".join(failures)
+    ports = [dict(np.load(d / f"coll_cost.rank{r}.npz")) for r in range(4)]
+    ref = dict(np.load(d / "coll_cost.ref.npz"))
+    for p in ports:
+        assert str(p["source"]) == "xla" and float(p["ops"]) > 0
+        assert float(p["coll"]) == float(p["gathered"]) == 41024.0
+    assert str(ref["source"]) == "xla" and float(ref["coll"]) == 0.0
+
+
 @pytest.mark.parametrize("grid,ndev,chunk", [(8, 8, 8), (10, 4, 2), (10, 4, 3), (3, 8, 1), (100, 3, 8), (7, 2, 4)])
 def test_device_bid_table_matches_reference(grid, ndev, chunk):
     """The round-robin-contiguous deal and the per-device grid-stride

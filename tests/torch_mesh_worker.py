@@ -16,7 +16,14 @@ World 8, mesh (2, 4): the expert-parallel MoE (``test_multidevice.py``
 server on (1, 2) and (2, 2) with a prompt that crosses a slab boundary, a
 mamba2 train step on (2, 1), a checkpoint saved on (2, 2) and restored on
 (1, 2) and without a mesh, and the collectives of one dense layer and one
-decode step on (1, 2).
+decode step on (1, 2).  The SSM, hybrid and encoder-decoder families
+under "tp": in world 8, f32 decode steps of mamba2 on (1, 2), (1, 4) and
+a "model" axis of 3 on which some Mamba2 leaves shard and others
+replicate (``MIXED``), zamba2 on (1, 2) and seamless on (1, 2) and
+(2, 2); in world 4, train steps of all three on (2, 2) and of the mixed
+mamba2 on (1, 3), the server on (1, 2) for mamba2 and seamless, their
+checkpoints saved on (2, 2) and restored on (1, 2) and without a mesh,
+and deepseek's MoE with its experts replicated on (1, 3).
 """
 
 import argparse
@@ -35,6 +42,7 @@ for p in (str(ROOT / "src"), str(ROOT)):
 
 QWEN = "qwen2.5-14b-smoke"
 MOE = "granite-moe-1b-a400m-smoke"  # 4 experts
+MOE_SHARED = "deepseek-moe-16b-smoke"  # 4 experts and a shared one
 MAMBA = "mamba2-130m-smoke"
 TRAIN_SHAPE = ("t", 64, 4, "train")  # test_multidevice.py:106
 OPT = dict(lr=1e-2, warmup_steps=0, eps=1e-2)  # smooth first steps (ROADMAP C.4)
@@ -42,6 +50,28 @@ SERVE = dict(batch=4, ctx=24)
 PROMPTS = [list(range(5, 19)), [1, 2], [40, 41, 42]]  # 14 tokens cross the slab at 12
 DECODE_TOKENS = 8
 MOE_X = (4, 8)  # (B, S) of test_multidevice.py:85
+ZAMBA = "zamba2-1.2b-smoke"
+SEAMLESS = "seamless-m4t-large-v2-smoke"
+# on a "model" axis of 3: w_in (230 columns) and conv (128) replicated,
+# the 6 SSM heads (h), norm and w_out (96) sharded
+MIXED = dict(d_model=48, ssm_inner=96, ssm_heads=6)
+DECODE = dict(batch=4, ctx=24, tokens=[3, 4, 5, 6], pos=[0, 5, 13, 23])
+# (case, arch, mesh, config overrides)
+DECODE_CASES = [
+    ("dec_mamba_12", MAMBA, (1, 2), {}),
+    ("dec_mamba_14", MAMBA, (1, 4), {}),
+    ("dec_mamba_13", MAMBA, (1, 3), MIXED),
+    ("dec_zamba_12", ZAMBA, (1, 2), {}),
+    ("dec_seamless_12", SEAMLESS, (1, 2), {}),
+    ("dec_seamless_22", SEAMLESS, (2, 2), {}),
+]
+TP_TRAIN_CASES = [
+    ("ttp_mamba", MAMBA, (2, 2), {}),
+    ("ttp_zamba", ZAMBA, (2, 2), {}),
+    ("ttp_seamless", SEAMLESS, (2, 2), {}),
+    ("ttp_mamba_13", MAMBA, (1, 3), MIXED),
+]
+TP_SERVE_CASES = [("serve_mamba_12", MAMBA, (1, 2)), ("serve_seamless_12", SEAMLESS, (1, 2))]
 
 
 def _leaves(tree, path=()):
@@ -101,10 +131,37 @@ def ref_main(devices: int, out: pathlib.Path) -> None:
     assert len(jax.devices()) == devices
 
     def mesh(shape):
-        return jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+        n = shape[0] * shape[1]
+        devs = np.array(jax.devices()[:n]).reshape(shape)
+        return jax.sharding.Mesh(devs, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
 
     def f32(arch, **kw):
         return dataclasses.replace(registry.get(arch), param_dtype=jnp.float32, **kw)
+
+    def train(case, cfg, m, strategy="tp", compress=False):
+        shape = ShapeConfig(*TRAIN_SHAPE)
+        opt_cfg = adamw.AdamWConfig(grad_compress=compress, **OPT)
+        jitted, bundle, _ = steps.jit_train_step(cfg, m, shape, opt_cfg=opt_cfg, strategy=strategy)
+        params = jax.device_put(
+            jax.tree_util.tree_map(jnp.asarray, weights(bundle["specs"], 0)), bundle["param_sh"]
+        )
+        opt = jax.device_put(adamw.init_state(params, opt_cfg), bundle["opt_sh"])
+        batch = {k: jnp.asarray(v) for k, v in TokenSource(cfg, shape, DataConfig()).batch_at(0).items()}
+        params, opt, metrics = jitted(params, opt, batch)
+        np.savez(
+            out / f"{case}.ref.npz",
+            loss=np.asarray(metrics["loss"]),
+            grad_norm=np.asarray(metrics["grad_norm"]),
+            **flat(jax.tree_util.tree_map(np.asarray, params), "p/"),
+        )
+
+    def serve_tokens(arch, cfg, m):
+        params = jax.tree_util.tree_map(jnp.asarray, weights(steps.model_specs(cfg), 3))
+        server = serve.BatchedServer(arch, mesh=m, params=params, **SERVE)
+        for slot, prompt in enumerate(PROMPTS):
+            server.prefill_prompt(slot, prompt)
+        outs = server.decode(DECODE_TOKENS)
+        return np.array([o + [-1] * (DECODE_TOKENS - len(o)) for o in outs])
 
     if devices == 8:
         m = mesh((2, 4))
@@ -115,32 +172,30 @@ def ref_main(devices: int, out: pathlib.Path) -> None:
             got = L.moe_apply(p, x, cfg=cfg, rules=default_rules(m))
             np.savez(out / f"{case}.ref.npz", y=np.asarray(got))
         for case, strategy, compress in (("train_tp", "tp", False), ("train_fsdp", "fsdp", False), ("train_compress", "tp", True)):
-            cfg = f32(QWEN)
-            shape = ShapeConfig(*TRAIN_SHAPE)
-            opt_cfg = adamw.AdamWConfig(grad_compress=compress, **OPT)
-            jitted, bundle, _ = steps.jit_train_step(cfg, m, shape, opt_cfg=opt_cfg, strategy=strategy)
-            params = jax.device_put(
-                jax.tree_util.tree_map(jnp.asarray, weights(bundle["specs"], 0)), bundle["param_sh"]
-            )
-            opt = jax.device_put(adamw.init_state(params, opt_cfg), bundle["opt_sh"])
-            batch = {k: jnp.asarray(v) for k, v in TokenSource(cfg, shape, DataConfig()).batch_at(0).items()}
-            params, opt, metrics = jitted(params, opt, batch)
-            np.savez(
-                out / f"{case}.ref.npz",
-                loss=np.asarray(metrics["loss"]),
-                grad_norm=np.asarray(metrics["grad_norm"]),
-                **flat(jax.tree_util.tree_map(np.asarray, params), "p/"),
-            )
+            train(case, f32(QWEN), m, strategy, compress)
+        from repro.launch import specs as S
+        from repro.models import encdec, lm
+
+        for case, arch, shape, over in DECODE_CASES:
+            m = mesh(shape)
+            _, bundle = steps.make_serve_step(f32(arch, **over), m)
+            cfg, rules = steps._with_tp_pad(f32(arch, **over), m), bundle["rules"]
+            params = jax.device_put(jax.tree_util.tree_map(jnp.asarray, weights(bundle["specs"], 3)), bundle["param_sh"])
+            tree = S.cache_spec_tree(cfg, ShapeConfig("d", DECODE["ctx"], DECODE["batch"], "decode"))
+            cache = jax.device_put(jax.tree_util.tree_map(jnp.asarray, weights(tree, 9)), rules.tree_shardings(tree))
+            dec = encdec.decode_step if cfg.family == "encdec" else lm.decode_step
+            fn = jax.jit(lambda p, c, t, q: dec(cfg, p, c, t, q, rules=rules, backend="xla"))
+            tok, pos = (jnp.asarray(DECODE[k], jnp.int32) for k in ("tokens", "pos"))
+            logits, cache = fn(params, cache, tok, pos)
+            np.savez(out / f"{case}.ref.npz", logits=np.asarray(logits), **flat(jax.tree_util.tree_map(np.asarray, cache), "c/"))
     else:
         for case, shape in (("serve_12", (1, 2)), ("serve_22", (2, 2))):
             cfg = f32(QWEN, tp_pad=shape[1] if shape[1] > 1 else 0)
-            specs = steps.model_specs(cfg)
-            params = jax.tree_util.tree_map(jnp.asarray, weights(specs, 3))
-            server = serve.BatchedServer(QWEN, mesh=mesh(shape), params=params, **SERVE)
-            for slot, prompt in enumerate(PROMPTS):
-                server.prefill_prompt(slot, prompt)
-            outs = server.decode(DECODE_TOKENS)
-            np.savez(out / f"{case}.ref.npz", tokens=np.array([o + [-1] * (DECODE_TOKENS - len(o)) for o in outs]))
+            np.savez(out / f"{case}.ref.npz", tokens=serve_tokens(QWEN, cfg, mesh(shape)))
+        for case, arch, shape, over in TP_TRAIN_CASES:
+            train(case, f32(arch, **over), mesh(shape))
+        for case, arch, shape in TP_SERVE_CASES:
+            np.savez(out / f"{case}.ref.npz", tokens=serve_tokens(arch, f32(arch, tp_pad=shape[1]), mesh(shape)))
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +271,39 @@ def _moe_case(cf):
     return run
 
 
-def _train_case(strategy, compress=False, arch=QWEN, shape=(2, 4)):
+def _moe_replicated_case(mesh, rank):
+    """deepseek's MoE block (4 experts, 1 shared) on (1, 3), where the
+    experts do not divide "model" and the rules replicate them (the shared
+    experts shard): its output and every weight's gradient
+    against the local path (the expert products' gradients whole, not
+    summed over the model ranks)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import default_rules, shard_full, tree_map
+
+    m = mesh((1, 3))
+    if m is None:
+        return None
+    cfg = _pcfg(MOE_SHARED)
+    rules = default_rules(m)
+    specs = L.moe_specs(cfg)
+    w = weights(specs, 1)
+    p = tree_map(lambda t, s: shard_full(t, m, rules.placements(s)).requires_grad_(True), _tensors(w), specs)
+    x = _tensors({"x": moe_x(cfg)})["x"]
+    y = L.moe_apply(p, shard_full(x, m, rules.placements_for(x.shape, ("batch", None, "embed"))), cfg=cfg, rules=rules)
+    (y.to_local() * y.to_local()).sum().backward()
+    local = tree_map(lambda t: t.requires_grad_(True), _tensors(w))
+    y0 = L.moe_apply(local, x, cfg=cfg)
+    (y0 * y0).sum().backward()
+    res = {"y": y.full_tensor().detach().numpy(), "y0": y0.detach().numpy()}
+    res.update(flat(tree_map(lambda t: t.grad.full_tensor().numpy(), p), "g/"))
+    res.update(flat(tree_map(lambda t: t.grad.numpy(), local), "g0/"))
+    res["experts_placement"] = np.array(str(tuple(p["w_gate"].placements)))
+    return res
+
+
+def _train_case(strategy, compress=False, arch=QWEN, shape=(2, 4), over=None):
     def run(mesh, rank):
         from repro_torch.configs.base import ShapeConfig
         from repro_torch.data.pipeline import DataConfig, TokenSource
@@ -229,7 +316,7 @@ def _train_case(strategy, compress=False, arch=QWEN, shape=(2, 4)):
         m = mesh(shape)
         if m is None:
             return None
-        cfg = _pcfg(arch)
+        cfg = _pcfg(arch, **(over or {}))
         sh = ShapeConfig(*TRAIN_SHAPE)
         opt_cfg = adamw.AdamWConfig(grad_compress=compress, **OPT)
         step, bundle, _ = steps.jit_train_step(cfg, m, sh, opt_cfg, strategy=strategy)
@@ -238,6 +325,10 @@ def _train_case(strategy, compress=False, arch=QWEN, shape=(2, 4)):
         opt = adamw.init_state(params, opt_cfg, bundle["opt_sh"]["m"])
         b = TokenSource(bundle["cfg"], sh, DataConfig()).batch_at(0)
         params, opt, metrics = step(params, opt, place_batch(b, bundle["batch_sh"], "cpu"))
+        # every leaf, moment and gradient back at its logical placement
+        # (the moments at ZeRO-1's, the gradients redistributed there)
+        tree_map(lambda t, sh: _same_placements(t, sh), params, bundle["param_sh"])
+        tree_map(lambda t, sh: _same_placements(t, sh), opt["m"], bundle["opt_sh"]["m"])
         full = carry.gather_params(params)
         # the same step without a mesh, on the same (padded) config
         step0, _ = steps.make_train_step(bundle["cfg"], opt_cfg)
@@ -248,12 +339,60 @@ def _train_case(strategy, compress=False, arch=QWEN, shape=(2, 4)):
         res.update(flat(tree_map(lambda t: t.numpy(), full), "p/"))
         res.update(flat(tree_map(lambda t: t.numpy(), p0), "p0/"))
         res.update(flat(w, "w/"))
+        res["zero1_data_shards"] = np.array(
+            sum(any(p.is_shard() for p in t.placements[:1]) for t in _leaves_of(opt["m"]))
+        )
         return res
 
     return run
 
 
-def _serve_case(shape):
+def _same_placements(t, sh) -> None:
+    if tuple(t.placements) != tuple(sh.placements):
+        raise AssertionError(f"placements {tuple(t.placements)}, expected {tuple(sh.placements)}")
+
+
+def _leaves_of(tree):
+    return [t for _, t in _leaves(tree)]
+
+
+def _decode_case(arch, shape, over):
+    """One f32 decode step over a random cache on ``shape`` (logits and
+    every cache leaf after it) and the same step without a mesh."""
+
+    def run(mesh, rank):
+        import torch
+
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import specs as S
+        from repro_torch.models import carry, encdec, lm
+        from repro_torch.models.params import shard_full, tree_map
+        from repro_torch.parallel import steps
+
+        m = mesh(shape)
+        if m is None:
+            return None
+        _, bundle = steps.make_serve_step(_pcfg(arch, **over), mesh=m)
+        cfg, rules = bundle["cfg"], bundle["rules"]
+        w = _tensors(weights(bundle["specs"], 3))
+        tree = S.cache_spec_tree(cfg, ShapeConfig("d", DECODE["ctx"], DECODE["batch"], "decode"))
+        cache_np = weights(tree, 9)
+        cache = {k: shard_full(torch.from_numpy(v.copy()), m, rules.placements(tree[k])) for k, v in cache_np.items()}
+        tok, pos = (torch.tensor(DECODE[k], dtype=torch.int32) for k in ("tokens", "pos"))
+        bpl = rules.placements_for(tuple(tok.shape), ("batch",))
+        dec = encdec.decode_step if cfg.family == "encdec" else lm.decode_step
+        logits, cache = dec(cfg, carry.shard_params(w, bundle), cache, shard_full(tok, m, bpl), shard_full(pos, m, bpl), rules=rules)
+        res = {"logits": logits.full_tensor().numpy()}
+        res.update(flat(tree_map(lambda t: t.full_tensor().numpy(), cache), "c/"))
+        plain, cache0 = dec(cfg, w, _tensors(cache_np), tok, pos)
+        res["logits0"] = plain.numpy()
+        res.update(flat(tree_map(lambda t: t.numpy(), cache0), "c0/"))
+        return res
+
+    return run
+
+
+def _serve_case(shape, arch=QWEN):
     def run(mesh, rank):
         from repro_torch.launch.serve import BatchedServer
         from repro_torch.parallel import steps
@@ -261,7 +400,7 @@ def _serve_case(shape):
         m = mesh(shape)
         if m is None:
             return None
-        cfg = _pcfg(QWEN)
+        cfg = _pcfg(arch)
         _, bundle = steps.make_serve_step(cfg, mesh=m)
         w = weights(bundle["specs"], 3)
         res = {}
@@ -271,19 +410,20 @@ def _serve_case(shape):
                 server.prefill_prompt(slot, prompt)
             outs = server.decode(DECODE_TOKENS)
             res[what] = np.array([o + [-1] * (DECODE_TOKENS - len(o)) for o in outs])
+            leaf = "h" if "h" in server.cache else "k"
             if what == "mesh":
-                res["k"] = server.cache["k"].full_tensor().numpy()
+                res["k"] = server.cache[leaf].full_tensor().numpy()
             else:
-                res["k_plain"] = server.cache["k"].numpy()
+                res["k_plain"] = server.cache[leaf].numpy()
         return res
 
     return run
 
 
-def _ckpt_case(mesh, rank):
-    """Train one step on (2, 2), save; restore onto (1, 2) and without a
-    mesh; every rank's restored logical arrays are compared on rank 0."""
-    import torch
+def _ckpt_case(mesh, rank, arch=QWEN, sub="ckpt"):
+    """Train one step of ``arch`` on (2, 2), save; restore onto (1, 2) and
+    without a mesh; every rank's restored logical arrays are compared on
+    rank 0."""
 
     from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.configs.base import ShapeConfig
@@ -294,8 +434,8 @@ def _ckpt_case(mesh, rank):
     from repro_torch.optim import adamw
     from repro_torch.parallel import steps
 
-    out_dir = pathlib.Path(CKPT_DIR)
-    cfg = _pcfg(QWEN)
+    out_dir = pathlib.Path(CKPT_DIR).with_name(sub)
+    cfg = _pcfg(arch)
     sh = ShapeConfig(*TRAIN_SHAPE)
     opt_cfg = adamw.AdamWConfig(**OPT)
     m22, m12 = mesh((2, 2)), mesh((1, 2))
@@ -315,7 +455,8 @@ def _ckpt_case(mesh, rank):
         placed = tree_map(lambda t: str(tuple(t.placements)) if hasattr(t, "placements") else "plain", got)
         got = carry.gather_params(got)
         res.update(flat(tree_map(lambda t: t.numpy(), got), "r12/"))
-        res["placements_wq"] = np.array(placed["params"]["layers"]["attn"]["wq"])
+        lp = placed["params"]["layers" if "layers" in placed["params"] else "dec_layers"]
+        res["placements_wq"] = np.array(lp["mamba"]["w_in"] if "mamba" in lp else lp["attn"]["wq"])
     plain = mgr.restore(0, like, "cpu")
     res.update(flat(tree_map(lambda t: t.numpy(), plain), "r0/"))
     res.update(flat(tree_map(lambda t: t.numpy(), saved), "saved/"))
@@ -396,6 +537,7 @@ CASES_8 = [
     ("train_tp", _train_case("tp")),
     ("train_fsdp", _train_case("fsdp")),
     ("train_compress", _train_case("tp", compress=True)),
+    *((c, _decode_case(a, sh, o)) for c, a, sh, o in DECODE_CASES),
 ]
 CASES_4 = [
     ("serve_12", _serve_case((1, 2))),
@@ -406,6 +548,11 @@ CASES_4 = [
     ("drill", _drill_case),
     ("train_encdec", _train_case("tp", arch="seamless-m4t-large-v2-smoke", shape=(2, 1))),
     ("train_hybrid", _train_case("fsdp", arch="zamba2-1.2b-smoke", shape=(2, 2))),
+    *((c, _train_case("tp", arch=a, shape=sh, over=o)) for c, a, sh, o in TP_TRAIN_CASES),
+    *((c, _serve_case(sh, a)) for c, a, sh in TP_SERVE_CASES),
+    ("moe_replicated", _moe_replicated_case),
+    ("ckpt_mamba", lambda mesh, rank: _ckpt_case(mesh, rank, MAMBA, "ckpt_mamba")),
+    ("ckpt_seamless", lambda mesh, rank: _ckpt_case(mesh, rank, SEAMLESS, "ckpt_seamless")),
 ]
 # the same (1, 2) train step with every collective staged through host
 # copies (``parallel/host_staged.py``, the path of gloo ranks on a card)

@@ -185,6 +185,12 @@ def run_ref(ndev: int, out_dir: pathlib.Path) -> None:
         _save(out_dir, f"{case}.single.npz", single)
     if ndev == 4:
         _save(out_dir, "pool.ref.npz", ref_pool(cox, ks["vec_madd"]))
+        from repro.core import costmodel
+
+        kname, grid, block, args, _ = case_args("vec_madd")
+        req = ks[kname].make_request(grid=grid, block=block, args=args, mesh=mesh, backend="sharded")
+        est = costmodel.estimate_request(req, mode="xla")
+        _save(out_dir, "coll_cost.ref.npz", {"coll": est.coll_estimate, "source": est.source})
 
 
 def ref_pool(cox, k):
@@ -252,9 +258,37 @@ def run_rank(rank: int, world: int, out_dir: pathlib.Path) -> None:
             kname, grid, block, args, knobs = case_args(case)
             got = ks[kname].launch(grid=grid, block=block, args=args, mesh=mesh, **knobs)
             _save(out_dir, f"{case}.rank{rank}.npz", {k: v.numpy() for k, v in got.items()})
+        if world == 4:
+            _save(out_dir, f"coll_cost.rank{rank}.npz", coll_cost(ks, mesh))
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def coll_cost(ks, mesh) -> dict:
+    """The counted cost record of vec_madd's sharded launch (every rank
+    estimates, as every rank launches), and the result bytes of the
+    ``all_gather`` calls of the launch itself."""
+    import torch.distributed as dist
+
+    from repro_torch.core import costmodel
+
+    kname, grid, block, args, _ = case_args("vec_madd")
+    req = ks[kname].make_request(grid=grid, block=block, args=args, mesh=mesh, backend="sharded")
+    est = costmodel.estimate_request(req, mode="xla")
+    seen = []
+    real = dist.all_gather
+
+    def spy(outs, t, *a, **k):
+        seen.append(sum(o.numel() * o.element_size() for o in outs))
+        return real(outs, t, *a, **k)
+
+    dist.all_gather = spy
+    try:
+        ks[kname].launch(grid=grid, block=block, args=args, mesh=mesh)
+    finally:
+        dist.all_gather = real
+    return {"coll": est.coll_estimate, "source": est.source, "ops": est.op_estimate, "gathered": sum(seen)}
 
 
 def main(argv=None) -> int:
