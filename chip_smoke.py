@@ -104,9 +104,27 @@ and one train step of qwen2.5-14b and of mamba2-130m (device busy and
 idle time, kernels by name), and holds each serving path (full width, 2 layers, f32) and one
 train step of each (full width, 1 layer, f32) on the card against the
 same on the CPU; the MoE checks compare the router's top-k first (a
-choice may flip only on a near tie, counted and printed).  Each model's
-phases free its weights before the next model's start.  Each phase
-prints one JSON line; the last line is
+choice may flip only on a near tie, counted and printed).  Last, with
+TF32 still off, three more main paths, each counted alone:
+
+- ``examples``: the port's seven examples (``examples/torch_*.py``) through their
+  ``main`` on the card: quickstart, cuda_migration, the three-way softmax
+  (the softmax kernel), graph_replay, streams_overlap, the serving example
+  on mamba2-130m at full width and depth (rmsnorm) and the training
+  example on it with a checkpoint every 2 steps (ssd_scan, rmsnorm and
+  their backwards);
+- ``arch_smoke``: tests/test_arch_smoke.py at published widths: every registered model
+  (yi-34b and granite-34b among them) cut to 2 layers in bf16, one forward
+  and one decode step each (rmsnorm, layernorm, flash_attention,
+  ssd_scan, flash_decode), then decode against forward in f32 for
+  qwen2.5-14b and mamba2-130m;
+- ``granite_moe``: granite-moe-1b-a400m (32 experts, top 8, no shared expert) served at
+  full width and depth in bf16, and its f32 decode and train
+  cross-checks (rmsnorm, flash_decode, flash_attention and their
+  backwards).
+
+Each model's phases free its weights before the next model's start.
+Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and fails without one, and imports neither ``jax``
@@ -118,6 +136,7 @@ import atexit
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import os
@@ -293,6 +312,22 @@ ENCDEC_TRAIN = dict(
 # the checkpoint drill: train() with a checkpoint every 2 steps and a
 # failure before step 4, against the same run uninterrupted
 CKPT_DRILL = dict(batch=2, seq=256, steps=6, seed=0, ckpt_every=2, fail_at=4)
+# the port's examples (examples/torch_*.py) on the card: the serving
+# example on mamba2-130m at full width and depth, the training example on
+# it with a checkpoint every 2 steps
+EXAMPLE_SERVE = dict(arch=SSM_ARCH, batch=4, ctx=128, n_requests=4, max_tokens=24)
+EXAMPLE_TRAIN = dict(arch=SSM_ARCH, steps=6, batch=8, seq=256, ckpt_every=2)
+# tests/test_arch_smoke.py at published widths: every registered model cut
+# to 2 layers (2 + 2), bf16, one forward of B 2 x S 32 and one decode step
+# at B 2 over a cache of 64 rows; then decode against forward over 8
+# tokens in f32 for the dense and SSM models
+ARCH_SMOKE = dict(n_layers=2, batch=2, seq=32, ctx=64, enc_len=16, pos=[3, 7])
+ARCH_SMOKE_DECODE = dict(archs=(ARCH, SSM_ARCH), tokens=8, rtol=2e-2)
+# granite-moe-1b-a400m (24 layers, d 1,024, 16/8 heads of 64, 32 experts
+# of 512, top 8, no shared expert, vocabulary 49,155 padded to 49,408):
+# served at full width and depth in bf16, then the f32 cross-checks
+GRANITE_MOE_ARCH = "granite-moe-1b-a400m"
+GRANITE_MOE_SERVE = dict(batch=4, ctx=128, n_requests=4, max_tokens=16, seed=0)
 # a phase's name: the model's prefix and the phase, e.g. granite_serve
 PHASE_PREFIX = {
     ARCH: "",
@@ -302,6 +337,7 @@ PHASE_PREFIX = {
     MOE_ARCH: "moe_",
     VLM_ARCH: "vlm_",
     ENCDEC_ARCH: "encdec_",
+    GRANITE_MOE_ARCH: "granite_moe_",
 }
 
 
@@ -999,12 +1035,12 @@ def host_us_per_call(fn, calls: int = 300) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def serve_cache_bytes(cfg) -> int:
+def serve_cache_bytes(cfg, run: dict = SERVE) -> int:
     """The cache bytes a decode step moves: every K/V row read (the
     attention layers' caches, the hybrid's rings, the encoder-decoder's
     cross memory), and the recurrent state read and written (SSM
     layers)."""
-    shape = ShapeConfig("serve", SERVE["ctx"], SERVE["batch"], "decode")
+    shape = ShapeConfig("serve", run["ctx"], run["batch"], "decode")
     specs = launch_specs.cache_spec_tree(cfg, shape)
     nbytes = {k: math.prod(s.shape) * s.dtype.itemsize for k, s in specs.items()}
     return sum(n if k in ("k", "v", "xk", "xv") else 2 * n for k, n in nbytes.items())
@@ -1051,22 +1087,47 @@ def expert_params(cfg) -> int:
     return 3 * cfg.d_model * (cfg.d_expert or cfg.d_ff)
 
 
-def phase_serve(cpu_tokens: int, arch=ARCH, cuts: str = "none") -> dict:
+@contextlib.contextmanager
+def served_tokens():
+    """The next tokens of every decode step of every ``BatchedServer``
+    inside the block (every slot's, active or not), as host arrays."""
+    seen, plain = [], serve.BatchedServer._step_all
+
+    def record(self):
+        nxt = plain(self)
+        seen.append(nxt.copy())
+        return nxt
+
+    serve.BatchedServer._step_all = record
+    try:
+        yield seen
+    finally:
+        serve.BatchedServer._step_all = plain
+
+
+def phase_serve(cpu_tokens: int, arch=ARCH, cuts: str = "none", run: dict = SERVE) -> dict:
     """A main path's serving part: serve_requests through the port's
     BatchedServer at full width and depth in bf16 (``arch`` a registry
-    name, or a config with its depth cut, as ``cuts`` says)."""
+    name, or a config with its depth cut, as ``cuts`` says), with the
+    requests of ``run``.  No served token may index a padded column of
+    the vocabulary (``round_up(vocab, 256)``).  A MoE model's dropped
+    share of its (token, choice) pairs is recorded."""
     cfg = registry.get(arch) if isinstance(arch, str) else arch
     name = phase_name(cfg, "serve")
     torch.cuda.reset_peak_memory_stats()
     before = ops.launch_counts()
+    moe = cfg.family == "moe"
     # device None: the entry point's default, the card
-    out = serve.serve_requests(cfg, device=None if DEVICE == "cuda" else DEVICE, **SERVE)
+    with served_tokens() as seen, (moe_drops() if moe else contextlib.nullcontext([])) as drops:
+        out = serve.serve_requests(cfg, device=None if DEVICE == "cuda" else DEVICE, **run)
     after = ops.launch_counts()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
-    check(out["completed"] == SERVE["n_requests"], f"served {out['completed']} requests")
+    check(out["completed"] == run["n_requests"], f"served {out['completed']} requests")
     check(out["tokens"] == cpu_tokens, f"served {out['tokens']} tokens, CPU {cpu_tokens}")
+    padded = int(sum((t >= cfg.vocab).sum() for t in seen))
+    check(padded == 0, f"{name}: {padded} next tokens index the padded vocabulary columns")
     steps = out["steps"]
     norm = norm_kernel(cfg)
     per_step = {n: (after[n] - before[n]) / steps for n in (norm, "flash_decode")}
@@ -1074,22 +1135,27 @@ def phase_serve(cpu_tokens: int, arch=ARCH, cuts: str = "none") -> dict:
     check(per_step[norm] == want_norm, f"{norm} launches {per_step}, want {want_norm}")
     check(per_step["flash_decode"] == want_decode, f"flash_decode launches {per_step}")
     weight_bytes = decode_weight_bytes(cfg)
-    cache_bytes = serve_cache_bytes(cfg)
+    cache_bytes = serve_cache_bytes(cfg, run)
     extra = {}
-    if cfg.family == "moe":
+    if moe:
         # the capacity dispatch reads every expert (the bound below); the
         # step's routing can touch at most B x k experts a layer
-        idle = max(cfg.n_experts - SERVE["batch"] * cfg.top_k, 0)
+        idle = max(cfg.n_experts - run["batch"] * cfg.top_k, 0)
         touched = weight_bytes - 2 * cfg.n_layers * idle * expert_params(cfg)
+        dropped = torch.stack(drops).sum(0).cpu()
         extra = {
             "touched_weight_bytes": touched,
             "bound_touched_ms_per_step": (touched + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+            "dropped_share": float(dropped[0] / dropped[1]),
+            "capacity_factor": cfg.capacity_factor,
         }
     rec = {
         "phase": name,
         "arch": cfg.name,
         "cuts": cuts,
-        **{k: SERVE[k] for k in ("batch", "ctx", "n_requests", "max_tokens")},
+        **{k: run[k] for k in ("batch", "ctx", "n_requests", "max_tokens")},
+        "vocab": cfg.vocab,
+        "padded_tokens": padded,
         "n_layers": cfg.n_layers,
         "dtype": "bfloat16",
         "completed": out["completed"],
@@ -2234,7 +2300,7 @@ def _leaf_errors(got_tree, want_tree, prefix: str = "") -> dict:
     return out
 
 
-def phase_train_cross_check(arch: str = ARCH) -> None:
+def phase_train_cross_check(arch: str = ARCH, kernels=None) -> None:
     """One train step on the card (the CUDA kernels) against the same step
     on the CPU (their plain versions), same weights and batch: the model
     at full width, 1 layer, f32, batch 1 of 256 tokens, TF32 off.  The
@@ -2246,7 +2312,9 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
     VLM_CROSS_FRONTEND frontend rows of its 256 positions; an
     encoder-decoder model 1 + 1 layers and 256 frames.  A MoE model's
     router top-k is compared first, call by call: a choice may flip only
-    on a near tie (``routing_flips``), and the flips are counted."""
+    on a near tie (``routing_flips``), and the flips are counted.  The
+    step must launch ``kernels``, by default those of the model's train
+    phase in PATH_KERNELS."""
     check(
         not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
         "TF32 is on",
@@ -2306,7 +2374,7 @@ def phase_train_cross_check(arch: str = ARCH) -> None:
     cpu, _, met_c = adamw.update(grads_c, adamw.init_state(cpu, opt_cfg), cpu, opt_cfg)
     cpu_s += time.perf_counter() - t0
     launched = {n: counts[n] - counts0[n] for n in counts}
-    for kernel in PATH_KERNELS[phase_name(cfg, "train")]:
+    for kernel in kernels or PATH_KERNELS[phase_name(cfg, "train")]:
         check(launched[kernel] > 0, f"{name}: {kernel} not launched ({launched})")
     loss_rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
     check(loss_rel <= CROSS_LOSS_RTOL, f"{name}: loss rel err {loss_rel}")
@@ -4398,6 +4466,254 @@ def mesh_spawn(root: str) -> list:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# the port's examples, the architecture smoke at published widths, and
+# granite-moe-1b-a400m
+# ---------------------------------------------------------------------------
+
+
+def _example(name: str):
+    """``examples/torch_<name>.py`` of the repository, imported."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module(f"examples.torch_{name}")
+
+
+def phase_examples(cpu_tokens: int) -> dict:
+    """Each of the port's seven examples through its ``main`` on the card
+    (the default device): quickstart, cuda_migration, the three-way
+    softmax (which launches the softmax kernel), graph_replay and
+    streams_overlap at their reference's rounds, the serving example on
+    mamba2-130m at full width and depth (its token count equal to the CPU
+    driver's) and the training example on it with a checkpoint every 2
+    steps.  One line: each example's wall seconds, its launches and what
+    it checked."""
+    dev = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    sv, tr = EXAMPLE_SERVE, EXAMPLE_TRAIN
+    ckpt_dir = tempfile.TemporaryDirectory()
+    runs = {
+        "quickstart": [],
+        "cuda_migration": [],
+        "cox_kernels_in_models": [],
+        "graph_replay": [],
+        "streams_overlap": [],
+        "serve_batched": [
+            "--arch", sv["arch"], "--batch", str(sv["batch"]), "--ctx", str(sv["ctx"]),
+            "--requests", str(sv["n_requests"]), "--tokens", str(sv["max_tokens"]),
+        ],
+        "train_lm": [
+            "--arch", tr["arch"], "--steps", str(tr["steps"]), "--batch", str(tr["batch"]),
+            "--seq", str(tr["seq"]), "--ckpt-every", str(tr["ckpt_every"]), "--ckpt-dir", ckpt_dir.name,
+        ],
+    }
+    recs = {}
+    for name, argv in runs.items():
+        mod = _example(name)
+        counts0 = ops.launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = mod.main(argv + dev)
+        sync()
+        wall = time.perf_counter() - t0
+        launched = {n: c - counts0[n] for n, c in ops.launch_counts().items() if c > counts0[n]}
+        rec = {"wall_s": wall, "launches": launched}
+        if name == "quickstart":
+            check(np.array_equal(out["out"], out["oracle"]), "quickstart: launch != oracle")
+            check(out["flat_error"] == "FlatUnsupported", f"quickstart: flat {out['flat_error']}")
+            rec["summary"] = out["summary"]
+        elif name == "cox_kernels_in_models":
+            check(launched.get("softmax", 0) > 0 or DEVICE != "cuda", f"three-way: launches {launched}")
+            rec["max_abs_err"] = out["max_abs_err"]
+            rec["kernel_max_abs_err"] = float(np.abs(out["kernel"] - out["ref"]).max())
+        elif name == "graph_replay":
+            check(out["cuda_graph"] or DEVICE != "cuda", "graph_replay: not a torch.cuda.CUDAGraph")
+            rec.update({k: out[k] for k in ("eager_ms", "replay_ms", "cuda_graph")})
+        elif name == "streams_overlap":
+            rec.update({k: out[k] for k in ("serial_ms", "stream_ms", "event_ms")})
+        elif name == "serve_batched":
+            check(out["completed"] == sv["n_requests"], f"serve_batched: {out['completed']} requests")
+            check(out["tokens"] == cpu_tokens, f"serve_batched: {out['tokens']} tokens, CPU {cpu_tokens}")
+            rec.update(
+                {
+                    **sv,
+                    "tokens": out["tokens"],
+                    "tok_per_s": out["tok_per_s"],
+                    "step_ms_median": statistics.median(out["step_s"]) * 1e3,
+                }
+            )
+        elif name == "train_lm":
+            losses = out["losses"]
+            check(len(losses) == tr["steps"], f"train_lm: {len(losses)} losses")
+            check(all(math.isfinite(x) for x in losses), f"train_lm: losses {losses}")
+            saves = [e for e in out["ckpt_log"] if e["op"] == "save"]
+            rec.update({**tr, "losses": losses, "step_s": out["step_s"], "ckpt_saves": len(saves)})
+            del out
+        recs[name] = rec
+    ckpt_dir.cleanup()
+    free_cuda()
+    return emit({"phase": "examples", "examples": recs})
+
+
+def arch_smoke_seq(cfg) -> int:
+    """The text tokens of a model's arch-smoke batch: ARCH_SMOKE's, or for
+    a VLM the fewest from there on that make its frontend rows and tokens
+    a multiple of the attention kernel's 128-row tile (as the reference
+    kernel's bq = bk; llava: 2,880 + 64)."""
+    S = ARCH_SMOKE["seq"]
+    return S + (-(cfg.n_frontend_tokens + S) % fa.BLOCK if cfg.n_frontend_tokens else 0)
+
+
+def arch_smoke_batch(cfg, gen) -> dict:
+    """tests/test_arch_smoke.py's batch on DEVICE: tokens and labels (B, S),
+    an encoder-decoder model's S frames, a VLM's frontend rows."""
+    B, S = ARCH_SMOKE["batch"], arch_smoke_seq(cfg)
+    batch = {
+        k: torch.randint(0, cfg.vocab, (B, S), generator=gen, device=DEVICE, dtype=torch.int32)
+        for k in ("tokens", "labels")
+    }
+    rows = S if cfg.family == "encdec" else cfg.n_frontend_tokens
+    if rows:
+        batch["frontend"] = torch.randn((B, rows, cfg.d_model), generator=gen, device=DEVICE)
+    return batch
+
+
+def phase_arch_smoke() -> dict:
+    """tests/test_arch_smoke.py on the card at published widths: every
+    registered model cut to 2 layers (an encoder-decoder model 2 + 2), in
+    bf16 from the seed, one forward (loss finite and under log(vocab) + 2,
+    logits finite, (B, S) rows of at least vocab columns) and one decode
+    step over a zero cache (logits finite, the cache's keys and shapes
+    kept), one line a model with its ms and launches (llava's text is 64
+    tokens: ``arch_smoke_seq``); then the dense and
+    SSM models' greedy decode against their teacher-forced forward over 8
+    tokens, in f32 with TF32 off, at the reference's rtol = atol = 2e-2."""
+    B = ARCH_SMOKE["batch"]
+    per_arch = {}
+    for arch in registry.names():
+        base = registry.get(arch)
+        cuts = dict(n_layers=ARCH_SMOKE["n_layers"])
+        if base.enc_layers:
+            cuts["enc_layers"] = ARCH_SMOKE["n_layers"]
+        cfg = dataclasses.replace(base, **cuts)
+        S = arch_smoke_seq(cfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        t0 = time.perf_counter()
+        params = init_params(steps.model_specs(cfg), gen, DEVICE)
+        sync()
+        init_s = time.perf_counter() - t0
+        batch = arch_smoke_batch(cfg, gen)
+        fwd = encdec.forward if cfg.family == "encdec" else lm.forward
+        counts0 = ops.launch_counts()
+        with torch.no_grad():
+            sync()
+            t0 = time.perf_counter()
+            loss, logits = fwd(cfg, params, batch)
+            sync()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+        loss = float(loss)
+        check(tuple(logits.shape[:2]) == (B, S) and logits.shape[-1] >= cfg.vocab, f"{arch}: logits {tuple(logits.shape)}")
+        check(math.isfinite(loss) and loss < math.log(cfg.vocab) + 2.0, f"{arch}: loss {loss}")
+        check(bool(torch.isfinite(logits).all()), f"{arch}: forward logits not finite")
+        del logits
+        ctx = ARCH_SMOKE["ctx"]
+        if cfg.family == "encdec":
+            specs, decode = encdec.cache_specs(cfg, B, ctx, ARCH_SMOKE["enc_len"]), encdec.decode_step
+        else:
+            specs, decode = lm.cache_specs(cfg, B, ctx), lm.decode_step
+        cache = init_params(specs, None, DEVICE)
+        shapes = {k: tuple(v.shape) for k, v in cache.items()}
+        toks = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+        pos = torch.tensor(ARCH_SMOKE["pos"], dtype=torch.int32, device=DEVICE)
+        with torch.no_grad():
+            sync()
+            t0 = time.perf_counter()
+            dec, new_cache = decode(cfg, params, cache, toks, pos)
+            sync()
+            dec_ms = (time.perf_counter() - t0) * 1e3
+        check(dec.shape[0] == B and bool(torch.isfinite(dec).all()), f"{arch}: decode logits")
+        check({k: tuple(v.shape) for k, v in new_cache.items()} == shapes, f"{arch}: cache structure")
+        launched = {n: c - counts0[n] for n, c in ops.launch_counts().items() if c > counts0[n]}
+        per_arch[arch] = launched
+        emit(
+            {
+                "phase": "arch_smoke",
+                "arch": arch,
+                "family": cfg.family,
+                "n_layers": cfg.n_layers,
+                "enc_layers": cfg.enc_layers,
+                "cuts": f"layers {base.n_layers} -> {cfg.n_layers}"
+                + (f", encoder {base.enc_layers} -> {cfg.enc_layers}" if base.enc_layers else "")
+                + (f"; text tokens {ARCH_SMOKE['seq']} -> {S}: {cfg.n_frontend_tokens:,} + {S} rows, "
+                   "whole 128-row attention tiles" if S != ARCH_SMOKE["seq"] else "")
+                + "; widths kept",
+                "dtype": "bfloat16",
+                "batch": B,
+                "seq": S,
+                "frontend_rows": batch["frontend"].shape[1] if "frontend" in batch else 0,
+                "ctx": ctx,
+                "loss": loss,
+                "log_vocab": math.log(cfg.vocab),
+                "forward_ms": fwd_ms,
+                "decode_ms": dec_ms,
+                "init_s": init_s,
+                "launches": launched,
+            }
+        )
+        del params, batch, cache, new_cache, dec
+        free_cuda()
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    n = ARCH_SMOKE_DECODE["tokens"]
+    rtol = ARCH_SMOKE_DECODE["rtol"]
+    errs = {}
+    for arch in ARCH_SMOKE_DECODE["archs"]:
+        cfg = dataclasses.replace(registry.get(arch), n_layers=ARCH_SMOKE["n_layers"], param_dtype=torch.float32)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        params = init_params(steps.model_specs(cfg), gen, DEVICE)
+        toks = torch.randint(0, cfg.vocab, (1, n), generator=gen, device=DEVICE, dtype=torch.int32)
+        with torch.no_grad():
+            _, full = lm.forward(cfg, params, {"tokens": toks, "labels": toks})
+            cache = init_params(lm.cache_specs(cfg, 1, n), None, DEVICE)
+            outs = []
+            for t in range(n):
+                logits, cache = lm.decode_step(cfg, params, cache, toks[:, t], torch.full((1,), t, dtype=torch.int32, device=DEVICE))
+                outs.append(logits)
+            dec = torch.stack(outs, dim=1)
+        ok = torch.allclose(dec, full, rtol=rtol, atol=rtol)
+        errs[arch] = float((dec - full).abs().max())
+        check(ok, f"arch_smoke {arch}: decode against forward, max abs err {errs[arch]}")
+        del params, cache, full, dec, outs
+        free_cuda()
+    return emit(
+        {
+            "phase": "arch_smoke_decode_vs_forward",
+            "archs": list(errs),
+            "n_layers": ARCH_SMOKE["n_layers"],
+            "dtype": "float32",
+            "tf32": False,
+            "tokens": n,
+            "rtol": rtol,
+            "atol": rtol,
+            "max_abs_err": errs,
+            "launches_by_arch": per_arch,
+        }
+    )
+
+
+def phase_granite_moe(cpu_tokens: int) -> None:
+    """granite-moe-1b-a400m, the MoE model with top 8 of 32 experts and no
+    shared expert, at full width and depth in bf16: serve_requests at
+    batch 4, ctx 128, 4 requests (its token count the CPU driver's, no
+    token in the padded columns, its dropped share recorded), then the
+    f32 decode and train cross-checks against the CPU, router flips
+    allowed only on near ties and counted."""
+    phase_serve(cpu_tokens, GRANITE_MOE_ARCH, run=GRANITE_MOE_SERVE)
+    free_cuda()
+    phase_cross_check(GRANITE_MOE_ARCH)
+    free_cuda()
+    phase_train_cross_check(GRANITE_MOE_ARCH, kernels=PATH_KERNELS["moe_train"])
+    free_cuda()
+
+
 KERNEL_META = {
     "softmax": ("src/repro_torch/csrc/softmax.cu", "src/repro/kernels/softmax.py:18"),
     "row_reduce": (
@@ -4463,14 +4779,20 @@ PATH_KERNELS = {
     # gloo ranks' decode steps and gradients
     "mesh_models_tp": TP_TRAIN_KERNELS,
     "mesh_models_tp_gloo_ranks": TP_TRAIN_KERNELS + ("flash_decode",),
+    # the examples: the three-way softmax, then mamba2's serving and
+    # training examples
+    "examples": ("softmax", "rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd"),
+    "arch_smoke": ("rmsnorm", "layernorm", "flash_attention", "ssd_scan", "flash_decode"),
+    # served, then the decode and train cross-checks
+    "granite_moe": ("rmsnorm", "flash_decode", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd"),
 }
 
 
-def cpu_token_count(arch: str = ARCH) -> int:
+def cpu_token_count(arch: str = ARCH, run: dict = SERVE) -> int:
     """A serve phase's token count from the same driver on the CPU at the
     smoke width: with no EOS every request runs to ctx - 1, so the count
     depends on the batch, context and requests, not the weights."""
-    out = serve.serve_requests(arch + "-smoke", device="cpu", **SERVE)
+    out = serve.serve_requests(arch + "-smoke", device="cpu", **run)
     return out["tokens"]
 
 
@@ -4501,6 +4823,9 @@ def main() -> int:
     new_cpu_tokens = {
         a: cpu_token_count(a) for a in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH, ENCDEC_ARCH)
     }
+    example_run = {k: v for k, v in EXAMPLE_SERVE.items() if k != "arch"}
+    example_cpu_tokens = cpu_token_count(EXAMPLE_SERVE["arch"], example_run)
+    granite_moe_cpu_tokens = cpu_token_count(GRANITE_MOE_ARCH, GRANITE_MOE_SERVE)
 
     # one dry-run cell on a fake world of 256 ranks, on the host's CPU
     # meanwhile (the card hidden from it)
@@ -4619,6 +4944,17 @@ def main() -> int:
     for arch in (HYBRID_ARCH, MOE_ARCH, VLM_ARCH, ENCDEC_ARCH):
         phase_cross_check(arch)
         phase_train_cross_check(arch)
+    # the port's examples, the architecture smoke at published widths and
+    # granite-moe-1b-a400m, each counted alone
+    ops.reset_launch_counts()
+    phase_examples(example_cpu_tokens)
+    paths["examples"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    phase_arch_smoke()
+    paths["arch_smoke"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    phase_granite_moe(granite_moe_cpu_tokens)
+    paths["granite_moe"] = ops.launch_counts()
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")

@@ -1265,28 +1265,38 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int, rules=
     return spmd.replicate(nll.sum()) / spmd.replicate(valid.sum()).clamp(min=1)
 
 
-def argmax(logits: torch.Tensor, rules=None) -> torch.Tensor:
+def argmax(logits: torch.Tensor, vocab: int, rules=None) -> torch.Tensor:
     """The greedy next tokens (B,) int32 of (B, Vpad) logits: the first
-    maximum, as ``jnp.argmax``.  On a mesh with vocab-sharded logits every
+    maximum, as ``jnp.argmax``, over the first ``vocab`` columns (the
+    padding of ``round_up(vocab, 256)`` holds no token, so a served token
+    never indexes it; the reference takes the argmax over every
+    column).  On a mesh with vocab-sharded logits every
     rank takes its columns' first maximum, the ranks' (max, index) pairs
     are gathered over "model", and the lowest global index among the equal
     maxima wins; the tokens come back as a plain tensor, the same on every
     rank."""
+
+    def real(z, lo=0):
+        if lo + z.shape[-1] <= vocab:
+            return z
+        cols = torch.arange(lo, lo + z.shape[-1], device=z.device)
+        return torch.where(cols < vocab, z, torch.finfo(z.dtype).min)
+
     if rules is None:
-        return logits.argmax(dim=-1).to(torch.int32)
+        return real(logits).argmax(dim=-1).to(torch.int32)
     from torch.distributed.tensor import Shard
 
     mesh = logits.device_mesh
     pl = tuple(logits.placements)
     bpl = tuple(_replicate() if p.is_shard() and p.dim == 1 else p for p in pl)
     if _model_dim(logits) != 1 or spmd.axis_size(mesh, "model") == 1:
-        tok = spmd.local_call(lambda z: z.argmax(dim=-1).to(torch.int32), mesh, [logits], [pl], bpl)
+        tok = spmd.local_call(lambda z: real(z).argmax(dim=-1).to(torch.int32), mesh, [logits], [pl], bpl)
         return spmd.replicate(tok).to_local()
     n = logits.shape[-1] // spmd.axis_size(mesh, "model")
     lo = spmd.axis_rank(mesh, "model") * n
 
     def local(z):
-        v, i = z.max(dim=-1)
+        v, i = real(z, lo).max(dim=-1)
         return v[None], (i + lo)[None]
 
     gpl = spmd.with_axis(spmd.shift(bpl), mesh, "model", Shard(0))

@@ -191,8 +191,9 @@ def opt_like(specs, opt_cfg: adamw.AdamWConfig):
 def make_serve_step(cfg: ModelConfig, *, mesh=None, rules: Optional[AxisRules] = None, strategy: str = "tp"):
     """Without ``mesh``: ``(step, specs)``; ``step(params, cache, tokens,
     pos)`` runs one decode step and returns ``(next_tokens (B,) int32,
-    cache)``, the greedy ``argmax`` over the padded vocabulary (the first
-    maximum, as ``jnp.argmax``); ``specs`` is the model's parameter spec
+    cache)``, the greedy ``argmax`` over the vocabulary (the first
+    maximum, as ``jnp.argmax``; the padded columns never win);
+    ``specs`` is the model's parameter spec
     tree.  The kernels a step launches, by family, are listed in
     ``launch/serve.py``.
 
@@ -207,7 +208,7 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None, rules: Optional[AxisRules] =
 
         def step(params, cache, tokens, pos):
             logits, cache = decode(cfg, params, cache, tokens, pos)
-            return layers.argmax(logits), cache
+            return layers.argmax(logits, cfg.vocab), cache
 
         return step, specs
 
@@ -222,7 +223,7 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None, rules: Optional[AxisRules] =
         toks = spmd.shard_full(tokens, rules.mesh, bpl)
         p = spmd.shard_full(pos, rules.mesh, bpl)
         logits, cache = decode(cfg, params, cache, toks, p, rules=rules)
-        return layers.argmax(logits, rules), cache
+        return layers.argmax(logits, cfg.vocab, rules), cache
 
     return step, {"cfg": cfg, "rules": rules, "specs": spec_tree, "param_sh": param_shardings(rules, spec_tree)}
 

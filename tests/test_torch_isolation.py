@@ -1,7 +1,8 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor the JAX
 package, its launches, server and trainer run on the card unless the
 caller asks for the CPU, and ``chip_smoke.py`` refuses to report a result without a card or
-without the rest of the repository."""
+without the rest of the repository.  The port's examples,
+``examples/torch_*.py``, are held to the same rule as the package."""
 
 import os
 import pathlib
@@ -17,6 +18,7 @@ from repro_torch.core import cox
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
     re.MULTILINE,
@@ -67,9 +69,38 @@ def test_imports_without_jax_or_the_jax_package(tmp_path):
     assert "kernel scale:" in res.stdout and "modules" in res.stdout
 
 
+EXAMPLE_CHILD = textwrap.dedent(
+    """
+    import importlib, sys
+    sys.modules["jax"] = None
+    sys.modules["repro"] = None
+    mod = importlib.import_module(sys.argv[1])
+    assert callable(mod.main)
+    print("imported", mod.__name__)
+    """
+)
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_examples_import_without_jax_or_the_jax_package(path, tmp_path):
+    script = tmp_path / "child.py"
+    script.write_text(EXAMPLE_CHILD)
+    env = _env()
+    env["PYTHONPATH"] += os.pathsep + str(ROOT)
+    name = f"examples.{path.stem}"
+    res = subprocess.run([sys.executable, str(script), name], capture_output=True, text=True, env=env)
+    assert res.returncode == 0, res.stderr
+    assert f"imported {name}" in res.stdout
+
+
+def test_every_reference_example_has_a_port_copy():
+    ref = sorted(p.name for p in (ROOT / "examples").glob("*.py") if not p.name.startswith("torch_"))
+    assert [p.name.removeprefix("torch_") for p in EXAMPLES] == ref and len(ref) == 7
+
+
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES,
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_repro_imports_in_the_source(path):
