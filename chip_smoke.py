@@ -166,6 +166,7 @@ from repro_torch.kernels import norms  # noqa: E402
 from repro_torch.kernels import softmax as sm  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import warp_reduce as wr  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.ft.watchdog import FailureInjector  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
@@ -1227,7 +1228,6 @@ def phase_serve_profile(arch=ARCH) -> None:
     The profiler adds host time to every op, so the traced step is slower
     than the serve phase's."""
     from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
 
     server = serve.BatchedServer(arch, batch=SERVE["batch"], ctx=SERVE["ctx"], seed=0)
     name = phase_name(server.cfg, "serve_profile")
@@ -1242,11 +1242,7 @@ def phase_serve_profile(arch=ARCH) -> None:
         server.decode(PROFILE_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [
-        e
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
+    kernels = _device_ops(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     emit(
@@ -2211,14 +2207,25 @@ def _kernel_kind(name: str) -> str:
     return "other (elementwise, reductions, copies, cross_entropy)"
 
 
-def _device_summary(prof, wall: float, top: int = 12) -> dict:
+def _device_ops(prof) -> list:
+    """The device operations of a profile, summed by name: kernels, copies
+    and fills, without the device copies of host spans (a
+    ``record_function``, the program's ``repro_torch.*`` spans among
+    them, leaves one on the device timeline that covers its gaps)."""
     from torch.autograd import DeviceType
 
-    kernels = [
+    return [
         e
         for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        if e.device_type == DeviceType.CUDA
+        and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
+        and not e.key.startswith(obs.PREFIX)
     ]
+
+
+def _device_summary(prof, wall: float, top: int = 12) -> dict:
+    kernels = _device_ops(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     kinds: dict = {}
     for e in kernels:

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..parallel import spmd
 from . import layers as L
 from .params import ParamSpec, tree_map
@@ -125,19 +126,24 @@ def _ffn(cfg, lp, h, rules=None):
 
 def _dense_layer_apply(cfg, lp, x, positions, rules=None):
     h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"), rules=rules)
-    h = L.attention_apply(
-        lp["attn"], h, positions, cfg=cfg, rules=rules, causal=True, window=cfg.window
-    )
+    with obs.span("model.attention"):
+        h = L.attention_apply(
+            lp["attn"], h, positions, cfg=cfg, rules=rules, causal=True, window=cfg.window
+        )
     x = x + h
     h = L.apply_norm(lp["ln2"], x, cfg.norm, lp.get("ln2_b"), rules=rules)
-    return x + _ffn(cfg, lp, h, rules)
+    with obs.span("model.ffn"):
+        h = _ffn(cfg, lp, h, rules)
+    return x + h
 
 
 def _ssm_layer_apply(cfg, lp, x, positions, rules=None):
     """A Mamba2 layer; ``positions`` is unused (no rotary embedding), kept
     so both kinds of layer take the same arguments."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"), rules=rules)
-    return x + L.mamba2_apply(lp["mamba"], h, cfg=cfg, rules=rules)
+    with obs.span("model.mamba"):
+        h = L.mamba2_apply(lp["mamba"], h, cfg=cfg, rules=rules)
+    return x + h
 
 
 def _shared_attn_apply(cfg, sp, x, positions, rules=None):
@@ -158,14 +164,21 @@ def _unstack(tree, n: int):
     return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
+def _block(layer, cfg, i, lp, x, positions, rules=None):
+    """Stacked layer ``i`` in the span ``model.block``; under remat the
+    backward runs it again, and the span with it."""
+    with obs.span("model.block", layer=i):
+        return layer(cfg, lp, x, positions, rules=rules)
+
+
 def hidden_states(cfg, params, x, positions, rules=None):
-    """Run the layer stack on embedded inputs x: (B, S, d), then the final
-    norm.  With ``cfg.remat == "full"`` each stacked layer runs under
-    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
-    and the backward recomputes the layer, as the reference wraps the
-    scanned layer in ``jax.checkpoint``.  The hybrid family's shared
-    block runs outside the scan in the reference, so it is not
-    checkpointed here either; its gradient is the sum over its
+    """Run the layer stack on embedded inputs x: (B, S, d); the final norm
+    is the head's (``forward``).  With ``cfg.remat == "full"`` each
+    stacked layer runs under ``torch.utils.checkpoint`` (non-reentrant):
+    only its input is kept, and the backward recomputes the layer, as the
+    reference wraps the scanned layer in ``jax.checkpoint``.  The hybrid
+    family's shared block runs outside the scan in the reference, so it
+    is not checkpointed here either; its gradient is the sum over its
     applications."""
     check_family(cfg)
     ssm = cfg.family in ("ssm", "hybrid")
@@ -173,21 +186,22 @@ def hidden_states(cfg, params, x, positions, rules=None):
     layers = _unstack(params["layers"], cfg.n_layers)
     x = spmd.constrain(x, rules, SEQ_ACT)
 
-    def run(lp, x):
-        fn = functools.partial(layer, cfg, lp, rules=rules)
+    def run(i, x):
+        fn = functools.partial(_block, layer, cfg, i, layers[i], rules=rules)
         if cfg.remat == "full":
             return checkpoint(fn, x, positions, use_reentrant=False)
         return fn(x, positions)
 
     if cfg.family == "hybrid":
-        for start, width in _groups(cfg):
-            for lp in layers[start : start + width]:
-                x = run(lp, x)
-            x = _shared_attn_apply(cfg, params["shared_attn"], x, positions, rules)
+        for app, (start, width) in enumerate(_groups(cfg)):
+            for i in range(start, start + width):
+                x = run(i, x)
+            with obs.span("model.block", shared=app):
+                x = _shared_attn_apply(cfg, params["shared_attn"], x, positions, rules)
     else:
-        for lp in layers:
-            x = run(lp, x)
-    return L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"), rules=rules)
+        for i in range(cfg.n_layers):
+            x = run(i, x)
+    return x
 
 
 def forward(cfg, params, batch, rules=None):
@@ -200,9 +214,16 @@ def forward(cfg, params, batch, rules=None):
 
     With ``rules`` the batch leaves are DTensors sharded on the batch (the
     frontend rows too), the loss is a replicated DTensor and the logits
-    are sharded on the vocabulary over "model" (``"tp"``)."""
+    are sharded on the vocabulary over "model" (``"tp"``).
+
+    Spans (``obs``): ``model.embed``; ``model.block`` for each layer
+    (``layer=i``; ``shared=n`` for the hybrid family's n-th application
+    of its shared block), with ``model.attention``, ``model.ffn`` (MLP or
+    MoE) or ``model.mamba`` inside; ``model.head`` (the final norm, the
+    unembedding and the cross-entropy)."""
     check_family(cfg)
-    x = L.embed_apply(params["embed"], batch["tokens"], rules=rules)
+    with obs.span("model.embed"):
+        x = L.embed_apply(params["embed"], batch["tokens"], rules=rules)
     x = spmd.constrain(x, rules, ("batch", None, "embed"))
     nf = cfg.n_frontend_tokens
     if nf:
@@ -211,10 +232,12 @@ def forward(cfg, params, batch, rules=None):
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     positions = positions[None] if rules is not None else positions.expand(B, S)
     h = hidden_states(cfg, params, x, positions, rules=rules)
-    if nf:
-        h = spmd.constrain(h, rules, ("batch", None, "embed"))[:, nf:]
-    logits = L.unembed_apply(params["embed"], h, cfg, rules=rules)
-    loss = L.cross_entropy(logits, batch["labels"], cfg.vocab, rules=rules)
+    with obs.span("model.head"):
+        h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"), rules=rules)
+        if nf:
+            h = spmd.constrain(h, rules, ("batch", None, "embed"))[:, nf:]
+        logits = L.unembed_apply(params["embed"], h, cfg, rules=rules)
+        loss = L.cross_entropy(logits, batch["labels"], cfg.vocab, rules=rules)
     return loss, logits
 
 

@@ -18,6 +18,7 @@ from typing import Any, Dict
 
 import torch
 
+from .. import obs
 from ..models.params import tree_leaves, tree_map
 
 
@@ -111,27 +112,37 @@ def _global_norm(tree) -> torch.Tensor:
 def update(grads, state, params, cfg: AdamWConfig):
     """Returns ``(new_params, new_state, metrics)``; the moments and the
     parameters are updated in place.  Gradients may be in the parameters'
-    dtype (bf16): they are cast to f32 first."""
+    dtype (bf16): they are cast to f32 first.  Runs in the span
+    ``adamw.update``, its parts in ``adamw.cast`` (the f32 gradients, and
+    their int8 round trip under ``grad_compress``), ``adamw.norm`` (the
+    global norm, the clip scale and the schedule) and ``adamw.apply`` (the
+    update of each leaf)."""
+    with obs.span("adamw.update"):
+        return _update(grads, state, params, cfg)
+
+
+def _update(grads, state, params, cfg: AdamWConfig):
     step = state["step"] + 1
-    g32 = tree_map(lambda g: g.to(torch.float32), grads)
+    with obs.span("adamw.cast"):
+        g32 = tree_map(lambda g: g.to(torch.float32), grads)
+        if cfg.grad_compress:
+            # error feedback: transmit quant(g + e); keep the residual
+            sent = tree_map(lambda g, e: _quantize_int8(g + e), g32, state["err"])
+            new_err = tree_map(lambda g, e, s: g + e - s, g32, state["err"], sent)
+            g32 = sent
+        else:
+            new_err = state.get("err")
 
-    if cfg.grad_compress:
-        # error feedback: transmit quant(g + e); keep the residual
-        sent = tree_map(lambda g, e: _quantize_int8(g + e), g32, state["err"])
-        new_err = tree_map(lambda g, e, s: g + e - s, g32, state["err"], sent)
-        g32 = sent
-    else:
-        new_err = state.get("err")
-
-    gnorm = _global_norm(g32)
-    scale = (
-        torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-        if cfg.clip_norm
-        else 1.0
-    )
-    b1c = 1 - torch.pow(cfg.b1, step.to(torch.float32))
-    b2c = 1 - torch.pow(cfg.b2, step.to(torch.float32))
-    lr = schedule(cfg, step)
+    with obs.span("adamw.norm"):
+        gnorm = _global_norm(g32)
+        scale = (
+            torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+            if cfg.clip_norm
+            else 1.0
+        )
+        b1c = 1 - torch.pow(cfg.b1, step.to(torch.float32))
+        b2c = 1 - torch.pow(cfg.b2, step.to(torch.float32))
+        lr = schedule(cfg, step)
 
     def upd(p, mm, vv, g):
         g = g * scale
@@ -149,7 +160,8 @@ def update(grads, state, params, cfg: AdamWConfig):
             new = new.redistribute(p.device_mesh, p.placements)
         p.copy_(new)
 
-    tree_map(upd, params, state["m"], state["v"], g32)
+    with obs.span("adamw.apply"):
+        tree_map(upd, params, state["m"], state["v"], g32)
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     if cfg.grad_compress:
         new_state["err"] = new_err

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import obs
 from ..configs.base import ModelConfig, ShapeConfig
 from ..launch import specs as S
 from ..models import encdec, layers, lm
@@ -91,7 +92,10 @@ def loss_and_grads(cfg: ModelConfig, params, batch, rules=None):
     respect to every parameter, a tree like ``params`` with each gradient
     in its parameter's dtype (bf16 weights give bf16 gradients, as
     ``jax.value_and_grad`` does).  On a mesh the loss comes back as a
-    plain tensor, the same on every rank, and the gradients as DTensors."""
+    plain tensor, the same on every rank, and the gradients as DTensors.
+    Each call starts a new step id (``obs.next_step``) and runs the forward
+    and the backward in the spans ``train.forward`` and ``train.backward``."""
+    obs.next_step()
     leaves = []
 
     def track(t: torch.Tensor) -> torch.Tensor:
@@ -101,12 +105,14 @@ def loss_and_grads(cfg: ModelConfig, params, batch, rules=None):
 
     with torch.enable_grad():
         tracked = tree_map(track, params)
-        if rules is None:
-            loss, _ = _forward(cfg)(cfg, tracked, batch)
-        else:
-            loss, _ = _forward(cfg)(cfg, tracked, batch, rules=rules)
-            loss = loss.to_local()
-        grads = iter(torch.autograd.grad(loss, leaves))
+        with obs.span("train.forward"):
+            if rules is None:
+                loss, _ = _forward(cfg)(cfg, tracked, batch)
+            else:
+                loss, _ = _forward(cfg)(cfg, tracked, batch, rules=rules)
+                loss = loss.to_local()
+        with obs.span("train.backward"):
+            grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
@@ -138,8 +144,9 @@ def make_train_step(
         specs = model_specs(cfg)
 
         def step(params, opt_state, batch):
-            loss, grads = loss_and_grads(cfg, params, batch)
-            params, opt_state, metrics = adamw.update(grads, opt_state, params, opt_cfg)
+            with obs.span("train.step"):
+                loss, grads = loss_and_grads(cfg, params, batch)
+                params, opt_state, metrics = adamw.update(grads, opt_state, params, opt_cfg)
             return params, opt_state, dict(metrics, loss=loss)
 
         return step, specs
@@ -150,10 +157,11 @@ def make_train_step(
     z1 = zero1_shardings(rules, spec_tree)
 
     def step(params, opt_state, batch):
-        loss, grads = loss_and_grads(cfg, params, batch, rules)
-        # ZeRO-2: no rank keeps a full gradient replica
-        grads = tree_map(lambda g, sh: spmd.to(g, sh.placements), grads, z1)
-        params, opt_state, metrics = adamw.update(grads, opt_state, params, opt_cfg)
+        with obs.span("train.step"):
+            loss, grads = loss_and_grads(cfg, params, batch, rules)
+            # ZeRO-2: no rank keeps a full gradient replica
+            grads = tree_map(lambda g, sh: spmd.to(g, sh.placements), grads, z1)
+            params, opt_state, metrics = adamw.update(grads, opt_state, params, opt_cfg)
         return params, opt_state, dict(metrics, loss=loss)
 
     bundle = {
