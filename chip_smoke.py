@@ -5,9 +5,11 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version at the widths of qwen2.5-14b
-(vocabulary 152,064; d_model 5,120; 40/8 heads of 128), then drives the
-main paths, each with the launch counts set to 0 before it and read after
-it:
+(vocabulary 152,064; d_model 5,120; 40/8 heads of 128), and AdamW's two
+kernels against the eager update at the benchmark cell's 13 leaves
+(granite-20b at 4 layers, 1.818 B parameters), then drives the main
+paths, each with the launch counts set to 0 before it and read after it
+(every train path also launches AdamW's two kernels):
 
 - COX kernels launched on CUDA tensors on the serial ``scan`` backend
   against the port's numpy oracle, and on the block-parallel ``vmap``
@@ -160,6 +162,7 @@ from repro_torch.core.streams import Dispatcher  # noqa: E402
 from repro_torch.core.typeinfer import infer  # noqa: E402
 from repro_torch.core.types import ArraySpec  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.kernels import adamw as kadamw  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import norms  # noqa: E402
@@ -1848,6 +1851,213 @@ def phase_ln_kernels(gen: torch.Generator) -> dict:
     return headline
 
 
+def _ulp_gaps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The units in the last place between two f32 or bf16 tensors of one
+    shape, element by element (across zero too: the sign-magnitude bits
+    put in order)."""
+    f32 = a.dtype == torch.float32
+    iv, wide, mag = (torch.int32, torch.int64, 0x7FFFFFFF) if f32 else (torch.int16, torch.int32, 0x7FFF)
+
+    def ordered(t):
+        x = t.contiguous().view(iv).to(wide)
+        return torch.where(x < 0, -(x & mag), x)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _bf16_steps_apart(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest gap between two tensors of one shape, each element's in
+    bf16 steps at ``b``'s value (2^-7 of it: a step is at most that); 0
+    where both are 0, infinite where only ``b`` is."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (2**-7 * b.abs())).nan_to_num(nan=0.0).max())
+
+
+def phase_adamw() -> dict:
+    """AdamW's kernels at the benchmark cell's leaves (granite-20b at
+    GRANITE_TRAIN's 4 layers, bf16: 13 leaves, 1.818 B parameters, the
+    norm weights f32), at a learning rate of 1e-2 past a warm-up of one
+    step.  One ``adamw.update`` through the kernels against
+    ``update_eager`` on a copy: the norm within 2e-6, the moments within
+    1e-5 of each leaf's largest, the parameters within a bf16 step (the
+    clip scales round apart), and the memory each allocates above the
+    state.  Then a second step of ``cox_adamw_apply`` against
+    ``apply_plain`` given the same clip scale, learning rate and bias
+    corrections: the parameters and both moments of every leaf bitwise,
+    and the step moving each leaf's parameters by at least one step of
+    their dtype at the median.  Then the times: ``cox_adamw_sumsq``
+    with its finalising block (beside the eager cast and norm, and
+    ``torch._foreach_norm`` over the leaves, as ``clip_grad_norm_`` calls
+    it), ``cox_adamw_apply`` (beside the eager update of each leaf, and
+    ``torch._fused_adamw_`` on the same leaves with the moments in the
+    parameters' dtype, the layout it takes), the whole ``adamw.update``
+    and ``update_eager``; each beside its bytes at 3.35 TB/s.  The
+    library calls are timed only: the port never calls them."""
+    cfg = _train_cfg(GRANITE_ARCH, GRANITE_TRAIN)
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    hyper = adamw._hyper(opt_cfg)
+    free_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = init_params(steps.model_specs(cfg), gen, "cuda")
+    grads = tree_map(lambda p: (1e-3 * torch.randn(p.shape, generator=gen, device="cuda")).to(p.dtype), params)
+    opt = adamw.init_state(params, opt_cfg)
+    twin, twin_opt = tree_map(torch.clone, params), tree_map(torch.clone, opt)
+
+    def peak_above(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    counts0 = ops.launch_counts()
+    (params, opt, met), fused_gib = peak_above(lambda: adamw.update(grads, opt, params, opt_cfg))
+    counts = ops.launch_counts()
+    (twin, twin_opt, met2), eager_gib = peak_above(lambda: adamw.update_eager(grads, twin_opt, twin, opt_cfg))
+    launched = {k: counts[k] - counts0[k] for k in ("adamw_sumsq", "adamw_apply")}
+    gn, gn2 = float(met["grad_norm"]), float(met2["grad_norm"])
+    norm_rel = abs(gn - gn2) / gn2
+    ps, ts = tree_leaves(params), tree_leaves(twin)
+    moment_rel = max(
+        float((a - b).abs().max() / b.abs().max())
+        for k in ("m", "v")
+        for a, b in zip(tree_leaves(opt[k]), tree_leaves(twin_opt[k]))
+    )
+    p_steps = max(_bf16_steps_apart(a, b) for a, b in zip(ps, ts))
+    p_apart = sum(int((a != b).sum()) for a, b in zip(ps, ts))
+    del twin, twin_opt, ts, met2
+    free_cuda()
+    check(launched == {"adamw_sumsq": 2, "adamw_apply": 2}, f"adamw launches {launched}")
+    check(norm_rel <= 2e-6, f"adamw grad norm rel err {norm_rel}")
+    check(moment_rel <= 1e-5, f"adamw moments rel err {moment_rel}")
+    check(p_steps <= 1, f"adamw parameters {p_steps} bf16 steps apart")
+
+    # the second step's scalars, as update would take them
+    gs, ms, vs = tree_leaves(grads), tree_leaves(opt["m"]), tree_leaves(opt["v"])
+    launch_plan = kadamw.plan([(p.numel(), p.dtype, g.dtype) for p, g in zip(ps, gs)], kadamw.layout().chunk)
+    norm = kadamw.global_norm_cuda(gs, launch_plan, opt_cfg.clip_norm)
+    b1c, b2c, lr = adamw._scalars(opt_cfg, opt["step"] + 1)
+    before = [(p.clone(), m.clone(), v.clone()) for p, m, v in zip(ps, ms, vs)]
+    kadamw.apply_cuda(launch_plan, ps, gs, ms, vs, norm[1], lr, b1c, b2c, **hyper)
+    apart = []
+    for i, ((p, m, v), g) in enumerate(zip(before, gs)):
+        want = kadamw.apply_plain(p.float(), m, v, g.float(), norm[1], lr, b1c, b2c, **hyper).to(p.dtype)
+        if not (same_bits(ps[i], want) and same_bits(ms[i], m) and same_bits(vs[i], v)):
+            apart.append(i)
+        del want
+    # how far the step moved the parameters: the median over each leaf's
+    # first 2^24 elements, in steps of its dtype
+    moved = [
+        float(_ulp_gaps(a.reshape(-1)[: 1 << 24], b.reshape(-1)[: 1 << 24]).float().median())
+        for a, (b, _, _) in zip(ps, before)
+    ]
+    del before
+    free_cuda()
+    check(not apart, f"cox_adamw_apply not bitwise apply_plain on leaves {apart}")
+    check(min(moved) >= 1, f"adamw's second step moved a leaf's parameters by {moved} steps at the median")
+
+    def eager_norm():
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in gs))
+
+    def eager_apply():
+        for p, m, v, g in zip(ps, ms, vs, gs):
+            p.copy_(kadamw.apply_plain(p.float(), m, v, g.float(), norm[1], lr, b1c, b2c, **hyper).to(p.dtype))
+
+    # torch._fused_adamw_ takes a leaf's four tensors in one dtype: the
+    # moments in the parameters' (bf16 for the matrices), one call a group
+    lib_ms_, lib_vs = [m.to(p.dtype) for m, p in zip(ms, ps)], [v.to(p.dtype) for v, p in zip(vs, ps)]
+    lib_steps = [torch.ones((), device="cuda") for _ in ps]
+    groups = [L.leaves for L in launch_plan]
+
+    def fused_adamw():
+        for idx in groups:
+            torch._fused_adamw_(
+                [ps[i] for i in idx], [gs[i] for i in idx], [lib_ms_[i] for i in idx], [lib_vs[i] for i in idx], [],
+                [lib_steps[i] for i in idx], lr=1e-4, beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                amsgrad=False, maximize=False,
+            )
+
+    def foreach_norm():
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs, 2)))
+
+    numel = sum(p.numel() for p in ps)
+    g_bytes = sum(g.numel() * g.element_size() for g in gs)
+    p_bytes = sum(p.numel() * p.element_size() for p in ps)
+    apply_bytes = g_bytes + 2 * p_bytes + 16 * numel  # g read, p and both moments read and written
+    lib_bytes = g_bytes + 2 * p_bytes + 4 * sum(p.numel() * p.element_size() for p in ps)
+    ms_ = {
+        "sumsq": median_ms(lambda: kadamw.global_norm_cuda(gs, launch_plan, opt_cfg.clip_norm), batches=5, calls=5),
+        "apply": median_ms(
+            lambda: kadamw.apply_cuda(launch_plan, ps, gs, ms, vs, norm[1], lr, b1c, b2c, **hyper),
+            batches=5, calls=5,
+        ),
+        "update": median_ms(lambda: adamw.update(grads, opt, params, opt_cfg), batches=5, calls=3),
+        "plain_norm": median_ms(eager_norm, batches=3, calls=2),
+        "plain_apply": median_ms(eager_apply, batches=3, calls=2),
+        "plain_update": median_ms(lambda: adamw.update_eager(grads, opt, params, opt_cfg), batches=3, calls=2),
+        "library_norm": median_ms(foreach_norm, batches=5, calls=3),
+        "library_apply": median_ms(fused_adamw, batches=5, calls=3),
+    }
+    del lib_ms_, lib_vs
+    shape = [list(p.shape) for p in ps]
+    common = {"phase": "kernel", "shape": shape, "dtype": "bfloat16 (norm weights float32)", "leaves": len(ps)}
+    recs = {
+        "adamw_sumsq": {
+            **common,
+            "name": "adamw_sumsq",
+            "max_abs_err": norm_rel,
+            "err": "grad norm rel to update_eager's",
+            "ms": ms_["sumsq"],
+            "plain_ms": ms_["plain_norm"],
+            "library_ms": ms_["library_norm"],
+            "library": "torch._foreach_norm, then the norm of the norms",
+            "bound_ms": g_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+        },
+        "adamw_apply": {
+            **common,
+            "name": "adamw_apply",
+            "max_abs_err": float(len(apart)),
+            "err": "leaves whose p, m or v is not bitwise apply_plain's",
+            "ms": ms_["apply"],
+            "plain_ms": ms_["plain_apply"],
+            "library_ms": ms_["library_apply"],
+            "library": "torch._fused_adamw_, moments in the parameters' dtype",
+            "library_bytes": lib_bytes,
+            "bound_ms": apply_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+        },
+    }
+    for rec in recs.values():
+        emit(rec)
+    whole = (g_bytes + apply_bytes) / HBM_BYTES_PER_S * 1e3
+    emit(
+        {
+            "phase": "adamw",
+            "arch": cfg.name,
+            "n_layers": cfg.n_layers,
+            "parameters": numel,
+            "launches_an_update": launched,
+            "grad_norm_rel_err": norm_rel,
+            "moments_rel_err": moment_rel,
+            "param_bf16_steps_apart": p_steps,
+            "param_elements_apart": p_apart,
+            "apply_leaves_not_bitwise": len(apart),
+            "apply_param_steps_moved_median": moved,
+            "alloc_above_state_gib": {"kernels": fused_gib, "eager": eager_gib},
+            "bound_ms": whole,
+            "update_ms": ms_["update"],
+            "update_share_of_bound": whole / ms_["update"],
+            "plain_update_ms": ms_["plain_update"],
+            "ms": ms_,
+        }
+    )
+    del params, grads, opt, ps, gs, ms, vs, norm
+    free_cuda()
+    return recs
+
+
 # the SSD scan: (B, S, H, P, N), f32.  The headline is one layer of the SSM
 # train phase; then a reference sweep (tests/test_kernels.py) and one
 # layer of the hybrid train phase (zamba2-1.2b: 64 heads, P 64, N 64).
@@ -2090,12 +2300,16 @@ def encdec_train_launches(cfg) -> dict:
     """An encoder-decoder train step's launches: each layer's forward once,
     and again in the backward under full remat (an encoder layer's two
     norms and attention, a decoder layer's three norms, self- and
-    cross-attention), the two final norms once, and each of their
-    backwards once."""
+    cross-attention), the two final norms once, each of their backwards
+    once, and AdamW's two kernels once a dtype group of the leaves."""
     runs = 2 if cfg.remat == "full" else 1
     norms_in_layers = 2 * cfg.enc_layers + 3 * cfg.n_layers
     attentions = cfg.enc_layers + 2 * cfg.n_layers
+    specs = tree_leaves(steps.model_specs(cfg))
+    adamw_groups = len(kadamw.plan([(math.prod(s.shape), s.dtype, s.dtype) for s in specs], kadamw.layout().chunk))
     return {
+        "adamw_sumsq": adamw_groups,
+        "adamw_apply": adamw_groups,
         "layernorm": runs * norms_in_layers + 2,
         "layernorm_bwd": norms_in_layers + 2,
         "flash_attention": runs * attentions,
@@ -4234,9 +4448,13 @@ def mesh_nccl_moe(mesh, parts: dict, launches: dict) -> None:
 
 def mesh_nccl_train(mesh, parts: dict, launches: dict, arch: str, run: dict, part: str) -> None:
     """``arch``'s train step at ``run``'s depth in bf16 on the 1 x 1 NCCL
-    mesh under "tp" against the one-device step: the loss, every gradient
-    and every updated parameter bitwise.  The mesh runs' launches are
-    added to ``launches``."""
+    mesh under "tp" against the one-device step with the eager AdamW
+    (``update_eager``, which DTensor leaves take): the loss, every gradient
+    and every updated parameter bitwise.  And against the one-device
+    entry point, ``make_train_step``, whose plain CUDA leaves take the
+    AdamW kernels: the gradient norm within 2e-6 and every updated
+    parameter within a bf16 step (the kernels sum the norm in another
+    order).  The mesh runs' launches are added to ``launches``."""
     from repro_torch.launch.train import place_batch
     from repro_torch.models import carry
 
@@ -4247,7 +4465,7 @@ def mesh_nccl_train(mesh, parts: dict, launches: dict, arch: str, run: dict, par
     step, bundle, _ = steps.jit_train_step(mcfg, mesh, sh, opt_cfg)
     b = _batch(mcfg, run)
     w = init_params(bundle["specs"], torch.Generator(device="cuda").manual_seed(0), "cuda")
-    w0 = tree_map(lambda t: t.clone(), w)
+    w0, w1 = tree_map(lambda t: t.clone(), w), tree_map(lambda t: t.clone(), w)
     params = carry.shard_params(w, bundle)
     opt = adamw.init_state(params, opt_cfg, bundle["opt_sh"]["m"])
     # the mesh runs first, counted: the forward and backward alone (the
@@ -4269,19 +4487,31 @@ def mesh_nccl_train(mesh, parts: dict, launches: dict, arch: str, run: dict, par
         if not same_bits(x.to_local(), y)
     }
     del grads_m, grads_0
-    step0, _ = steps.make_train_step(mcfg, opt_cfg)
-    w0, _, m0 = step0(w0, adamw.init_state(w0, opt_cfg), place_batch(b, None, "cuda"))
+    # the one-device step with the eager AdamW that the mesh's DTensor
+    # leaves take (plain CUDA leaves take the kernels, whose norm sums in
+    # another order)
+    loss_1, grads_1 = steps.loss_and_grads(mcfg, w0, place_batch(b, None, "cuda"))
+    w0, _, _ = adamw.update_eager(grads_1, adamw.init_state(w0, opt_cfg), w0, opt_cfg)
+    del grads_1
     same = all(same_bits(a.to_local(), c) for (_, a), (_, c) in zip(_paths(params), _paths(w0)))
-    same_loss = same_bits(metrics["loss"], m0["loss"]) and same_bits(loss_m, loss_0)
+    same_loss = same_bits(metrics["loss"], loss_1) and same_bits(loss_m, loss_0)
+    del w0
+    step_1, _ = steps.make_train_step(mcfg, opt_cfg)
+    w1, _, metrics_1 = step_1(w1, adamw.init_state(w1, opt_cfg), place_batch(b, None, "cuda"))
+    entry_norm_rel = abs(float(metrics["grad_norm"]) / float(metrics_1["grad_norm"]) - 1)
+    entry_steps = max(_bf16_steps_apart(a.to_local(), c) for (_, a), (_, c) in zip(_paths(params), _paths(w1)))
     parts[part] = emit(
         {"phase": "mesh_models", "part": part, "arch": mcfg.name, "backend": "nccl", "ranks": 1,
          "n_layers": mcfg.n_layers, "dtype": "bfloat16", "tokens": [run["batch"], run["seq"]],
          "loss": float(metrics["loss"]), "bitwise_loss": same_loss, "bitwise_params": same,
-         "grad_leaves_not_bitwise": len(grad_diff), "grad_leaves": len(_paths(w0)),
+         "grad_leaves_not_bitwise": len(grad_diff), "grad_leaves": len(_paths(w1)),
+         "entry_point_grad_norm_rel_err": entry_norm_rel, "entry_point_param_bf16_steps_apart": entry_steps,
          "grad_rel_err_by_leaf": grad_diff, "ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
     check(same_loss, f"{mcfg.name}'s 1 x 1 loss is not bitwise the one-device loss")
     check(not grad_diff, f"{mcfg.name}'s 1 x 1 gradients are not bitwise the one-device ones: {grad_diff}")
     check(same, f"{mcfg.name}'s 1 x 1 updated parameters are not bitwise the one-device ones")
+    check(entry_norm_rel <= 2e-6, f"{mcfg.name}'s 1 x 1 grad norm {entry_norm_rel} from make_train_step's")
+    check(entry_steps <= 1, f"{mcfg.name}'s 1 x 1 parameters {entry_steps} bf16 steps from make_train_step's")
 
 
 def mesh_nccl_tp_serve(mesh, parts: dict, launches: dict) -> bool:
@@ -4746,11 +4976,21 @@ KERNEL_META = {
     "layernorm_bwd": ("src/repro_torch/csrc/layernorm.cu", "src/repro/kernels/norms.py:44"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:28"),
     "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:28"),
+    # AdamW's kernels replace no pl.pallas_call: XLA fused the update
+    "adamw_sumsq": ("src/repro_torch/csrc/adamw.cu", "none (src/repro/optim/adamw.py, XLA's fusion)"),
+    "adamw_apply": ("src/repro_torch/csrc/adamw.cu", "none (src/repro/optim/adamw.py, XLA's fusion)"),
 }
 GRADIENTS = ("flash_attention_bwd", "rmsnorm_bwd", "layernorm_bwd", "ssd_scan_bwd")
 TP_TRAIN_KERNELS = (
     "ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd", "layernorm", "layernorm_bwd", "flash_attention",
     "flash_attention_bwd",
+)
+# the paths that train on plain CUDA leaves, so update with AdamW's
+# kernels (the mesh paths' DTensor leaves take the eager update)
+ADAMW_KERNELS = ("adamw_sumsq", "adamw_apply")
+ADAMW_PATHS = (
+    "train", "ssm_train", "granite_train", "hybrid_train", "moe_train", "vlm_train", "encdec_train",
+    "ckpt_drill", "examples", "granite_moe",
 )
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -4824,6 +5064,7 @@ def main() -> int:
     headline.update(phase_train_kernels(gen))
     headline.update(phase_ssd_kernels(gen))
     headline.update(phase_ln_kernels(gen))
+    headline.update(phase_adamw())
     cpu_tokens = cpu_token_count()
     ssm_cpu_tokens = cpu_token_count(SSM_ARCH)
     granite_cpu_tokens = cpu_token_count(GRANITE_ARCH)
@@ -4963,7 +5204,7 @@ def main() -> int:
     phase_granite_moe(granite_moe_cpu_tokens)
     paths["granite_moe"] = ops.launch_counts()
     for path, names in PATH_KERNELS.items():
-        for name in names:
+        for name in names + (ADAMW_KERNELS if path in ADAMW_PATHS else ()):
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     emit(mesh_rec["summary"])
     emit({"phase": "dryrun_summary", **{k: dry_rec.get(k) for k in ("arch", "shape", "mesh", "status", "run_s", "torch")}})
@@ -4978,7 +5219,9 @@ def main() -> int:
                 "route": "cuda",
                 "source": source,
                 "replaces": replaces,
-                "role": "gradient (no TPU kernel)" if name in GRADIENTS else "forward",
+                "role": "gradient (no TPU kernel)" if name in GRADIENTS
+                else "optimizer (no TPU kernel)" if name.startswith("adamw")
+                else "forward",
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "shape": rec["shape"],

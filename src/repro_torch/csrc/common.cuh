@@ -38,6 +38,15 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
+// s += v, with the add's exact rounding error added to c (Knuth's TwoSum:
+// no branch; no product, so nothing for the compiler to contract)
+__device__ __forceinline__ void two_sum_add(float& s, float& c, float v) {
+  const float t = s + v;
+  const float bp = t - s;
+  c += (s - (t - bp)) + (v - bp);
+  s = t;
+}
+
 // 16-byte vectors: 4 floats or 8 half-width values per load/store.
 template <typename T> struct Vec {
   static constexpr int N = 16 / sizeof(T);

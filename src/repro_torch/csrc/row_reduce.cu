@@ -30,15 +30,6 @@ template <int OP> __device__ __forceinline__ float combine(float acc, float v) {
   return nan_max(acc, fabsf(v));
 }
 
-// s += v, with the add's exact rounding error added to c (Knuth's TwoSum:
-// no branch; no product, so nothing for the compiler to contract)
-__device__ __forceinline__ void two_sum_add(float& s, float& c, float v) {
-  const float t = s + v;
-  const float bp = t - s;
-  c += (s - (t - bp)) + (v - bp);
-  s = t;
-}
-
 // A row's running value: (sum, error) for OP_SUM, the max otherwise.
 template <int OP> struct Acc {
   float a = OP == OP_SUM ? 0.0f : -INFINITY;

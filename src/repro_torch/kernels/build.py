@@ -35,6 +35,26 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # C signatures, by library and entry point: every pointer and the stream
 # as c_void_p (a bare int would be passed as 32 bits and cut the pointer)
 _VP, _LL, _INT, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+# csrc/adamw.cu's table of a launch's leaves, passed to its kernels by
+# value: leaf i's chunks are [chunk_start[i], chunk_start[i + 1]); ctypes
+# needs its size before the library loads, and kernels/adamw.py layout()
+# checks it against the library's
+ADAMW_MAX_LEAVES = 80
+
+
+class AdamWTable(ctypes.Structure):
+    _fields_ = [
+        ("chunk_start", _LL * (ADAMW_MAX_LEAVES + 1)),
+        ("numel", _LL * ADAMW_MAX_LEAVES),
+        ("p", _VP * ADAMW_MAX_LEAVES),
+        ("g", _VP * ADAMW_MAX_LEAVES),
+        ("m", _VP * ADAMW_MAX_LEAVES),
+        ("v", _VP * ADAMW_MAX_LEAVES),
+        ("n", _INT),
+    ]
+
+
 SIGNATURES = {
     "row_reduce": {"cox_row_reduce": [_VP, _VP, _LL, _LL, _INT, _INT, _VP]},
     "softmax": {
@@ -83,6 +103,18 @@ SIGNATURES = {
         + [_LL, _INT]
         + [_LL] * 9
         + [_INT, _LL, _INT, _VP],
+    },
+    "adamw": {
+        # table, partial sums scratch, blocks, gradient dtype, stream
+        "cox_adamw_sumsq": [AdamWTable, _VP, _INT, _INT, _VP],
+        # partial sums, their count, out (norm, clip scale), clip norm, stream
+        "cox_adamw_finalize": [_VP, _INT, _VP, _F32, _VP],
+        # table, clip scale, lr, b1c, b2c (device scalars), b1, 1 - b1, b2,
+        # 1 - b2, eps, weight decay, blocks, parameter dtype, gradient
+        # dtype, stream
+        "cox_adamw_apply": [AdamWTable] + [_VP] * 4 + [_F32] * 6 + [_INT] * 3 + [_VP],
+        # out: chunk, blocks an SM of each kernel, table leaves and bytes
+        "cox_adamw_layout": [_VP],
     },
     "ssd_scan": {
         # N, P -> the tile length (0: not built)

@@ -11,13 +11,16 @@ reference's dry run lowers ``backend="xla"``.  Ported: ``softmax``, ``row_reduce
 ``attention`` and ``ssd_scan`` are differentiable, with hand-written
 backward kernels on the card and autograd through the plain versions on
 the CPU.  ``topk_gate`` (the MoE router) is the plain version on every
-device, as in the reference, which has no kernel for it.
+device, as in the reference, which has no kernel for it.  AdamW's
+kernels (``kernels/adamw.py``, which replace no TPU kernel) are called
+by ``optim/adamw.py`` and counted here with the rest.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import adamw as _adamw
 from . import flash_attention as _fa
 from . import norms as _norms
 from . import ref as _ref
@@ -107,6 +110,8 @@ _COUNTERS = {
     "flash_attention_bwd": (_fa, "bwd_launches"),
     "ssd_scan": (_ssd, "launches"),
     "ssd_scan_bwd": (_ssd, "bwd_launches"),
+    "adamw_sumsq": (_adamw, "launches"),
+    "adamw_apply": (_adamw, "apply_launches"),
 }
 
 

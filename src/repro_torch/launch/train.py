@@ -15,7 +15,10 @@ every step of a hybrid model (zamba2) all six: ``ssd_scan``,
 ``flash_attention`` and ``rmsnorm`` and their backwards; every step of an
 encoder-decoder model (seamless) ``flash_attention`` non-causal in the
 encoder and the cross-attention and causal in the decoder, and
-``layernorm``, and their backwards.  A VLM or encoder-decoder batch
+``layernorm``, and their backwards.  Every step on a card updates the
+parameters with AdamW's ``adamw_sumsq`` and ``adamw_apply`` kernels, one
+launch of each a (parameter dtype, gradient dtype) group; on a mesh
+(DTensor leaves) AdamW is eager.  A VLM or encoder-decoder batch
 carries its ``frontend`` embeddings (``data/pipeline.py``).  With
 ``ckpt_dir=`` the parameters and the optimizer state go to
 ``checkpoint/ckpt.py``'s ``CheckpointManager``, and ``retry_loop``

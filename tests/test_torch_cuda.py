@@ -23,12 +23,14 @@ import pytest
 import torch
 
 from repro_torch.core import cox, execute
+from repro_torch.kernels import adamw as padamw
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import norms as pnorms
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import softmax as psm
 from repro_torch.kernels import ssd_scan as pssd
+from repro_torch.optim import adamw as poptim
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_IMPORT = "from repro.core import cox"
@@ -229,6 +231,8 @@ def test_kernels_take_every_dtype(cuda, dtype):
         "flash_attention_bwd": 0,
         "ssd_scan": 0,
         "ssd_scan_bwd": 0,
+        "adamw_sumsq": 0,
+        "adamw_apply": 0,
     }
 
 
@@ -1670,3 +1674,201 @@ def test_nccl_one_rank_sharded_launch_is_the_scan_launch(cuda, tmp_path, monkeyp
                 assert got[k].device.type == "cuda" and torch.equal(got[k], want[k]), (kern.name, k)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# AdamW's multi-tensor kernels (csrc/adamw.cu) against the eager arithmetic
+# ---------------------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+# leaves as (elements, parameter dtype, gradient dtype, the tensors that
+# start one element past a 16-byte boundary: any of "pgmv")
+ADAMW_CASES = {
+    # ragged sizes, both dtype groups, leaves off a 16-byte boundary
+    "mixed": [
+        (3 * 4096 + 5, BF16, BF16, ""),
+        (6144, F32, F32, ""),
+        (1, BF16, BF16, ""),
+        (13, F32, F32, ""),
+        (77_777, BF16, BF16, "pgmv"),
+        (1000, F32, F32, "g"),
+        (8192, BF16, BF16, "m"),
+        (2_000_003, BF16, BF16, ""),
+    ],
+    # a bf16 group of 100 leaves: its table spans two launches
+    "many": [(37 * i + 1, BF16, BF16, "") for i in range(100)] + [(100 + i, F32, F32, "") for i in range(3)],
+    # grad_compress's group: f32 gradients of bf16 parameters
+    "compress": [(50_001, BF16, F32, ""), (6144, F32, F32, ""), (4096, BF16, F32, "v")],
+}
+ADAMW_LAUNCHES = {"mixed": 2, "many": 3, "compress": 2}
+
+
+def _adamw_leaves(cuda, leaves, gen):
+    """(params, m, v) lists on the card: parameters ~ N(0, 0.02^2), zero
+    moments; a tensor named in a leaf's offsets starts one element into
+    its buffer."""
+    def place(t, off):
+        buf = torch.empty(t.numel() + off, dtype=t.dtype, device=cuda)
+        out = buf[off:]
+        out.copy_(t)
+        assert out.is_contiguous() and (out.data_ptr() % 16 != 0) == bool(off)
+        return out
+
+    ps, ms, vs = [], [], []
+    for n, p_dtype, _, off in leaves:
+        ps.append(place((0.02 * torch.randn(n, generator=gen)).to(p_dtype), int("p" in off)))
+        ms.append(place(torch.zeros(n), int("m" in off)))
+        vs.append(place(torch.zeros(n), int("v" in off)))
+    return ps, ms, vs
+
+
+def _adamw_grads(cuda, leaves, gen):
+    """Gradients in each leaf's dtype, their magnitudes spread over three
+    decades from leaf to leaf, placed as the leaf's offsets say."""
+    out = []
+    for i, (n, _, g_dtype, off) in enumerate(leaves):
+        g = (10.0 ** (-(i % 4)) * torch.randn(n, generator=gen)).to(g_dtype)
+        buf = torch.empty(n + int("g" in off), dtype=g_dtype, device=cuda)
+        out.append(buf[int("g" in off) :])
+        out[-1].copy_(g)
+    return out
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The most units in the last place between two f32 or bf16 tensors."""
+    iv = torch.int32 if a.dtype == F32 else torch.int16
+    return int((a.contiguous().view(iv).long() - b.contiguous().view(iv).long()).abs().max())
+
+
+def test_adamw_layout_is_the_librarys(cuda):
+    """The library's table is ``build.AdamWTable`` (``layout`` raises
+    otherwise), its chunk whole 16-byte units of bf16 and f32, and its
+    grids at least one block an SM."""
+    lay = padamw.layout()
+    assert lay.chunk > 0 and lay.chunk % 8 == 0
+    assert lay.sumsq_blocks_per_sm >= 1 and lay.apply_blocks_per_sm >= 1
+
+
+@pytest.mark.parametrize("case", sorted(ADAMW_CASES))
+def test_adamw_apply_is_bitwise_the_eager_update(cuda, case):
+    """Three steps in a row: ``cox_adamw_apply`` gives m, v and the
+    parameters bitwise equal to ``apply_plain`` on the card (the eager
+    update's arithmetic, each leaf cast to f32 as ``update_eager`` casts
+    it), given the same clip scale, learning rate and bias corrections on
+    the device; one launch a dtype group of up to ADAMW_MAX_LEAVES."""
+    leaves = ADAMW_CASES[case]
+    gen = torch.Generator().manual_seed(7)
+    ps, ms, vs = _adamw_leaves(cuda, leaves, gen)
+    pe, me, ve = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    launch_plan = padamw.plan([(n, pd, gd) for n, pd, gd, _ in leaves], padamw.layout().chunk)
+    assert len(launch_plan) == ADAMW_LAUNCHES[case]
+    cfg = poptim.AdamWConfig(lr=1e-2, warmup_steps=2)
+    hyper = poptim._hyper(cfg)
+    for step in (1, 2, 3):
+        gs = _adamw_grads(cuda, leaves, gen)
+        t = torch.tensor(step, dtype=torch.int32, device=cuda).to(F32)
+        scale = torch.tensor(0.37 + 0.2 * step, device=cuda).clamp(max=1.0)
+        lr = poptim.schedule(cfg, torch.tensor(step, dtype=torch.int32, device=cuda))
+        b1c, b2c = 1 - torch.pow(0.9, t), 1 - torch.pow(0.95, t)
+        before = padamw.apply_launches
+        padamw.apply_cuda(launch_plan, ps, gs, ms, vs, scale.reshape(()), lr, b1c, b2c, **hyper)
+        assert padamw.apply_launches - before == ADAMW_LAUNCHES[case]
+        for p, m, v, g in zip(pe, me, ve, gs):
+            p.copy_(padamw.apply_plain(p.float(), m, v, g.float(), scale, lr, b1c, b2c, **hyper).to(p.dtype))
+        torch.cuda.synchronize()
+        for i in range(len(leaves)):
+            for what, got, want in (("m", ms[i], me[i]), ("v", vs[i], ve[i]), ("p", ps[i], pe[i])):
+                assert torch.equal(got, want), (case, step, i, leaves[i], what, _ulps(got, want))
+
+
+def test_adamw_global_norm_is_repeatable_and_matches_the_eager_norm(cuda):
+    """``cox_adamw_sumsq`` and the finalising block: the norm of bf16 and
+    f32 gradients (a group of 2^25 + 3 elements among them) within 2e-6 of
+    the eager norm, bitwise the same twice; the clip scale bitwise the
+    eager formula's on that norm, for a clip that engages, one that does
+    not, and none (scale 1)."""
+    leaves = ADAMW_CASES["mixed"] + [(2**25 + 3, BF16, BF16, "")]
+    gen = torch.Generator().manual_seed(3)
+    gs = _adamw_grads(cuda, leaves, gen)
+    launch_plan = padamw.plan([(n, pd, gd) for n, pd, gd, _ in leaves], padamw.layout().chunk)
+    before = padamw.launches
+    got = padamw.global_norm_cuda(gs, launch_plan, 1.0)
+    assert padamw.launches - before == 2
+    assert torch.equal(got, padamw.global_norm_cuda(gs, launch_plan, 1.0))
+    eager = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
+    f64 = float(torch.sqrt(sum(torch.sum(torch.square(g.double())) for g in gs)))
+    norm = float(got[0])
+    assert abs(norm - float(eager)) <= 2e-6 * float(eager), (norm, float(eager), f64)
+    assert norm > 10.0
+    for clip in (1.0, 1e6, 0.0):
+        out = padamw.global_norm_cuda(gs, launch_plan, clip)
+        want = torch.clamp(clip / torch.clamp(out[0], min=1e-12), max=1.0) if clip else torch.ones((), device=cuda)
+        assert torch.equal(out[1], want), (clip, float(out[1]), float(want))
+
+
+@pytest.mark.parametrize("grad_compress", [False, True])
+def test_adamw_update_on_the_card_neither_syncs_nor_allocates_a_leaf(cuda, grad_compress):
+    """``adamw.update`` on plain CUDA leaves runs under
+    ``set_sync_debug_mode("error")`` (no host sync), launches each kernel
+    once a dtype group, allocates nothing near a leaf's width (without
+    ``grad_compress``, whose int8 round trip is eager) and agrees with
+    ``update_eager``: the norm within 2e-6, the moments within 1e-5
+    (their clip scales round apart), the parameters within a bf16 step."""
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    cfg = poptim.AdamWConfig(lr=1e-2, warmup_steps=2, grad_compress=grad_compress)
+    gen = torch.Generator().manual_seed(5)
+
+    def tree(scale):
+        return {
+            "w": (scale * torch.randn(1024, 4096, generator=gen)).to(BF16).to(cuda),
+            "n": {"w": torch.randn(4096, generator=gen).to(cuda)},
+            "z": (scale * torch.randn(3, 1001, generator=gen)).to(BF16).to(cuda),
+        }
+
+    params = tree(0.02)
+    twin = tree_map(torch.clone, params)
+    st, st2 = poptim.init_state(params, cfg), poptim.init_state(twin, cfg)
+    for _ in range(3):
+        grads = tree(1.0)
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, st, met = poptim.update(grads, st, params, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        peak = torch.cuda.max_memory_allocated() - base
+        after = ops.launch_counts()
+        assert (after["adamw_sumsq"] - before["adamw_sumsq"], after["adamw_apply"] - before["adamw_apply"]) == (2, 2)
+        if not grad_compress:
+            assert peak < 2**20, peak  # the largest leaf in f32: 16 MiB
+        twin, st2, met2 = poptim.update_eager(grads, st2, twin, cfg)
+        gn, gn2 = float(met["grad_norm"]), float(met2["grad_norm"])
+        assert abs(gn - gn2) <= 2e-6 * gn2, (gn, gn2)
+        assert torch.equal(met["lr"], met2["lr"])
+        for k in ("m", "v"):
+            for a, b in zip(tree_leaves(st[k]), tree_leaves(st2[k])):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-12)
+        for a, b in zip(tree_leaves(params), tree_leaves(twin)):
+            torch.testing.assert_close(a.float(), b.float(), rtol=2**-7, atol=1e-6)
+
+
+def test_adamw_update_refuses_leaves_the_kernels_do_not_take(cuda):
+    """A leaf that is not contiguous, and dtypes the kernels lack (an f16
+    parameter, an f64 gradient), raise before any launch."""
+    cfg = poptim.AdamWConfig()
+    cases = [
+        (torch.randn(64, 32, device=cuda).t(), torch.randn(32, 64, device=cuda), ValueError, "contiguous"),
+        (torch.randn(64, device=cuda, dtype=torch.float16), torch.randn(64, device=cuda, dtype=torch.float16), TypeError, "dtype"),
+        (torch.randn(64, device=cuda), torch.randn(64, device=cuda, dtype=torch.float64), TypeError, "dtype"),
+    ]
+    for p, g, err, match in cases:
+        params = {"a": torch.randn(8, device=cuda), "b": p}
+        st = poptim.init_state(params, cfg)
+        before = ops.launch_counts()
+        with pytest.raises(err, match=match):
+            poptim.update({"a": torch.randn(8, device=cuda), "b": g}, st, params, cfg)
+        assert ops.launch_counts() == before

@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels import softmax as jsm
 from repro.kernels import warp_reduce as jwr
+from repro_torch.kernels import adamw as padamw
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import norms as pnorms
 from repro_torch.kernels import softmax as psm
@@ -120,6 +121,8 @@ def test_cpu_tensors_take_the_plain_version():
         "flash_attention_bwd": 0,
         "ssd_scan": 0,
         "ssd_scan_bwd": 0,
+        "adamw_sumsq": 0,
+        "adamw_apply": 0,
     }
 
 
@@ -130,6 +133,8 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         psm.softmax_cuda(x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         pwr.row_reduce_cuda(x, "max")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        padamw.check_leaves([x], [x], [x], [x])
     with pytest.raises(ValueError, match="CUDA tensor"):
         pnorms.layernorm_cuda(x, x[0], x[0])
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -143,7 +148,7 @@ def test_library_names_track_the_sources(tmp_path, monkeypatch):
     paths = {name: build._library_path(name) for name in build.SIGNATURES}
     assert set(paths) == {
         "softmax", "row_reduce", "rmsnorm", "layernorm", "flash_decode", "flash_attention",
-        "ssd_scan",
+        "ssd_scan", "adamw",
     }
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}-")
