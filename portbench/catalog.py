@@ -1,12 +1,14 @@
 """The benchmark's data, found by name: a cell in ``workloads/<name>.json``,
 a configuration in ``configs/<name>.json``, a traffic mix in
-``traffic/<name>.json``, a metric's reader in ``metrics/<name>.py`` and a
-traffic kind's driver in ``drivers/<kind>.py``.  ``BENCHMARK.json`` at
+``traffic/<name>.json``, a metric's reader in ``metrics/<name>.py``, a
+traffic kind's driver in ``drivers/<kind>.py`` and a model family in
+``families/<family>.py``.  ``BENCHMARK.json`` at
 the root of the checkout says which metrics each cell reports.  An
 unknown name is refused."""
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import pathlib
@@ -27,7 +29,8 @@ def _path(folder: str, name: str, suffix: str) -> pathlib.Path:
     path = HERE / folder / f"{name}{suffix}"
     if not path.is_file():
         known = sorted(p.name[: -len(suffix)] for p in (HERE / folder).glob(f"*{suffix}"))
-        raise Unknown(f"no {folder[:-1] if folder.endswith('s') else folder} {name!r}; known: {known}")
+        kind = folder[:-3] + "y" if folder.endswith("ies") else folder.removesuffix("s")
+        raise Unknown(f"no {kind} {name!r}; known: {known}")
     return path
 
 
@@ -67,6 +70,18 @@ def reader(name: str):
 def driver(kind: str):
     """The module that runs a traffic kind: ``run(...) -> Record``."""
     return _module("drivers", kind)
+
+
+@functools.cache
+def family(name: str):
+    """The module of a model family, the one place that knows its
+    structure: ``layout(cfg)`` (the ``reference.layout.Leaf`` tree),
+    ``loss(cfg, params, tokens, labels, precision)`` (the plain float32
+    reference, ``precision="fp8"`` its control), ``param_count(cfg)``
+    (as the program's ``ModelConfig`` counts them),
+    ``model_flops(cfg, batch, seq)`` (a training step's, without the
+    remat recompute) and ``small(cfg)`` (the CPU tests' cut)."""
+    return _module("families", name)
 
 
 def benchmark() -> dict:

@@ -17,13 +17,6 @@ import torch
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
-# the configuration file's keys that are the program's ModelConfig fields
-MODEL_KEYS = (
-    "family", "n_layers", "d_model", "n_heads", "n_kv", "d_ff", "vocab", "d_head", "qkv_bias",
-    "act", "norm", "tie_embeddings", "ssm_state", "ssm_heads", "ssm_head_dim", "ssm_inner",
-    "conv_k", "ssd_chunk", "attn_every", "window", "remat",
-)
-
 
 def _import():
     if str(SRC) not in sys.path:
@@ -37,11 +30,13 @@ def _import():
 
 
 def model_config(cfg: dict):
-    """The program's ``ModelConfig`` of a configuration file."""
+    """The program's ``ModelConfig`` of a configuration file: each key of
+    the file that names one of its fields, the dtype by its name."""
     ModelConfig = _import()[0]
-    kw = {k: cfg[k] for k in MODEL_KEYS if k in cfg}
+    fields = {f.name for f in dataclasses.fields(ModelConfig)} - {"param_dtype"}
+    kw = {k: v for k, v in cfg.items() if k in fields}
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg["param_dtype"]]
-    return ModelConfig(name=cfg["name"], param_dtype=dtype, **kw)
+    return ModelConfig(param_dtype=dtype, **kw)
 
 
 def adamw_config(cfg: dict):

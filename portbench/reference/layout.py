@@ -1,13 +1,16 @@
 """The parameter layout of a configuration and how each leaf is drawn.
 
 A nested dict of :class:`Leaf` (shape, dtype, init rule) in the program's
-layout: every leaf under ``layers`` has a leading layer axis, and the
-hybrid family's shared block (``shared_attn``) has none.  The benchmark
-draws the weights from this layout (``portbench/weights.py``) and hands
-the same tensors to the program and to the plain reference; the
-reference reads its shapes from here, never from the program.
+layout: every leaf under ``layers`` has a leading layer axis, and a block
+outside the stack (the hybrid family's ``shared_attn``) has none.  The
+benchmark draws the weights from this layout (``portbench/weights.py``)
+and hands the same tensors to the program and to the plain reference;
+the reference reads its shapes from here, never from the program.
 
-A configuration is a dict of the keys in ``portbench/configs/*.json``.
+Each family's module (``portbench/families/<family>.py``) builds its
+tree from the blocks here; :func:`layout` finds it by the
+configuration's ``family``.  A configuration is a dict of the keys in
+``portbench/configs/*.json``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import dataclasses
 from typing import Dict, Iterator, Tuple
 
 import torch
+
+from .. import catalog
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -34,12 +39,13 @@ def round_up(a: int, b: int) -> int:
 
 def sizes(cfg: dict) -> dict:
     """The configuration's sizes, with the derived ones filled in: the
-    head width, the SSM inner width and heads, the padded vocabulary."""
+    head width where there are heads, the SSM inner width and heads where
+    there is an SSM state, the padded vocabulary."""
     out = dict(cfg)
     out.setdefault("d_head", 0)
-    if not out["d_head"]:
+    if not out["d_head"] and cfg["n_heads"]:
         out["d_head"] = cfg["d_model"] // cfg["n_heads"]
-    if cfg["family"] in ("ssm", "hybrid"):
+    if cfg.get("ssm_state"):
         out.setdefault("ssm_inner", 2 * cfg["d_model"])
         out["ssm_inner"] = out["ssm_inner"] or 2 * cfg["d_model"]
         out.setdefault("ssm_heads", 0)
@@ -56,7 +62,7 @@ def _norm(cfg, stack=()) -> Dict[str, Leaf]:
     return out
 
 
-def _norm_pair(cfg, name: str, stack=()) -> Dict[str, Leaf]:
+def norm_pair(cfg, name: str, stack=()) -> Dict[str, Leaf]:
     n = _norm(cfg, stack)
     sp = {name: n["w"]}
     if "b" in n:
@@ -64,7 +70,7 @@ def _norm_pair(cfg, name: str, stack=()) -> Dict[str, Leaf]:
     return sp
 
 
-def _attention(cfg, stack=()) -> Dict[str, Leaf]:
+def attention(cfg, stack=()) -> Dict[str, Leaf]:
     d, H, Hkv, Dh = cfg["d_model"], cfg["n_heads"], cfg["n_kv"], cfg["d_head"]
     dt = DTYPES[cfg["param_dtype"]]
     return {
@@ -75,7 +81,7 @@ def _attention(cfg, stack=()) -> Dict[str, Leaf]:
     }
 
 
-def _mlp(cfg, stack=()) -> Dict[str, Leaf]:
+def mlp(cfg, stack=()) -> Dict[str, Leaf]:
     d, f = cfg["d_model"], cfg["d_ff"]
     dt = DTYPES[cfg["param_dtype"]]
     if cfg["act"] == "swiglu":
@@ -87,16 +93,16 @@ def _mlp(cfg, stack=()) -> Dict[str, Leaf]:
     return {"w_in": Leaf(stack + (d, f), dt, "normal", d), "w_out": Leaf(stack + (f, d), dt, "normal", f)}
 
 
-def _dense_layer(cfg, stack=()) -> Dict[str, object]:
+def dense_layer(cfg, stack=()) -> Dict[str, object]:
     sp: Dict[str, object] = {}
-    sp.update(_norm_pair(cfg, "ln1", stack))
-    sp["attn"] = _attention(cfg, stack)
-    sp.update(_norm_pair(cfg, "ln2", stack))
-    sp["mlp"] = _mlp(cfg, stack)
+    sp.update(norm_pair(cfg, "ln1", stack))
+    sp["attn"] = attention(cfg, stack)
+    sp.update(norm_pair(cfg, "ln2", stack))
+    sp["mlp"] = mlp(cfg, stack)
     return sp
 
 
-def _mamba2(cfg, stack=()) -> Dict[str, Leaf]:
+def mamba2(cfg, stack=()) -> Dict[str, Leaf]:
     d, di = cfg["d_model"], cfg["ssm_inner"]
     H, N, K = cfg["ssm_heads"], cfg["ssm_state"], cfg["conv_k"]
     dt = DTYPES[cfg["param_dtype"]]
@@ -112,23 +118,22 @@ def _mamba2(cfg, stack=()) -> Dict[str, Leaf]:
     }
 
 
-def layout(cfg: dict) -> Dict[str, object]:
-    """The parameter tree of ``cfg`` (the dense and hybrid families)."""
-    cfg = sizes(cfg)
-    fam = cfg["family"]
-    if fam not in ("dense", "hybrid"):
-        raise ValueError(f"the reference has no {fam!r} family")
+def lm(cfg: dict, layers: Dict[str, object], **blocks) -> Dict[str, object]:
+    """The tree of a decoder-only model of sized ``cfg``: the (tied)
+    embedding, the final norm, the stacked ``layers`` and any ``blocks``
+    outside the stack."""
     dt = DTYPES[cfg["param_dtype"]]
     Vp = cfg["vocab_padded"]
     tree: Dict[str, object] = {"embed": {"tok": Leaf((Vp, cfg["d_model"]), dt, "normal", Vp)}}
-    tree.update(_norm_pair(cfg, "final_norm"))
-    L = (cfg["n_layers"],)
-    if fam == "hybrid":
-        tree["layers"] = {**_norm_pair(cfg, "ln1", L), "mamba": _mamba2(cfg, L)}
-        tree["shared_attn"] = _dense_layer(cfg)
-    else:
-        tree["layers"] = _dense_layer(cfg, L)
+    tree.update(norm_pair(cfg, "final_norm"))
+    tree["layers"] = layers
+    tree.update(blocks)
     return tree
+
+
+def layout(cfg: dict) -> Dict[str, object]:
+    """The parameter tree of ``cfg``, as its family builds it."""
+    return catalog.family(cfg["family"]).layout(cfg)
 
 
 def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:

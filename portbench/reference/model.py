@@ -1,10 +1,12 @@
-"""The plain reference: the training forward of the dense and hybrid
-families in plain PyTorch, in float32, written down from the equations the
-program implements (a frozen copy, independent of its code).
+"""The plain reference: the layers of the training forward in plain
+PyTorch, in float32, written down from the equations the program
+implements (a frozen copy, independent of its code).  Each family's
+module (``portbench/families/<family>.py``) runs its layer stack from
+these; :func:`loss` finds it by the configuration's ``family``.
 
-- Embedding rows, then the layer stack, the final norm, the tied
+- Embedding rows, then the family's layer stack, the final norm, the tied
   unembedding and the mean cross-entropy over the labels in ``[0,
-  vocab)`` (padded vocabulary columns masked).
+  vocab)`` (padded vocabulary columns masked): :func:`lm_loss`.
 - Norms over the last axis with eps 1e-6: rmsnorm, or layernorm with a
   bias (two passes: the mean, then the mean of the centred squares).
 - Attention: rotary embeddings (halves rotated, base 10,000) on q and k,
@@ -16,8 +18,6 @@ program implements (a frozen copy, independent of its code).
   dt_bias)``, ``a = -exp(A_log) dt``, the SSD recurrence ``h_t = e^{a_t}
   h_{t-1} + B_t (dt x)_t^T``, ``y_t = C_t^T h_t + D (dt x)_t``, gated by
   ``silu(z)``, an rmsnorm, then ``W_out``.
-- The hybrid family: after every ``attn_every`` Mamba2 layers (the last
-  group may be short) one application of the shared dense block.
 
 ``precision="fp8"`` is the control: every operand of a matrix product
 that the program holds in bfloat16 (the projections, the MLP, the
@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import catalog
 from .layout import sizes
 
 NEG_INF = -1e30
@@ -203,34 +204,26 @@ def ssm_layer(cfg, num: Numerics, p, x):
     return x + mamba2(cfg, num, p["mamba"], norm(cfg, p, "ln1", x))
 
 
-def _layer_params(stacked, i: int):
-    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
+def layer_params(stacked, i: int):
+    """Layer ``i`` of each leaf of a stacked tree."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
 
 
-def _run(fn, cfg, num, p, x):
+def run(fn, cfg, num, p, x):
+    """``fn(cfg, num, p, x)``, one layer, under checkpoint when gradients
+    are taken."""
     if torch.is_grad_enabled():
         return checkpoint(fn, cfg, num, p, x, use_reentrant=False)
     return fn(cfg, num, p, x)
 
 
-def groups(cfg):
-    ae = cfg["attn_every"] or cfg["n_layers"]
-    return [(s, min(ae, cfg["n_layers"] - s)) for s in range(0, cfg["n_layers"], ae)]
-
-
-def loss(cfg: dict, params, tokens, labels, precision: str = "f32"):
-    """The mean cross-entropy of one batch: tokens, labels (B, S) int."""
+def lm_loss(cfg: dict, params, tokens, labels, precision: str, stack):
+    """The mean cross-entropy of one batch (tokens, labels (B, S) int) of
+    a decoder-only model whose layers ``stack(cfg, num, params, x)`` runs
+    on the embedded tokens."""
     cfg = sizes(cfg)
     num = Numerics(precision)
-    x = params["embed"]["tok"][tokens]
-    if cfg["family"] == "hybrid":
-        for start, width in groups(cfg):
-            for i in range(start, start + width):
-                x = _run(ssm_layer, cfg, num, _layer_params(params["layers"], i), x)
-            x = _run(dense_layer, cfg, num, params["shared_attn"], x)
-    else:
-        for i in range(cfg["n_layers"]):
-            x = _run(dense_layer, cfg, num, _layer_params(params["layers"], i), x)
+    x = stack(cfg, num, params, params["embed"]["tok"][tokens])
     h = norm(cfg, params, "final_norm", x)
     logits = num.mm(h, params["embed"]["tok"].t())
     cols = torch.arange(logits.shape[-1], device=logits.device)
@@ -239,3 +232,8 @@ def loss(cfg: dict, params, tokens, labels, precision: str = "f32"):
     idx = torch.where(valid, labels, 0).long()
     nll = torch.logsumexp(logits, -1) - torch.gather(logits, -1, idx[..., None])[..., 0]
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def loss(cfg: dict, params, tokens, labels, precision: str = "f32"):
+    """The mean cross-entropy of one batch, as ``cfg``'s family computes it."""
+    return catalog.family(cfg["family"]).loss(cfg, params, tokens, labels, precision)

@@ -14,8 +14,8 @@ The last line of standard output is one JSON object: ``correct``,
 when traced), and last ``checks``, each compared number beside its limit;
 the same numbers end standard error.  A run exits non-zero and prints no
 result where there is no CUDA card (or fewer than the cell asks for),
-where the name is unknown, where the program cannot be imported, or where
-JAX or the JAX package was loaded.
+where a name (the cell's, its configuration's family, ...) is unknown, where
+the program cannot be imported, or where JAX or the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -91,6 +91,7 @@ def main(argv=None) -> int:
         bench = catalog.benchmark()
         cell = catalog.cell(args.workload)
         config = catalog.config(cell["config"])
+        catalog.family(config["family"])
         mix = catalog.traffic(cell["traffic"])
         driver = catalog.driver(mix["kind"])
     except catalog.Unknown as e:

@@ -27,6 +27,7 @@ def test_cell_files_match_the_benchmark(w):
     config = catalog.config(cell["config"])
     mix = catalog.traffic(cell["traffic"])
     assert catalog.driver(mix["kind"]).run
+    assert catalog.family(config["family"]).layout
     assert set(cell["limits"]) == {"loss", "grad", "change"}
     assert config["name"] in {c["name"] for c in BENCH["configs"]}
 
@@ -83,7 +84,7 @@ def test_metrics_of_a_cell():
 
 
 @pytest.mark.parametrize(
-    "load", [catalog.cell, catalog.config, catalog.traffic, catalog.reader, catalog.driver]
+    "load", [catalog.cell, catalog.config, catalog.traffic, catalog.reader, catalog.driver, catalog.family]
 )
 @pytest.mark.parametrize("name", ["no-such-name", "../BENCHMARK", "a b"])
 def test_unknown_names_are_refused(load, name):
