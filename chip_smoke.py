@@ -107,7 +107,7 @@ idle time, kernels by name), and holds each serving path (full width, 2 layers, 
 train step of each (full width, 1 layer, f32) on the card against the
 same on the CPU; the MoE checks compare the router's top-k first (a
 choice may flip only on a near tie, counted and printed).  Last, with
-TF32 still off, three more main paths, each counted alone:
+TF32 still off, four more main paths, each counted alone:
 
 - ``examples``: the port's seven examples (``examples/torch_*.py``) through their
   ``main`` on the card: quickstart, cuda_migration, the three-way softmax
@@ -123,7 +123,15 @@ TF32 still off, three more main paths, each counted alone:
 - ``granite_moe``: granite-moe-1b-a400m (32 experts, top 8, no shared expert) served at
   full width and depth in bf16, and its f32 decode and train
   cross-checks (rmsnorm, flash_decode, flash_attention and their
-  backwards).
+  backwards);
+- ``hybrid_moe_train``: granite-4.0-h-small (the hybrid_moe family) at
+  its published widths, cut as the benchmark's configuration cuts it (10
+  layers: 9 Mamba2 and one NoPE attention; 9 of 72 experts held, dropless),
+  bf16, full remat, B 4 x S 4,096 as in its benchmark cell: train steps,
+  then one recorded step whose spans (device ms by name) and
+  ``moe.experts`` counters (rows, max_rows) it prints (ssd_scan, rmsnorm,
+  flash_attention and their backwards; the kernel phases check each at
+  this path's shapes, eps and scale).
 
 Each model's phases free its weights before the next model's start.
 Each phase prints one JSON line; the last line is
@@ -332,6 +340,10 @@ ARCH_SMOKE_DECODE = dict(archs=(ARCH, SSM_ARCH), tokens=8, rtol=2e-2)
 # served at full width and depth in bf16, then the f32 cross-checks
 GRANITE_MOE_ARCH = "granite-moe-1b-a400m"
 GRANITE_MOE_SERVE = dict(batch=4, ctx=128, n_requests=4, max_tokens=16, seed=0)
+# granite-4.0-h-small cut to one card's share, as portbench's
+# granite-4.0-h-small-10l: 10 layers, 9 of 72 experts; bf16, B 4 x S 4,096
+# (the batch of its cell, granite-4.0-h-small.train-4x4k)
+HYBRID_MOE_TRAIN = dict(n_layers=10, experts_held=9, batch=4, seq=4096, steps=2)
 # a phase's name: the model's prefix and the phase, e.g. granite_serve
 PHASE_PREFIX = {
     ARCH: "",
@@ -876,23 +888,29 @@ SSM_D_MODEL, SSM_D_INNER = 768, 1536  # mamba2-130m
 HYBRID_TOKENS = HYBRID_TRAIN["batch"] * HYBRID_TRAIN["seq"]
 HYBRID_D_MODEL, HYBRID_D_INNER = 2048, 4096  # zamba2-1.2b (deepseek-moe-16b's d too)
 VLM_D_MODEL = 7168  # llava-next-34b
-# rmsnorm: (shape, x dtype, w dtype); the headline, the serving shape
+# granite-4.0-h-small in the hybrid_moe_train phase: its layer norms at
+# d 4,096, the Mamba2 gated norm at d_inner 8,192, eps 1e-5 (published)
+HM_TOKENS = HYBRID_MOE_TRAIN["batch"] * HYBRID_MOE_TRAIN["seq"]
+HM_D_MODEL, HM_D_INNER, HM_EPS = 4096, 8192, 1e-5
+# rmsnorm: (shape, x dtype, w dtype, eps); the headline, the serving shape
 # (the decode batch of the serve phase), f32, a ragged unaligned width,
 # mamba2-130m's inner norm in training and its norm in serving; then
 # zamba2-1.2b's and llava-next-34b's in serving and training (zamba2's
-# d 2,048 is deepseek-moe-16b's too)
+# d 2,048 is deepseek-moe-16b's too); then granite-4.0-h-small's two
 RMS_CASES = [
-    ((8192, D_MODEL), torch.bfloat16, torch.float32),
-    ((SERVE["batch"], D_MODEL), torch.bfloat16, torch.float32),
-    ((8192, D_MODEL), torch.float32, torch.float32),
-    ((3, 1001), torch.float32, torch.float32),
-    ((SSM_TOKENS, SSM_D_INNER), torch.bfloat16, torch.float32),
-    ((SERVE["batch"], SSM_D_MODEL), torch.bfloat16, torch.float32),
-    ((SERVE["batch"], HYBRID_D_MODEL), torch.bfloat16, torch.float32),
-    ((SERVE["batch"], HYBRID_D_INNER), torch.bfloat16, torch.float32),
-    ((SERVE["batch"], VLM_D_MODEL), torch.bfloat16, torch.float32),
-    ((HYBRID_TOKENS, HYBRID_D_INNER), torch.bfloat16, torch.float32),
-    ((8192, VLM_D_MODEL), torch.bfloat16, torch.float32),
+    ((8192, D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((SERVE["batch"], D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((8192, D_MODEL), torch.float32, torch.float32, 1e-6),
+    ((3, 1001), torch.float32, torch.float32, 1e-6),
+    ((SSM_TOKENS, SSM_D_INNER), torch.bfloat16, torch.float32, 1e-6),
+    ((SERVE["batch"], SSM_D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((SERVE["batch"], HYBRID_D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((SERVE["batch"], HYBRID_D_INNER), torch.bfloat16, torch.float32, 1e-6),
+    ((SERVE["batch"], VLM_D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((HYBRID_TOKENS, HYBRID_D_INNER), torch.bfloat16, torch.float32, 1e-6),
+    ((8192, VLM_D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((HM_TOKENS, HM_D_MODEL), torch.bfloat16, torch.float32, HM_EPS),
+    ((HM_TOKENS, HM_D_INNER), torch.bfloat16, torch.float32, HM_EPS),
 ]
 RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
 # flash_decode: (B, S, kv_len per row, dtype, query heads, kv heads, head
@@ -930,15 +948,15 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
     """rmsnorm and flash_decode against their plain versions, with the
     library call beside each; the first case of each is its headline."""
     headline = {}
-    for shape, dtype, wdtype in RMS_CASES:
+    for shape, dtype, wdtype, eps in RMS_CASES:
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
-        got = norms.rmsnorm_cuda(x, w)
-        want = ref.rmsnorm(x, w)
+        got = norms.rmsnorm_cuda(x, w, eps)
+        want = ref.rmsnorm(x, w, eps)
         torch.cuda.synchronize()
         rtol, atol = RMS_TOL[dtype]
         err = max_err(got, want)
-        check(close(got, want, rtol, atol), f"rmsnorm {shape} {dtype}: err {err}")
+        check(close(got, want, rtol, atol), f"rmsnorm {shape} {dtype} eps {eps}: err {err}")
         w_lib = w.to(dtype)  # F.rms_norm takes the weight in x's dtype
         rec = {
             "phase": "kernel",
@@ -946,17 +964,18 @@ def phase_serving_kernels(gen: torch.Generator) -> dict:
             "shape": list(shape),
             "dtype": _dtype_name(dtype),
             "w_dtype": _dtype_name(wdtype),
+            "eps": eps,
             "rtol": rtol,
             "atol": atol,
             "max_abs_err": err,
-            "ms": median_ms(lambda: norms.rmsnorm_cuda(x, w)),
-            "plain_ms": median_ms(lambda: ref.rmsnorm(x, w)),
+            "ms": median_ms(lambda: norms.rmsnorm_cuda(x, w, eps)),
+            "plain_ms": median_ms(lambda: ref.rmsnorm(x, w, eps)),
             "library_ms": median_ms(
-                lambda: torch.nn.functional.rms_norm(x, (shape[-1],), w_lib, eps=1e-6)
+                lambda: torch.nn.functional.rms_norm(x, (shape[-1],), w_lib, eps=eps)
             ),
         }
         if shape[0] == SERVE["batch"]:
-            rec["graph_ms"] = graph_ms(lambda: norms.rmsnorm_cuda(x, w))
+            rec["graph_ms"] = graph_ms(lambda: norms.rmsnorm_cuda(x, w, eps))
         nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * x.numel())
         emit(rec)
@@ -1523,28 +1542,35 @@ TRAIN_SHAPE = (TRAIN["batch"], TRAIN["seq"], N_HEADS, N_KV, D_HEAD)
 GRANITE_TRAIN_SHAPE = (
     GRANITE_TRAIN["batch"], GRANITE_TRAIN["seq"], GRANITE_HEADS, GRANITE_KV, D_HEAD
 )
+# Each case: (B, S, H, Hkv, D, causal, window, dtype, scale), scale None
+# for the kernels' default 1/sqrt(D).
 TRAIN_ATTN_CASES = (
-    [(*shape, True, 0, dtype) for dtype in (torch.bfloat16, torch.float32)
+    [(*shape, True, 0, dtype, None) for dtype in (torch.bfloat16, torch.float32)
      for shape in (TRAIN_SHAPE, GRANITE_TRAIN_SHAPE)]
     # one layer of the new families' train phases, bf16: zamba2-1.2b's
     # shared block (32/32 heads of 64, window 4,096), deepseek-moe-16b's
     # 16/16 of 128, llava-next-34b's 56/8 (g = 7), seamless's
     + [
-        (HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], 32, 32, 64, True, 4096, torch.bfloat16),
-        (MOE_TRAIN["batch"], MOE_TRAIN["seq"], 16, 16, D_HEAD, True, 0, torch.bfloat16),
-        (VLM_TRAIN["batch"], VLM_TRAIN["seq"], 56, 8, D_HEAD, True, 0, torch.bfloat16),
+        (HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], 32, 32, 64, True, 4096, torch.bfloat16, None),
+        (MOE_TRAIN["batch"], MOE_TRAIN["seq"], 16, 16, D_HEAD, True, 0, torch.bfloat16, None),
+        (VLM_TRAIN["batch"], VLM_TRAIN["seq"], 56, 8, D_HEAD, True, 0, torch.bfloat16, None),
         # seamless-m4t-large-v2's encoder and cross-attention (non-causal)
         # and its decoder's self-attention: 16/16 heads of 64
-        (ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["seq"], 16, 16, 64, False, 0, torch.bfloat16),
-        (ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["seq"], 16, 16, 64, True, 0, torch.bfloat16),
+        (ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["seq"], 16, 16, 64, False, 0, torch.bfloat16, None),
+        (ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["seq"], 16, 16, 64, True, 0, torch.bfloat16, None),
+        # granite-4.0-h-small's NoPE layer in the hybrid_moe_train phase:
+        # 32/8 heads of 128 at its attention_multiplier 1/128
+        (HYBRID_MOE_TRAIN["batch"], HYBRID_MOE_TRAIN["seq"], 32, 8, D_HEAD, True, 0, torch.bfloat16, 1 / 128),
     ]
     + [
-        (1, S, H, Hkv, D, causal, 0, dtype)
+        (1, S, H, Hkv, D, causal, 0, dtype, None)
         for S, H, Hkv, D in ((256, 4, 4, 64), (256, 8, 2, 64), (128, 4, 1, 128))
         for causal in (True, False)
         for dtype in (torch.float32, torch.bfloat16)
     ]
-    + [(1, 256, 2, 2, 64, True, 64, dtype) for dtype in (torch.float32, torch.bfloat16)]
+    + [(1, 256, 2, 2, 64, True, 64, dtype, None) for dtype in (torch.float32, torch.bfloat16)]
+    # a scale of its own in f32, where the reference's 1e-4 holds it
+    + [(1, 256, 8, 2, 128, True, 0, torch.float32, 1 / 128)]
 )
 # f32: the reference's 1e-4.  bf16: against the plain version in f32 on
 # the same bf16 inputs; each output is an f32 value rounded once to bf16
@@ -1555,18 +1581,21 @@ TRAIN_ATTN_CASES = (
 # largest magnitude)
 TRAIN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-5)}
 ATTN_GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-7, 1e-2)}
-# rmsnorm backward: the train phase's (B x S, d_model) in bf16 with f32 w,
-# then f32, a ragged width, mamba2-130m's two norms in training, then
-# zamba2-1.2b's two and llava-next-34b's
+# rmsnorm backward: (shape, x dtype, w dtype, eps); the train phase's
+# (B x S, d_model) in bf16 with f32 w, then f32, a ragged width,
+# mamba2-130m's two norms in training, then zamba2-1.2b's two,
+# llava-next-34b's and granite-4.0-h-small's two
 RMS_BWD_CASES = [
-    ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.bfloat16, torch.float32),
-    ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.float32, torch.float32),
-    ((3, 1001), torch.float32, torch.float32),
-    ((SSM_TOKENS, SSM_D_INNER), torch.bfloat16, torch.float32),
-    ((SSM_TOKENS, SSM_D_MODEL), torch.bfloat16, torch.float32),
-    ((HYBRID_TOKENS, HYBRID_D_MODEL), torch.bfloat16, torch.float32),
-    ((HYBRID_TOKENS, HYBRID_D_INNER), torch.bfloat16, torch.float32),
-    ((8192, VLM_D_MODEL), torch.bfloat16, torch.float32),
+    ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((TRAIN["batch"] * TRAIN["seq"], D_MODEL), torch.float32, torch.float32, 1e-6),
+    ((3, 1001), torch.float32, torch.float32, 1e-6),
+    ((SSM_TOKENS, SSM_D_INNER), torch.bfloat16, torch.float32, 1e-6),
+    ((SSM_TOKENS, SSM_D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((HYBRID_TOKENS, HYBRID_D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((HYBRID_TOKENS, HYBRID_D_INNER), torch.bfloat16, torch.float32, 1e-6),
+    ((8192, VLM_D_MODEL), torch.bfloat16, torch.float32, 1e-6),
+    ((HM_TOKENS, HM_D_MODEL), torch.bfloat16, torch.float32, HM_EPS),
+    ((HM_TOKENS, HM_D_INNER), torch.bfloat16, torch.float32, HM_EPS),
 ]
 
 
@@ -1602,13 +1631,13 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
     includes its forward (autograd recomputes nothing else)."""
     headline = {}
     F = torch.nn.functional
-    for B, S, H, Hkv, D, causal, window, dtype in TRAIN_ATTN_CASES:
+    for B, S, H, Hkv, D, causal, window, dtype, scale in TRAIN_ATTN_CASES:
         big = S >= 4096
         q = (0.5 * torch.randn(B, S, H, D, generator=gen, device="cuda")).to(dtype)
         k = (0.5 * torch.randn(B, S, Hkv, D, generator=gen, device="cuda")).to(dtype)
         v = (0.5 * torch.randn(B, S, Hkv, D, generator=gen, device="cuda")).to(dtype)
         do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
-        mask = dict(causal=causal, window=window)
+        mask = dict(causal=causal, window=window, scale=scale)
         o, lse = fa.flash_attention_cuda(q, k, v, **mask)
         grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
         if big:  # the backward is deterministic: the same bits twice
@@ -1620,7 +1649,7 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
         want_o = ref.attention(*f32[:3], **mask)
         want_g = ref.attention_bwd(*f32, **mask)
         torch.cuda.synchronize()
-        what = f"B={B} S={S} H={H}/{Hkv} D={D} causal={causal} window={window} {dtype}"
+        what = f"B={B} S={S} H={H}/{Hkv} D={D} causal={causal} window={window} scale={scale} {dtype}"
         err_o, ok = scaled_err(o, want_o, *TRAIN_TOL[dtype])
         check(ok, f"flash_attention {what}: err {err_o}")
         errs = {}
@@ -1632,21 +1661,16 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
         if not window or window >= S:  # SDPA has no single call for a window under S
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
-            out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+            sdpa = dict(is_causal=causal, enable_gqa=True, scale=scale)
+            out = F.scaled_dot_product_attention(*leaves, **sdpa)
             dot = do.transpose(1, 2)
-            lib_fwd = median_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True
-                )
-            )
+            lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa))
             lib_bwd = median_ms(
                 lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True), batches=5
             )
             lib_fwd_bwd = median_ms(
                 lambda: torch.autograd.grad(
-                    F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True),
-                    leaves,
-                    dot,
+                    F.scaled_dot_product_attention(*leaves, **sdpa), leaves, dot
                 ),
                 batches=5,
             )
@@ -1660,6 +1684,7 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
             "shape": [B, S, H, Hkv, D],
             "causal": causal,
             "window": window,
+            "scale": scale,
             "dtype": _dtype_name(dtype),
             "rtol": TRAIN_TOL[dtype][0],
             "atol_of_max": TRAIN_TOL[dtype][1],
@@ -1704,31 +1729,33 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
 
-    for shape, dtype, wdtype in RMS_BWD_CASES:
+    for shape, dtype, wdtype, eps in RMS_BWD_CASES:
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         w = (1 + 0.3 * torch.randn(shape[-1], generator=gen, device="cuda")).to(wdtype)
         dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        dx, dw = norms.rmsnorm_bwd_cuda(x, w, dy)
-        want_dx, want_dw = ref.rmsnorm_bwd(x.float(), w.float(), dy.float())
+        dx, dw = norms.rmsnorm_bwd_cuda(x, w, dy, eps)
+        want_dx, want_dw = ref.rmsnorm_bwd(x.float(), w.float(), dy.float(), eps)
         torch.cuda.synchronize()
         err_dx, ok_dx = scaled_err(dx, want_dx, *TRAIN_TOL[dtype])
         err_dw, ok_dw = scaled_err(dw, want_dw, *TRAIN_TOL[wdtype])
-        check(ok_dx and ok_dw, f"rmsnorm_bwd {shape} {dtype}: dx err {err_dx}, dw err {err_dw}")
+        what = f"rmsnorm_bwd {shape} {dtype} eps {eps}"
+        check(ok_dx and ok_dw, f"{what}: dx err {err_dx}, dw err {err_dw}")
         xg = x.detach().requires_grad_(True)
         wg = w.to(dtype).detach().requires_grad_(True)  # F.rms_norm: w in x's dtype
-        y = F.rms_norm(xg, (shape[-1],), wg, eps=1e-6)
+        y = F.rms_norm(xg, (shape[-1],), wg, eps=eps)
         rec = {
             "phase": "kernel",
             "name": "rmsnorm_bwd",
             "shape": list(shape),
             "dtype": _dtype_name(dtype),
             "w_dtype": _dtype_name(wdtype),
+            "eps": eps,
             "rtol": TRAIN_TOL[dtype][0],
             "atol_of_max": TRAIN_TOL[dtype][1],
             "max_abs_err": max(err_dx, err_dw),
             "max_abs_err_dw": err_dw,
-            "ms": median_ms(lambda: norms.rmsnorm_bwd_cuda(x, w, dy)),
-            "plain_ms": median_ms(lambda: ref.rmsnorm_bwd(x, w, dy)),
+            "ms": median_ms(lambda: norms.rmsnorm_bwd_cuda(x, w, dy, eps)),
+            "plain_ms": median_ms(lambda: ref.rmsnorm_bwd(x, w, dy, eps)),
             "library_ms": median_ms(
                 lambda: torch.autograd.grad(y, (xg, wg), dy, retain_graph=True)
             ),
@@ -2059,12 +2086,14 @@ def phase_adamw() -> dict:
 
 
 # the SSD scan: (B, S, H, P, N), f32.  The headline is one layer of the SSM
-# train phase; then a reference sweep (tests/test_kernels.py) and one
-# layer of the hybrid train phase (zamba2-1.2b: 64 heads, P 64, N 64).
+# train phase; then a reference sweep (tests/test_kernels.py), one layer
+# of the hybrid train phase (zamba2-1.2b: 64 heads, P 64, N 64) and one of
+# the hybrid_moe train phase (granite-4.0-h-small: 128 heads, P 64, N 128).
 SSD_CASES = [
     (SSM_TRAIN["batch"], SSM_TRAIN["seq"], 24, 64, 128),
     (1, 256, 2, 64, 32),
     (HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], 64, 64, 64),
+    (HYBRID_MOE_TRAIN["batch"], HYBRID_MOE_TRAIN["seq"], 128, 64, 128),
 ]
 # f32 against the plain chunked form, whose chunk is not the kernels'
 # tile: sums in another order, 1e-4 of the largest magnitude (rtol, atol
@@ -4951,6 +4980,69 @@ def phase_granite_moe(cpu_tokens: int) -> None:
     free_cuda()
 
 
+def phase_hybrid_moe(run: dict = HYBRID_MOE_TRAIN) -> dict:
+    """granite-4.0-h-small's train step on the card (``make_train_step``,
+    one device): ``run["steps"]`` steps, then one under
+    ``obs.recording()``; prints the loss, the step's time, the peak
+    memory, the recorded spans' device ms by name and the counters of its
+    ``moe.experts`` spans.  Each MoE block computes at most top_k pairs a
+    token, and every held expert's rows are among them."""
+    from repro_torch.configs import granite_4_0_h_small
+
+    free_cuda()
+    cfg = dataclasses.replace(
+        granite_4_0_h_small.CONFIG, n_layers=run["n_layers"], experts_held=run["experts_held"]
+    )
+    step, specs = steps.make_train_step(cfg)
+    params = init_params(specs, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = adamw.init_state(params, adamw.AdamWConfig())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, S = run["batch"], run["seq"]
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=g, device="cuda") for k in ("tokens", "labels")}
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(run["steps"]):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    obs.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.recording():
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    step_s = time.perf_counter() - t0
+    (rows,) = obs.summary().values()
+    by_name: dict = {}
+    for r in rows:
+        by_name[r["name"]] = by_name.get(r["name"], 0.0) + r["device_ms"]
+    experts = [r["counters"] for r in rows if r["name"] == "moe.experts"]
+    check(all(math.isfinite(x) for x in losses), f"hybrid_moe losses {losses}")
+    want = {"train.forward", "train.backward", "model.block", "model.mamba", "model.moe", "moe.experts",
+            "adamw.update"}
+    check(set(by_name) == want, f"hybrid_moe spans {sorted(by_name)}")
+    check(len(experts) == 2 * cfg.n_layers, f"{len(experts)} moe.experts spans")  # forward and recompute
+    check(all(0 < c["max_rows"] <= c["rows"] <= B * S * cfg.top_k for c in experts), f"counters {experts}")
+    rec = emit(
+        {
+            "phase": "hybrid_moe_train",
+            "arch": cfg.name,
+            "cuts": f"layers 40 -> {cfg.n_layers}, experts held 72 -> {cfg.experts_held}",
+            "params": cfg.param_count(),
+            "batch": B,
+            "seq": S,
+            "losses": losses,
+            "step_s": step_s,
+            "tokens_per_s": B * S / step_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "span_device_ms": by_name,
+            "moe_experts": experts,
+        }
+    )
+    del params, opt, step
+    free_cuda()
+    return rec
+
+
 KERNEL_META = {
     "softmax": ("src/repro_torch/csrc/softmax.cu", "src/repro/kernels/softmax.py:18"),
     "row_reduce": (
@@ -4990,7 +5082,7 @@ TP_TRAIN_KERNELS = (
 ADAMW_KERNELS = ("adamw_sumsq", "adamw_apply")
 ADAMW_PATHS = (
     "train", "ssm_train", "granite_train", "hybrid_train", "moe_train", "vlm_train", "encdec_train",
-    "ckpt_drill", "examples", "granite_moe",
+    "ckpt_drill", "examples", "granite_moe", "hybrid_moe_train",
 )
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -5032,6 +5124,7 @@ PATH_KERNELS = {
     "arch_smoke": ("rmsnorm", "layernorm", "flash_attention", "ssd_scan", "flash_decode"),
     # served, then the decode and train cross-checks
     "granite_moe": ("rmsnorm", "flash_decode", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd"),
+    "hybrid_moe_train": ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"),
 }
 
 
@@ -5203,6 +5296,9 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_granite_moe(granite_moe_cpu_tokens)
     paths["granite_moe"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    phase_hybrid_moe()
+    paths["hybrid_moe_train"] = ops.launch_counts()
     for path, names in PATH_KERNELS.items():
         for name in names + (ADAMW_KERNELS if path in ADAMW_PATHS else ()):
             check(paths[path][name] > 0, f"{name} was not launched on the {path} path")

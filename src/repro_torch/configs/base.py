@@ -1,15 +1,19 @@
 """Model and shape configuration dataclasses (port of
 ``src/repro/configs/base.py``).
 
-The same fields, defaults and arithmetic as the reference; the one change
-is ``param_dtype``, which is a torch dtype (``torch.bfloat16``, and
-``torch.float32`` for the ``reduced`` smoke twins).
+The same fields, defaults and arithmetic as the reference, with two
+changes: ``param_dtype`` is a torch dtype (``torch.bfloat16``, and
+``torch.float32`` for the ``reduced`` smoke twins), and the fields of
+:data:`PORT_FIELDS` (the ``hybrid_moe`` family's: a layer pattern, the
+multipliers, NoPE, the Mamba2 conv bias and skip, a held share of dropless
+experts, the norms' eps) are the port's own.  Each defaults to today's
+arithmetic, so the reference's ten configurations compute what they did.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -17,7 +21,7 @@ import torch
 @dataclasses.dataclass
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    family: str  # dense | moe | ssm | hybrid | hybrid_moe | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -54,6 +58,21 @@ class ModelConfig:
     param_dtype: torch.dtype = torch.bfloat16
     tp_pad: int = 0  # pad q-heads to this TP degree (0 on one card)
     notes: str = ""
+    # --- the port's own (PORT_FIELDS): hybrid_moe (granite-4.0-h) ---
+    # each layer's mixer, "mamba" or "attention"; the model runs the first
+    # n_layers (a depth cut keeps the published list whole)
+    layer_types: Tuple[str, ...] = ()
+    attention_multiplier: float = 0.0  # attention's scale; 0: 1/sqrt(d_head)
+    embedding_multiplier: float = 1.0  # on the embedded tokens
+    residual_multiplier: float = 1.0  # on every residual branch
+    logits_scaling: float = 1.0  # the logits are divided by it
+    position_embedding_type: str = "rope"  # rope | nope
+    mamba_conv_bias: bool = False
+    ssm_skip: str = "dt_x"  # D's input: the dt-scaled x (dt_x) | x itself (x, Mamba2's)
+    experts_held: int = 0  # experts [0, experts_held) live here; 0: all n_experts
+    shared_intermediate_size: int = 0  # the shared expert's width; 0: n_shared x d_expert
+    dropless: bool = False  # every (token, choice) pair to a held expert computed
+    norm_eps: float = 1e-6
 
     def head_padding(self):
         """(Hp, gp, g_true): padded head count, padded group size, true
@@ -74,10 +93,34 @@ class ModelConfig:
     def __post_init__(self):
         if self.d_head == 0 and self.n_heads:
             self.d_head = self.d_model // self.n_heads
-        if self.family in ("ssm", "hybrid") and self.ssm_inner == 0:
+        ssm = self.family in ("ssm", "hybrid", "hybrid_moe")
+        if ssm and self.ssm_inner == 0:
             self.ssm_inner = 2 * self.d_model
-        if self.family in ("ssm", "hybrid") and self.ssm_heads == 0:
+        if ssm and self.ssm_heads == 0:
             self.ssm_heads = self.ssm_inner // self.ssm_head_dim
+        self.layer_types = tuple(self.layer_types)
+        if self.family == "hybrid_moe":
+            kinds = self.layer_types[: self.n_layers]
+            if len(kinds) < self.n_layers or not set(kinds) <= {"mamba", "attention"}:
+                raise ValueError(f"{self.name}: layer_types must give 'mamba' or 'attention' for each layer")
+        if self.experts_held and not self.dropless:
+            # the capacity dispatch indexes all n_experts' weights
+            raise ValueError(f"{self.name}: experts_held needs dropless routing")
+
+    def pattern(self) -> Tuple[str, ...]:
+        """Each layer's mixer (the hybrid_moe family)."""
+        return self.layer_types[: self.n_layers]
+
+    def held_experts(self) -> int:
+        return self.experts_held or self.n_experts
+
+    def shared_width(self) -> int:
+        return self.shared_intermediate_size or (self.d_expert or self.d_ff) * self.n_shared
+
+    def _mamba_params(self) -> int:
+        d, di, N, Hs = self.d_model, self.ssm_inner, self.ssm_state, self.ssm_heads
+        conv = (self.conv_k + self.mamba_conv_bias) * (di + 2 * N)
+        return d * (2 * di + 2 * N + Hs) + di * d + conv + 3 * Hs + di
 
     def param_count(self) -> int:
         """Total parameters N (for 6·N·D roofline accounting)."""
@@ -100,26 +143,15 @@ class ModelConfig:
             per_layer = attn + moe + 2 * d
             body = self.n_layers * per_layer
         elif self.family == "ssm":
-            di, N, Hs = self.ssm_inner, self.ssm_state, self.ssm_heads
-            mamba = (
-                d * (2 * di + 2 * N + Hs)
-                + di * d
-                + self.conv_k * (di + 2 * N)
-                + 3 * Hs
-                + di
-            )
-            body = self.n_layers * (mamba + d)
+            body = self.n_layers * (self._mamba_params() + d)
         elif self.family == "hybrid":
-            di, N, Hs = self.ssm_inner, self.ssm_state, self.ssm_heads
-            mamba = (
-                d * (2 * di + 2 * N + Hs)
-                + di * d
-                + self.conv_k * (di + 2 * N)
-                + 3 * Hs
-                + di
-            )
             shared = attn + mlp + 2 * d
-            body = self.n_layers * (mamba + d) + shared
+            body = self.n_layers * (self._mamba_params() + d) + shared
+        elif self.family == "hybrid_moe":
+            fe = self.d_expert or f
+            moe = self.held_experts() * 3 * d * fe + d * self.n_experts + 3 * d * self.shared_width()
+            mixers = {"mamba": self._mamba_params(), "attention": attn}
+            body = sum(mixers[k] + moe + 2 * d for k in self.pattern())
         elif self.family == "encdec":
             enc = self.enc_layers * (attn + mlp + 2 * d)
             dec = self.n_layers * (2 * attn + mlp + 3 * d)
@@ -158,6 +190,14 @@ SHAPES: Dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+# the fields the port adds to the reference's ModelConfig (each at its
+# default in the reference's ten configurations)
+PORT_FIELDS = frozenset({
+    "layer_types", "attention_multiplier", "embedding_multiplier", "residual_multiplier", "logits_scaling",
+    "position_embedding_type", "mamba_conv_bias", "ssm_skip", "experts_held", "shared_intermediate_size",
+    "dropless", "norm_eps",
+})
 
 # architectures for which long_500k is runnable (sub-quadratic decode)
 LONG_CONTEXT_OK = {"mamba2-130m", "zamba2-1.2b"}

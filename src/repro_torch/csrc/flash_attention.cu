@@ -966,26 +966,24 @@ template <typename K> int allow_smem(K kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
-float scale_of(int D) { return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))); }
-
 unsigned n_tiles(long long S) { return static_cast<unsigned>((S + BQ - 1) / BQ); }
 
 template <int D>
 int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-            int Hkv, Strides qs, Strides ks, Strides vs, Mask mask, cudaStream_t stream) {
+            int Hkv, Strides qs, Strides ks, Strides vs, Mask mask, float scale, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<float, D>;
   const size_t smem = fwd_smem<D>();
   int err = allow_smem(kern, smem);
   if (err != 0) return err;
   kern<<<dim3(n_tiles(mask.S), H, B), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, H, Hkv, qs, ks, vs, mask, scale_of(D));
+      static_cast<float*>(o), lse, H, Hkv, qs, ks, vs, mask, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-             int Hkv, Strides qs, Strides ks, Strides vs, Mask mask, cudaStream_t stream) {
+             int Hkv, Strides qs, Strides ks, Strides vs, Mask mask, float scale, cudaStream_t stream) {
   using flash_tc::bf16;
   auto kern = flash_tc::fwd_kernel<D>;
   const size_t smem = flash_tc::fwd_smem<D>();
@@ -993,7 +991,7 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
   if (err != 0) return err;
   kern<<<dim3(H, B, n_tiles(mask.S)), flash_tc::WG, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, H, Hkv, qs, ks, vs, mask, scale_of(D));
+      static_cast<bf16*>(o), lse, H, Hkv, qs, ks, vs, mask, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1011,7 +1009,7 @@ int launch_delta(const void* o, const void* dout, float* delta, int B, int H, lo
 template <int D>
 int bwd_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
             const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int Hkv,
-            Strides qs, Strides ks, Strides vs, Mask mask, cudaStream_t stream) {
+            Strides qs, Strides ks, Strides vs, Mask mask, float scale, cudaStream_t stream) {
   using T = float;
   int err = launch_delta<T>(o, dout, delta, B, H, mask.S, D, stream);
   if (err != 0) return err;
@@ -1021,7 +1019,7 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* o, const vo
   kv_kern<<<dim3(n_tiles(mask.S), Hkv, B), THREADS, dkdv_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H,
-      Hkv, qs, ks, vs, mask, scale_of(D));
+      Hkv, qs, ks, vs, mask, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
 
@@ -1031,7 +1029,7 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* o, const vo
   q_kern<<<dim3(n_tiles(mask.S), H, B), THREADS, dq_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), H, Hkv, qs, ks, vs,
-      mask, scale_of(D));
+      mask, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1039,7 +1037,7 @@ template <int D>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
              const float* lse, float* delta, void* dq, void* dk, void* dv, float* part,
              int nsplit, int B, int H, int Hkv, Strides qs, Strides ks, Strides vs, Mask mask,
-             cudaStream_t stream) {
+             float scale, cudaStream_t stream) {
   using flash_tc::bf16;
   int err = launch_delta<bf16>(o, dout, delta, B, H, mask.S, D, stream);
   if (err != 0) return err;
@@ -1049,7 +1047,7 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const v
     kern<<<kv_grid, flash_tc::WG, kv_smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), part, nsplit, H, Hkv, qs, ks, vs, mask, scale_of(D));
+        static_cast<bf16*>(dv), part, nsplit, H, Hkv, qs, ks, vs, mask, scale);
   };
   if (nsplit > 1) {
     auto kern = flash_tc::dkdv_kernel<D, true>;
@@ -1077,9 +1075,12 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o, const v
   q_kern<<<dim3(H, B, n_tiles(mask.S)), flash_tc::WG, flash_tc::dq_smem<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Hkv, qs, ks, vs,
-      mask, scale_of(D));
+      mask, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// a model's scale: finite and above 0
+bool valid_scale(float scale) { return scale > 0.0f && scale <= 3.0e38f; }
 
 bool valid_shape(int B, int H, int Hkv, long long S, long long window) {
   // the bf16 grids put B and the q or k tiles on their y and z dimensions
@@ -1091,23 +1092,27 @@ bool valid_shape(int B, int H, int Hkv, long long S, long long window) {
 
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an argument the kernel does not take.  lse is
-// f32 (B, H, S).  bf16 rows (every base and stride of q, k, v) must lie on
-// 16-byte boundaries: the wrapper checks it.
+// f32 (B, H, S), of the scaled logits (q . k) * scale; the wrapper passes
+// scale = 1/sqrt(D) unless the model gives its own.  bf16 rows (every base
+// and stride of q, k, v) must lie on 16-byte boundaries: the wrapper checks
+// it.
 extern "C" int cox_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int H, int Hkv, long long S, int D,
                                    long long qsb, long long qss, long long qsh,
                                    long long ksb, long long kss, long long ksh,
                                    long long vsb, long long vss, long long vsh, int causal,
-                                   long long window, int dtype, void* stream) {
-  if (!valid_shape(B, H, Hkv, S, window)) return static_cast<int>(cudaErrorInvalidValue);
+                                   long long window, float scale, int dtype, void* stream) {
+  if (!valid_shape(B, H, Hkv, S, window) || !valid_scale(scale)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const Mask mask{S, causal != 0, window};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == COX_F32 && D == 64) return fwd_f32<64>(q, k, v, o, l, B, H, Hkv, qs, ks, vs, mask, s);
-  if (dtype == COX_F32 && D == 128) return fwd_f32<128>(q, k, v, o, l, B, H, Hkv, qs, ks, vs, mask, s);
-  if (dtype == COX_BF16 && D == 64) return fwd_bf16<64>(q, k, v, o, l, B, H, Hkv, qs, ks, vs, mask, s);
-  if (dtype == COX_BF16 && D == 128) return fwd_bf16<128>(q, k, v, o, l, B, H, Hkv, qs, ks, vs, mask, s);
+  if (dtype == COX_F32 && D == 64) return fwd_f32<64>(q, k, v, o, l, B, H, Hkv, qs, ks, vs, mask, scale, s);
+  if (dtype == COX_F32 && D == 128) return fwd_f32<128>(q, k, v, o, l, B, H, Hkv, qs, ks, vs, mask, scale, s);
+  if (dtype == COX_BF16 && D == 64) return fwd_bf16<64>(q, k, v, o, l, B, H, Hkv, qs, ks, vs, mask, scale, s);
+  if (dtype == COX_BF16 && D == 128) return fwd_bf16<128>(q, k, v, o, l, B, H, Hkv, qs, ks, vs, mask, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1117,7 +1122,7 @@ extern "C" int cox_flash_attention(const void* q, const void* k, const void* v, 
 // lse is the forward's; delta is f32 scratch of B * H * S values.  nsplit
 // (bf16 only; 1 for f32) splits each kv head's query-head group over that
 // many dK/dV blocks, and divides it; above 1, part is f32 scratch of 2 *
-// nsplit * B * S * Hkv * D values.
+// nsplit * B * S * Hkv * D values.  scale is the forward's.
 extern "C" int cox_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        void* delta, void* dq, void* dk, void* dv, void* part,
@@ -1125,8 +1130,9 @@ extern "C" int cox_flash_attention_bwd(const void* q, const void* k, const void*
                                        long long qsb, long long qss, long long qsh,
                                        long long ksb, long long kss, long long ksh,
                                        long long vsb, long long vss, long long vsh,
-                                       int causal, long long window, int dtype, void* stream) {
-  if (!valid_shape(B, H, Hkv, S, window) || nsplit < 1 || (H / Hkv) % nsplit != 0 ||
+                                       int causal, long long window, float scale, int dtype,
+                                       void* stream) {
+  if (!valid_shape(B, H, Hkv, S, window) || !valid_scale(scale) || nsplit < 1 || (H / Hkv) % nsplit != 0 ||
       static_cast<long long>(Hkv) * nsplit > 2147483647LL || (nsplit > 1 && part == nullptr) ||
       (dtype != COX_BF16 && nsplit != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1138,12 +1144,12 @@ extern "C" int cox_flash_attention_bwd(const void* q, const void* k, const void*
   float* pt = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == COX_F32 && D == 64)
-    return bwd_f32<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Hkv, qs, ks, vs, mask, s);
+    return bwd_f32<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Hkv, qs, ks, vs, mask, scale, s);
   if (dtype == COX_F32 && D == 128)
-    return bwd_f32<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Hkv, qs, ks, vs, mask, s);
+    return bwd_f32<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Hkv, qs, ks, vs, mask, scale, s);
   if (dtype == COX_BF16 && D == 64)
-    return bwd_bf16<64>(q, k, v, o, dout, l, dl, dq, dk, dv, pt, nsplit, B, H, Hkv, qs, ks, vs, mask, s);
+    return bwd_bf16<64>(q, k, v, o, dout, l, dl, dq, dk, dv, pt, nsplit, B, H, Hkv, qs, ks, vs, mask, scale, s);
   if (dtype == COX_BF16 && D == 128)
-    return bwd_bf16<128>(q, k, v, o, dout, l, dl, dq, dk, dv, pt, nsplit, B, H, Hkv, qs, ks, vs, mask, s);
+    return bwd_bf16<128>(q, k, v, o, dout, l, dl, dq, dk, dv, pt, nsplit, B, H, Hkv, qs, ks, vs, mask, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

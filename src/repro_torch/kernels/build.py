@@ -89,20 +89,20 @@ SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v, o, lse, B, H, Hkv, S, D, q/k/v strides (b, s, h),
-        # causal, window, dtype, stream
+        # causal, window, scale, dtype, stream
         "cox_flash_attention": [_VP] * 5
         + [_INT] * 3
         + [_LL, _INT]
         + [_LL] * 9
-        + [_INT, _LL, _INT, _VP],
+        + [_INT, _LL, _F32, _INT, _VP],
         # q, k, v, o, dout, lse, delta scratch, dq, dk, dv, split scratch,
         # nsplit, B, H, Hkv, S, D, q/k/v strides (b, s, h), causal, window,
-        # dtype, stream
+        # scale, dtype, stream
         "cox_flash_attention_bwd": [_VP] * 11
         + [_INT] * 4
         + [_LL, _INT]
         + [_LL] * 9
-        + [_INT, _LL, _INT, _VP],
+        + [_INT, _LL, _F32, _INT, _VP],
     },
     "adamw": {
         # table, partial sums scratch, blocks, gradient dtype, stream

@@ -29,6 +29,8 @@ decode combine, the backward's row sums and split sum), and only those.
 from __future__ import annotations
 
 import functools
+import math
+from typing import Optional
 
 import torch
 
@@ -200,36 +202,44 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, S, Hkv, D) -> (B, S, H, D).
 
-    Query head h attends to kv head ``h // (H // Hkv)`` with scale
-    ``1/sqrt(D)``; ``causal`` masks keys after the query and ``window``
-    (with ``causal`` only) keys ``window`` or more before it.  On a CUDA
-    tensor it launches the kernels in both directions; on a CPU tensor it
-    is ``ref.attention``, differentiated by autograd."""
+    Query head h attends to kv head ``h // (H // Hkv)`` with logits ``(q .
+    k) * scale``, ``scale`` ``1/sqrt(D)`` unless given; ``causal`` masks
+    keys after the query and ``window`` (with ``causal`` only) keys
+    ``window`` or more before it.  On a CUDA tensor it launches the kernels
+    in both directions; on a CPU tensor it is ``ref.attention``,
+    differentiated by autograd."""
     if plain_route(q):
-        return ref.attention(q, k, v, causal=causal, window=window)
-    return FlashAttentionFn.apply(q, k, v, causal, window)
+        return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
+    return FlashAttentionFn.apply(q, k, v, causal, window, scale)
+
+
+def _scale(D: int, scale: Optional[float]) -> float:
+    """The logits' scale the kernels take: ``1/sqrt(D)`` rounded once to
+    f32 (as the kernels computed it before they took one) unless given."""
+    return 1.0 / math.sqrt(D) if scale is None else float(scale)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """The CUDA flash attention with its hand-written backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: Optional[float] = None):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window
+            q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window, scale=ctx.scale
         )
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -272,10 +282,10 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: S = {S} must divide by {BLOCK}: pad the sequence")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0, scale: Optional[float] = None):
     """The forward kernel: ``(o, lse)``, o (B, S, H, D) in q's dtype and
     lse (B, H, S) f32, each row's log-sum-exp of its scaled, masked
-    logits."""
+    logits (``scale`` as :func:`flash_attention` takes it)."""
     global fwd_launches
     _check_qkv(q, k, v)
     if window < 0:
@@ -289,17 +299,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             B, H, k.shape[2], S, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window), build.DTYPE_CODES[q.dtype], stream_of(q),
+            int(causal), int(window), _scale(D, scale), build.DTYPE_CODES[q.dtype], stream_of(q),
         )
     build.check(err, "cox_flash_attention")
     fwd_launches += 1
     return o, lse
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
+def flash_attention_bwd_cuda(
+    q, k, v, o, lse, do, *, causal: bool = True, window: int = 0, scale: Optional[float] = None
+):
     """The backward kernels: ``(dq, dk, dv)`` in q's dtype from the
-    forward's inputs, its output ``o`` and ``lse``, and the output's
-    gradient ``do``.  Launched on the current stream of q's device, which
+    forward's inputs (``scale`` the forward's), its output ``o`` and
+    ``lse``, and the output's gradient ``do``.  Launched on the current stream of q's device, which
     the autograd engine sets for the backward."""
     global bwd_launches
     _check_qkv(q, k, v)
@@ -331,7 +343,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True, window
             part.data_ptr() if nsplit > 1 else None, nsplit,
             B, H, Hkv, S, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window), build.DTYPE_CODES[q.dtype], stream_of(q),
+            int(causal), int(window), _scale(D, scale), build.DTYPE_CODES[q.dtype], stream_of(q),
         )
     build.check(err, "cox_flash_attention_bwd")
     bwd_launches += 1

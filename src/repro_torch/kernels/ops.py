@@ -56,12 +56,13 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, eps: float =
 
 
 def attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0, scale=None
 ) -> torch.Tensor:
-    """Batched: q (B, S, H, D), k/v (B, S, Hkv, D).  The reference's
+    """Batched: q (B, S, H, D), k/v (B, S, Hkv, D); logits scaled by
+    ``scale``, ``1/sqrt(D)`` by default.  The reference's
     ``ops.attention`` takes one sequence and is vmapped over the batch
     (``layers.attention_apply``)."""
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def decode_attention(

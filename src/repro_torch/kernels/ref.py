@@ -84,11 +84,13 @@ def attention(
     causal: bool = True,
     window: int = 0,
     q_chunk: int = ATTN_Q_CHUNK,
+    scale=None,
 ) -> torch.Tensor:
     """q: (S, H, D) or (B, S, H, D); k/v: (S, Hkv, D) or (B, S, Hkv, D).
 
     GQA by head-group broadcast: query head h reads kv head ``h // (H //
-    Hkv)``.  Logits ``(q * 1/sqrt(D)) . k`` in f32 (f64 for f64 inputs:
+    Hkv)``.  Logits ``(q * scale) . k``, ``scale`` ``1/sqrt(D)`` unless
+    given, in f32 (f64 for f64 inputs:
     :func:`compute_dtype`); with ``causal``, keys after the query (and,
     with ``window``, keys ``window`` or more before it) are set to -1e30;
     the window applies only with ``causal``.  The queries are processed in
@@ -99,7 +101,7 @@ def attention(
     ``q.dtype``."""
     S, H, D = q.shape[-3:]
     g = H // k.shape[-2]
-    scale = 1.0 / (D**0.5)
+    scale = 1.0 / (D**0.5) if scale is None else scale
     k32 = k.to(compute_dtype(q)).repeat_interleave(g, dim=-2)
     v32 = v.to(k32.dtype).repeat_interleave(g, dim=-2)
 
@@ -146,11 +148,11 @@ def layernorm_bwd(x, w, b, dy, eps: float = 1e-6):
     return _grads(lambda a, c, d: layernorm(a, c, d, eps), (x, w, b), dy)
 
 
-def attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0):
+def attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0, scale=None):
     """``(dq, dk, dv)`` of :func:`attention` for the output gradient
     ``do``: autograd through the plain version, the yardstick of the
     backward kernels."""
-    return _grads(lambda a, b, c: attention(a, b, c, causal=causal, window=window), (q, k, v), do)
+    return _grads(lambda a, b, c: attention(a, b, c, causal=causal, window=window, scale=scale), (q, k, v), do)
 
 
 def decode_attention(

@@ -91,10 +91,10 @@ def _positions(n: int, B: int, device, rules):
 
 
 def _enc_layer_apply(cfg, lp, h, positions, rules=None):
-    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules, eps=cfg.norm_eps)
     hn = L.attention_apply(lp["attn"], hn, positions, cfg=cfg, rules=rules, causal=False)
     h = h + hn
-    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules)
+    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules, eps=cfg.norm_eps)
     return h + L.mlp_apply(lp["mlp"], hn, cfg=cfg, rules=rules)
 
 
@@ -107,7 +107,7 @@ def encode(cfg, params, frames, rules=None):
     x = spmd.constrain(frames, rules, SEQ_ACT)
     for lp in _unstack(params["enc_layers"], cfg.enc_layers):
         x = _remat(cfg, functools.partial(_enc_layer_apply, cfg, lp, rules=rules), x, positions)
-    return L.apply_norm(params["enc_norm"], x, cfg.norm, params.get("enc_norm_b"), rules=rules)
+    return L.apply_norm(params["enc_norm"], x, cfg.norm, params.get("enc_norm_b"), rules=rules, eps=cfg.norm_eps)
 
 
 def _dec_layer_apply(cfg, lp, h, positions, mem, rules=None):
@@ -117,12 +117,12 @@ def _dec_layer_apply(cfg, lp, h, positions, mem, rules=None):
         # it sums the layers, as on a mesh (whose per-layer gather is that
         # node): a 1 x 1 mesh is then bitwise this path
         mem = mem.view_as(mem)
-    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules, eps=cfg.norm_eps)
     hn = L.attention_apply(lp["attn"], hn, positions, cfg=cfg, rules=rules, causal=True)
     h = h + hn
-    hn = L.apply_norm(lp["lnx"], h, cfg.norm, lp.get("lnx_b"), rules=rules)
+    hn = L.apply_norm(lp["lnx"], h, cfg.norm, lp.get("lnx_b"), rules=rules, eps=cfg.norm_eps)
     h = h + L.cross_attention_apply(lp["xattn"], hn, mem, cfg=cfg, rules=rules)
-    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules)
+    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules, eps=cfg.norm_eps)
     return h + L.mlp_apply(lp["mlp"], hn, cfg=cfg, rules=rules)
 
 
@@ -141,7 +141,7 @@ def forward(cfg, params, batch, rules=None):
     x = spmd.constrain(x, rules, SEQ_ACT)
     for lp in _unstack(params["dec_layers"], cfg.n_layers):
         x = _remat(cfg, functools.partial(_dec_layer_apply, cfg, lp, rules=rules), x, positions, mem)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"), rules=rules)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm, params.get("final_norm_b"), rules=rules, eps=cfg.norm_eps)
     logits = L.unembed_apply(params["embed"], x, cfg, rules=rules)
     return L.cross_entropy(logits, batch["labels"], cfg.vocab, rules=rules), logits
 
@@ -176,14 +176,14 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor, rul
     kv_len = torch.full_like(pos, cache["xk"].shape[2], dtype=torch.int32)  # every memory row
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], i)
-        hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+        hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules, eps=cfg.norm_eps)
         y, _ = L.attention_decode(lp["attn"], hn, _layer({"k": cache["k"], "v": cache["v"]}, i), pos, cfg=cfg, rules=rules)
         h = h + y
-        hn = L.apply_norm(lp["lnx"], h, cfg.norm, lp.get("lnx_b"), rules=rules)
+        hn = L.apply_norm(lp["lnx"], h, cfg.norm, lp.get("lnx_b"), rules=rules, eps=cfg.norm_eps)
         mem = _layer({"k": cache["xk"], "v": cache["xv"]}, i)
         h = h + L.cross_decode(lp["xattn"], hn, mem, kv_len, cfg=cfg, rules=rules)
-        hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules)
+        hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules, eps=cfg.norm_eps)
         h = h + L.mlp_apply(lp["mlp"], hn.unsqueeze(1), cfg=cfg, rules=rules).squeeze(1)
-    h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"), rules=rules)
+    h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"), rules=rules, eps=cfg.norm_eps)
     logits = L.unembed_apply(params["embed"], h, cfg, rules=rules)
     return logits, cache

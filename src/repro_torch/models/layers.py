@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..kernels import ops
 from ..kernels.ref import NEG_INF, compute_dtype
 from ..parallel import spmd
@@ -80,15 +81,17 @@ def norm_spec(cfg) -> ParamSpec:
     return ParamSpec((cfg.d_model,), torch.float32, ("embed",), init="ones")
 
 
-def apply_norm(w, x, kind: str = "rms", b=None, rules=None):
+def apply_norm(w, x, kind: str = "rms", b=None, rules=None, eps: float = 1e-6):
     """``kind="rms"``: rmsnorm; anything else: layernorm with bias ``b``
-    (zeros when None), as the reference.  Both with eps 1e-6.  On a mesh
-    the kernel runs on this rank's rows (any row sharding of ``x``)."""
+    (zeros when None), as the reference.  Both with eps 1e-6 (the
+    reference's) unless the model gives its own (``cfg.norm_eps``).  On a
+    mesh the kernel runs on this rank's rows (any row sharding of
+    ``x``)."""
     if rules is not None:
         ws = weights(rules, {"w": w} if b is None else {"w": w, "b": b})
         h = spmd.rows(x)
         out = spmd.local_call(
-            lambda x, ws: apply_norm(ws["w"], x, kind, ws.get("b")),
+            lambda x, ws: apply_norm(ws["w"], x, kind, ws.get("b"), eps=eps),
             x.device_mesh,
             [h, ws],
             [h.placements, _placements(ws)],
@@ -96,8 +99,8 @@ def apply_norm(w, x, kind: str = "rms", b=None, rules=None):
         )
         return spmd.to(out, x.placements)
     if kind == "rms":
-        return ops.rmsnorm(x, w)
-    return ops.layernorm(x, w, b if b is not None else torch.zeros_like(w))
+        return ops.rmsnorm(x, w, eps)
+    return ops.layernorm(x, w, b if b is not None else torch.zeros_like(w), eps)
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +249,13 @@ def _attention_core(p, x, positions, cfg, causal, window, lo=0, kv_lo=0, k=None,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = rope(q, positions)
-    k = rope(k, positions)
+    if cfg.position_embedding_type != "nope":
+        q = rope(q, positions)
+        k = rope(k, positions)
     H = q.shape[-2]
     k, v = _kv_for_heads(k, v, cfg, lo, H, kv_lo)
-    att = ops.attention(q, k, v, causal=causal, window=window)  # (B, S, H, Dh)
+    scale = cfg.attention_multiplier or None
+    att = ops.attention(q, k, v, causal=causal, window=window, scale=scale)  # (B, S, H, Dh)
     att = _apply_mask(att, _head_mask(cfg, lo, H, att.device), 2)
     B, S, _, Dh = att.shape
     return att.reshape(B, S, H * Dh) @ p["wo"].reshape(H * Dh, -1)
@@ -259,7 +264,10 @@ def _attention_core(p, x, positions, cfg, causal, window, lo=0, kv_lo=0, k=None,
 def attention_apply(p, x, positions, *, cfg, rules=None, causal=True, window: int = 0):
     """x: (B, S, d) -> (B, S, d); positions: (B, S) int32 (for RoPE), or
     (1, S) when every row takes the same.  Padded q heads (``cfg.tp_pad``)
-    are masked before ``wo``.
+    are masked before ``wo``.  With ``cfg.position_embedding_type ==
+    "nope"`` no rotary embedding is applied, and a nonzero
+    ``cfg.attention_multiplier`` is the logits' scale in place of
+    ``1/sqrt(Dh)``.
 
     On a mesh the input is gathered to ``("batch", None, "embed")``, every
     rank runs ``flash_attention`` on its q heads over the whole sequence,
@@ -641,22 +649,26 @@ def mlp_apply(p, x, *, cfg, rules=None):
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts (token-choice top-k, capacity dispatch)
+# Mixture of Experts (token-choice top-k: capacity dispatch, or dropless
+# over a held share of the experts)
 # ---------------------------------------------------------------------------
 
 
 def moe_specs(cfg) -> Dict[str, ParamSpec]:
+    """The router over all ``n_experts``, the weights of the experts held
+    here (``cfg.held_experts()``: all of them unless ``experts_held``
+    says fewer) and the shared expert's, of width ``cfg.shared_width()``."""
     d, fe = cfg.d_model, cfg.d_expert or cfg.d_ff
-    E = cfg.n_experts
+    E, Eh = cfg.n_experts, cfg.held_experts()
     dt = cfg.param_dtype
     sp = {
         "router": ParamSpec((d, E), torch.float32, ("embed", None)),
-        "w_gate": ParamSpec((E, d, fe), dt, ("experts", "embed", None)),
-        "w_up": ParamSpec((E, d, fe), dt, ("experts", "embed", None)),
-        "w_down": ParamSpec((E, fe, d), dt, ("experts", None, "embed")),
+        "w_gate": ParamSpec((Eh, d, fe), dt, ("experts", "embed", None)),
+        "w_up": ParamSpec((Eh, d, fe), dt, ("experts", "embed", None)),
+        "w_down": ParamSpec((Eh, fe, d), dt, ("experts", None, "embed")),
     }
-    if cfg.n_shared:
-        fs = fe * cfg.n_shared
+    fs = cfg.shared_width()
+    if fs:
         sp.update(
             {
                 "s_gate": ParamSpec((d, fs), dt, ("embed", "mlp")),
@@ -814,12 +826,53 @@ def moe_apply(p, x, *, cfg, rules=None):
 def _moe_apply_local(p, x, cfg):
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
-    C = moe_capacity(cfg, B * S)
-    y = _moe_local(p, xt, cfg=cfg, C=C, e_lo=0, E_loc=cfg.n_experts)
-    out = y.to(x.dtype)
-    if cfg.n_shared:
+    if cfg.dropless:
+        out = moe_held(p, xt, cfg=cfg)
+    else:
+        C = moe_capacity(cfg, B * S)
+        out = _moe_local(p, xt, cfg=cfg, C=C, e_lo=0, E_loc=cfg.n_experts).to(x.dtype)
+    if cfg.shared_width():
         out = out + _shared_experts(p, xt)
     return out.reshape(B, S, d)
+
+
+def moe_held(p, xt, *, cfg, e_lo: int = 0):
+    """Dropless token-choice top-k over a token slab xt (T, d): the router
+    (``p["router"]``, f32) scores all ``n_experts``, each token keeps its
+    top ``k`` with a softmax over the k chosen logits, and the experts
+    held here, ``[e_lo, e_lo + E_loc)`` with E_loc the first dimension of
+    ``p["w_gate"]``, give every token routed to them their SwiGLU
+    weighted by its gate, with no capacity.  Pairs to the other experts
+    add nothing: their cards' part of the sum.  Returns (T, d) in xt's
+    dtype.
+
+    The held experts run as one: every token through all E_loc of them
+    at once, three products over the experts' concatenated widths, with
+    each expert's hidden activation scaled by the token's gate for it (0
+    where the token did not choose it), so the last product sums a
+    token's contributions in its f32 accumulator.  That computes E_loc
+    rows a token where top_k x E_loc / n_experts are routed (1.25 of 9
+    for granite-4.0-h), but no shape depends on the routing: no read from
+    the device, no gather, no atomic sum, the same work on every step.
+    Spans: ``moe.route`` (router and top-k; trace only) and
+    ``moe.experts`` (the held experts' products) with its counters, left
+    on the device: ``rows``, the pairs routed to the held experts, and
+    ``max_rows``, the largest expert's."""
+    T, d = xt.shape
+    E_loc, _, fe = p["w_gate"].shape
+    with obs.span("moe.route"):
+        w, idx = ops.topk_gate(xt.to(compute_dtype(xt)) @ p["router"], cfg.top_k)  # (T, k)
+        rel = idx - e_lo
+        col = torch.where((rel >= 0) & (rel < E_loc), rel, E_loc)  # choices held elsewhere: a spare column
+        gates = w.new_zeros(T, E_loc + 1).scatter_add(1, col, w)[:, :E_loc]  # (T, E_loc)
+    with obs.span("moe.experts"):
+        if obs.recording_now():
+            routed = (gates > 0).sum(0)
+            obs.count(rows=routed.sum(), max_rows=routed.max())
+        h = xt @ p["w_gate"].permute(1, 0, 2).reshape(d, E_loc * fe)
+        u = xt @ p["w_up"].permute(1, 0, 2).reshape(d, E_loc * fe)
+        hid = (F.silu(h) * u).view(T, E_loc, fe) * gates.to(xt.dtype)[:, :, None]
+        return hid.view(T, E_loc * fe) @ p["w_down"].reshape(E_loc * fe, d)
 
 
 def moe_apply_dense(p, x, *, cfg):
@@ -850,7 +903,7 @@ def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
     di = cfg.ssm_inner
     H, N = cfg.ssm_heads, cfg.ssm_state
     dt = cfg.param_dtype
-    return {
+    sp = {
         # in_proj -> [z (gate), x, B, C, dt]
         "w_in": ParamSpec((d, 2 * di + 2 * N + H), dt, ("embed", "ssm_inner")),
         "conv": ParamSpec((cfg.conv_k, di + 2 * N), dt, (None, "ssm_inner")),
@@ -860,6 +913,9 @@ def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
         "norm": ParamSpec((di,), torch.float32, ("ssm_inner",), init="ones"),
         "w_out": ParamSpec((di, d), dt, ("ssm_inner", "embed")),
     }
+    if cfg.mamba_conv_bias:
+        sp["conv_b"] = ParamSpec((di + 2 * N,), dt, ("ssm_inner",), init="zeros")
+    return sp
 
 
 def _mamba_split(proj, n: int, P: int, N: int):
@@ -869,11 +925,12 @@ def _mamba_split(proj, n: int, P: int, N: int):
     return proj[..., :di], proj[..., di : 2 * di + 2 * N], proj[..., 2 * di + 2 * N :]
 
 
-def _causal_conv(xBC, conv, state=None):
-    """Depthwise causal conv along S.  xBC: (B, S, C); conv: (K, C).  With
-    ``state`` (B, K-1, C) it runs in streaming mode and returns the new
-    state.  The K shifted products are summed in the input dtype, in the
-    reference's order (``F.conv1d`` would accumulate otherwise)."""
+def _causal_conv(xBC, conv, state=None, bias=None):
+    """Depthwise causal conv along S.  xBC: (B, S, C); conv: (K, C); bias
+    (C,) or None.  With ``state`` (B, K-1, C) it runs in streaming mode
+    and returns the new state.  The K shifted products are summed in the
+    input dtype, in the reference's order (``F.conv1d`` would accumulate
+    otherwise), and the bias added last."""
     K = conv.shape[0]
     if state is None:
         xp = torch.cat([torch.zeros_like(xBC[:, : K - 1]), xBC], dim=1)
@@ -881,6 +938,8 @@ def _causal_conv(xBC, conv, state=None):
         xp = torch.cat([state.to(xBC.dtype), xBC], dim=1)
     S = xBC.shape[1]
     out = sum(xp[:, i : i + S] * conv[i] for i in range(K))
+    if bias is not None:
+        out = out + bias
     new_state = xp[:, -(K - 1) :] if K > 1 else None
     return F.silu(out), new_state
 
@@ -932,17 +991,20 @@ def _head_spans(cfg, lo: int, n: int, with_z: bool):
     return [(a, b), (di + a, di + b), (2 * di, dt0), (dt0 + lo, dt0 + lo + n)]
 
 
-def _mamba_gated(hp, proj, conv, cfg, dtype):
+def _mamba_gated(hp, proj, conv, cfg, dtype, conv_b=None):
     """The block from its projection (laid out for the heads of ``hp``:
-    ``A_log``, ``D`` and ``dt_bias``, and of ``conv``) to the gated
-    output (B, S, nP) in ``dtype``, before the norm."""
+    ``A_log``, ``D`` and ``dt_bias``, and of ``conv`` and its bias
+    ``conv_b``) to the gated output (B, S, nP) in ``dtype``, before the
+    norm.  D multiplies the dt-scaled heads (the reference's skip) or,
+    with ``cfg.ssm_skip == "x"``, the heads themselves (Mamba2's)."""
     n, P, N = hp["D"].shape[0], cfg.ssm_head_dim, cfg.ssm_state
     z, xBC, dtp = _mamba_split(proj, n, P, N)
-    xBC, _ = _causal_conv(xBC, conv)
+    xBC, _ = _causal_conv(xBC, conv, bias=conv_b)
     xh, a, Bm, Cm = _ssm_inputs(hp, xBC, dtp, n, P, N)
     B, S = proj.shape[0], proj.shape[1]
     y = ops.ssd_scan(xh, a, Bm, Cm, chunk=min(cfg.ssd_chunk, S))
-    y = y + xh * hp["D"][None, None, :, None]
+    skip = xBC[..., : n * P].unflatten(-1, (n, P)).to(torch.float32) if cfg.ssm_skip == "x" else xh
+    y = y + skip * hp["D"][None, None, :, None]
     y = y.reshape(B, S, n * P).to(dtype)
     return y * F.silu(z)
 
@@ -965,8 +1027,8 @@ def mamba2_apply(p, x, *, cfg, rules=None):
     if rules is not None:
         return _mamba2_mesh(p, x, cfg, rules)
     proj = x @ p["w_in"]
-    y = _mamba_gated(p, proj, p["conv"], cfg, x.dtype)
-    y = ops.rmsnorm(y, p["norm"])
+    y = _mamba_gated(p, proj, p["conv"], cfg, x.dtype, p.get("conv_b"))
+    y = ops.rmsnorm(y, p["norm"], cfg.norm_eps)
     return y @ p["w_out"]
 
 
@@ -989,7 +1051,7 @@ def _heads_of(w, lo: int, n: int):
     return {k: w[k][lo : lo + n] for k in ("A_log", "D", "dt_bias")}
 
 
-def _mamba_out(y, rules, p):
+def _mamba_out(y, rules, p, cfg):
     """The gated output ``y`` (sharded on its heads' columns over "model",
     or whole) through the norm over whole rows and ``w_out``: row-parallel
     when ``w_out`` is sharded on ``di`` (partial over "model"), else
@@ -1003,7 +1065,7 @@ def _mamba_out(y, rules, p):
     lo = spmd.axis_rank(mesh, "model") * k
 
     def out(y, w):
-        y = ops.rmsnorm(y, w["norm"])
+        y = ops.rmsnorm(y, w["norm"], cfg.norm_eps)
         if rows_split and k < y.shape[-1]:
             y = y[..., lo : lo + k]
         return y @ w["w_out"]
@@ -1031,7 +1093,7 @@ def _mamba2_mesh(p, x, cfg, rules):
     hp = tuple(h.placements)
     y_pl = spmd.with_axis(hp, mesh, "model", Shard(2)) if tp else hp
     y = spmd.local_call(gated, mesh, [h, w], [hp, _placements(w)], y_pl, split=("model",) if tp else ())
-    return spmd.to(_mamba_out(y, rules, p), x.placements)
+    return spmd.to(_mamba_out(y, rules, p, cfg), x.placements)
 
 
 def _mamba_step(hp, proj, tail, conv, h, cfg, lo: int, n: int, dtype):
@@ -1073,7 +1135,7 @@ def mamba2_decode(p, x, state, *, cfg, rules=None):
         return _mamba2_decode_mesh(p, x, state, cfg, rules), state
     H = cfg.ssm_heads
     y, h, tail = _mamba_step(p, x @ p["w_in"], state["conv"], p["conv"], state["h"], cfg, 0, H, x.dtype)
-    y = ops.rmsnorm(y, p["norm"])
+    y = ops.rmsnorm(y, p["norm"], cfg.norm_eps)
     return y @ p["w_out"], {"h": h, "conv": tail}
 
 
@@ -1111,7 +1173,7 @@ def _mamba2_decode_mesh(p, x, state, cfg, rules):
         [pp, tuple(tail.placements), _placements(w), tuple(state["h"].placements), tuple(conv_st.placements)],
         y_pl,
     )
-    return spmd.to(_mamba_out(y, rules, p), x_pl)
+    return spmd.to(_mamba_out(y, rules, p, cfg), x_pl)
 
 
 # ---------------------------------------------------------------------------

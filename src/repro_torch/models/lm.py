@@ -13,6 +13,16 @@ each application: ``k``/``v`` of shape ``(n_applications, B, W, Hkv,
 Dh)``.  Where the reference scans the stack, the port loops over it and
 takes layer ``i`` of each leaf (a view, no copy).
 
+The ``hybrid_moe`` family (granite-4.0-h, the port's own) mixes two kinds
+of layer by ``cfg.layer_types``: its Mamba2 layers are stacked under
+``params["mamba_layers"]`` and its attention layers under
+``params["attn_layers"]``, and the stack runs them in the pattern's order.
+A layer is ``x + r * mixer(norm(x))``, then ``x + r * (moe(norm(x)) +
+shared(norm(x)))`` with ``r`` the residual multiplier; the embedding is
+multiplied by ``embedding_multiplier`` and the logits divided by
+``logits_scaling``.  It trains on one device; its decode step and the
+mesh path raise ``ValueError``.
+
 Given ``rules`` (an ``AxisRules`` over a ``DeviceMesh``), the parameters,
 batch and cache are DTensors and every layer runs sharded
 (``layers.py``): between layers the residual stream is sharded on the
@@ -37,7 +47,8 @@ from ..parallel import spmd
 from . import layers as L
 from .params import ParamSpec, tree_map
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "hybrid_moe", "vlm")
+STACKS = {"mamba": "mamba_layers", "attention": "attn_layers"}  # hybrid_moe's stack of each kind
 
 
 def check_family(cfg) -> None:
@@ -89,11 +100,29 @@ def _ssm_layer_specs(cfg) -> Dict[str, Any]:
     return sp
 
 
+def _moe_layer_specs(cfg, kind: str) -> Dict[str, Any]:
+    """A hybrid_moe layer: its mixer (``mamba`` or ``attn``), then its MoE
+    block, each after a norm."""
+    sp: Dict[str, Any] = _norm_pair(cfg, "ln1")
+    if kind == "mamba":
+        sp["mamba"] = L.mamba2_specs(cfg)
+    else:
+        sp["attn"] = L.attention_specs(cfg)
+    sp.update(_norm_pair(cfg, "ln2"))
+    sp["moe"] = L.moe_specs(cfg)
+    return sp
+
+
 def lm_specs(cfg) -> Dict[str, Any]:
     check_family(cfg)
     specs: Dict[str, Any] = {"embed": L.embed_specs(cfg)}
     specs.update(_norm_pair(cfg, "final_norm"))
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid_moe":
+        pattern = cfg.pattern()
+        for kind, stack in STACKS.items():
+            if kind in pattern:
+                specs[stack] = _stack(_moe_layer_specs(cfg, kind), pattern.count(kind))
+    elif cfg.family in ("ssm", "hybrid"):
         specs["layers"] = _stack(_ssm_layer_specs(cfg), cfg.n_layers)
     else:
         specs["layers"] = _stack(_dense_layer_specs(cfg), cfg.n_layers)
@@ -124,14 +153,18 @@ def _ffn(cfg, lp, h, rules=None):
     return L.mlp_apply(lp["mlp"], h, cfg=cfg, rules=rules)
 
 
+def _norm(cfg, lp, name: str, x, rules=None):
+    return L.apply_norm(lp[name], x, cfg.norm, lp.get(name + "_b"), rules=rules, eps=cfg.norm_eps)
+
+
 def _dense_layer_apply(cfg, lp, x, positions, rules=None):
-    h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"), rules=rules)
+    h = _norm(cfg, lp, "ln1", x, rules)
     with obs.span("model.attention"):
         h = L.attention_apply(
             lp["attn"], h, positions, cfg=cfg, rules=rules, causal=True, window=cfg.window
         )
     x = x + h
-    h = L.apply_norm(lp["ln2"], x, cfg.norm, lp.get("ln2_b"), rules=rules)
+    h = _norm(cfg, lp, "ln2", x, rules)
     with obs.span("model.ffn"):
         h = _ffn(cfg, lp, h, rules)
     return x + h
@@ -140,10 +173,39 @@ def _dense_layer_apply(cfg, lp, x, positions, rules=None):
 def _ssm_layer_apply(cfg, lp, x, positions, rules=None):
     """A Mamba2 layer; ``positions`` is unused (no rotary embedding), kept
     so both kinds of layer take the same arguments."""
-    h = L.apply_norm(lp["ln1"], x, cfg.norm, lp.get("ln1_b"), rules=rules)
+    h = _norm(cfg, lp, "ln1", x, rules)
     with obs.span("model.mamba"):
         h = L.mamba2_apply(lp["mamba"], h, cfg=cfg, rules=rules)
     return x + h
+
+
+def _residual(cfg, x, h):
+    """``x + r * h``; a multiplier of 1 is not applied."""
+    r = cfg.residual_multiplier
+    return x + (h if r == 1 else h * r)
+
+
+def _mixer_moe_layer_apply(cfg, lp, x, positions, rules=None):
+    """A hybrid_moe layer (one device): its mixer, Mamba2 (``lp["mamba"]``)
+    or NoPE attention, then its MoE block with the shared expert, each
+    branch scaled by the residual multiplier."""
+    h = _norm(cfg, lp, "ln1", x)
+    if "mamba" in lp:
+        with obs.span("model.mamba"):
+            h = L.mamba2_apply(lp["mamba"], h, cfg=cfg)
+    else:
+        with obs.span("model.attention"):
+            h = L.attention_apply(lp["attn"], h, positions, cfg=cfg, causal=True, window=cfg.window)
+    x = _residual(cfg, x, h)
+    h = _norm(cfg, lp, "ln2", x)
+    with obs.span("model.moe"):
+        h = L.moe_apply(lp["moe"], h, cfg=cfg)
+    return _residual(cfg, x, h)
+
+
+def _one_device(cfg, rules, what: str) -> None:
+    if cfg.family == "hybrid_moe" and rules is not None:
+        raise ValueError(f"the hybrid_moe family ({cfg.name}) has no mesh path: {what} runs on one device")
 
 
 def _shared_attn_apply(cfg, sp, x, positions, rules=None):
@@ -181,9 +243,14 @@ def hidden_states(cfg, params, x, positions, rules=None):
     is not checkpointed here either; its gradient is the sum over its
     applications."""
     check_family(cfg)
-    ssm = cfg.family in ("ssm", "hybrid")
-    layer = _ssm_layer_apply if ssm else _dense_layer_apply
-    layers = _unstack(params["layers"], cfg.n_layers)
+    if cfg.family == "hybrid_moe":
+        pattern = cfg.pattern()
+        stacks = {k: iter(_unstack(params[s], pattern.count(k))) for k, s in STACKS.items() if k in pattern}
+        layer, layers = _mixer_moe_layer_apply, [next(stacks[kind]) for kind in pattern]
+    else:
+        ssm = cfg.family in ("ssm", "hybrid")
+        layer = _ssm_layer_apply if ssm else _dense_layer_apply
+        layers = _unstack(params["layers"], cfg.n_layers)
     x = spmd.constrain(x, rules, SEQ_ACT)
 
     def run(i, x):
@@ -219,11 +286,15 @@ def forward(cfg, params, batch, rules=None):
     Spans (``obs``): ``model.embed``; ``model.block`` for each layer
     (``layer=i``; ``shared=n`` for the hybrid family's n-th application
     of its shared block), with ``model.attention``, ``model.ffn`` (MLP or
-    MoE) or ``model.mamba`` inside; ``model.head`` (the final norm, the
-    unembedding and the cross-entropy)."""
+    MoE) or ``model.mamba`` inside (hybrid_moe: ``model.mamba`` or
+    ``model.attention``, then ``model.moe``); ``model.head`` (the final
+    norm, the unembedding and the cross-entropy)."""
     check_family(cfg)
+    _one_device(cfg, rules, "the forward")  # before the embedding's collectives
     with obs.span("model.embed"):
         x = L.embed_apply(params["embed"], batch["tokens"], rules=rules)
+        if cfg.embedding_multiplier != 1:
+            x = x * cfg.embedding_multiplier
     x = spmd.constrain(x, rules, ("batch", None, "embed"))
     nf = cfg.n_frontend_tokens
     if nf:
@@ -233,10 +304,12 @@ def forward(cfg, params, batch, rules=None):
     positions = positions[None] if rules is not None else positions.expand(B, S)
     h = hidden_states(cfg, params, x, positions, rules=rules)
     with obs.span("model.head"):
-        h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"), rules=rules)
+        h = _norm(cfg, params, "final_norm", h, rules)
         if nf:
             h = spmd.constrain(h, rules, ("batch", None, "embed"))[:, nf:]
         logits = L.unembed_apply(params["embed"], h, cfg, rules=rules)
+        if cfg.logits_scaling != 1:
+            logits = logits / cfg.logits_scaling
         loss = L.cross_entropy(logits, batch["labels"], cfg.vocab, rules=rules)
     return loss, logits
 
@@ -253,8 +326,10 @@ def cache_specs(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
     P) in f32 and the conv tail ``conv`` (n_layers, B, K-1, d_inner + 2N)
     in the parameter dtype; ``seq_len`` does not enter it.  Hybrid: the
     SSM state plus one K/V ring per application of the shared block,
-    (n_applications, B, min(S, window), Hkv, Dh)."""
+    (n_applications, B, min(S, window), Hkv, Dh).  The hybrid_moe family
+    has no decode step yet: ``ValueError``."""
     check_family(cfg)
+    _no_decode(cfg)
     Lc, dt = cfg.n_layers, cfg.param_dtype
     Hkv, Dh = cfg.n_kv, cfg.d_head
     kv_axes = (None, "batch", "seq_kv", "kv_heads", None)
@@ -280,6 +355,11 @@ def cache_specs(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
     return {**ssm, "k": kv, "v": kv}
 
 
+def _no_decode(cfg) -> None:
+    if cfg.family == "hybrid_moe":
+        raise ValueError(f"the hybrid_moe family ({cfg.name}) has no decode step: it trains only")
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked parameter tree (views; on a mesh, DTensors
     over views of the local shards, so a write reaches the stack)."""
@@ -301,7 +381,7 @@ def _ssm_layer_decode(cfg, lp, cache, i: int, h, rules=None):
     """Mamba2 layer ``i``'s step; its ``h`` and ``conv`` state in
     ``cache`` are overwritten in place (on a mesh, each rank's shards of
     them, by ``layers.mamba2_decode``)."""
-    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+    hn = _norm(cfg, lp, "ln1", h, rules)
     state = _layer({"h": cache["h"], "conv": cache["conv"]}, i)
     y, new = L.mamba2_decode(lp["mamba"], hn, state, cfg=cfg, rules=rules)
     if rules is None:
@@ -315,12 +395,12 @@ def _dense_layer_decode(cfg, lp, kv, h, pos, slot=None, kv_len=None, rules=None)
     into ``kv`` in place, at ``slot`` (``pos`` by default).  The MoE block
     takes the step's B tokens as (B, 1, d), so its capacity is
     ``moe_capacity(cfg, B)`` (per data slab on a mesh)."""
-    hn = L.apply_norm(lp["ln1"], h, cfg.norm, lp.get("ln1_b"), rules=rules)
+    hn = _norm(cfg, lp, "ln1", h, rules)
     y, _ = L.attention_decode(
         lp["attn"], hn, kv, pos, cfg=cfg, rules=rules, slot=slot, kv_len=kv_len
     )
     h = h + y
-    hn = L.apply_norm(lp["ln2"], h, cfg.norm, lp.get("ln2_b"), rules=rules)
+    hn = _norm(cfg, lp, "ln2", h, rules)
     return h + _ffn(cfg, lp, hn.unsqueeze(1), rules).squeeze(1)
 
 
@@ -339,6 +419,7 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor, rul
     is written in place) and the logits come back sharded on the
     vocabulary."""
     check_family(cfg)
+    _no_decode(cfg)
     h = L.embed_apply(params["embed"], tokens, rules=rules)  # (B, d)
     h = spmd.constrain(h, rules, ("batch", "embed"))
 
@@ -360,6 +441,6 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos: torch.Tensor, rul
                 h = _ssm_layer_decode(cfg, lp, cache, i, h, rules)
             else:
                 h = _dense_layer_decode(cfg, lp, kv_of(i), h, pos, rules=rules)
-    h = L.apply_norm(params["final_norm"], h, cfg.norm, params.get("final_norm_b"), rules=rules)
+    h = _norm(cfg, params, "final_norm", h, rules)
     logits = L.unembed_apply(params["embed"], h, cfg, rules=rules)
     return logits, cache

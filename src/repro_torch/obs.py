@@ -10,8 +10,10 @@ the span sits in the profiler's trace beside the kernels it launched.
 That is all, unless its name is in :data:`TIMED`: such a span is also
 recorded here, with its parent span, the step id (:func:`next_step`),
 the host clock at entry and exit, a CUDA timing-event pair on the
-current stream and, for a name in :data:`MEMORY`, the device's allocated
-bytes at entry and exit (host reads, no sync).
+current stream, for a name in :data:`MEMORY` the device's allocated
+bytes at entry and exit (host reads, no sync), and the counters that
+:func:`count` adds to it while it is open (numbers, or device tensors
+left on the device until :func:`summary`).
 
 Nothing syncs while spans are recorded: :func:`summary` syncs once and
 resolves each event pair.  The events are a stopgap: the profiler's
@@ -47,8 +49,12 @@ PREFIX = "repro_torch."
 BACKWARD = "train.backward"
 # The spans the benchmark's metrics read (portbench/metrics/): forward_ms,
 # backward_ms, recompute_ms, adamw_roofline and, with the memory,
-# activations_kept_gib.  The other spans cost only their record_function.
-TIMED = frozenset({"train.forward", BACKWARD, "model.block", "adamw.update"})
+# activations_kept_gib; mamba_ms, moe_ms and, with its counters ``rows``
+# and ``max_rows``, moe_experts_roofline.  A family opens those of its
+# layers only.  The other spans cost only their record_function.
+TIMED = frozenset(
+    {"train.forward", BACKWARD, "model.block", "adamw.update", "model.mamba", "model.moe", "moe.experts"}
+)
 MEMORY = frozenset({"train.forward"})
 # Steps kept: the newest ones, since a profiler window is a few steps (the
 # benchmark's traced run profiles 3).  A step of a 52-layer model under
@@ -109,6 +115,24 @@ def span(name: str, **attrs):
     return torch.profiler.record_function(PREFIX + name) if _profiler_enabled() else _OFF
 
 
+def recording_now() -> bool:
+    """Whether a span opened now would be on."""
+    return _profiler_enabled() if _mode is None else _mode
+
+
+def count(**values) -> None:
+    """Add ``values`` (numbers, or 0-dim tensors left where they are
+    until :func:`summary` resolves them) to the counters of the innermost
+    timed span open on this thread, summing into those it has; nothing
+    when no timed span is open (spans off)."""
+    stack = _stack()
+    if not stack:
+        return
+    counters = stack[-1].counters
+    for k, v in values.items():
+        counters[k] = counters[k] + v if k in counters else v
+
+
 def _stack() -> list:
     st = getattr(_local, "stack", None)
     if st is None:
@@ -119,11 +143,11 @@ def _stack() -> list:
 class _Span:
     __slots__ = (
         "name", "attrs", "id", "parent", "step", "t0", "t1", "dev", "ev0", "ev1",
-        "mem0", "mem1", "_rf", "_outer_backward",
+        "mem0", "mem1", "counters", "_rf", "_outer_backward",
     )
 
     def __init__(self, name: str, attrs: dict):
-        self.name, self.attrs, self.id = name, attrs, next(_ids)
+        self.name, self.attrs, self.id, self.counters = name, attrs, next(_ids), {}
         self.ev0 = self.ev1 = self.mem0 = self.mem1 = self.dev = self._rf = None
 
     def __enter__(self):
@@ -186,10 +210,10 @@ def summary(last_steps: Optional[int] = None) -> Dict[int, List[dict]]:
     that are kept, by default), ``{step id: [span, ...]}`` in step order,
     each step's spans in the order they opened.  A span is a dict:
     ``name``, ``attrs``, ``id``, ``parent`` (the parent's id, or None),
-    ``step``, ``host_ms``, and, for spans recorded on a CUDA device,
-    ``device_ms`` and (names in :data:`MEMORY`) ``mem_delta``, bytes
-    allocated at exit less at entry; these are None otherwise.  Syncs
-    each device the spans ran on, once."""
+    ``step``, ``host_ms``, ``counters`` (:func:`count`'s, as numbers),
+    and, for spans recorded on a CUDA device, ``device_ms`` and (names in
+    :data:`MEMORY`) ``mem_delta``, bytes allocated at exit less at entry;
+    these are None otherwise.  Syncs each device the spans ran on, once."""
     with _lock:
         steps = list(_steps.items())
     if last_steps is not None:
@@ -197,6 +221,7 @@ def summary(last_steps: Optional[int] = None) -> Dict[int, List[dict]]:
     spans = [s for _, group in steps for s in group]
     for dev in sorted({s.dev for s in spans if s.dev is not None}):
         torch.cuda.synchronize(dev)
+    counted = dict(zip(map(id, spans), _resolve([s.counters for s in spans])))
     out = {}
     for step, group in steps:
         out[step] = [
@@ -209,7 +234,21 @@ def summary(last_steps: Optional[int] = None) -> Dict[int, List[dict]]:
                 "host_ms": (s.t1 - s.t0) / 1e6,
                 "device_ms": None if s.dev is None else s.ev0.elapsed_time(s.ev1),
                 "mem_delta": None if s.mem0 is None else s.mem1 - s.mem0,
+                "counters": counted[id(s)],
             }
             for s in sorted(group, key=lambda s: s.t0)
         ]
     return out
+
+
+def _resolve(counters: List[dict]) -> List[dict]:
+    """Each dict of counters with its tensors read back as numbers, one
+    copy a device for all of them (ints stay ints)."""
+    tensors = [v for c in counters for v in c.values() if torch.is_tensor(v)]
+    values = {}
+    for dev in {t.device for t in tensors}:
+        mine = [t for t in tensors if t.device == dev]
+        read = torch.stack([t.reshape(()).to(torch.float64) for t in mine]).tolist()
+        for t, x in zip(mine, read):
+            values[id(t)] = int(x) if not (t.is_floating_point() or t.is_complex()) else x
+    return [{k: values[id(v)] if torch.is_tensor(v) else v for k, v in c.items()} for c in counters]

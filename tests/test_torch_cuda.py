@@ -739,6 +739,36 @@ def test_flash_attention_kernels_match_plain(cuda, B, S, H, Hkv, D, causal, wind
         _close_to_scale(got, w, rtol, atol, name)
 
 
+@pytest.mark.parametrize(
+    "B,S,H,Hkv,D,scale",
+    [
+        pytest.param(1, 256, 32, 8, 128, 1 / 128, id="granite-4.0-h"),  # GQA 32/8 of 128 at 1/128
+        (2, 256, 8, 2, 64, 0.5),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_a_scale(cuda, B, S, H, Hkv, D, scale, dtype):
+    """A scale of the model's own in both directions, against the plain
+    version at that scale; no scale is 1/sqrt(D), bit for bit."""
+    q, k, v, do = _attn_inputs(cuda, B, S, H, Hkv, D, dtype, seed=9)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = ops.attention(*leaves, scale=scale)
+    grads = torch.autograd.grad(out, leaves, do)
+    f32 = [t.float() for t in (q, k, v, do)]
+    _close_to_scale(out, ref.attention(*f32[:3], scale=scale), *ATTN_TOL[dtype], "o")
+    for name, got, w in zip(("dq", "dk", "dv"), grads, ref.attention_bwd(*f32, scale=scale)):
+        _close_to_scale(got, w, *ATTN_GRAD_TOL[dtype], name)
+    o, lse = pfa.flash_attention_cuda(q, k, v)
+    o2, lse2 = pfa.flash_attention_cuda(q, k, v, scale=1 / D**0.5)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    g, g2 = pfa.flash_attention_bwd_cuda(q, k, v, o, lse, do), pfa.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, scale=1 / D**0.5
+    )
+    assert all(torch.equal(a, b) for a, b in zip(g, g2))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pfa.flash_attention_cuda(q, k, v, scale=0.0)
+
+
 def test_flash_attention_reads_strided_views_and_is_deterministic(cuda):
     """q, k and v as views of one packed (B, S, H + 2 Hkv, D) projection:
     read through their strides, the same answer as contiguous copies, and
@@ -1872,3 +1902,37 @@ def test_adamw_update_refuses_leaves_the_kernels_do_not_take(cuda):
         with pytest.raises(err, match=match):
             poptim.update({"a": torch.randn(8, device=cuda), "b": g}, st, params, cfg)
         assert ops.launch_counts() == before
+
+
+def test_held_experts_on_the_card(cuda):
+    """granite-4.0-h's MoE at its widths (d 4,096, 72 experts of 768, top
+    10, 9 held): the card's bf16 layer against the same layer in f32 on
+    the same bf16 values, forward and backward, the router's f32 logits
+    shared, and the same bits twice."""
+    import dataclasses
+
+    from repro_torch.configs import granite_4_0_h_small
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(granite_4_0_h_small.CONFIG, experts_held=9, shared_intermediate_size=0)
+    p = init_params(L.moe_specs(cfg), torch.Generator(device=cuda).manual_seed(11), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    xt = torch.randn(2048, cfg.d_model, generator=gen, device=cuda).to(torch.bfloat16)
+    dy = torch.randn(2048, cfg.d_model, generator=gen, device=cuda).to(torch.bfloat16)
+
+    def run(params, x):
+        params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        x = x.detach().requires_grad_(True)
+        y = L.moe_held(params, x, cfg=cfg)
+        return y, torch.autograd.grad(y, [x, params["w_gate"], params["w_up"], params["w_down"], params["router"]],
+                                      dy.to(y.dtype))
+
+    got, grads = run(p, xt)
+    again, _ = run(p, xt)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    f32 = {k: v.float() for k, v in p.items()}
+    want, want_grads = run(f32, xt.float())
+    _close_to_scale(got, want, 2.0**-7, 1e-2, "y")
+    for name, g, w in zip(("dx", "dw_gate", "dw_up", "dw_down", "drouter"), grads, want_grads):
+        _close_to_scale(g, w, 2.0**-6, 2e-2, name)

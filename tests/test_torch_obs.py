@@ -3,10 +3,16 @@ reduced granite-20b train step (``granite-20b-smoke``: 2 layers, layer
 norms, MQA, the gelu MLP):
 
 - an off span enters no ``record_function`` and records nothing;
-- under ``torch.profiler`` the step records its timed spans (``obs.TIMED``)
+- under ``torch.profiler`` the step records its timed spans (``obs.TIMED``
+  less those of the layers granite does not have, :data:`OPENED`)
   nested as the code nests them, with one step id a step; every span,
   timed or not, is an event of the profiler, and only the timed ones are
   recorded;
+- a reduced granite-4.0-h-small step (the hybrid_moe family) records all
+  of ``obs.TIMED``: its ``model.mamba`` and ``model.moe`` spans in the
+  blocks, and in each MoE block ``moe.experts`` with the counters of the
+  rows its held experts computed (as device tensors or numbers, resolved
+  by ``summary``);
 - under ``remat="full"`` the backward records one recomputed
   ``model.block`` a layer, a child of ``train.backward``, also when the
   recompute runs on another thread (the autograd engine's, on a card);
@@ -32,6 +38,12 @@ from repro_torch.models.params import init_params
 from repro_torch.optim import adamw
 from repro_torch.parallel import steps
 
+# the timed spans a family's step opens: obs.TIMED less the spans of the
+# layers it does not have
+OPENED = {
+    "granite": obs.TIMED - {"model.mamba", "model.moe", "moe.experts"},
+    "hybrid_moe": obs.TIMED,
+}
 # spans a step opens that obs does not record (record_function alone), by
 # layers: (per step, per layer, per layer again under remat)
 UNTIMED = {
@@ -109,7 +121,7 @@ def test_profiled_step_records_nested_spans(remat):
     for sid, rows in found.items():
         assert all(r["step"] == sid for r in rows)
         names = [r["name"] for r in rows]
-        assert set(names) == obs.TIMED
+        assert set(names) == OPENED["granite"]
         assert [names.count(n) for n in ("train.forward", "train.backward", "adamw.update")] == [1, 1, 1]
         for r in rows:
             assert r["host_ms"] >= 0 and r["device_ms"] is None and r["mem_delta"] is None
@@ -141,7 +153,69 @@ def test_recording_without_a_profiler():
     with obs.recording():
         _run(step, params, opt, batch, 1)
     (rows,) = obs.summary().values()
-    assert {r["name"] for r in rows} == obs.TIMED
+    assert {r["name"] for r in rows} == OPENED["granite"]
+    assert all(r["counters"] == {} for r in rows)
+
+
+def _hybrid_moe_setup(remat: str = "full"):
+    from repro_torch.configs import granite_4_0_h_small
+
+    cfg = dataclasses.replace(
+        granite_4_0_h_small.CONFIG, n_layers=6, d_model=64, n_heads=4, n_kv=2, d_head=16, vocab=500,
+        d_expert=32, shared_intermediate_size=48, n_experts=16, experts_held=4, top_k=4, ssm_state=16,
+        ssm_heads=8, ssm_head_dim=16, ssm_inner=128, ssd_chunk=16, remat=remat, param_dtype=torch.float32,
+    )
+    step, specs = steps.make_train_step(cfg)
+    params = init_params(specs, torch.Generator().manual_seed(0), "cpu")
+    opt = adamw.init_state(params, adamw.AdamWConfig())
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 32), generator=g) for k in ("tokens", "labels")}
+    return cfg, step, params, opt, batch
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_hybrid_moe_step_records_its_spans_and_counters(remat):
+    cfg, step, params, opt, batch = _hybrid_moe_setup(remat)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _run(step, params, opt, batch, 1)
+    (rows,) = obs.summary().values()
+    assert {r["name"] for r in rows} == OPENED["hybrid_moe"]
+    again = 2 if remat == "full" else 1
+    mixers = [r for r in rows if r["name"] == "model.mamba"]
+    moes = [r for r in rows if r["name"] == "model.moe"]
+    experts = [r for r in rows if r["name"] == "moe.experts"]
+    assert len(mixers) == again * cfg.pattern().count("mamba")
+    assert len(moes) == len(experts) == again * cfg.n_layers
+    assert all(_parent_name(rows, r) == "model.block" for r in mixers + moes)
+    assert all(_parent_name(rows, r) == "model.moe" for r in experts)
+    T = batch["tokens"].numel()
+    for r in experts:
+        c = r["counters"]
+        assert set(c) == {"rows", "max_rows"} and 0 < c["max_rows"] <= c["rows"] <= T * cfg.top_k
+    if remat == "full":  # the recompute routes the same tokens to the same experts
+        first = [r["counters"] for r in experts if not r["attrs"].get("recompute")]
+        redo = sorted((r["counters"]["rows"], r["counters"]["max_rows"]) for r in experts if r["attrs"].get("recompute"))
+        assert redo == sorted((c["rows"], c["max_rows"]) for c in first)
+    routes = sum(e.name == obs.PREFIX + "moe.route" for e in prof.events())
+    assert routes == again * cfg.n_layers  # a trace-only span
+
+
+def test_count_adds_to_the_innermost_timed_span():
+    with obs.recording():
+        obs.count(rows=1)  # no span open: nothing
+        obs.next_step()
+        with obs.span("model.moe"):
+            with obs.span("moe.experts"):
+                obs.count(rows=3, max_rows=2)
+                obs.count(rows=torch.tensor(4), max_rows=torch.tensor(1.5))
+            obs.count(rows=7)
+    rows = obs.summary()[1]
+    by = {r["name"]: r["counters"] for r in rows}
+    assert by == {"model.moe": {"rows": 7}, "moe.experts": {"rows": 7, "max_rows": 3.5}}
+    assert isinstance(by["moe.experts"]["rows"], int)
+    obs.reset()
+    obs.count(rows=1)  # spans off: nothing, no error
+    assert obs.summary() == {}
 
 
 def test_an_untimed_span_is_a_record_function_alone(monkeypatch):

@@ -42,6 +42,7 @@ from repro.models import layers as jL
 from repro.models import lm as jlm
 from repro.models import params as jparams
 from repro_torch.configs import registry as preg
+from repro_torch.configs.base import PORT_FIELDS
 from repro_torch.core.types import CoxUnsupported
 from repro_torch.launch import serve as pserve
 from repro_torch.models import carry
@@ -314,9 +315,14 @@ def test_configs_match_the_reference(name):
     for smoke in (False, True):
         cj, cp = jreg.get(name, smoke), preg.get(name, smoke)
         fields = {f.name for f in dataclasses.fields(cj)} - {"param_dtype"}
-        assert {f.name for f in dataclasses.fields(cp)} - {"param_dtype"} == fields
+        # the port's own fields (the hybrid_moe family's) stay at their
+        # defaults in the reference's configurations
+        assert {f.name for f in dataclasses.fields(cp)} - {"param_dtype"} == fields | PORT_FIELDS
+        assert not fields & PORT_FIELDS
         for f in fields:
             assert getattr(cp, f) == getattr(cj, f), (name, smoke, f)
+        defaults = {f.name: f.default for f in dataclasses.fields(cp) if f.name in PORT_FIELDS}
+        assert {f: getattr(cp, f) for f in PORT_FIELDS} == defaults, (name, smoke)
         assert str(cp.param_dtype) == f"torch.{jnp.dtype(cj.param_dtype)}"
         assert cp.param_count() == cj.param_count()
         assert cp.head_padding() == cj.head_padding()
